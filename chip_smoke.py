@@ -13,35 +13,57 @@ Phases, each printing timestamped lines:
              launch beside the bound, the plain version and one library call
   3 step     one full-width decode step per prior, kernel path against the
              plain path on the same caches after a one-block prefill
+  2b flash   the flash-attention kernels (forward, dq, dk/dv) against their
+             plain versions at the top prior's f0 shape (B 1, L 6528, S 512,
+             2 heads) and a ragged L, at dropout rates 0 and 0.1, and a
+             planted fault (one tile skipped) that the check must refuse;
+             times per launch beside the bound, the plain version and SDPA
   4 cascade  the 1b_lyrics ancestral cascade (labels -> top codes -> two
              upsamplers -> 44.1 kHz wav) from random weights drawn from
              --seed; checks codes, audio and that every decode step of every
              prior went through the kernels (launch counts)
+  5 train    one full-width train step of the 1b_lyrics top prior (72
+             layers, all_fp16): loss and gradients through the flash kernels
+             against the plain path on one batch, a planted fault that the
+             checks must refuse, the launch counts, and one step timed by
+             parts and one under torch.profiler
+  6 run      train.run: six optimizer steps of the top prior from two
+             synthetic 40 s wavs (labelled dataset, aug_shift, aug_blend,
+             loss scaling, fp16 Adam, host EMA every 2 steps); checks finite
+             losses, launch counts, and that no thread outlives the run
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failed check raises: exit code != 0.
 It runs on the GPU only; without one it exits with an error.
 """
 
 import argparse
+import contextlib
 import faulthandler
 import json
 import math
+import multiprocessing
 import os
 import pickle
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
+import wave
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from jukebox_tpu_torch import sample as sample_mod
-from jukebox_tpu_torch.hparams import Hyperparams
-from jukebox_tpu_torch.models.make_models import make_model
+from jukebox_tpu_torch import train as train_mod
+from jukebox_tpu_torch.data.files_dataset import FixedMetadataDataset
+from jukebox_tpu_torch.hparams import Hyperparams, setup_hparams
+from jukebox_tpu_torch.models.make_models import (make_model, make_prior,
+                                                  make_vqvae)
 from jukebox_tpu_torch.ops import _build
 from jukebox_tpu_torch.ops import decode_stack as ds
+from jukebox_tpu_torch.ops import flash_attention as fa
 from jukebox_tpu_torch.utils.sample_utils import get_starts
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (data sheet)
@@ -51,9 +73,30 @@ KERNEL_TOL = 1e-2            # kernel vs plain, relative to max(1, |plain|)
 STEP_TOL = 5e-2              # full-stack logits, relative to max(1, |plain|)
 # the cascade: 4 samples of 262144 audio samples (5.94 s), the shortest
 # cascade whose upsamplers get a full window of conditioning codes; the
-# upsamplers run 24 of their 72 layers so the run stays well inside 10
-# minutes (its decode loop is bound by the host's launch rate)
-N_SAMPLES, SAMPLE_LENGTH, UPS_DEPTH, TEMP = 4, 262144, 24, 0.99
+# upsamplers run 8 of their 72 layers so the whole run stays near 10 minutes
+# (their decode loop is bound by the host's launch rate)
+N_SAMPLES, SAMPLE_LENGTH, UPS_DEPTH, TEMP = 4, 262144, 8, 0.99
+# flash kernels against their plain versions: fa.agreement, an elementwise
+# bound of two bf16 steps of |plain| plus AGREE_ATOL of the row's RMS; a
+# planted fault (skip_tile) must break it
+# the full-width train step, kernel path against plain path (bf16 through
+# 72 layers; only the f0 layer's attention differs): the loss relative to
+# |loss|, the global gradient norm relative, and layer 47's c_attn.w and
+# c_proj.w gradients as ||kernel - plain|| / ||plain||. The planted fault
+# (its flash forward skips a tile) moves only c_proj.w's gradient, which
+# reads the forward's out, beyond the sound path's noise: 4.5e-3 against
+# 7.9e-4, so its limit lies between them. The others sit at 5-9x the
+# sound path's largest reading (loss 1.2e-6, grad norm 1.8e-5, c_attn.w
+# 7.5e-4; H100 smoke runs).
+LOSS_TOL, GN_TOL = 1e-5, 1e-4
+GRAD_TOL = {"c_attn": 5e-3, "c_proj": 2e-3}
+# the training configuration: upstream's fine-tuning command for the
+# 1b_lyrics top prior (README "Fine-tune pre-trained top-level prior")
+TRAIN_HPS = "vqvae,prior_1b_lyrics,all_fp16,cpu_ema"
+TRAIN_KW = dict(level=2, levels=3, prior=True, train=True, labels=True,
+                bs=1, weight_decay=0.01, aug_shift=True, aug_blend=True,
+                sample_length=6144 * 128)
+TRAIN_STEPS, CPU_EMA_FREQ, WAV_SECONDS = 6, 2, 40
 LYRICS = ("I met a traveller from an antique land who said: two vast and "
           "trunkless legs of stone stand in the desert. Near them, on the "
           "sand, half sunk, a shattered visage lies.")
@@ -95,6 +138,9 @@ def phase_build():
             f"{' (cached)' if info['cached'] else ''}")
         for line in _build.ptxas_summary(info["ptxas"]):
             log(f"  ptxas {line}")
+    smem = _build.lib("flash_attention").jk_flash_smem
+    log("  dynamic shared memory per block at hd 256: " + ", ".join(
+        f"{k} {smem(i, 256)} B" for i, k in enumerate(fa.LAUNCHES)))
     log(f"phase 1 build done in {time.time() - t:.1f}s")
 
 
@@ -279,6 +325,119 @@ def check_kernels(shapes, B, last_t, device, gen, time_it=True):
 
 
 # ---------------------------------------------------------------------------
+# phase 2b: the flash-attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def flash_work(BH, L, hd):
+    """(bytes, flops) per kernel of the causal flash pass: every input read
+    once and every output written once; two flops per multiply-add over the
+    L (L + 1) / 2 causal pairs of each head row, for the products each
+    kernel computes (fwd: QK, PV; dq: QK, GV, dS K; dkv: QK, PG, GV, dS Q)."""
+    t, rows = BH * L * hd * 2, BH * L * 4
+    pair_flops = 2 * hd * BH * L * (L + 1) // 2
+    return {"flash_fwd": (4 * t + rows, 2 * pair_flops),
+            "flash_dq": (5 * t + 2 * rows, 3 * pair_flops),
+            "flash_dkv": (6 * t + 2 * rows, 4 * pair_flops)}
+
+
+def skip_tile(t):
+    """A copy of t [BH, L, ...] with its 64 positions at 3/4 of L zeroed.
+    Fed to a flash kernel in place of v (fwd, dq) or of g and dd (dkv), it
+    makes the kernel skip one tile's work in the late rows, a planted fault
+    that the checks must refuse."""
+    t0 = (3 * t.shape[1] // 4) // 64 * 64
+    t = t.clone()
+    t[:, t0:t0 + 64] = 0
+    return t
+
+
+def check_flash(B, L, S, H, device, gen, time_it=True, ragged=2500,
+                seed=1234):
+    """Hold flash_fwd (out, lse), flash_dq and flash_dkv against their plain
+    versions (fa.agreement) on random heads at [B*H, L, S/H] and a ragged
+    L, at dropout rates 0 and 0.1, and check that each kernel fed the
+    planted fault of skip_tile fails the same comparison; time the main
+    shape at rate 0 beside the bound, the plain version and SDPA (causal
+    forward; its autograd backward, which computes dq, dk and dv together,
+    for both backward kernels). Returns {name: row}."""
+    BH, hd = B * H, S // H
+    scale = hd ** -0.5
+    rep = KernelReport()
+
+    def heads(L_):
+        return [(torch.randn((BH, L_, hd), generator=gen, device=device)
+                 ).to(torch.bfloat16) for _ in range(4)]
+
+    def check(name, out, ref, bad, what):
+        worst = fa.agreement(out, ref)
+        e = (out.float() - ref.float()).abs().max().item()
+        fault = fa.agreement(bad, ref) if bad is not None else float("inf")
+        log(f"  {name} {what}: max_abs_err {e:.3e}, worst {worst:.3f} of "
+            f"its bound" + (f"; planted fault {fault:.3f}"
+                            if bad is not None else ""))
+        if not worst <= 1.0:
+            raise AssertionError(f"{name} {what}: kernel disagrees with its "
+                                 f"plain version ({worst:.3f} of the bound)")
+        if not fault > 1.0:
+            raise AssertionError(f"{name} {what}: the check passes a kernel "
+                                 f"that skips a tile ({fault:.3f})")
+        if name in fa.LAUNCHES:
+            row = rep.rows.setdefault(name, {"max_abs_err": 0.0})
+            row["max_abs_err"] = max(row["max_abs_err"], e)
+
+    for L_ in (L, ragged):
+        for rate in (0.0, 0.1):
+            q, k, v, g = heads(L_)
+            what = f"[{BH},{L_},{hd}] rate {rate}"
+            out, lse = fa.flash_fwd(q, k, v, scale, rate, seed)
+            ref, ref_lse = fa.flash_fwd_plain(q, k, v, scale, rate, seed)
+            bad = fa.flash_fwd(q, k, skip_tile(v), scale, rate, seed)
+            check("flash_fwd", out, ref, bad[0], what)
+            check("flash_fwd.lse", lse, ref_lse, None, what)
+            dd = (g.float() * ref.float()).sum(-1)
+            args = (q, k, v, g, ref_lse, dd, scale, rate, seed)
+            check("flash_dq", fa.flash_dq(*args), fa.flash_dq_plain(*args),
+                  fa.flash_dq(q, k, skip_tile(v), *args[3:]), what)
+            bad = fa.flash_dkv(q, k, v, skip_tile(g), ref_lse, skip_tile(dd),
+                               *args[6:])
+            for n, a, b, f in zip(("dk", "dv"), fa.flash_dkv(*args),
+                                  fa.flash_dkv_plain(*args), bad):
+                check("flash_dkv", a, b, f, f"{n} {what}")
+    if not time_it:
+        return rep.rows
+    q, k, v, g = heads(L)
+    out, lse = fa.flash_fwd(q, k, v, scale)
+    dd = (g.float() * out.float()).sum(-1)
+    sets = [tuple(heads(L)) for _ in range(_copies(4 * q.numel() * 2))]
+    fwd_sets = [(a, b, c, scale) for a, b, c, _ in sets]
+    bwd_sets = [(a, b, c, d, lse, dd, scale) for a, b, c, d in sets]
+    lib_q = [t.reshape(B, H, L, hd).requires_grad_() for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*lib_q, is_causal=True)
+    lib_g = g.reshape(B, H, L, hd)
+
+    def sdpa(a, b, c, *_):
+        return F.scaled_dot_product_attention(
+            a.reshape(B, H, L, hd), b.reshape(B, H, L, hd),
+            c.reshape(B, H, L, hd), is_causal=True)
+
+    def sdpa_bwd(*_):
+        return torch.autograd.grad(lib_out, lib_q, lib_g, retain_graph=True)
+    lib_ms = {"flash_fwd": device_ms(sdpa, fwd_sets),
+              "flash_dq": device_ms(sdpa_bwd, [()], reps=50)}
+    lib_ms["flash_dkv"] = lib_ms["flash_dq"]
+    work = flash_work(BH, L, hd)
+    for name, kernel, plain, arg_sets in (
+            ("flash_fwd", fa.flash_fwd, fa.flash_fwd_plain, fwd_sets),
+            ("flash_dq", fa.flash_dq, fa.flash_dq_plain, bwd_sets),
+            ("flash_dkv", fa.flash_dkv, fa.flash_dkv_plain, bwd_sets)):
+        rep.rows[name].update(rep.timed(
+            name, f"[{BH},{L},{hd}]", device_ms(kernel, arg_sets, reps=20),
+            device_ms(plain, arg_sets, reps=3), lib_ms[name], *work[name],
+            "bf16"))
+    return rep.rows
+
+
+# ---------------------------------------------------------------------------
 # phase 3: one full-width decode step, kernel path against plain path
 # ---------------------------------------------------------------------------
 
@@ -404,6 +563,264 @@ def run_cascade(priors, hps, sampling_kwargs):
     return report
 
 
+# ---------------------------------------------------------------------------
+# phases 5 and 6: training the top prior
+# ---------------------------------------------------------------------------
+
+def train_hps(seed, **over):
+    return setup_hparams(TRAIN_HPS, dict(TRAIN_KW, seed=seed, **over))
+
+
+def n_flash_layers(runtime, hps):
+    """f0 layers of the prior that take the flash path in training."""
+    tr = runtime.model.prior.transformer
+    return sum(blk.attn.uses_flash(tr.n_ctx, torch.bfloat16 if hps.fp16
+                                   else torch.float32) for blk in tr.blocks)
+
+
+def expected_flash(n_layers, n_steps):
+    return {k: per * n_layers * n_steps
+            for k, per in fa.LAUNCHES_PER_STEP.items()}
+
+
+def train_batch(runtime, hps, device, gen):
+    """One batch: noisy random audio [bs, sample_length, 1] in [-1, 1] and
+    labels for fixed metadata."""
+    x = (0.3 * torch.randn((hps.bs, hps.sample_length, 1), generator=gen,
+                           device=device)).clamp(-1, 1)
+    meta = dict(artist="unknown", genre="unknown", lyrics=LYRICS,
+                total_length=hps.sample_length * 3, offset=0)
+    y = runtime.get_y(runtime.labeller.get_batch_labels([meta] * hps.bs), 0)
+    return x, torch.as_tensor(y, device=device)
+
+
+def loss_and_grads(runtime, hps, x, y, plain, probes):
+    """Loss of one batch, the global grad norm and the gradients of the
+    parameters named in `probes`; the gradients are dropped after."""
+    model = runtime.model
+    z = runtime.vqvae.encode(x, start_level=model.level)[0]
+    for p in model.parameters():
+        p.grad = None
+    loss, _ = model.z_forward(z, y=y, fp16=hps.fp16, plain=plain)
+    loss.backward()
+    params = runtime.params
+    gn = train_mod.global_grad_norm({n: p.grad for n, p in params.items()})
+    grads = {n: params[n].grad.detach().clone() for n in probes}
+    for p in model.parameters():
+        p.grad = None
+    return float(loss.detach()), float(gn), grads
+
+
+@contextlib.contextmanager
+def faulty_flash_fwd():
+    """The planted fault of phase 5: flash_fwd skips one kv tile's P.V in
+    the late rows (skip_tile on its v)."""
+    real = fa.flash_fwd
+
+    def faulty(qh, kh, vh, *args):
+        return real(qh, kh, skip_tile(vh), *args)
+    fa.flash_fwd = faulty
+    try:
+        yield
+    finally:
+        fa.flash_fwd = real
+
+
+def step_gaps(kernel, plain):
+    """(loss, grad norm, {probe: grad}) of a path against the plain path's:
+    relative gaps, the gradients' as ||g - g_plain|| / ||g_plain||."""
+    (loss_k, gn_k, g_k), (loss_p, gn_p, g_p) = kernel, plain
+    gaps = {"loss": abs(loss_k - loss_p) / abs(loss_p),
+            "grad norm": abs(gn_k - gn_p) / gn_p}
+    for n in g_p:
+        gaps[n] = (torch.linalg.vector_norm((g_k[n] - g_p[n]).float())
+                   / torch.linalg.vector_norm(g_p[n].float())).item()
+    return gaps
+
+
+def check_train_step(seed, device, gen, **over):
+    """Phase 5: the full-width top prior's loss and gradients through the
+    flash kernels against the plain path on one batch, and the same for
+    the planted fault, which the checks must refuse. Returns the flash
+    launches of the kernel path."""
+    hps = train_hps(seed, **over)
+    t = time.time()
+    runtime = make_prior(hps, make_vqvae(hps, device), device)
+    tr = runtime.model.prior.transformer
+    f0 = [d for d in range(tr.n_depth) if tr.blocks[d].attn.attn_func == 0]
+    n_flash = n_flash_layers(runtime, hps)
+    if len(f0) != 1 or n_flash != 1:
+        raise AssertionError(f"expected one f0 layer on the flash path, got "
+                             f"{f0} ({n_flash} flash)")
+    probes = [f"prior.transformer.blocks.{f0[0]}.attn.{w}.w"
+              for w in ("c_attn", "c_proj")]
+    n_params = sum(p.numel() for p in runtime.params.values())
+    log(f"phase 5 train step: top prior {tr.n_depth} layers, width "
+        f"{tr.n_in}, n_ctx {tr.n_ctx}, {n_params / 1e6:.1f} M params, f0 "
+        f"layer {f0[0]}, built in {time.time() - t:.1f}s")
+    x, y = train_batch(runtime, hps, device, gen)
+    fa.reset_launches()
+    kernel = loss_and_grads(runtime, hps, x, y, False, probes)
+    launches = dict(fa.LAUNCHES)
+    plain = loss_and_grads(runtime, hps, x, y, True, probes)
+    if dict(fa.LAUNCHES) != launches:
+        raise AssertionError("the plain path launched a flash kernel")
+    with faulty_flash_fwd():
+        fault = loss_and_grads(runtime, hps, x, y, False, probes)
+    tols = {n: GRAD_TOL[n.split(".")[-2]] for n in probes}
+    tols.update({"loss": LOSS_TOL, "grad norm": GN_TOL})
+    sound, planted = step_gaps(kernel, plain), step_gaps(fault, plain)
+    log(f"phase 5: loss kernel {kernel[0]:.6f} plain {plain[0]:.6f}, grad "
+        f"norm {kernel[1]:.6g} vs {plain[1]:.6g}; launches {launches}")
+    for n, tol in tols.items():
+        log(f"  {n}: kernel path {sound[n]:.3e}, planted fault "
+            f"{planted[n]:.3e} (tol {tol:g})")
+    if not (math.isfinite(kernel[0]) and math.isfinite(kernel[1])
+            and all(sound[n] <= tol for n, tol in tols.items())):
+        raise AssertionError("the kernel path's train step disagrees with "
+                             "the plain path")
+    if all(planted[n] <= tol for n, tol in tols.items()):
+        raise AssertionError("the train step's checks pass a flash forward "
+                             "that skips a tile")
+    if x.is_cuda and launches != expected_flash(1, 1):
+        raise AssertionError(f"flash launches {launches} != expected "
+                             f"{expected_flash(1, 1)}")
+    profile_train_step(runtime, hps, x, y)
+    return launches
+
+
+def profile_train_step(runtime, hps, x, y, top=8):
+    """Two steps of train.make_prior_train_step: one timed by its parts
+    (encode, forward, backward, update) on the host clock, synchronised at
+    the end of each, then, on the card, one under torch.profiler: the
+    device's busy share of the step and the kernels with the most device
+    time."""
+    lr_fn = train_mod.make_lr_schedule(hps)
+    opt = train_mod.adam_init(runtime.params, fp16_state=hps.fp16_opt)
+    marks = []
+
+    def mark(part):
+        if x.is_cuda:
+            torch.cuda.synchronize()
+        marks.append((part, time.time()))
+    mark("start")
+    train_mod.make_prior_train_step(runtime, hps, lr_fn, mark=mark)(
+        opt, (x, y), None, 1, 2.0 ** 16)
+    parts = {p: (t1 - t0) * 1e3 for (_, t0), (p, t1) in zip(marks, marks[1:])}
+    log(f"phase 5 step by parts (ms): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items())
+        + f"; total {sum(parts.values()):.1f}")
+    if not x.is_cuda:
+        return
+    step = train_mod.make_prior_train_step(runtime, hps, lr_fn)
+    prof = torch.profiler
+    with prof.profile(activities=[prof.ProfilerActivity.CUDA]) as pr:
+        t0 = time.time()
+        step(opt, (x, y), None, 2, 2.0 ** 16)
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    rows = [(getattr(e, "self_device_time_total", 0.0) / 1e3, e.key,
+             e.count) for e in pr.key_averages()]
+    rows = sorted((r for r in rows if r[0] > 0), reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    busy = (f"device busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.0%})"
+            if busy_ms > 0 else "device busy not measured (no profiler "
+                                "device time)")
+    groups = {}
+    for ms, key, count in rows:
+        g = kernel_group(key)
+        groups[g] = [a + b for a, b in zip(groups.get(g, (0.0, 0)),
+                                            (ms, count))]
+    log(f"phase 5 profiled step: {wall_ms:.1f} ms wall, {busy}; by kernel "
+        f"group: " + ", ".join(f"{g} {ms:.1f} ms x{n}" for g, (ms, n) in
+                               sorted(groups.items(), key=lambda i: -i[1][0])))
+    log("  top kernels by device time:")
+    for ms, key, count in rows[:top]:
+        log(f"    {ms:8.2f} ms  x{count:<6d} {key[:100]}")
+
+
+def kernel_group(name):
+    """A coarse class of a profiled kernel by its name."""
+    n = name.lower()
+    for group, marks in (("flash", ("flash_",)),
+                         ("matmul", ("gemm", "cutlass", "nvjet", "xmma",
+                                     "sm90_")),
+                         ("reduce", ("reduce",)),
+                         ("softmax", ("softmax",)),
+                         ("copy/cast", ("copy",))):
+        if any(m in n for m in marks):
+            return group
+    return "elementwise/other"
+
+
+def write_wavs(dirname, n, seconds, sr, seed):
+    """n stereo 16-bit wavs of chords and noise drawn from seed."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    for i in range(n):
+        f = rng.uniform(110, 880, size=3)
+        sig = sum(np.sin(2 * np.pi * fi * t) for fi in f) / 6
+        sig = sig + 0.05 * rng.standard_normal(t.shape)
+        pcm = (np.clip(np.stack([sig, sig * 0.8], axis=1), -1, 1)
+               * 32767).astype("<i2")
+        with wave.open(os.path.join(dirname, f"song_{i}.wav"), "wb") as w:
+            w.setnchannels(2)
+            w.setsampwidth(2)
+            w.setframerate(sr)
+            w.writeframes(pcm.tobytes())
+
+
+def run_training(seed, device, n_steps=TRAIN_STEPS, wav_seconds=WAV_SECONDS,
+                 **over):
+    """Phase 6: train.run on two synthetic wavs with a labelled dataset.
+    Returns a report dict (per-step records, launches, expected launches,
+    median step wall, tokens/s, peak memory)."""
+    cuda = device != "cpu" and torch.device(device).type == "cuda"
+    threads = set(threading.enumerate())
+    with tempfile.TemporaryDirectory(prefix="jukebox_train_") as wavs:
+        kw = dict(over, audio_files_dir=wavs, max_steps=n_steps,
+                  cpu_ema_freq=CPU_EMA_FREQ, log_steps=1)
+        hps = train_hps(seed, **kw)
+        write_wavs(wavs, 2, wav_seconds, hps.sr, seed)
+        dataset = FixedMetadataDataset(hps, "unknown", "unknown", LYRICS)
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        t0 = time.time()
+        out = train_mod.run(TRAIN_HPS, device=device, dataset=dataset,
+                            **dict(TRAIN_KW, seed=seed, **kw))
+        wall = time.time() - t0
+        launches = dict(fa.LAUNCHES)
+    runtime, records = out["runtime"], out["records"]
+    n_flash = n_flash_layers(runtime, hps)
+    walls = [r["wall_s"] for r in records[1:]]
+    step_s = float(np.median(walls)) if walls else float("nan")
+    report = dict(records=records, launches=launches, wall_s=wall,
+                  expected=expected_flash(n_flash, len(records)),
+                  median_step_s=step_s, n_flash_layers=n_flash,
+                  tokens_per_s=runtime.model.prior.input_dims * hps.bs / step_s,
+                  ema_updates=out["ema"].steps // out["ema"].freq,
+                  peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
+                               if cuda else None))
+    del out, runtime
+    if len(records) != n_steps:
+        raise AssertionError(f"{len(records)} steps, expected {n_steps}")
+    for r in records:
+        if not (math.isfinite(r["loss"]) and math.isfinite(r["gn"])):
+            raise AssertionError(f"step {r['it']}: loss {r['loss']} gn "
+                                 f"{r['gn']} not finite")
+    left = [t for t in set(threading.enumerate()) - threads if t.is_alive()]
+    if left or multiprocessing.active_children():
+        raise AssertionError(f"threads {left} or processes "
+                             f"{multiprocessing.active_children()} outlive "
+                             f"the run")
+    if cuda and launches != report["expected"]:
+        raise AssertionError(f"flash launches {launches} != expected "
+                             f"{report['expected']}")
+    return report
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0,
@@ -434,6 +851,10 @@ def main(argv=None):
               "upsampler": priors[0].n_ctx - 1}
     log("phase 2 kernels against their plain versions")
     rows = check_kernels(shapes, N_SAMPLES, last_t, device, gen)
+    log("phase 2b flash kernels against their plain versions")
+    tr = top.model.prior.transformer
+    rows.update(check_flash(1, tr.n_ctx, tr.blocks[0].attn.n_state,
+                            tr.n_head, device, gen))
 
     for prior in (top, priors[0]):
         check_stack_step(prior, N_SAMPLES, device, gen)
@@ -451,14 +872,39 @@ def main(argv=None):
         f"{rep['peak_mem_gb']:.1f} GB; launches {rep['launches']} == "
         f"expected {rep['expected']}")
 
-    sources = {"ln_rows": "jukebox_tpu_torch/csrc/decode_stack.cu",
-               "gemv_bf16": "jukebox_tpu_torch/csrc/decode_stack.cu",
-               "ring_attn_decode": "jukebox_tpu_torch/csrc/decode_stack.cu"}
-    kernels = [dict(name=k, route="cuda", source=sources[k],
-                    replaces="jukebox_tpu/ops/pallas/decode_stack.py:1092",
-                    launches=rep["launches"][k], **rows[k]) for k in rows]
-    print(json.dumps({"kernels": kernels}), flush=True)
     shutil.rmtree(hps.name, ignore_errors=True)
+    del vqvae, priors, top, tr, prior
+    torch.cuda.empty_cache()
+
+    check_train_step(args.seed, device, gen)
+    torch.cuda.empty_cache()
+    log(f"phase 6 train.run: {TRAIN_STEPS} steps of the top prior, "
+        f"{TRAIN_HPS}, host EMA every {CPU_EMA_FREQ} steps")
+    tr_rep = run_training(args.seed, device)
+    for r in tr_rep["records"]:
+        log(f"  step {r['it']}: loss {r['loss']:.6f} bpd {r['bpd']:.6f} gn "
+            f"{r['gn']:.6g} loss scale {r['loss_scale']:.6g} step_ok "
+            f"{r['step_ok']} wall {r['wall_s']:.3f}s")
+    log(f"  run {tr_rep['wall_s']:.1f}s; median step (steps 2-"
+        f"{TRAIN_STEPS}) {tr_rep['median_step_s'] * 1e3:.1f} ms = "
+        f"{tr_rep['tokens_per_s']:.1f} tokens/s; peak memory "
+        f"{tr_rep['peak_mem_gb']:.2f} GB; {tr_rep['ema_updates']} host EMA "
+        f"updates; flash launches {tr_rep['launches']} == expected "
+        f"{tr_rep['expected']}")
+
+    launches = dict(rep["launches"], **tr_rep["launches"])
+    sources = dict.fromkeys(ds.LAUNCHES, "jukebox_tpu_torch/csrc/decode_stack.cu")
+    sources.update(dict.fromkeys(fa.LAUNCHES,
+                                 "jukebox_tpu_torch/csrc/flash_attention.cu"))
+    replaces = dict.fromkeys(ds.LAUNCHES,
+                             "jukebox_tpu/ops/pallas/decode_stack.py:1092")
+    replaces.update(flash_fwd="jukebox_tpu/ops/pallas/flash_attention.py:202",
+                    flash_dq="jukebox_tpu/ops/pallas/flash_attention.py:260",
+                    flash_dkv="jukebox_tpu/ops/pallas/flash_attention.py:260")
+    kernels = [dict(name=k, route="cuda", source=sources[k],
+                    replaces=replaces[k], launches=launches[k], **rows[k])
+               for k in rows]
+    print(json.dumps({"kernels": kernels}), flush=True)
     faulthandler.cancel_dump_traceback_later()
     log(f"done in {time.time() - T0:.1f}s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

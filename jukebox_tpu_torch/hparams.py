@@ -1,7 +1,8 @@
 """Hyperparameter registry of the PyTorch port: the config surface of
 jukebox_tpu/hparams.py (set names, keys, defaults, strict merge), holding
 only the presets of the 1b_lyrics cascade (vqvae, upsampler_level_0/1,
-prior_1b_lyrics) plus the empty `teeny` set that tests build on.
+prior_1b_lyrics), the training sets all_fp16 and cpu_ema, and the empty
+`teeny` set that tests build on.
 """
 
 
@@ -137,6 +138,13 @@ _register(
     alignment_head=0,
     **_labels_v3,
 )
+
+# fp16 -> bf16 compute + dynamic loss scaling; fp16_opt -> fp16 Adam moments
+# with per-tensor inf-norm rescaling (reference FP16FusedAdam).
+_register("all_fp16", fp16=True, fp16_params=True, fp16_opt=True,
+          fp16_scale_window=250)
+_register("cpu_ema", ema=True, cpu_ema=True, cpu_ema_freq=100,
+          ema_fused=False)
 
 # ---------------------------------------------------------------------------
 # DEFAULTS groups (reference jukebox/hparams.py:323-567)

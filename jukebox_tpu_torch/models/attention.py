@@ -7,8 +7,13 @@ jukebox_tpu/models/attention.py), for the attention patterns of the
     3 prev-row   attend to the whole previous block
     7 prime      attend to the first _prime_len positions (lyric prefix)
 
-Three modes: the full-context forward, one-token `decode_step` against a
-ring cache, and block-aligned `prefill_chunk`. Caches keep the standard
+Three modes: the full-context forward (also the training forward, with
+attention and residual dropout), one-token `decode_step` against a ring
+cache, and block-aligned `prefill_chunk`. In the full-context forward a
+masked dense (f0) layer of at least _FLASH_MIN_CTX positions in bf16 runs
+the flash kernels (ops/flash_attention.py), under the JAX package's condition
+(attention.py:254) without its backend test; every other pattern runs
+dense_attn, as the JAX package leaves them to XLA. Caches keep the standard
 layout [B, slots, A] with the JAX package's per-pattern retention:
     f0 [B, n_ctx, A]   f1 [B, bc, A]   f2 [B, bc, blocks, A]
     f3 [B, 2bc, A]     f7 [B, _prime_len, A]
@@ -21,9 +26,11 @@ import math
 import torch
 import torch.nn as nn
 
-from jukebox_tpu_torch.ops.core import Dense
+from jukebox_tpu_torch.ops.core import Dense, dropout, fold_seed
+from jukebox_tpu_torch.ops.flash_attention import flash_dense_attn
 
 NEG = -1e9
+_FLASH_MIN_CTX = 2048
 
 
 def split_heads(x, n_head):
@@ -40,11 +47,13 @@ def causal_mask(q_l, kv_l, device):
     return torch.tril(torch.ones((q_l, kv_l), device=device))
 
 
-def dense_attn(q, k, v, n_head, mask=None):
+def dense_attn(q, k, v, n_head, mask=None, dropout_rate=0.0,
+               dropout_seed=None):
     """q, k, v [B, L, n_state]; mask None, "causal" or a float [Lq, Lkv]
     tensor (1 = attend). The reference's fused q*s @ k*s scale with
-    s = hd^-1/4 in the activation dtype, fp32 scores and softmax, and the
-    softmax weights cast to the activation dtype before the PV product."""
+    s = hd^-1/4 in the activation dtype, fp32 scores and softmax, dropout of
+    the softmax weights (training), and the weights cast to the activation
+    dtype before the PV product."""
     hd = q.shape[-1] // n_head
     scale = torch.tensor(1.0 / math.sqrt(math.sqrt(hd)), dtype=q.dtype)
     qh = split_heads(q, n_head) * scale
@@ -57,14 +66,14 @@ def dense_attn(q, k, v, n_head, mask=None):
         w = torch.where(keep, w, torch.full_like(w, NEG))
     elif mask is not None:
         w = w * mask + NEG * (1 - mask)
-    w = torch.softmax(w, dim=-1)
+    w = dropout(torch.softmax(w, dim=-1), dropout_rate, dropout_seed)
     return merge_heads(torch.matmul(w.to(q.dtype), vh))
 
 
 class FactoredAttention(nn.Module):
     def __init__(self, n_in, n_ctx, n_state, n_head, attn_func=0, blocks=None,
                  prime_len=None, mask=False, zero_out=False, init_scale=1.0,
-                 device=None):
+                 attn_dropout=0.0, resid_dropout=0.0, device=None):
         super().__init__()
         if attn_func not in (0, 1, 2, 3, 7):
             raise NotImplementedError(f"attn_func {attn_func} is not ported")
@@ -74,6 +83,7 @@ class FactoredAttention(nn.Module):
         self.n_ctx, self.n_state, self.n_head = n_ctx, n_state, n_head
         self.attn_func, self.blocks, self.prime_len = attn_func, blocks, prime_len
         self.mask = mask
+        self.attn_dropout, self.resid_dropout = attn_dropout, resid_dropout
         self.c_attn = Dense(n_in, n_state * 3, init_scale, device=device)
         self.c_proj = Dense(n_state, n_in, init_scale, zero_out, device=device)
 
@@ -91,22 +101,40 @@ class FactoredAttention(nn.Module):
 
     # -- full-context forward -------------------------------------------------
 
-    def forward(self, x):
-        """x [B, L, n_in] with L == n_ctx -> [B, L, n_in]."""
+    def forward(self, x, seed=None, plain=False):
+        """x [B, L, n_in] with L == n_ctx -> [B, L, n_in]. seed (an int)
+        turns on the training dropouts; plain=True runs the flash layers'
+        plain versions (the reference a kernel run is held against)."""
         q, k, v = self._qkv(x)
-        return self.c_proj(self._pattern_full(q, k, v))
+        s_attn, s_resid = ((fold_seed(seed, 0), fold_seed(seed, 1))
+                           if seed is not None else (None, None))
+        a = self._pattern_full(q, k, v, s_attn, plain)
+        return dropout(self.c_proj(a), self.resid_dropout, s_resid)
 
-    def _pattern_full(self, q, k, v):
+    def uses_flash(self, L, dtype):
+        """The f0 dispatch of jukebox_tpu's _pattern_full (attention.py:254)
+        with the recording and backend tests dropped: the port records no
+        weights, and flash_dense_attn runs its plain version on the CPU."""
+        return (self.attn_func == 0 and self.mask and L >= _FLASH_MIN_CTX
+                and dtype == torch.bfloat16)
+
+    def _pattern_full(self, q, k, v, seed=None, plain=False):
         f = self.attn_func
         B, L, S = v.shape
+        rate = self.attn_dropout if seed is not None else 0.0
+
+        def attn(q_, k_, v_, mask):
+            return dense_attn(q_, k_, v_, self.n_head, mask, rate, seed)
         if f == 0:
-            return dense_attn(q, k, v, self.n_head,
-                              "causal" if self.mask else None)
+            if self.uses_flash(L, q.dtype):
+                return flash_dense_attn(q, k, v, self.n_head, rate, seed,
+                                        plain)
+            return attn(q, k, v, "causal" if self.mask else None)
         bc = self.block_ctx
         if f == 1:
             mask = causal_mask(bc, bc, q.device) if self.mask else None
-            a = dense_attn(q.reshape(-1, bc, S), k.reshape(-1, bc, S),
-                           v.reshape(-1, bc, S), self.n_head, mask)
+            a = attn(q.reshape(-1, bc, S), k.reshape(-1, bc, S),
+                     v.reshape(-1, bc, S), mask)
             return a.reshape(B, L, S)
         if f == 2:
             nb = L // bc
@@ -115,7 +143,7 @@ class FactoredAttention(nn.Module):
             def t_(x):
                 return x.reshape(B, nb, bc, S).transpose(1, 2).reshape(
                     B * bc, nb, S)
-            a = dense_attn(t_(q), t_(k), t_(v), self.n_head, mask)
+            a = attn(t_(q), t_(k), t_(v), mask)
             return a.reshape(B, bc, nb, S).transpose(1, 2).reshape(B, L, S)
         if f == 3:
             nb = L // bc
@@ -124,12 +152,10 @@ class FactoredAttention(nn.Module):
                 xb = x.reshape(B, nb, bc, S)
                 return torch.cat([torch.zeros_like(xb[:, :1]), xb[:, :-1]],
                                  dim=1).reshape(B * nb, bc, S)
-            a = dense_attn(q.reshape(B * nb, bc, S), shift(k), shift(v),
-                           self.n_head, None)
+            a = attn(q.reshape(B * nb, bc, S), shift(k), shift(v), None)
             return a.reshape(B, L, S)
         pl_ = self._prime_len  # f == 7
-        return dense_attn(q, k[:, :pl_], v[:, :pl_], self.n_head,
-                          "causal" if self.mask else None)
+        return attn(q, k[:, :pl_], v[:, :pl_], "causal" if self.mask else None)
 
     # -- ring caches ----------------------------------------------------------
 

@@ -1,7 +1,8 @@
 """Conditional autoregressive transformer over VQ codes (counterpart of
-jukebox_tpu/models/autoregressive.py): the teacher-forced forward, and token
-decoding as a host loop over positions with ring caches and sampling from
-an explicit torch.Generator.
+jukebox_tpu/models/autoregressive.py): the teacher-forced forward (also the
+training forward, with embedding dropout and the split prime/gen loss), and
+token decoding as a host loop over positions with ring caches and sampling
+from an explicit torch.Generator.
 """
 
 import numpy as np
@@ -10,7 +11,16 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from jukebox_tpu_torch.models.transformer import Transformer
-from jukebox_tpu_torch.ops.core import Table, filter_logits
+from jukebox_tpu_torch.ops.core import Table, dropout, filter_logits, fold_seed
+
+LN2 = float(np.log(2.0))
+
+
+def cross_entropy_bpd(logits, targets):
+    """Mean cross-entropy in bits per dim, in fp32."""
+    logits = logits.float()
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           targets.reshape(-1)) / LN2
 
 
 class ConditionalAutoregressive2D(nn.Module):
@@ -22,18 +32,21 @@ class ConditionalAutoregressive2D(nn.Module):
     def __init__(self, input_shape, bins, width=128, depth=2, heads=1,
                  attn_order=0, blocks=None, m_attn=0.25, m_mlp=1.0,
                  zero_out=False, init_scale=1.0, res_scale=False,
-                 prime_len=None, mask=True, device=None):
+                 prime_len=None, mask=True, attn_dropout=0.0,
+                 resid_dropout=0.0, emb_dropout=0.0, checkpoint_res=0,
+                 device=None):
         super().__init__()
         self.input_shape, self.bins, self.width = tuple(input_shape), bins, width
         self.input_dims = int(np.prod(self.input_shape))
         self.blocks = blocks
+        self.prime_len, self.emb_dropout = prime_len, emb_dropout
         self.x_emb = Table((bins, width), 0.02 * init_scale, device=device)
         self.pos_emb = Table((self.input_dims, width), 0.01 * init_scale,
                              name="pos_emb", device=device)
         self.transformer = Transformer(
             width, self.input_dims, heads, depth, attn_order, blocks,
             prime_len, m_attn, m_mlp, mask, zero_out, init_scale, res_scale,
-            device=device)
+            attn_dropout, resid_dropout, checkpoint_res, device=device)
 
     @property
     def block_ctx(self):
@@ -44,17 +57,34 @@ class ConditionalAutoregressive2D(nn.Module):
 
     # -- teacher-forced forward -------------------------------------------------
 
-    def forward(self, x, x_cond, y_cond):
-        """x [N, D] tokens -> (loss in bits per dim, logits [N, D, bins])."""
+    def forward(self, x, x_cond, y_cond, fp16=False, get_sep_loss=False,
+                seed=None, plain=False):
+        """x [N, D] tokens -> (loss in bits per dim, logits [N, D, bins]);
+        with get_sep_loss the loss is (prime_loss, gen_loss), split at
+        prime_len. seed (an int) turns on the training dropouts; plain=True
+        runs the flash layers' plain versions."""
         N, D = x.shape
         assert D == self.input_dims
         emb = self.x_emb.table[x]
         emb = torch.cat([y_cond.reshape(N, 1, self.width), emb[:, :-1]], dim=1)
-        h = emb + self.pos_emb.table[None] + x_cond
-        h = self.transformer(h) + x_cond
+        pos = self.pos_emb.table[None]
+        t_seed = seed
+        if seed is not None and self.emb_dropout > 0.0:
+            # separate token and position dropout (autoregressive.py:147)
+            emb = dropout(emb, self.emb_dropout, fold_seed(seed, 0))
+            pos = dropout(pos.expand(N, -1, -1), self.emb_dropout,
+                          fold_seed(seed, 1))
+            t_seed = fold_seed(seed, 2)
+        h = emb + pos + x_cond
+        h = self.transformer(h, fp16=fp16, seed=t_seed, plain=plain) + x_cond
         logits = self._logits(h)
-        loss = F.cross_entropy(logits.reshape(-1, self.bins), x.reshape(-1))
-        return loss / np.log(2.0), logits
+        if get_sep_loss:
+            P = self.prime_len
+            loss = (cross_entropy_bpd(logits[:, :P], x[:, :P]),
+                    cross_entropy_bpd(logits[:, P:], x[:, P:]))
+        else:
+            loss = cross_entropy_bpd(logits, x)
+        return loss, logits
 
     # -- incremental decoding pieces -----------------------------------------------
 

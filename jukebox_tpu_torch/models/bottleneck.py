@@ -1,6 +1,7 @@
-"""Codebook lookup of the PyTorch port (counterpart of
-jukebox_tpu/models/bottleneck.py `dequantise` / `decode`; quantisation and
-the EMA k-means update are not ported yet)."""
+"""Codebooks of the PyTorch port (counterpart of
+jukebox_tpu/models/bottleneck.py): nearest-code quantisation (`encode`) and
+lookup (`decode`) against a frozen codebook; the EMA k-means update of
+VQ-VAE training is not ported yet."""
 
 import torch
 import torch.nn as nn
@@ -19,6 +20,24 @@ class BottleneckBlock(nn.Module):
         # model draws it so that decoded audio is not constant
         self.k.normal_(0.0, 1.0, generator=gen)
 
+    def quantise(self, x):
+        """Nearest code by L2 distance, x [NT, w] fp32 -> (codes [NT], fit)."""
+        k = self.k
+        distance = ((x * x).sum(dim=-1, keepdim=True)
+                    - 2 * torch.matmul(x, k.t())
+                    + (k * k).sum(dim=-1)[None, :])
+        min_d, x_l = torch.min(distance, dim=-1)
+        return x_l, min_d.mean()
+
+    def encode(self, x):
+        """x [N, T, w] -> codes [N, T] (the 2 * w sum input of the JAX
+        _preprocess is not taken: no caller of the port passes it)."""
+        N, T, w = x.shape
+        if w != self.k.shape[1]:
+            raise ValueError(f"expected width {self.k.shape[1]}, got {w}")
+        x_l, _ = self.quantise(x.reshape(-1, w).float())
+        return x_l.reshape(N, T)
+
     def dequantise(self, x_l):
         return self.k[x_l]
 
@@ -33,6 +52,11 @@ class Bottleneck(nn.Module):
         self.level_blocks = nn.ModuleList(
             BottleneckBlock(l_bins, emb_width, device=device)
             for _ in range(levels))
+
+    def encode(self, xs, start_level=0):
+        """Latents of levels start_level.. -> their codes."""
+        return [blk.encode(x) for blk, x in
+                zip(self.level_blocks[start_level:], xs)]
 
     def decode(self, zs, start_level=0, end_level=None):
         end_level = len(self.level_blocks) if end_level is None else end_level

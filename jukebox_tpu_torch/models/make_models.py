@@ -1,6 +1,8 @@
-"""Model factories and the sampling runtime of the PyTorch port (counterpart
-of jukebox_tpu/models/make_models.py). Models are built on their device and
-drawn there from a seed; no checkpoint is read.
+"""Model factories, the sampling runtime and the training runtime of the
+PyTorch port (counterpart of jukebox_tpu/models/make_models.py). Models are
+built on their device and drawn there from a seed; no checkpoint is read.
+With hps.train a prior's parameters are trainable fp32 masters and its
+dropouts and activation checkpointing follow hps; the VQ-VAE stays frozen.
 """
 
 import numpy as np
@@ -36,11 +38,19 @@ def make_vqvae(hps, device="cuda"):
 
 
 def make_prior(hps, vqvae, device="cuda"):
+    train = hps.get("train", False)
+    if train and (hps.get("c_attn", 0) or hps.get("c_mlp", 0)):
+        raise NotImplementedError("c_attn / c_mlp checkpointing is not "
+                                  "ported; c_res is")
     prior_kwargs = dict(
         input_shape=(hps.n_ctx,), bins=vqvae.l_bins, width=hps.prior_width,
         depth=hps.prior_depth, heads=hps.heads, attn_order=hps.attn_order,
         blocks=hps.blocks, zero_out=hps.zero_out, res_scale=hps.res_scale,
-        init_scale=hps.init_scale, m_attn=hps.m_attn, m_mlp=hps.m_mlp)
+        init_scale=hps.init_scale, m_attn=hps.m_attn, m_mlp=hps.m_mlp,
+        attn_dropout=hps.attn_dropout if train else 0.0,
+        resid_dropout=hps.resid_dropout if train else 0.0,
+        emb_dropout=hps.emb_dropout if train else 0.0,
+        checkpoint_res=hps.c_res if train else 0)
     x_cond_kwargs = dict(
         out_width=hps.prior_width, init_scale=hps.init_scale,
         width=hps.cond_width, depth=hps.cond_depth, m_conv=hps.cond_m_conv,
@@ -53,7 +63,8 @@ def make_prior(hps, vqvae, device="cuda"):
         min_duration=hps.min_duration, max_duration=hps.max_duration,
         max_bow_genre_size=hps.max_bow_genre_size)
     prime_kwargs = dict(use_tokens=hps.use_tokens, n_tokens=hps.n_tokens,
-                        bins=hps.n_vocab)
+                        bins=hps.n_vocab,
+                        prime_loss_fraction=hps.prime_loss_fraction)
     # z_shapes of every level when this level gets n_ctx codes
     z_shapes = [(z[0] * hps.n_ctx // vqvae.z_shapes[hps.level][0],)
                 for z in vqvae.z_shapes]
@@ -62,18 +73,25 @@ def make_prior(hps, vqvae, device="cuda"):
                         y_cond_kwargs, prime_kwargs, labels_v3=hps.labels_v3,
                         single_enc_dec=hps.single_enc_dec, device=device)
     init_weights(model, hps.get("seed", 0) + hps.level + 1, device)
+    model.requires_grad_(bool(train))
     return PriorRuntime(model.eval(), vqvae)
 
 
 class PriorRuntime:
-    """A prior with its sampling entry point. stage_decode stages the bf16
-    decode form (weights the decode kernels stream); sample runs one
-    window: sample_init (conditioning + prefill), the token loop, and
-    sample_finish."""
+    """A prior with its sampling and training entry points. stage_decode
+    stages the bf16 decode form (weights the decode kernels stream); sample
+    runs one window: sample_init (conditioning + prefill), the token loop,
+    and sample_finish. params are the trainable fp32 masters by name; step
+    counts the optimizer steps taken."""
 
     def __init__(self, model, vqvae):
         self.model, self.vqvae = model, vqvae
         self.staged = None
+        self.step = 0
+
+    @property
+    def params(self):
+        return dict(self.model.named_parameters())
 
     def __getattr__(self, name):
         # n_ctx, raw_to_tokens, labeller, n_tokens, level, z_shapes, ...

@@ -3,6 +3,8 @@ for the priors of the 1b_lyrics cascade: the top prior, which merges the
 lyric and VQ vocabularies and sequences into one stream (single_enc_dec),
 and the upsamplers, conditioned on the codes of the level above through a
 Conditioner. Host-side label bookkeeping (get_y / get_z_conds) is numpy.
+z_forward is the training loss: the prime (lyric) and gen (code) losses
+weighted by prime_loss_fraction and their share of the stream.
 """
 
 import numpy as np
@@ -23,6 +25,7 @@ class SimplePrior(nn.Module):
         super().__init__()
         prior_kwargs = dict(prior_kwargs)
         self.n_tokens = prime_kwargs["n_tokens"]
+        self.prime_loss_fraction = prime_kwargs.get("prime_loss_fraction", 0.0)
         if prime_kwargs["use_tokens"] and not single_enc_dec:
             raise NotImplementedError("separate lyric encoders are not ported")
         self.z_shapes, self.levels = z_shapes, len(z_shapes)
@@ -52,9 +55,11 @@ class SimplePrior(nn.Module):
                 input_shape=(sum(self.prior_dims),), bins=sum(self.prior_bins),
                 prime_len=self.prime_loss_dims, device=device, **prior_kwargs)
         else:
+            self.prime_loss_dims = 0
             self.gen_loss_dims = int(np.prod(self.z_shape))
             self.prior = ConditionalAutoregressive2D(device=device,
                                                      **prior_kwargs)
+        self.total_loss_dims = self.prime_loss_dims + self.gen_loss_dims
 
         self.n_ctx = self.gen_loss_dims
         self.downsamples = calculate_strides(strides_t, downs_t)
@@ -119,6 +124,29 @@ class SimplePrior(nn.Module):
         if self.single_enc_dec:
             z, x_cond = self.prior_preprocess([prime, z], [None, x_cond])
         return self.prior(z, x_cond, y_cond)[1]
+
+    def z_forward(self, z, z_conds=None, y=None, fp16=False, seed=None,
+                  plain=False):
+        """Training loss of codes z [N, n_ctx] (prior.py:271): returns
+        (loss, metrics) with metrics bpd, prime_loss, gen_loss (detached).
+        seed (an int) turns on the training dropouts; plain=True runs the
+        flash layers' plain versions."""
+        x_cond, y_cond, prime = self.get_cond(z_conds, y)
+        if self.single_enc_dec:
+            z_all, x_cond = self.prior_preprocess([prime, z], [None, x_cond])
+            (prime_loss, gen_loss), _ = self.prior(
+                z_all, x_cond, y_cond, fp16=fp16, get_sep_loss=True,
+                seed=seed, plain=plain)
+        else:
+            gen_loss, _ = self.prior(z, x_cond, y_cond, fp16=fp16,
+                                     seed=seed, plain=plain)
+            prime_loss = torch.zeros((), device=gen_loss.device)
+        loss = (self.prime_loss_fraction * prime_loss * self.prime_loss_dims
+                / self.total_loss_dims) \
+            + (gen_loss * self.gen_loss_dims / self.total_loss_dims)
+        metrics = dict(bpd=gen_loss.detach(), prime_loss=prime_loss.detach(),
+                       gen_loss=gen_loss.detach())
+        return loss, metrics
 
     # -- segmented sampling ---------------------------------------------------------
 

@@ -1,7 +1,9 @@
 """Pre-LN residual transformer with per-depth factored-attention schedules
 (counterpart of jukebox_tpu/models/transformer.py).
 
-Three modes as in the JAX package: the full-context forward, one-token
+Three modes as in the JAX package: the full-context forward (the training
+forward too: bf16 activations under fp16, per-layer dropout seeds, and
+checkpoint_res=1 recomputing each block in the backward), one-token
 `decode_step` and block-aligned `prefill_chunk`, threading per-layer ring
 caches (a list with one {"k", "v"} dict per layer, updated in place).
 
@@ -15,9 +17,11 @@ as the JAX package runs its fp32 decode and its prefill in XLA.
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from jukebox_tpu_torch.models.attention import FactoredAttention
-from jukebox_tpu_torch.ops.core import Dense, LayerNorm, quick_gelu
+from jukebox_tpu_torch.ops.core import (Dense, LayerNorm, dropout, fold_seed,
+                                        quick_gelu)
 from jukebox_tpu_torch.ops.decode_stack import ring_geometry, stack_layer_step
 
 # depth -> attn_func schedules (reference transformer.py:111-126)
@@ -40,27 +44,31 @@ ATTN_ORDERS = {
 
 class MLP(nn.Module):
     def __init__(self, n_in, n_state, zero_out=False, init_scale=1.0,
-                 device=None):
+                 resid_dropout=0.0, device=None):
         super().__init__()
+        self.resid_dropout = resid_dropout
         self.c_fc = Dense(n_in, n_state, init_scale, device=device)
         self.c_proj = Dense(n_state, n_in, init_scale, zero_out, device=device)
 
-    def forward(self, x):
-        return self.c_proj(quick_gelu(self.c_fc(x)))
+    def forward(self, x, seed=None):
+        return dropout(self.c_proj(quick_gelu(self.c_fc(x))),
+                       self.resid_dropout, seed)
 
 
 class ResAttnBlock(nn.Module):
     def __init__(self, n_in, n_ctx, n_head, attn_func, blocks=None,
                  prime_len=None, m_attn=0.25, m_mlp=1.0, mask=False,
-                 zero_out=False, init_scale=1.0, res_scale=1.0, device=None):
+                 zero_out=False, init_scale=1.0, res_scale=1.0,
+                 attn_dropout=0.0, resid_dropout=0.0, device=None):
         super().__init__()
         self.res_scale = res_scale
         self.attn = FactoredAttention(
             n_in, n_ctx, int(m_attn * n_in), n_head, attn_func, blocks,
-            prime_len, mask, zero_out, init_scale, device=device)
+            prime_len, mask, zero_out, init_scale, attn_dropout,
+            resid_dropout, device=device)
         self.ln_0 = LayerNorm(n_in, device=device)
         self.mlp = MLP(n_in, int(m_mlp * n_in), zero_out, init_scale,
-                       device=device)
+                       resid_dropout, device=device)
         self.ln_1 = LayerNorm(n_in, device=device)
 
     def _residual(self, x, a, m):
@@ -68,9 +76,11 @@ class ResAttnBlock(nn.Module):
             return x + a + m
         return x + self.res_scale * (a + m)
 
-    def forward(self, x):
-        a = self.attn(self.ln_0(x))
-        return self._residual(x, a, self.mlp(self.ln_1(x + a)))
+    def forward(self, x, seed=None, plain=False):
+        s_attn, s_mlp = ((fold_seed(seed, 0), fold_seed(seed, 1))
+                         if seed is not None else (None, None))
+        a = self.attn(self.ln_0(x), s_attn, plain)
+        return self._residual(x, a, self.mlp(self.ln_1(x + a), s_mlp))
 
     def decode_step(self, cache, x, t):
         a = self.attn.decode_step(cache, self.ln_0(x), t)
@@ -85,27 +95,47 @@ class Transformer(nn.Module):
     def __init__(self, n_in, n_ctx, n_head, n_depth, attn_order=0,
                  blocks=None, prime_len=None, m_attn=0.25, m_mlp=1.0,
                  mask=False, zero_out=False, init_scale=1.0, res_scale=False,
+                 attn_dropout=0.0, resid_dropout=0.0, checkpoint_res=0,
                  device=None):
         super().__init__()
         self.n_in, self.n_ctx, self.n_head = n_in, n_ctx, n_head
         self.n_depth, self.attn_order = n_depth, attn_order
         self.prime_len = prime_len
         self.res_scale = (1.0 / n_depth) if res_scale else 1.0
+        self.dropout = attn_dropout > 0 or resid_dropout > 0
+        self.checkpoint_res = checkpoint_res
         self.blocks = nn.ModuleList([
             ResAttnBlock(n_in, n_ctx, n_head, self.attn_func(d), blocks,
                          prime_len, m_attn, m_mlp, mask, zero_out, init_scale,
-                         self.res_scale, device=device)
+                         self.res_scale, attn_dropout, resid_dropout,
+                         device=device)
             for d in range(n_depth)])
         self.layer_order = tuple(self._plan_order())
 
     def attn_func(self, d):
         return ATTN_ORDERS[self.attn_order](d)
 
-    def forward(self, x):
-        """Full-context forward, x [B, n_ctx, n_in]."""
-        for block in self.blocks:
-            x = block(x)
-        return x
+    def forward(self, x, fp16=False, seed=None, plain=False):
+        """Full-context forward, x [B, n_ctx, n_in] -> fp32, as
+        jukebox_tpu's Transformer.apply: bf16
+        activations under fp16, layer d's dropouts seeded from
+        fold_seed(seed, d) when seed is given (training), and with
+        checkpoint_res == 1 and autograd on, each block recomputed in the
+        backward pass (torch.utils.checkpoint, non-reentrant; the dropout
+        masks are functions of their seeds, so the recompute draws the same
+        ones). plain=True runs the flash layers' plain versions."""
+        if fp16:
+            x = x.to(torch.bfloat16)
+        drop = seed is not None and self.dropout
+        recompute = self.checkpoint_res == 1 and torch.is_grad_enabled()
+        for d, block in enumerate(self.blocks):
+            s = fold_seed(seed, d) if drop else None
+            if recompute:
+                x = checkpoint(block, x, s, plain, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = block(x, s, plain)
+        return x.float()
 
     # -- incremental decoding -------------------------------------------------
 

@@ -1,6 +1,6 @@
-"""VQ-VAE decode path of the PyTorch port (counterpart of
-jukebox_tpu/models/vqvae.py `decode`). Encoding and training are not
-ported yet.
+"""VQ-VAE of the PyTorch port (counterpart of jukebox_tpu/models/vqvae.py
+`encode` and `decode`), frozen: the prior's training encodes audio through
+it and sampling decodes codes. VQ-VAE training is not ported yet.
 """
 
 import numpy as np
@@ -8,7 +8,7 @@ import torch
 import torch.nn as nn
 
 from jukebox_tpu_torch.models.bottleneck import Bottleneck
-from jukebox_tpu_torch.models.encdec import BlockCfg, Decoder
+from jukebox_tpu_torch.models.encdec import BlockCfg, Decoder, Encoder
 
 
 def calculate_strides(strides, downs):
@@ -24,15 +24,25 @@ class VQVAE(nn.Module):
         self.l_bins = l_bins
         self.bottleneck = Bottleneck(l_bins, emb_width, levels, device=device)
         self.decoders = nn.ModuleList()
+        self.encoders = nn.ModuleList()
+        cfgs = []
         for level in range(levels):
             m = 1 if multipliers is None else multipliers[level]
-            cfg = BlockCfg(width=block.width * m, depth=block.depth * m,
-                           m_conv=block.m_conv,
-                           dilation_growth_rate=block.dilation_growth_rate,
-                           dilation_cycle=block.dilation_cycle,
-                           zero_out=block.zero_out, res_scale=block.res_scale,
-                           reverse_decoder_dilation=block.reverse_decoder_dilation)
+            cfgs.append(BlockCfg(
+                width=block.width * m, depth=block.depth * m,
+                m_conv=block.m_conv,
+                dilation_growth_rate=block.dilation_growth_rate,
+                dilation_cycle=block.dilation_cycle, zero_out=block.zero_out,
+                res_scale=block.res_scale,
+                reverse_decoder_dilation=block.reverse_decoder_dilation))
+        # decoders first: their random draws come before the encoders'
+        for level, cfg in enumerate(cfgs):
             self.decoders.append(Decoder(
+                self.input_shape[-1], emb_width, level + 1,
+                self.downs_t[:level + 1], self.strides_t[:level + 1], cfg,
+                device=device))
+        for level, cfg in enumerate(cfgs):
+            self.encoders.append(Encoder(
                 self.input_shape[-1], emb_width, level + 1,
                 self.downs_t[:level + 1], self.strides_t[:level + 1], cfg,
                 device=device))
@@ -53,6 +63,20 @@ class VQVAE(nn.Module):
     def z_shapes(self):
         return [(self.input_shape[0] // int(self.hop_lengths[level]),)
                 for level in range(self.levels)]
+
+    @torch.no_grad()
+    def encode(self, x, start_level=0, end_level=None, bs_chunks=1):
+        """Audio x [N, T, C] -> codes of levels [start_level, end_level)
+        (vqvae.py:145), in bs_chunks batch chunks. Only those levels'
+        encoders run; jukebox_tpu runs every level's and keeps these."""
+        end_level = self.levels if end_level is None else end_level
+        outs = []
+        for idx in np.array_split(np.arange(x.shape[0]), bs_chunks):
+            xc = x[torch.as_tensor(idx, device=x.device)]
+            xs = [self.encoders[level](xc)
+                  for level in range(start_level, end_level)]
+            outs.append(self.bottleneck.encode(xs, start_level))
+        return [torch.cat(zs, dim=0) for zs in zip(*outs)]
 
     @torch.no_grad()
     def decode(self, zs, start_level=0, end_level=None, bs_chunks=1):

@@ -24,7 +24,8 @@ BUILD_DIR = PKG_DIR.parent / "build" / "jukebox_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _U, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                  ctypes.c_float)
 # C signatures of every entry point, by source stem
 SIGNATURES = {
     "decode_stack": {
@@ -33,6 +34,12 @@ SIGNATURES = {
         "jk_gemv_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
         "jk_ring_attn_decode": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                 _F, _P],
+    },
+    "flash_attention": {
+        "jk_flash_smem": [_I, _I],
+        "jk_flash_fwd": [_P] * 5 + [_I] * 3 + [_F, _I, _U, _U, _F, _P],
+        "jk_flash_dq": [_P] * 7 + [_I] * 3 + [_F, _I, _U, _U, _F, _P],
+        "jk_flash_dkv": [_P] * 8 + [_I] * 3 + [_F, _I, _U, _U, _F, _P],
     },
 }
 

@@ -11,6 +11,7 @@ LayerNorm and softmax accumulate in fp32 and cast back to the input dtype.
 
 import math
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -44,6 +45,27 @@ def conv_transpose1d(x, w, b, stride, padding):
     """x [N, C_in, T], w (in, out, k); out_len = (T-1)*stride - 2*padding + k."""
     return F.conv_transpose1d(x, w.to(x.dtype), b.to(x.dtype), stride=stride,
                               padding=padding)
+
+
+def fold_seed(seed, *keys):
+    """A derived int seed in [0, 2**31) of (seed, *keys), all non-negative
+    ints: the port's counterpart of splitting a jax.random key. Per-step,
+    per-layer and per-use dropout seeds are folded from the step's seed."""
+    state = np.random.SeedSequence([int(seed), *map(int, keys)])
+    return int(state.generate_state(1)[0]) & 0x7FFFFFFF
+
+
+def dropout(x, rate, seed):
+    """Inverted dropout (zero w.p. rate, scale the rest by 1 / (1 - rate));
+    identity when rate == 0 or seed is None (eval and decode paths pass no
+    seed). The mask comes from a torch.Generator seeded here from the int
+    `seed`, so a block recomputed under activation checkpointing draws the
+    same mask. It is not jax.random's mask: the two agree in distribution."""
+    if rate == 0.0 or seed is None:
+        return x
+    gen = torch.Generator(device=x.device).manual_seed(int(seed))
+    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x)).to(x.dtype)
 
 
 def filter_logits(logits, top_k=0, top_p=0.0, filter_value=-1e10):

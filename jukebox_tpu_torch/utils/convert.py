@@ -8,6 +8,11 @@ LayerNorm and table leaves keep their layout; conv weights move to
 PyTorch's (out, in, k) for Conv1d and (in, out, k) for ConvTranspose1d.
 Every leaf is consumed exactly once: a tree leaf without a parameter, or a
 parameter without a leaf, raises.
+
+Trees shaped like the params carry over the same way: the Adam state of
+jukebox_tpu.utils.train_utils.adam_init ("m", "v" and, in the fp16 form,
+the per-tensor "m_scale" / "v_scale") and an EMA shadow, so that a JAX train
+state and the port's can start from one state and be compared.
 """
 
 import numpy as np
@@ -42,16 +47,17 @@ def _owner(module, name):
         else module
 
 
-def _perm(owner, name, table):
-    if name.rsplit(".", 1)[-1] == "w" and type(owner) in table:
+def _perm(owner, name, table, ndim):
+    if name.rsplit(".", 1)[-1] == "w" and type(owner) in table and ndim == 3:
         return table[type(owner)]
     return None
 
 
-@torch.no_grad()
-def from_jax_params(module, tree):
-    """Copy a JAX param tree into `module`'s parameters (on their device and
-    dtype). Returns the module."""
+def named_leaves(module, tree):
+    """{parameter name: numpy array in the port's layout} of a tree shaped
+    like `module`'s parameters (params, Adam moments, per-tensor scales, an
+    EMA shadow). Leaves keep their dtype; a missing or leftover leaf raises
+    KeyError, a shape that does not fit ValueError."""
     leaves = flatten_tree(tree)
     params = dict(module.named_parameters())
     missing = sorted(set(params) - set(leaves))
@@ -59,24 +65,27 @@ def from_jax_params(module, tree):
     if missing or extra:
         raise KeyError(f"param tree does not match {type(module).__name__}: "
                        f"missing {missing[:8]}, leftover {extra[:8]}")
+    out = {}
     for name, p in params.items():
-        a = np.array(leaves[name], dtype=np.float32)  # writable copy
-        perm = _perm(_owner(module, name), name, _TO_TORCH)
+        a = np.array(leaves[name])  # writable copy
+        perm = _perm(_owner(module, name), name, _TO_TORCH, a.ndim)
         if perm is not None:
-            a = a.transpose(perm)
-        if tuple(a.shape) != tuple(p.shape):
+            a = np.ascontiguousarray(a.transpose(perm))
+        if a.ndim and tuple(a.shape) != tuple(p.shape):
             raise ValueError(f"{name}: tree shape {a.shape} vs {tuple(p.shape)}")
-        p.copy_(torch.from_numpy(np.ascontiguousarray(a)))
-    return module
+        out[name] = a
+    return out
 
 
-def to_jax_params(module):
-    """The module's parameters as a JAX-layout param tree of numpy arrays
-    (lists where the path has integer keys)."""
+def named_to_tree(module, named):
+    """Inverse of named_leaves: {parameter name: array or tensor} -> a
+    JAX-layout tree of numpy arrays (lists where the path has integer
+    keys)."""
     root = {}
-    for name, p in module.named_parameters():
-        a = p.detach().float().cpu().numpy()
-        perm = _perm(_owner(module, name), name, _TO_JAX)
+    for name in dict(module.named_parameters()):
+        a = named[name]
+        a = a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+        perm = _perm(_owner(module, name), name, _TO_JAX, a.ndim)
         if perm is not None:
             a = np.ascontiguousarray(a.transpose(perm))
         node = root
@@ -85,6 +94,48 @@ def to_jax_params(module):
             node = node.setdefault(k, {})
         node[leaf] = a
     return _lists(root)
+
+
+@torch.no_grad()
+def from_jax_params(module, tree):
+    """Copy a JAX param tree into `module`'s parameters (on their device and
+    dtype). Returns the module."""
+    params = dict(module.named_parameters())
+    for name, a in named_leaves(module, tree).items():
+        params[name].copy_(torch.from_numpy(a.astype(np.float32)))
+    return module
+
+
+def to_jax_params(module):
+    """The module's parameters as a JAX-layout param tree of numpy arrays."""
+    return named_to_tree(module, {n: p.float() for n, p in
+                                  module.named_parameters()})
+
+
+_OPT_TREES = ("m", "v", "m_scale", "v_scale")
+
+
+def opt_state_from_jax(module, opt_state, device=None):
+    """jukebox_tpu's Adam state -> the port's (utils/train_utils.py): each
+    of m, v (and m_scale, v_scale) as {name: tensor} in its dtype on
+    `device`, and step as an int."""
+    out = {"step": int(np.asarray(opt_state["step"]))}
+    for key in _OPT_TREES:
+        if key in opt_state:
+            out[key] = {n: torch.from_numpy(a).to(device) for n, a in
+                        named_leaves(module, opt_state[key]).items()}
+    if set(opt_state) - set(out):
+        raise KeyError(f"unknown optimizer state {sorted(set(opt_state) - set(out))}")
+    return out
+
+
+def opt_state_to_jax(module, opt_state):
+    """The port's Adam state as jukebox_tpu's: trees of numpy arrays."""
+    out = {"step": np.asarray(opt_state["step"], np.int32)}
+    for key in _OPT_TREES:
+        if key in opt_state:
+            out[key] = named_to_tree(module, opt_state[key])
+    return out
 
 
 def _lists(node):
@@ -96,8 +147,8 @@ def _lists(node):
 
 
 def vqvae_tree(params, state):
-    """The JAX VQ-VAE's decode half as one tree for the port's VQVAE: the
+    """The JAX VQ-VAE as one tree for the port's VQVAE: the encoders' and
     decoders' params and each level's codebook from the bottleneck state."""
-    return {"decoders": params["decoders"],
+    return {"encoders": params["encoders"], "decoders": params["decoders"],
             "bottleneck": {"level_blocks": [{"k": s["k"]}
                                             for s in state["level_blocks"]]}}

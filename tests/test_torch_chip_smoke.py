@@ -88,3 +88,77 @@ def test_cascade_launch_accounting(priors, tmp_path, monkeypatch):
     assert rep["launches"] == dict.fromkeys(ds.LAUNCHES, 0)  # CPU: no kernel
     for level, lv in rep["levels"].items():
         assert lv["tokens"] == VQ["sample_length"] // priors[level].raw_to_tokens
+
+
+# -- the training phases ------------------------------------------------------
+
+# the 1b_lyrics training preset cut to a tiny top prior: 48 layers (f0 at
+# 47), width 64, 64 codes + 384 lyric tokens; the f0 layer takes the flash
+# path (plain versions on the CPU) once the length threshold is lowered
+TRAIN_OVER = dict(n_ctx=64, sample_length=64 * 128, prior_depth=48,
+                  prior_width=64, blocks=8, min_duration=0.5)
+
+
+@pytest.fixture
+def counted_flash(monkeypatch):
+    """Count the plain flash passes run on the CPU, and put the tiny f0
+    layer on the flash path."""
+    from jukebox_tpu_torch.models import attention
+    from jukebox_tpu_torch.ops import flash_attention as fa
+    monkeypatch.setattr(attention, "_FLASH_MIN_CTX", 0)
+    calls = dict.fromkeys(fa.LAUNCHES, 0)
+    for name in calls:
+        plain = getattr(fa, name + "_plain")
+
+        def counted(*a, _name=name, _plain=plain, **kw):
+            calls[_name] += 1
+            return _plain(*a, **kw)
+        monkeypatch.setattr(fa, name + "_plain", counted)
+    return calls
+
+
+def test_flash_checks():
+    from jukebox_tpu_torch.ops import flash_attention as fa
+    rows = chip_smoke.check_flash(1, 200, 64, 2, "cpu",
+                                  torch.Generator().manual_seed(0),
+                                  time_it=False, ragged=70)
+    assert set(rows) == set(fa.LAUNCHES)
+    assert all(r["max_abs_err"] == 0.0 for r in rows.values())
+    bytes_, flops = chip_smoke.flash_work(2, 6528, 256)["flash_fwd"]
+    assert flops == 2 * 2 * 256 * 2 * 6528 * 6529 // 2  # QK and PV
+
+
+def test_train_step_check(counted_flash):
+    launches = chip_smoke.check_train_step(0, "cpu", torch.Generator(),
+                                           **TRAIN_OVER)
+    assert launches == dict.fromkeys(counted_flash, 0)  # CPU: no kernel
+    # the kernel path, the plain path, the planted fault and the step timed
+    # by parts (the profiled step runs on the card only) each ran one
+    # step's passes
+    assert counted_flash == chip_smoke.expected_flash(1, 4)
+
+
+def test_training_run_launch_accounting(counted_flash):
+    rep = chip_smoke.run_training(0, "cpu", n_steps=3, wav_seconds=1.0,
+                                  **TRAIN_OVER)
+    assert [r["it"] for r in rep["records"]] == [1, 2, 3]
+    assert rep["n_flash_layers"] == 1
+    assert rep["expected"] == {"flash_fwd": 6, "flash_dq": 3, "flash_dkv": 3}
+    assert counted_flash == rep["expected"]
+    assert rep["launches"] == dict.fromkeys(counted_flash, 0)
+    assert rep["ema_updates"] == 1  # host EMA every 2 steps
+    assert all(r["step_ok"] and r["loss_scale"] > 2 ** 16
+               for r in rep["records"])
+
+
+@pytest.mark.parametrize("name,group", [
+    ("(anonymous namespace)::flash_dq_kernel(...)", "flash"),
+    ("sm90_xmma_gemm_bf16bf16_bf16f32", "matmul"),
+    ("nvjet_tst_192x192_64x4_2x1_v_bz_coopA_TNT", "matmul"),
+    ("void at::native::reduce_kernel<512, 1>", "reduce"),
+    ("void at::native::direct_copy_kernel_cuda", "copy/cast"),
+    ("void at::native::vectorized_elementwise_kernel<4, add>",
+     "elementwise/other"),
+])
+def test_kernel_group(name, group):
+    assert chip_smoke.kernel_group(name) == group

@@ -75,3 +75,47 @@ def test_shape_mismatch_raises():
     tree["blocks"][1]["mlp"]["c_fc"]["w"] = np.zeros((16, 17), np.float32)
     with pytest.raises(ValueError, match="shape"):
         from_jax_params(tm, tree)
+
+
+@pytest.mark.parametrize("fp16_state", [False, True])
+def test_opt_state_round_trip(fp16_state):
+    """jukebox_tpu's Adam state (moments in the params' layout, conv
+    weights included, and per-tensor scales in the fp16 form) crosses into
+    the port's {name: tensor} state and back unchanged."""
+    from jukebox_tpu.utils.train_utils import adam_init, adam_update
+    from jukebox_tpu_torch.utils.convert import (opt_state_from_jax,
+                                                 opt_state_to_jax)
+    tree, tm = _pair("conditioner")
+    params = jax.tree_util.tree_map(jax.numpy.asarray, tree)
+    opt = adam_init(params, fp16_state=fp16_state)
+    _, opt = adam_update(params, params, opt, 1e-3, 0.9, 0.99, 1e-8, 0.0)
+    opt = jax.tree_util.tree_map(np.asarray, opt)
+    port = opt_state_from_jax(tm, opt)
+    assert port["step"] == 1
+    for name, p in tm.named_parameters():
+        assert port["m"][name].shape == p.shape
+        assert port["m"][name].dtype == (torch.float16 if fp16_state
+                                         else torch.float32)
+    back = flatten_tree(opt_state_to_jax(tm, port))
+    ref = flatten_tree(opt)
+    assert back.keys() == ref.keys()
+    for k, v in ref.items():
+        np.testing.assert_array_equal(back[k], v, err_msg=k)
+    opt["m"]["ln"]["extra"] = np.zeros(3)
+    with pytest.raises(KeyError, match="leftover"):
+        opt_state_from_jax(tm, opt)
+
+
+def test_ema_shadow_crosses_over():
+    """A jukebox_tpu CPUEMA shadow (a JAX-layout tree of fp32 arrays) maps
+    onto the port's {name: array} shadow and back unchanged."""
+    from jukebox_tpu.utils.train_utils import CPUEMA
+    from jukebox_tpu_torch.utils.convert import named_leaves, named_to_tree
+    tree, tm = _pair("conditioner")
+    shadow = CPUEMA(tree, mu=0.9, freq=1).shadow
+    port = named_leaves(tm, shadow)
+    for name, p in tm.named_parameters():
+        assert port[name].shape == tuple(p.shape)
+    back = flatten_tree(named_to_tree(tm, port))
+    for k, v in flatten_tree(shadow).items():
+        np.testing.assert_array_equal(back[k], v, err_msg=k)

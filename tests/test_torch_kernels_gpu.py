@@ -1,19 +1,35 @@
-"""Each CUDA decode kernel (ops/decode_stack.py) against its plain PyTorch
-version at the 1b_lyrics top prior's shapes: every attention pattern at
-positions crossing block and prime boundaries, and the slot each writes.
-Tolerance 1e-2 x max(1, |plain|): the two sum in different orders in fp32
-and can round one bf16 output differently.
+"""Each CUDA kernel against its plain PyTorch version.
+
+Decode kernels (ops/decode_stack.py) at the 1b_lyrics priors' shapes: every
+attention pattern at positions crossing block and prime boundaries, and the
+slot each writes. Tolerance 1e-2 x max(1, |plain|): the two sum in different
+orders in fp32 and can round one bf16 output differently.
+
+Flash kernels (ops/flash_attention.py) through chip_smoke.check_flash, at
+L 1000 and a ragged 517 with head widths 64 and 256, at dropout rates 0
+and 0.1: out, lse, dq, dk, dv held to ops/flash_attention.py `agreement`
+(elementwise: two bf16 steps of |plain| plus 2^-5 of the row's RMS, where
+the kernels round p and ds to bf16 for their second products and the plain
+versions keep fp32; lse 1e-5 relative), and each kernel fed a planted fault
+(one tile skipped) refused by the same check.
 
 Needs a CUDA device and skips itself without one. This file imports no JAX,
 so it runs on a GPU machine that has only the port's dependencies:
     python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q
 """
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from jukebox_tpu_torch.ops import decode_stack as ds
+from jukebox_tpu_torch.ops import flash_attention as fa
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 
 
 def _rel_err(out, ref):
@@ -59,3 +75,14 @@ def test_cuda_kernels_match_plain(S, A, H, bc, blocks, n_ctx, prime):
             close(ds.ring_attn_decode(qkv, k1, v1, geom, H),
                   ds.ring_attn_decode_plain(qkv, k2, v2, geom, H))
             assert torch.equal(k1, k2) and torch.equal(v1, v2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 256])
+def test_flash_kernels_match_plain(hd):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    rows = chip_smoke.check_flash(3, 1000, hd, 1, "cuda",
+                                  torch.Generator(device="cuda").manual_seed(1),
+                                  time_it=False, ragged=517)
+    assert set(rows) == set(fa.LAUNCHES)

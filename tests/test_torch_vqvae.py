@@ -1,7 +1,15 @@
-"""VQ-VAE decode of the PyTorch port against jukebox_tpu on the CPU, fp32:
-random codes at every level through the same decoder weights and codebooks.
-Tolerance 1e-4 abs / 1e-4 rel: a few fp32 conv layers deep, both sides
-exact fp32 (JAX at HIGHEST precision), differing in summation order."""
+"""VQ-VAE of the PyTorch port against jukebox_tpu on the CPU, fp32, on the
+same encoder and decoder weights and codebooks.
+
+Decode: random codes at every level; tolerance 1e-4 abs / 1e-4 rel: a few
+fp32 conv layers deep, both sides exact fp32 (JAX at HIGHEST precision),
+differing in summation order.
+
+Encode: random audio, codes of every level range; the codes must be equal.
+The inputs are ties-free: at every position the nearest code is nearer than
+the second by more than 1e-6 of the largest distance, above the fp32
+rounding of the distances (~1e-7 relative) in which the two encoders
+differ."""
 
 import jax
 import jax.numpy as jnp
@@ -53,3 +61,23 @@ def test_decode_level(models, level):
     assert out.shape == (2, 128, 1)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("start_level,end_level", [(0, 3), (1, 3), (2, 3),
+                                                   (0, 1)])
+def test_encode_levels(models, start_level, end_level):
+    jm, params, state, tm = models
+    x = np.random.RandomState(20 + start_level).uniform(
+        -1, 1, (2, 128, 1)).astype(np.float32)
+    ref = jm.encode(params, state, jnp.asarray(x), start_level=start_level,
+                    end_level=end_level)
+    out = tm.encode(torch.from_numpy(x), start_level, end_level, bs_chunks=2)
+    assert len(out) == len(ref) == end_level - start_level
+    for level, (o, r) in enumerate(zip(out, ref), start_level):
+        with torch.no_grad():
+            lat = tm.encoders[level](torch.from_numpy(x)).reshape(-1, 8)
+            k = tm.bottleneck.level_blocks[level].k
+            d = torch.sort(torch.cdist(lat, k) ** 2, dim=-1).values
+        assert float((d[:, 1] - d[:, 0]).min()) > 1e-6 * float(d.max())
+        assert o.shape == (2, 128 // (2 ** (level + 2)))
+        np.testing.assert_array_equal(o.numpy(), np.asarray(r))
