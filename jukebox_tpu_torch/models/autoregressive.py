@@ -24,22 +24,27 @@ def cross_entropy_bpd(logits, targets):
 
 
 class ConditionalAutoregressive2D(nn.Module):
-    """The priors of the 1b_lyrics cascade: y-conditioned (the start token
-    is the label embedding) and x-conditioned (every caller passes x_cond:
-    the codes of the level above, or the top's timing signal), with x_emb
-    shared as the output projection."""
+    """The priors of the 1b_lyrics cascade, with x_emb shared as the output
+    projection: y-conditioned (the start token is the label embedding) or,
+    with y_cond=False, starting from a learnt start_token; x-conditioned by
+    x_cond (the codes of the level above, or the top's timing signal),
+    zeros when a caller passes none."""
 
     def __init__(self, input_shape, bins, width=128, depth=2, heads=1,
                  attn_order=0, blocks=None, m_attn=0.25, m_mlp=1.0,
                  zero_out=False, init_scale=1.0, res_scale=False,
                  prime_len=None, mask=True, attn_dropout=0.0,
                  resid_dropout=0.0, emb_dropout=0.0, checkpoint_res=0,
-                 device=None):
+                 y_cond=True, device=None):
         super().__init__()
         self.input_shape, self.bins, self.width = tuple(input_shape), bins, width
         self.input_dims = int(np.prod(self.input_shape))
         self.blocks = blocks
         self.prime_len, self.emb_dropout = prime_len, emb_dropout
+        self.y_cond, self.init_scale = y_cond, init_scale
+        if not y_cond:
+            self.start_token = nn.Parameter(
+                torch.empty((1, width), device=device), requires_grad=False)
         self.x_emb = Table((bins, width), 0.02 * init_scale, device=device)
         self.pos_emb = Table((self.input_dims, width), 0.01 * init_scale,
                              name="pos_emb", device=device)
@@ -47,6 +52,20 @@ class ConditionalAutoregressive2D(nn.Module):
             width, self.input_dims, heads, depth, attn_order, blocks,
             prime_len, m_attn, m_mlp, mask, zero_out, init_scale, res_scale,
             attn_dropout, resid_dropout, checkpoint_res, device=device)
+
+    def init_(self, gen):
+        if not self.y_cond:
+            self.start_token.normal_(0.0, 0.01 * self.init_scale,
+                                     generator=gen)
+
+    def start_emb(self, y_cond, n):
+        """[n, 1, width]: the label embedding, or the start token."""
+        if self.y_cond:
+            return y_cond.reshape(n, 1, self.width)
+        return self.start_token[None].expand(n, 1, self.width)
+
+    def default_x_cond(self, n):
+        return torch.zeros((n, 1, self.width), device=self.x_emb.table.device)
 
     @property
     def block_ctx(self):
@@ -65,8 +84,10 @@ class ConditionalAutoregressive2D(nn.Module):
         runs the flash layers' plain versions."""
         N, D = x.shape
         assert D == self.input_dims
+        if x_cond is None:
+            x_cond = self.default_x_cond(N)
         emb = self.x_emb.table[x]
-        emb = torch.cat([y_cond.reshape(N, 1, self.width), emb[:, :-1]], dim=1)
+        emb = torch.cat([self.start_emb(y_cond, N), emb[:, :-1]], dim=1)
         pos = self.pos_emb.table[None]
         t_seed = seed
         if seed is not None and self.emb_dropout > 0.0:
@@ -92,7 +113,7 @@ class ConditionalAutoregressive2D(nn.Module):
         """Input embedding at position t given the previous token x_tok
         [N, 1] (reference get_emb, autoregressive.py:177-197)."""
         if t == 0:
-            emb = y_cond.reshape(n, 1, self.width)
+            emb = self.start_emb(y_cond, n)
         else:
             emb = self.x_emb.table[x_tok]
         cond = x_cond[:, t:t + 1] if x_cond.shape[1] > 1 else x_cond
@@ -142,7 +163,7 @@ class ConditionalAutoregressive2D(nn.Module):
         through decode_step. Returns the last token [N, 1]."""
         N, P = x_prime.shape
         dtype = torch.bfloat16 if fp16 else torch.float32
-        emb_in = torch.cat([y_cond.reshape(N, 1, self.width).to(dtype),
+        emb_in = torch.cat([self.start_emb(y_cond, N).to(dtype),
                             self.x_emb.table[x_prime[:, :-1]].to(dtype)], dim=1)
         conds = (x_cond[:, :P] if x_cond.shape[1] > 1
                  else x_cond.expand(N, P, self.width))

@@ -1,24 +1,130 @@
 """Model factories, the sampling runtime and the training runtime of the
 PyTorch port (counterpart of jukebox_tpu/models/make_models.py). Models are
-built on their device and drawn there from a seed; no checkpoint is read.
-With hps.train a prior's parameters are trainable fp32 masters and its
-dropouts and activation checkpointing follow hps; the VQ-VAE stays frozen.
+built on their device and drawn there from a seed, then restored from
+hps.restore_vqvae / hps.restore_prior when those name a checkpoint: a
+`.jkb` file of either package (utils/checkpoints.py), or a REMOTE_PREFIX
+path cached under ~/.cache as the JAX package looks for it; a path that
+does not exist falls back to the fresh init with a message, as in the JAX
+package. With hps.train a prior's parameters are trainable fp32 masters and
+its dropouts and activation checkpointing follow hps; the VQ-VAE stays
+frozen.
 """
+
+import os
 
 import numpy as np
 import torch
 
-from jukebox_tpu_torch.hparams import setup_hparams
+from jukebox_tpu_torch.hparams import REMOTE_PREFIX, setup_hparams
 from jukebox_tpu_torch.models.encdec import BlockCfg
 from jukebox_tpu_torch.models.prior import SimplePrior
 from jukebox_tpu_torch.models.vqvae import VQVAE, calculate_strides
 from jukebox_tpu_torch.ops.core import init_weights
+from jukebox_tpu_torch.utils.checkpoints import (load_checkpoint,
+                                                 save_checkpoint)
+from jukebox_tpu_torch.utils.convert import (from_jax_params, named_to_tree,
+                                             opt_state_from_jax,
+                                             opt_state_to_jax, to_jax_params,
+                                             vqvae_tree)
 
 MODELS = {
     "1b_lyrics": ("vqvae", "upsampler_level_0", "upsampler_level_1",
                   "prior_1b_lyrics"),
 }
 
+
+# prior keys the port does not build, with the value that builds nothing
+_UNPORTED_PRIOR_KEYS = dict(spread=None, pos_init=False, copy_input=False,
+                            merged_decoder=False)
+# hps entries a checkpoint does not keep (jukebox_tpu save_model_checkpoint)
+_UNSAVED_HPS = ("metadata_v2", "metadata_v3", "alignments", "lyric_processor",
+                "midi_processor", "bandwidth")
+
+
+# ---------------------------------------------------------------------------
+# restore and save (jukebox_tpu make_models.py:192-251)
+# ---------------------------------------------------------------------------
+
+def resolve_restore(path):
+    """The local file of a restore spec, or None (with the JAX package's
+    message) when nothing restorable exists: REMOTE_PREFIX paths must be
+    cached under ~/.cache, as the reference lays them out."""
+    if not path:
+        return None
+    if path.startswith(REMOTE_PREFIX):
+        local = os.path.join(os.path.expanduser("~/.cache"),
+                             path[len(REMOTE_PREFIX):])
+        if os.path.exists(local):
+            return local
+        print(f"[make_models] remote checkpoint {path} not cached at {local}; "
+              f"using fresh init")
+        return None
+    if os.path.exists(path):
+        return path
+    print(f"[make_models] checkpoint {path} not found; using fresh init")
+    return None
+
+
+def load_any(path):
+    """A `.jkb` checkpoint as its numpy tree. Upstream `.pth.tar` state
+    dicts are not converted yet (ROADMAP queue 1 item 1)."""
+    if path.endswith(".pth.tar"):
+        raise NotImplementedError(
+            f"{path}: upstream .pth.tar checkpoints are not converted by the "
+            f"port yet (ROADMAP queue 1 item 1); restore a .jkb file")
+    return load_checkpoint(path)
+
+
+def restore_model(model, checkpoint_path):
+    """Copy a checkpoint's params (and, for a VQ-VAE, the codebooks of its
+    state) into `model`. Returns the checkpoint's step, 0 when nothing is
+    restorable (the model keeps its fresh init)."""
+    path = resolve_restore(checkpoint_path)
+    if path is None:
+        return 0
+    ckpt = load_any(path)
+    params = ckpt["params"]
+    if isinstance(model, VQVAE):
+        params = vqvae_tree(params, ckpt["state"])
+    from_jax_params(model, params)
+    print(f"Restored from {path}")
+    return int(np.asarray(ckpt.get("step", 0)))
+
+
+def restore_opt(opt_state, checkpoint_path, model):
+    """(opt_state, step): the checkpoint's optimizer state for `model`'s
+    parameters on their device, or opt_state unchanged and 0 when there is
+    no checkpoint or it holds none."""
+    path = resolve_restore(checkpoint_path)
+    if path is None:
+        return opt_state, 0
+    ckpt = load_any(path)
+    opt = ckpt.get("opt")
+    step = int(np.asarray(ckpt.get("step", 0)))
+    if opt is None:
+        return opt_state, step
+    device = next(model.parameters()).device
+    return opt_state_from_jax(model, opt, device), step
+
+
+def save_model_checkpoint(logdir, name, runtime, opt_state, step, hps,
+                          params=None):
+    """{logdir}/checkpoint_{name}.jkb with hps, params (the model's, or
+    `params` as {name: tensor or array}, e.g. an EMA shadow), the JAX
+    layout of opt_state and step. Returns the path."""
+    save_hps = {k: v for k, v in dict(hps).items() if k not in _UNSAVED_HPS}
+    tree = (to_jax_params(runtime.model) if params is None
+            else named_to_tree(runtime.model, params))
+    payload = dict(hps=save_hps, params=tree, state=None,
+                   opt=opt_state_to_jax(runtime.model, opt_state), step=step)
+    path = f"{logdir}/checkpoint_{name}.jkb"
+    save_checkpoint(path, payload)
+    return path
+
+
+# ---------------------------------------------------------------------------
+# factories
+# ---------------------------------------------------------------------------
 
 def make_vqvae(hps, device="cuda"):
     block = BlockCfg(width=hps.width, depth=hps.depth, m_conv=hps.m_conv,
@@ -34,7 +140,9 @@ def make_vqvae(hps, device="cuda"):
     model = VQVAE((hps.sample_length, 1), hps.levels, hps.downs_t,
                   hps.strides_t, hps.emb_width, hps.l_bins,
                   hps.hvqvae_multipliers, block, device=device)
-    return init_weights(model, hps.get("seed", 0), device).eval()
+    init_weights(model, hps.get("seed", 0), device).eval()
+    restore_model(model, hps.restore_vqvae)
+    return model
 
 
 def make_prior(hps, vqvae, device="cuda"):
@@ -42,6 +150,10 @@ def make_prior(hps, vqvae, device="cuda"):
     if train and (hps.get("c_attn", 0) or hps.get("c_mlp", 0)):
         raise NotImplementedError("c_attn / c_mlp checkpointing is not "
                                   "ported; c_res is")
+    dropped = {k: hps.get(k, v) for k, v in _UNPORTED_PRIOR_KEYS.items()
+               if hps.get(k, v) != v}
+    if dropped:
+        raise NotImplementedError(f"prior options {dropped} are not ported")
     prior_kwargs = dict(
         input_shape=(hps.n_ctx,), bins=vqvae.l_bins, width=hps.prior_width,
         depth=hps.prior_depth, heads=hps.heads, attn_order=hps.attn_order,
@@ -70,11 +182,14 @@ def make_prior(hps, vqvae, device="cuda"):
                 for z in vqvae.z_shapes]
     model = SimplePrior(z_shapes, vqvae.l_bins, hps.level, vqvae.downs_t,
                         vqvae.strides_t, prior_kwargs, x_cond_kwargs,
-                        y_cond_kwargs, prime_kwargs, labels_v3=hps.labels_v3,
+                        y_cond_kwargs, prime_kwargs, labels=hps.labels,
+                        labels_v3=hps.labels_v3,
                         single_enc_dec=hps.single_enc_dec, device=device)
     init_weights(model, hps.get("seed", 0) + hps.level + 1, device)
     model.requires_grad_(bool(train))
-    return PriorRuntime(model.eval(), vqvae)
+    runtime = PriorRuntime(model.eval(), vqvae)
+    runtime.step = restore_model(model, hps.restore_prior)
+    return runtime
 
 
 class PriorRuntime:

@@ -11,7 +11,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from jukebox_tpu_torch.data.labels import Labeller
+from jukebox_tpu_torch.data.labels import EmptyLabeller, Labeller
 from jukebox_tpu_torch.models.autoregressive import ConditionalAutoregressive2D
 from jukebox_tpu_torch.models.conditioners import Conditioner, LabelConditioner
 from jukebox_tpu_torch.models.encdec import BlockCfg
@@ -21,7 +21,8 @@ from jukebox_tpu_torch.models.vqvae import calculate_strides
 class SimplePrior(nn.Module):
     def __init__(self, z_shapes, l_bins, level, downs_t, strides_t,
                  prior_kwargs, x_cond_kwargs, y_cond_kwargs, prime_kwargs,
-                 labels_v3=False, single_enc_dec=False, device=None):
+                 labels=True, labels_v3=False, single_enc_dec=False,
+                 device=None):
         super().__init__()
         prior_kwargs = dict(prior_kwargs)
         self.n_tokens = prime_kwargs["n_tokens"]
@@ -32,6 +33,7 @@ class SimplePrior(nn.Module):
         self.z_shape, self.level, self.l_bins = z_shapes[level], level, l_bins
         self.x_cond = level != self.levels - 1
         self.cond_level = level + 1
+        self.y_cond = labels
         self.single_enc_dec = single_enc_dec
 
         if self.x_cond:
@@ -40,9 +42,10 @@ class SimplePrior(nn.Module):
                 z_shapes[self.cond_level], l_bins, downs_t[self.cond_level],
                 strides_t[self.cond_level], xk.pop("out_width"),
                 xk.pop("init_scale"), BlockCfg(**xk), device=device)])
-        self.y_emb = LabelConditioner(
-            n_time=self.z_shape[0], include_time_signal=not self.x_cond,
-            device=device, **y_cond_kwargs)
+        if self.y_cond:
+            self.y_emb = LabelConditioner(
+                n_time=self.z_shape[0], include_time_signal=not self.x_cond,
+                device=device, **y_cond_kwargs)
 
         if single_enc_dec:
             self.prior_shapes = [(self.n_tokens,), prior_kwargs.pop("input_shape")]
@@ -53,12 +56,13 @@ class SimplePrior(nn.Module):
             self.prime_loss_dims, self.gen_loss_dims = self.prior_dims
             self.prior = ConditionalAutoregressive2D(
                 input_shape=(sum(self.prior_dims),), bins=sum(self.prior_bins),
-                prime_len=self.prime_loss_dims, device=device, **prior_kwargs)
+                prime_len=self.prime_loss_dims, y_cond=True, device=device,
+                **prior_kwargs)
         else:
             self.prime_loss_dims = 0
             self.gen_loss_dims = int(np.prod(self.z_shape))
-            self.prior = ConditionalAutoregressive2D(device=device,
-                                                     **prior_kwargs)
+            self.prior = ConditionalAutoregressive2D(
+                y_cond=self.y_cond, device=device, **prior_kwargs)
         self.total_loss_dims = self.prime_loss_dims + self.gen_loss_dims
 
         self.n_ctx = self.gen_loss_dims
@@ -67,12 +71,16 @@ class SimplePrior(nn.Module):
                                 if level != self.levels - 1 else None)
         self.raw_to_tokens = int(np.prod(self.downsamples[:level + 1]))
         self.sample_length = self.n_ctx * self.raw_to_tokens
-        self.labeller = Labeller(self.y_emb.max_bow_genre_size, self.n_tokens,
-                                 self.sample_length, v3=labels_v3)
+        self.labeller = (Labeller(y_cond_kwargs["max_bow_genre_size"],
+                                  self.n_tokens, self.sample_length,
+                                  v3=labels_v3)
+                         if labels else EmptyLabeller())
 
     # -- host-side label / window math ------------------------------------------
 
     def get_y(self, labels, start):
+        if not self.y_cond:
+            return None
         y = np.array(labels["y"], dtype=np.int64, copy=True)
         y[:, 2] = int(self.sample_length)
         y[:, 1:2] = y[:, 1:2] + int(start * self.raw_to_tokens)
@@ -109,10 +117,14 @@ class SimplePrior(nn.Module):
     # -- conditioning ---------------------------------------------------------------
 
     def get_cond(self, z_conds, y):
-        """Split y into labels | lyrics and build (x_cond, y_cond, prime)."""
-        n_labels = y.shape[1] - self.n_tokens
-        y_labels, prime = y[:, :n_labels], y[:, n_labels:]
-        y_cond, y_pos = self.y_emb(y_labels)
+        """Split y into labels | lyrics and build (x_cond, y_cond, prime);
+        without labels y is None and so are y_cond and prime, and a top
+        prior's x_cond (prior.py:234-244)."""
+        y_labels, prime = None, None
+        if y is not None:
+            n_labels = y.shape[1] - self.n_tokens
+            y_labels, prime = y[:, :n_labels], y[:, n_labels:]
+        y_cond, y_pos = self.y_emb(y_labels) if self.y_cond else (None, None)
         x_cond = (self.conditioner_blocks[0](z_conds[0]) if self.x_cond
                   else y_pos)
         return x_cond, y_cond, prime
@@ -130,7 +142,7 @@ class SimplePrior(nn.Module):
         """Training loss of codes z [N, n_ctx] (prior.py:271): returns
         (loss, metrics) with metrics bpd, prime_loss, gen_loss (detached).
         seed (an int) turns on the training dropouts; plain=True runs the
-        flash layers' plain versions."""
+        flash layers and LayerNorms' plain versions."""
         x_cond, y_cond, prime = self.get_cond(z_conds, y)
         if self.single_enc_dec:
             z_all, x_cond = self.prior_preprocess([prime, z], [None, x_cond])
@@ -157,7 +169,10 @@ class SimplePrior(nn.Module):
         (caches, x_tok, x_cond, y_cond); sampling starts at
         sample_prefix_len(z)."""
         no_past_context = z is None or z.shape[1] == 0
+        device = self.prior.x_emb.table.device
         x_cond, y_cond, prime = self.get_cond(z_conds, y)
+        if x_cond is None:
+            x_cond = self.prior.default_x_cond(n_samples)
         if self.single_enc_dec:
             xs = [prime] if no_past_context else [prime, z]
             prefill_tokens, x_cond = self.prior_preprocess(xs, [None, x_cond])
@@ -165,7 +180,7 @@ class SimplePrior(nn.Module):
             prefill_tokens = None if no_past_context else z
         if fp16:
             x_cond = x_cond.to(torch.bfloat16)
-        caches = self.prior.init_decode_caches(n_samples, y.device, fp16=fp16)
+        caches = self.prior.init_decode_caches(n_samples, device, fp16=fp16)
         if prefill_tokens is not None and prefill_tokens.shape[1] > 0:
             x_tok = self.prior.prefill(caches, prefill_tokens.long(), x_cond,
                                        y_cond, fp16=fp16,
@@ -173,7 +188,7 @@ class SimplePrior(nn.Module):
                                        dec_params=dec_params)
         else:
             x_tok = torch.zeros((n_samples, 1), dtype=torch.long,
-                                device=y.device)
+                                device=device)
         return caches, x_tok, x_cond, y_cond
 
     def sample_prefix_len(self, z=None):

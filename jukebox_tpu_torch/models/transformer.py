@@ -79,8 +79,8 @@ class ResAttnBlock(nn.Module):
     def forward(self, x, seed=None, plain=False):
         s_attn, s_mlp = ((fold_seed(seed, 0), fold_seed(seed, 1))
                          if seed is not None else (None, None))
-        a = self.attn(self.ln_0(x), s_attn, plain)
-        return self._residual(x, a, self.mlp(self.ln_1(x + a), s_mlp))
+        a = self.attn(self.ln_0(x, plain), s_attn, plain)
+        return self._residual(x, a, self.mlp(self.ln_1(x + a, plain), s_mlp))
 
     def decode_step(self, cache, x, t):
         a = self.attn.decode_step(cache, self.ln_0(x), t)
@@ -123,7 +123,8 @@ class Transformer(nn.Module):
         checkpoint_res == 1 and autograd on, each block recomputed in the
         backward pass (torch.utils.checkpoint, non-reentrant; the dropout
         masks are functions of their seeds, so the recompute draws the same
-        ones). plain=True runs the flash layers' plain versions."""
+        ones). plain=True runs the plain versions of the flash layers and of
+        the LayerNorms."""
         if fp16:
             x = x.to(torch.bfloat16)
         drop = seed is not None and self.dropout

@@ -41,6 +41,14 @@ SIGNATURES = {
         "jk_flash_dq": [_P] * 7 + [_I] * 3 + [_F, _I, _U, _U, _F, _P],
         "jk_flash_dkv": [_P] * 8 + [_I] * 3 + [_F, _I, _U, _U, _F, _P],
     },
+    "layer_norm": {
+        "jk_layer_norm_fwd": [_P] * 6 + [_I, _I, _F, _I, _P],
+        "jk_layer_norm_bwd": [_P] * 8 + [_I] * 4 + [_P],
+    },
+    "adam": {
+        "jk_adam_fp32": [_P] * 7 + [_I, _I, _P] + [_F] * 7 + [_P],
+        "jk_adam_fp16": [_P] * 9 + [_I] * 3 + [_P, _P] + [_F] * 7 + [_P],
+    },
 }
 
 _LIBS = {}

@@ -6,7 +6,8 @@ dense weights are (n_in, n_out), as in the JAX package, so a dense layer is
 `x @ w + b`. Convolutions run in PyTorch's channel-first idiom: activations
 [N, C, T], Conv1d weights (out, in, k), ConvTranspose1d weights
 (in, out, k); utils/convert.py moves the JAX (k, in, out) weights across.
-LayerNorm and softmax accumulate in fp32 and cast back to the input dtype.
+LayerNorm and softmax accumulate in fp32 and cast back to the input dtype;
+LayerNorm runs the kernels of ops/layer_norm.py on the card.
 """
 
 import math
@@ -16,6 +17,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from jukebox_tpu_torch.ops import layer_norm as _ln
+
 
 def dense(x, w, b):
     """y = x @ w + b in x's dtype (the weights are cast to it, like the
@@ -23,12 +26,10 @@ def dense(x, w, b):
     return torch.matmul(x, w.to(x.dtype)) + b.to(x.dtype)
 
 
-def layer_norm(x, g, b, eps=1e-5):
-    xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mean).square().mean(dim=-1, keepdim=True)
-    out = (xf - mean) * torch.rsqrt(var + eps)
-    return (out * g + b).to(x.dtype)
+def layer_norm(x, g, b, eps=1e-5, plain=False):
+    """LayerNorm of the last axis in x's dtype, fp32 statistics: the
+    LayerNorm kernels on the card (plain=True: their plain versions)."""
+    return _ln.layer_norm(x, g, b, eps, plain)
 
 
 def quick_gelu(x):
@@ -131,8 +132,8 @@ class LayerNorm(nn.Module):
         self.g.fill_(1.0)
         self.b.zero_()
 
-    def forward(self, x):
-        return layer_norm(x, self.g, self.b)
+    def forward(self, x, plain=False):
+        return layer_norm(x, self.g, self.b, plain=plain)
 
 
 class Conv1d(nn.Module):

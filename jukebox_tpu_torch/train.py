@@ -1,21 +1,28 @@
 """Prior training of the PyTorch port (counterpart of jukebox_tpu/train.py):
 the train step (frozen VQ-VAE encode, the prior's loss and gradients, the
 reference's scaled and clipped Adam update with the all-or-nothing step
-skip), the training loop (dynamic loss scale, EMA, one metrics line per
-log_steps on stdout) and `run`, which builds everything from hps and stops
-at max_steps.
+skip), the eval step, the training loop (dynamic loss scale, EMA, one
+metrics line per log_steps on stdout, a checkpoint every save_iters) and
+`run`, which builds everything from hps, restores it from
+hps.restore_prior, trains to max_steps and evaluates under the EMA weights
+when hps.test is set.
 
-    from jukebox_tpu_torch.train import run
-    run("vqvae,prior_1b_lyrics,all_fp16,cpu_ema", audio_files_dir=<wavs>,
-        labels=False, prior=True, levels=3, level=2, bs=1, train=True,
-        max_steps=10)
+    python -m jukebox_tpu_torch.train \\
+        --hps=vqvae,prior_1b_lyrics,all_fp16,cpu_ema --name=finetune \\
+        --audio_files_dir=<wavs> --labels=False --prior --levels=3 \\
+        --level=2 --bs=1 --train --restore_prior=<.jkb>
 
-(a labelled run passes a labelled dataset subclass, see DataProcessor).
+or from Python `run(hps, device="cuda", dataset=None, **kwargs)` (a
+labelled run passes a labelled dataset subclass, see DataProcessor).
+Checkpoints are `.jkb` files, the JAX package's format: the training
+loop writes {local_logdir}/{name}/checkpoint_latest.jkb at every step i
+with i % save_iters == 1, holding the EMA weights as params when EMA is
+on, and --restore_prior (or restore_vqvae) takes one from either package.
 Randomness: step i of epoch e draws its aug_blend mix and its dropout seed
 from fold_seed(seed, e, i); jax.random draws other numbers, so the two
 packages agree step for step only without dropout and aug_blend.
-VQ-VAE training, in-training sampling, evaluation, audio and tensorboard
-logging, and checkpoint save / restore are not ported yet.
+VQ-VAE training, in-training sampling, and audio and tensorboard logging
+are not ported yet.
 """
 
 import time
@@ -24,12 +31,16 @@ import torch
 
 from jukebox_tpu_torch.data.data_processor import DataProcessor
 from jukebox_tpu_torch.hparams import setup_hparams
-from jukebox_tpu_torch.models.make_models import make_prior, make_vqvae
+from jukebox_tpu_torch.models.make_models import (make_prior, make_vqvae,
+                                                  restore_opt,
+                                                  save_model_checkpoint)
 from jukebox_tpu_torch.ops.core import fold_seed
 from jukebox_tpu_torch.utils.audio_utils import audio_preprocess
+from jukebox_tpu_torch.utils.cli import fire
 from jukebox_tpu_torch.utils.train_utils import (LossScalar, adam_init,
                                                  adam_update,
-                                                 clipped_grad_scale, get_ema,
+                                                 clipped_grad_scale,
+                                                 ema_params, get_ema,
                                                  global_grad_norm,
                                                  make_lr_schedule)
 
@@ -88,6 +99,28 @@ def make_prior_train_step(runtime, hps, lr_fn, mark=None):
     return step
 
 
+def make_eval_step(runtime, hps):
+    """eval_fn(x, y) -> (loss, metrics): the prior's loss on audio x
+    [N, T, 1] and labels y (or None) without gradients
+    (jukebox_tpu/train.py:179)."""
+    prior, vqvae = runtime.model, runtime.vqvae
+
+    @torch.no_grad()
+    def eval_fn(x, y):
+        zs = vqvae.encode(x, start_level=prior.level)
+        return prior.z_forward(zs[0], z_conds=zs[1:] or None, y=y,
+                               fp16=hps.fp16)
+
+    return eval_fn
+
+
+def _batch(batch, hps, device, gen=None):
+    """A loader batch as (x [N, T, 1] fp32, y or None) on device."""
+    x, y = batch if isinstance(batch, tuple) else (batch, None)
+    x = audio_preprocess(torch.as_tensor(x).to(device), hps, gen=gen)
+    return x, (torch.as_tensor(y).to(device) if y is not None else None)
+
+
 class Averages:
     """Running averages of named metrics, weighted by batch size."""
 
@@ -102,23 +135,51 @@ class Averages:
         return self.sum[key] / self.n[key]
 
 
+def evaluate(eval_fn, runtime, data_processor, hps):
+    """One pass over the test split, forward only (jukebox_tpu/train.py
+    :155): {metric: average weighted by batch size}, with "loss"."""
+    averages = Averages()
+    device = next(runtime.model.parameters()).device
+    loader = iter(data_processor.test_loader)
+    try:
+        for batch in loader:
+            x, y = _batch(batch, hps, device)
+            loss, metrics = eval_fn(x, y)
+            metrics = dict(metrics, loss=loss)
+            for key, val in metrics.items():
+                averages.update(key, float(val), int(x.shape[0]))
+    finally:
+        loader.close()
+    return {k: averages.avg(k) for k in averages.sum}
+
+
+def save_latest(runtime, opt_state, ema, hps, it):
+    """checkpoint_latest.jkb under {local_logdir}/{name}, with the EMA
+    weights as params when there is an EMA (jukebox_tpu/train.py:278-289).
+    Returns (path, seconds)."""
+    t0 = time.time()
+    params = ema.swap(runtime.params)[0] if ema is not None else None
+    path = save_model_checkpoint(f"{hps.local_logdir}/{hps.name}", "latest",
+                                 runtime, opt_state, it, hps, params=params)
+    return path, time.time() - t0
+
+
 def train(step_fn, runtime, opt_state, ema, data_processor, hps, epoch,
           scalar, records):
     """One epoch of the loader, or fewer steps once runtime.step reaches
-    hps.max_steps. Appends one record per step to `records` (metrics and
-    the step's wall seconds, synchronised). Returns the epoch's averages."""
+    hps.max_steps. Appends one record per step to `records` (metrics, the
+    step's wall seconds, synchronised, and a checkpoint's path and save
+    seconds at the steps that save). Returns the epoch's averages."""
     averages = Averages()
     device = next(runtime.model.parameters()).device
     loader = iter(data_processor.train_loader)
     try:
         for batch in loader:
-            x, y = batch if isinstance(batch, tuple) else (batch, None)
             runtime.step += 1
             it = runtime.step
             gen = torch.Generator(device=device).manual_seed(
                 fold_seed(hps.get("seed", 0), epoch, it, 0))
-            x = audio_preprocess(torch.as_tensor(x).to(device), hps, gen=gen)
-            y = torch.as_tensor(y).to(device) if y is not None else None
+            x, y = _batch(batch, hps, device, gen)
             loss_scale = scalar.get_scale() if scalar else 1.0
             t0 = time.time()
             loss, metrics = step_fn(opt_state, (x, y),
@@ -140,6 +201,9 @@ def train(step_fn, runtime, opt_state, ema, data_processor, hps, epoch,
                 averages.update(key, val, int(x.shape[0]))
             records.append(dict(it=it, epoch=epoch, step_ok=step_ok,
                                 wall_s=wall, **metrics))
+            if hps.save and it % hps.save_iters == 1:
+                path, save_s = save_latest(runtime, opt_state, ema, hps, it)
+                records[-1].update(checkpoint=path, save_s=save_s)
             if it % hps.log_steps == 0:
                 print(f"step {it}: " + " ".join(
                     f"{k} {v:.6g}" for k, v in metrics.items())
@@ -151,11 +215,13 @@ def train(step_fn, runtime, opt_state, ema, data_processor, hps, epoch,
     return {k: averages.avg(k) for k in averages.sum}
 
 
-def run(hps="teeny", device="cuda", dataset=None, **kwargs):
-    """Train a prior from hps (comma-separated set names) and kwargs on
-    `device`, from weights drawn from hps.seed. dataset: optional
-    ready-made dataset for the DataProcessor (a labelled subclass for
-    labels=True). Returns dict(runtime, opt_state, ema, scalar, records)."""
+def setup(hps="teeny", device="cuda", dataset=None, **kwargs):
+    """Everything a prior's training run needs, from hps (comma-separated
+    set names) and kwargs, on `device`: weights drawn from hps.seed, then
+    params, optimizer state and step restored from hps.restore_prior (and
+    the VQ-VAE from hps.restore_vqvae) when those name a checkpoint.
+    dataset: optional ready-made dataset for the DataProcessor (a labelled
+    subclass for labels=True). Returns a dict for `fit`."""
     hps = setup_hparams(hps, kwargs)
     if not hps.prior:
         raise NotImplementedError("VQ-VAE training is not ported yet")
@@ -170,21 +236,53 @@ def run(hps="teeny", device="cuda", dataset=None, **kwargs):
     runtime = make_prior(hps, vqvae, device)
     lr_fn = make_lr_schedule(hps)
     opt_state = adam_init(runtime.params, fp16_state=hps.fp16_opt)
+    opt_state, _ = restore_opt(opt_state, hps.restore_prior, runtime.model)
     ema = get_ema(runtime.params, hps)
     scalar = LossScalar(hps.fp16_loss_scale,
                         scale_factor=2.0 ** (1.0 / hps.fp16_scale_window)) \
         if hps.fp16 else None
-    step_fn = make_prior_train_step(runtime, hps, lr_fn)
-    records = []
+    return dict(hps=hps, data_processor=data_processor, runtime=runtime,
+                opt_state=opt_state, ema=ema, scalar=scalar,
+                step_fn=make_prior_train_step(runtime, hps, lr_fn),
+                eval_fn=make_eval_step(runtime, hps))
+
+
+def fit(run_state):
+    """Train from `setup`'s state until hps.max_steps (or hps.epochs),
+    from the restored step on, evaluating on the test split under the EMA
+    weights after each epoch when hps.test is set. Returns dict(runtime,
+    opt_state, ema, scalar, records, test) with test the last evaluation's
+    averages (or None)."""
+    hps, runtime = run_state["hps"], run_state["runtime"]
+    data_processor, ema = run_state["data_processor"], run_state["ema"]
+    opt_state, scalar = run_state["opt_state"], run_state["scalar"]
+    records, test = [], None
     for epoch in range(max(0, hps.curr_epoch), hps.epochs):
+        if hps.max_steps and runtime.step >= hps.max_steps:
+            break
         data_processor.set_epoch(epoch)
         if hps.train:
-            averages = train(step_fn, runtime, opt_state, ema,
+            averages = train(run_state["step_fn"], runtime, opt_state, ema,
                              data_processor, hps, epoch, scalar, records)
             print(f"Train epoch {epoch}: " + " ".join(
                 f"{k} {v:0.4f}" for k, v in averages.items()), flush=True)
+        if hps.test:
+            with ema_params(ema, runtime.params):
+                test = evaluate(run_state["eval_fn"], runtime,
+                                data_processor, hps)
+            print(f"Ema epoch {epoch}: " + " ".join(
+                f"{k} {v:0.4f}" for k, v in test.items()), flush=True)
         if hps.max_steps and runtime.step >= hps.max_steps:
             break
     return dict(runtime=runtime, opt_state=opt_state, ema=ema, scalar=scalar,
-                records=records)
+                records=records, test=test)
 
+
+def run(hps="teeny", device="cuda", dataset=None, **kwargs):
+    """Fine-tune a prior: setup(hps, device, dataset, **kwargs), then
+    fit. Returns fit's dict."""
+    return fit(setup(hps, device, dataset, **kwargs))
+
+
+if __name__ == "__main__":
+    fire(run)

@@ -10,11 +10,11 @@ scalar arithmetic (bias correction, step size, scales) is fp32, as in the
 JAX package.
 """
 
-import numpy as np
+import contextlib
+
 import torch
 
-FLOAT16_MAX = 65504.0  # reference FP16FusedAdam.FLOAT16_MAX (fp16.py:146)
-_F32 = np.float32
+from jukebox_tpu_torch.ops import adam as _adam
 
 
 # ---------------------------------------------------------------------------
@@ -43,50 +43,17 @@ def adam_init(params, fp16_state=False):
             "step": 0}
 
 
-@torch.no_grad()
 def adam_update(params, grads, opt_state, lr, beta1, beta2, eps, weight_decay,
                 scale=1.0):
     """One Adam step of the reference's form, in place: the gradients are
     divided by `scale` (loss scale x clipping), bias-corrected moments, and
     weight decay inside the update as step_size * (m / denom + wd * p).
     fp16 moments are unscaled to fp32, updated, and renormalised by their
-    new per-tensor inf-norm. A None gradient counts as zero. Returns
-    opt_state."""
-    fp16_state = "m_scale" in opt_state
-    step = opt_state["step"] + 1
-    b1, b2 = _F32(beta1), _F32(beta2)
-    bias1 = _F32(1) - b1 ** _F32(step)
-    bias2 = _F32(1) - b2 ** _F32(step)
-    step_size = torch.as_tensor(lr, dtype=torch.float32) \
-        * float(np.sqrt(bias2)) / float(bias1)
-    c1, c2 = float(_F32(1) - b1), float(_F32(1) - b2)
-    on_device = {}  # device -> (step_size, scale) there
-    for name, p in params.items():
-        if p.device not in on_device:
-            on_device[p.device] = (
-                step_size.to(p.device),
-                torch.as_tensor(scale, dtype=torch.float32, device=p.device))
-        step_dev, scale_dev = on_device[p.device]
-        g = grads.get(name)
-        g = torch.zeros_like(p) if g is None else g
-        g = g.float() / scale_dev
-        m, v = opt_state["m"][name], opt_state["v"][name]
-        if fp16_state:
-            m = m.float() * opt_state["m_scale"][name]
-            v = v.float() * opt_state["v_scale"][name]
-        m = float(b1) * m + c1 * g
-        v = float(b2) * v + c2 * g * g
-        denom = torch.sqrt(v) + eps
-        p.sub_(step_dev * (m / denom + weight_decay * p))
-        if fp16_state:
-            for key, x in (("m", m), ("v", v)):
-                s = 1e-8 + x.abs().max() / FLOAT16_MAX
-                opt_state[key][name] = (x / s).half()
-                opt_state[key + "_scale"][name] = s
-        else:
-            opt_state["m"][name], opt_state["v"][name] = m, v
-    opt_state["step"] = step
-    return opt_state
+    new per-tensor inf-norm. A None gradient counts as zero. On the card
+    one multi-tensor kernel launch (ops/adam.py); on the CPU its plain
+    version. Returns opt_state."""
+    return _adam.adam_update(params, grads, opt_state, lr, beta1, beta2, eps,
+                             weight_decay, scale)
 
 
 def global_grad_norm(grads):
@@ -188,6 +155,16 @@ class EMA:
         """(ema params, stashed params): the caller swaps back after."""
         return self.shadow, params
 
+    @torch.no_grad()
+    def exchange(self, params):
+        """Exchange the params' values with the shadow's in place, one
+        tensor at a time (no second copy of the params on their device);
+        a second call undoes the first."""
+        for n, p in params.items():
+            held = p.detach().float().clone()
+            p.copy_(self.shadow[n])
+            self.shadow[n].copy_(held)
+
 
 class CPUEMA:
     """EMA shadow in host memory as fp32 numpy arrays, updated every `freq`
@@ -213,6 +190,29 @@ class CPUEMA:
 
     def swap(self, params):
         return self.shadow, params
+
+    @torch.no_grad()
+    def exchange(self, params):
+        """Exchange the params' values with the host shadow's, one tensor
+        at a time; a second call undoes the first."""
+        for n, p in params.items():
+            held = p.detach().float().cpu().numpy().copy()
+            p.copy_(torch.from_numpy(self.shadow[n]))
+            self.shadow[n] = held
+
+
+@contextlib.contextmanager
+def ema_params(ema, params):
+    """params hold the EMA weights inside the block and their own values
+    again after it (nothing changes without an EMA)."""
+    if ema is None:
+        yield params
+        return
+    ema.exchange(params)
+    try:
+        yield params
+    finally:
+        ema.exchange(params)
 
 
 def get_ema(params, hps):

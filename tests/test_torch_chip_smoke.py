@@ -3,7 +3,9 @@ decode-step check and the cascade with its launch accounting run through
 the same functions as on the card, with the wrappers' plain versions (CPU
 tensors). The expected per-kernel launch counts that the card run holds
 the kernels' counters to must equal the number of plain-version calls the
-cascade makes here."""
+cascade makes here, for the decode kernels and the LayerNorm kernels; the
+same holds for the training phases (flash, LayerNorm, Adam), including the
+save at step 1 and the run restored from that checkpoint."""
 
 import sys
 from pathlib import Path
@@ -117,6 +119,60 @@ def counted_flash(monkeypatch):
     return calls
 
 
+def _count_plain(monkeypatch, mod, names):
+    calls = dict.fromkeys(names, 0)
+    for name in names:
+        plain = getattr(mod, name + "_plain")
+
+        def counted(*a, _name=name, _plain=plain, **kw):
+            calls[_name] += 1
+            return _plain(*a, **kw)
+        monkeypatch.setattr(mod, name + "_plain", counted)
+    return calls
+
+
+def test_cascade_layer_norm_accounting(priors, tmp_path, monkeypatch):
+    from jukebox_tpu_torch.ops import layer_norm as ln
+    calls = _count_plain(monkeypatch, ln, ln.LAUNCHES)
+    hps = Hyperparams(n_samples=2, sample_length=VQ["sample_length"],
+                      sr=VQ["sr"], hop_fraction=(1.0, 1.0, 0.125), seed=0,
+                      name=str(tmp_path / "smoke"))
+    # a 1-block prefill chunk: the 24-token lyric prefix takes one whole
+    # chunk of 15 through the LayerNorm modules, its tail decode steps
+    skw = [dict(temp=0.99, fp16=True, chunk_size=15, max_batch_size=2)
+           for _ in priors]
+    rep = chip_smoke.run_cascade(priors, hps, skw)
+    # upsamplers: one conditioner LayerNorm per window (level 0: 128 codes
+    # in 2 windows of 64, level 1: 64 in one); top: 2 per layer
+    assert rep["ln_expected"] == {"layer_norm_fwd": 2 + 1 + 2 * 48,
+                                  "layer_norm_bwd": 0}
+    assert calls == rep["ln_expected"]
+    assert rep["ln_launches"] == dict.fromkeys(ln.LAUNCHES, 0)
+
+
+def test_layer_norm_checks():
+    from jukebox_tpu_torch.ops import layer_norm as ln
+    rows = chip_smoke.check_layer_norm(
+        [(50, 33, torch.bfloat16), (20, 64, torch.float32)], "cpu",
+        torch.Generator().manual_seed(0), time_it=False)
+    assert set(rows) == set(ln.LAUNCHES)
+    assert all(r["max_abs_err"] == 0.0 for r in rows.values())
+    nbytes, flops = chip_smoke.layer_norm_work(6528, 2048, 2)[
+        "layer_norm_fwd"]
+    assert nbytes == 2 * 6528 * 2048 * 2 + 2 * 2048 * 4 + 2 * 6528 * 4
+
+
+@pytest.mark.parametrize("fp16", [False, True])
+def test_adam_checks(fp16):
+    gen = torch.Generator().manual_seed(0)
+    start = {f"t{i}": torch.randn(s, generator=gen)
+             for i, s in enumerate([(40, 30), (7,), (5000,)])}
+    row = chip_smoke.check_adam(start, fp16, "cpu")
+    assert row == {"max_abs_err": 0.0}  # CPU: the plain version twice
+    nbytes, _ = chip_smoke.adam_work([10], fp16)
+    assert nbytes == 10 * (20 if fp16 else 28)
+
+
 def test_flash_checks():
     from jukebox_tpu_torch.ops import flash_attention as fa
     rows = chip_smoke.check_flash(1, 200, 64, 2, "cpu",
@@ -132,10 +188,10 @@ def test_train_step_check(counted_flash):
     launches = chip_smoke.check_train_step(0, "cpu", torch.Generator(),
                                            **TRAIN_OVER)
     assert launches == dict.fromkeys(counted_flash, 0)  # CPU: no kernel
-    # the kernel path, the plain path, the planted fault and the step timed
-    # by parts (the profiled step runs on the card only) each ran one
-    # step's passes
-    assert counted_flash == chip_smoke.expected_flash(1, 4)
+    # the kernel path, the plain path, the path with flash alone plain, the
+    # planted fault and the step timed by parts (the profiled step runs on
+    # the card only) each ran one step's passes
+    assert counted_flash == chip_smoke.expected_flash(1, 5)
 
 
 def test_training_run_launch_accounting(counted_flash):
@@ -162,3 +218,27 @@ def test_training_run_launch_accounting(counted_flash):
 ])
 def test_kernel_group(name, group):
     assert chip_smoke.kernel_group(name) == group
+
+
+def test_checkpoint_phase(counted_flash, monkeypatch, tmp_path):
+    from jukebox_tpu_torch.ops import adam as ad
+    from jukebox_tpu_torch.ops import layer_norm as ln
+    ln_calls = _count_plain(monkeypatch, ln, ln.LAUNCHES)
+    adam_calls = _count_plain(monkeypatch, ad, ad.LAUNCHES)
+    rep = chip_smoke.run_training(0, "cpu", n_steps=2, wav_seconds=1.0,
+                                  logdir=str(tmp_path), **TRAIN_OVER)
+    assert rep["kernel_expected"] == {"layer_norm_fwd": 2 * 2 * 96,
+                                      "layer_norm_bwd": 2 * 96,
+                                      "adam_update": 2}
+    assert dict(ln_calls, **adam_calls) == rep["kernel_expected"]
+    ckpt = rep["records"][0]["checkpoint"]
+    assert ckpt == str(tmp_path / "smoke" / "checkpoint_latest.jkb")
+    for calls in (counted_flash, ln_calls, adam_calls):
+        for k in calls:
+            calls[k] = 0
+    res = chip_smoke.check_resume(0, "cpu", ckpt, n_more=2, wav_seconds=1.0,
+                                  **TRAIN_OVER)
+    assert res["step"] == 1 and [r["it"] for r in res["records"]] == [2, 3]
+    assert dict(counted_flash, **ln_calls, **adam_calls) == res["expected"]
+    assert res["launches"] == dict.fromkeys(res["expected"], 0)
+    assert res["bytes"] > 0

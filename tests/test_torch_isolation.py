@@ -1,7 +1,9 @@
 """The port stands alone: no file of jukebox_tpu_torch/ nor chip_smoke.py
-imports jax, jaxlib or jukebox_tpu (static AST scan), and chip_smoke.py
-refuses to run without a CUDA device instead of falling back to the CPU,
-also when it is copied out of the repository alone."""
+imports jax, jaxlib or jukebox_tpu (static AST scan), loading a checkpoint
+that jukebox_tpu wrote imports neither of them either (a fresh process
+reads one through the port's restore path), and chip_smoke.py refuses to
+run without a CUDA device instead of falling back to the CPU, also when it
+is copied out of the repository alone."""
 
 import ast
 import os
@@ -56,3 +58,29 @@ def test_chip_smoke_alone_fails(tmp_path):
     assert proc.returncode != 0
     assert "jukebox_tpu_torch" in proc.stderr
     assert '"ok": true' not in proc.stdout
+
+
+def test_restoring_a_jax_checkpoint_imports_no_jax(tmp_path):
+    import jax.numpy as jnp
+
+    from jukebox_tpu.utils.checkpoints import save_checkpoint
+    path = str(tmp_path / "checkpoint_latest.jkb")
+    save_checkpoint(path, dict(hps={"name": "x", "bs": 1, "t": (1, 2)},
+                               params={"w": jnp.ones((2, 3))}, state=None,
+                               opt={"step": jnp.asarray(3, jnp.int32)},
+                               step=3))
+    code = (
+        "import sys\n"
+        "from jukebox_tpu_torch.models.make_models import load_any, "
+        "resolve_restore\n"
+        f"ckpt = load_any(resolve_restore({path!r}))\n"
+        "assert int(ckpt['step']) == 3\n"
+        "assert ckpt['params']['w'].shape == (2, 3)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]

@@ -13,6 +13,18 @@ the kernels round p and ds to bf16 for their second products and the plain
 versions keep fp32; lse 1e-5 relative), and each kernel fed a planted fault
 (one tile skipped) refused by the same check.
 
+LayerNorm kernels (ops/layer_norm.py) through chip_smoke.check_layer_norm
+at ragged and wide shapes in fp32, bf16 and fp16: y, mu, rstd, dx, dg, db
+held to ops/layer_norm.py `agreement` (elementwise: two steps of the
+output dtype of |plain| plus 1e-4 of the tensor's RMS), and a planted
+fault (the last row skipped) refused by the same check.
+
+The Adam kernel (ops/adam.py) through chip_smoke.check_adam on a few
+tensors of mixed sizes (one with a None gradient), both moment forms,
+three updates: params normwise within 1e-6 of how far they moved, moments
+within one fp16 step (or 1e-6 normwise in fp32), and a planted fault (the
+last chunk of the largest tensor left out) refused.
+
 Needs a CUDA device and skips itself without one. This file imports no JAX,
 so it runs on a GPU machine that has only the port's dependencies:
     python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q
@@ -27,6 +39,7 @@ import torch
 
 from jukebox_tpu_torch.ops import decode_stack as ds
 from jukebox_tpu_torch.ops import flash_attention as fa
+from jukebox_tpu_torch.ops import layer_norm as ln
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
@@ -86,3 +99,29 @@ def test_flash_kernels_match_plain(hd):
                                   torch.Generator(device="cuda").manual_seed(1),
                                   time_it=False, ragged=517)
     assert set(rows) == set(fa.LAUNCHES)
+
+
+@pytest.mark.gpu
+def test_layer_norm_kernels_match_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    rows = chip_smoke.check_layer_norm(
+        [(1000, 1000, torch.bfloat16), (517, 1920, torch.float32),
+         (64, 2048, torch.float16), (3, 12288, torch.bfloat16),
+         (2, 7, torch.float32)],
+        "cuda", torch.Generator(device="cuda").manual_seed(2),
+        time_it=False)
+    assert set(rows) == set(ln.LAUNCHES)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fp16", [False, True])
+def test_adam_kernel_matches_plain(fp16):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    shapes = [(2048, 1536), (2048,), (7,), (1000, 33), (70000,)]
+    start = {f"t{i}": 0.02 * torch.randn(shape, generator=gen, device="cuda")
+             for i, shape in enumerate(shapes)}
+    row = chip_smoke.check_adam(start, fp16, "cuda", time_it=False)
+    assert row["max_abs_err"] >= 0.0
