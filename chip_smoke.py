@@ -6,9 +6,10 @@ Phases, each printing timestamped lines:
   0 device   the card's name and power limit (nvidia-smi); TF32 off; a
              watchdog turns a hang into an exit with a stack dump
   1 build    nvcc builds the CUDA kernels from jukebox_tpu_torch/csrc
-  2 kernels  every decode kernel against its plain PyTorch version at the
-             shapes of the 1b_lyrics priors (top: S 2048, A 512, 2 heads;
-             upsamplers: S 1920, A 480, 1 head), every attention pattern at
+  2 kernels  every bf16 decode kernel against its plain PyTorch version at
+             the shapes of the 1b_lyrics priors (top: S 2048, A 512, 2
+             heads; upsamplers: S 1920, A 480, 1 head) and of the 5b_lyrics
+             top (S 4800, A 1200, 8 heads), every attention pattern at
              positions that cross block and prime boundaries; times per
              launch beside the bound, the plain version and one library call
   3 step     one full-width decode step per prior, kernel path against the
@@ -28,6 +29,22 @@ Phases, each printing timestamped lines:
              --seed; checks codes, audio and that every decode step of every
              prior went through the kernels, and every LayerNorm of the
              prefill and the conditioners (launch counts)
+  2e int8    gemv_int8, ring_attn_int8 (every ring pattern) and
+             cross_attn_decode (f6, bf16 and int8 encoder K/V) against their
+             plain versions at the 5b_lyrics top's shapes (S 4800, A 1200,
+             8 heads of 150, 512 encoder rows), the upsamplers' and the 1b
+             top's; the res_scale epilogues; a planted fault for each (a
+             skipped column tile, a dropped head); quantize_dense on the
+             card bit for bit against the host; times beside the bound, the
+             plain version and one library call
+  7 5b       the 5b_lyrics cascade from --seed: one full-width top decode
+             step (79 layers) kernel path against plain path in bf16 and
+             in int8, one int8 upsampler step, then the ancestral cascade
+             in the int8 mode (int8 weights and ring caches in every
+             prior), lyric encoder -> 79-layer top -> two upsamplers ->
+             wav, with the launch counts of every decode kernel (f6
+             included) and of the LayerNorm kernels; then prior_5b at
+             full width, one decode step kernel path against plain path
   2d adam    the Adam kernel against its plain loop on the top prior's
              871 parameter tensors, fp32 and fp16 moments, three updates,
              and a planted fault (the last chunk of the largest tensor left
@@ -77,11 +94,13 @@ from jukebox_tpu_torch.data.files_dataset import FixedMetadataDataset
 from jukebox_tpu_torch.hparams import Hyperparams, setup_hparams
 from jukebox_tpu_torch.models.make_models import (make_model, make_prior,
                                                   make_vqvae)
+from jukebox_tpu_torch.models.transformer import ATTN_ORDERS
 from jukebox_tpu_torch.ops import _build
 from jukebox_tpu_torch.ops import adam as ad
 from jukebox_tpu_torch.ops import decode_stack as ds
 from jukebox_tpu_torch.ops import flash_attention as fa
 from jukebox_tpu_torch.ops import layer_norm as ln
+from jukebox_tpu_torch.ops.core import quantize_dense
 from jukebox_tpu_torch.utils.checkpoints import load_checkpoint
 from jukebox_tpu_torch.utils.convert import named_leaves
 from jukebox_tpu_torch.utils.sample_utils import get_starts
@@ -248,7 +267,21 @@ def prior_shapes(prior):
                 blocks=blk.attn.blocks, n_ctx=tr.n_ctx,
                 prime=(tr.blocks[15].attn._prime_len
                        if tr.n_depth > 15 and tr.attn_func(15) == 7 else None),
-                funcs=sorted({tr.attn_func(d) for d in range(tr.n_depth)}))
+                enc=None, funcs=sorted({tr.attn_func(d)
+                                        for d in range(tr.n_depth)}))
+
+
+def preset_shapes(name):
+    """prior_shapes of a preset without building it (a separate lyric
+    encoder's encoder_dims as enc)."""
+    h = setup_hparams(name, {})
+    S = h.prior_width
+    return dict(S=S, A=int(h.m_attn * S), H=h.heads, Sm=int(h.m_mlp * S),
+                bc=h.n_ctx // h.blocks, blocks=h.blocks, n_ctx=h.n_ctx,
+                prime=None, enc=(h.n_tokens if h.use_tokens
+                                 and not h.single_enc_dec else None),
+                funcs=sorted({ATTN_ORDERS[h.attn_order](d)
+                              for d in range(h.prior_depth)}))
 
 
 def attn_positions(sh, last_t):
@@ -319,8 +352,8 @@ def check_kernels(shapes, B, last_t, device, gen, time_it=True):
                   [a[:3] for a in sets],
                   K * N * 2 + B * K * 2 + N * 2 + B * N * 2 * (2 if res is not None else 1),
                   2 * B * K * N, "bf16", main and epi is None)
-        # -- ring_attn_decode, every pattern of this prior
-        for f in sh["funcs"]:
+        # -- ring_attn_decode, every ring pattern of this prior (f6: phase 2e)
+        for f in (f for f in sh["funcs"] if f != 6):
             shape = {0: (B, sh["n_ctx"], A), 1: (B, sh["bc"], A),
                      2: (B, sh["bc"], sh["blocks"], A), 3: (B, 2 * sh["bc"], A),
                      7: (B, sh["prime"] or 1, A)}[f]
@@ -354,6 +387,224 @@ def check_kernels(shapes, B, last_t, device, gen, time_it=True):
     for name, row in rep.rows.items():
         row.update(timings.get(name, {}))
     return rep.rows
+
+
+# ---------------------------------------------------------------------------
+# phase 2e: the int8 and cross-attention decode kernels against their plain
+# versions
+# ---------------------------------------------------------------------------
+
+def skip_col_tile(w_q):
+    """A copy of w_q [K, N] with its last 32 columns zeroed: a GEMV that
+    skips its last column tile, the planted fault of gemv_int8."""
+    w_q = w_q.clone()
+    w_q[:, -32:] = 0
+    return w_q
+
+
+def skip_head(q, A, H):
+    """A copy of q [B, >= A] with the last head's query columns zeroed: an
+    attention kernel that drops that head's scores (its softmax goes
+    uniform), the planted fault of the attention kernels."""
+    q = q.clone()
+    q[:, A - A // H:A] = 0
+    return q
+
+
+def refuse(name, out, ref, what):
+    """A planted fault must fail the kernel check."""
+    e, rel = _err(out, ref)
+    log(f"  {name} {what} planted fault: rel {rel:.2e} (must exceed "
+        f"{KERNEL_TOL:g})")
+    if not rel > KERNEL_TOL:
+        raise AssertionError(f"{name} {what}: the check let a planted "
+                             f"fault pass ({rel:.2e})")
+
+
+def deq(q, s):
+    """int8 rows [..., A] with scales [...] (None: already bf16) as bf16."""
+    if s is None:
+        return q
+    return (q.float() * s.float()[..., None]).to(torch.bfloat16)
+
+
+def heads(z, H):
+    """[B, L, A] (or [B, A]) -> SDPA's [B, H, L, A / H]."""
+    B, A = z.shape[0], z.shape[-1]
+    return z.reshape(B, -1, H, A // H).transpose(1, 2).contiguous()
+
+
+def check_int8_kernels(shapes, B, last_t, device, gen, time_it=True):
+    """Hold gemv_int8, ring_attn_int8 and cross_attn_decode (bf16 and int8
+    encoder K/V) against their plain versions at each prior shape in
+    `shapes` (the first label's shapes are the representative ones), every
+    ring pattern at positions crossing block boundaries, with the slot
+    rows and scales each writes equal; the res_scale epilogues of both
+    GEMVs; a planted fault for each kernel (a skipped column tile, a
+    dropped head) that the same check must refuse; quantize_dense on the
+    card bit-exact against the host. Times beside the bound, the plain
+    version and one library call (addmm on the dequantised weight; SDPA
+    on the dequantised rows or the encoder rows). Returns {name: row}."""
+    rep = KernelReport()
+    bf = torch.bfloat16
+    timings = {}
+
+    def rnd(*shape, dtype=bf, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=device)
+                * scale).to(dtype)
+
+    def int8_rows(*shape):
+        """Random int8 rows [..., A] with positive bf16 scales [...]."""
+        q = torch.randint(-127, 128, shape, generator=gen, device=device,
+                          dtype=torch.int32).to(torch.int8)
+        s = (torch.rand(shape[:-1], generator=gen, device=device) * 0.02
+             + 0.002).to(bf)
+        return q, s
+
+    def copies(make, nbytes):
+        return [make() for _ in range(_copies(nbytes))] if time_it else []
+
+    def time3(name, what, kernel, plain, library, sets, lib_sets, nbytes,
+              flops, representative):
+        if not (time_it and representative):
+            return
+        timings[name] = rep.timed(name, what, device_ms(kernel, sets),
+                                  device_ms(plain, sets),
+                                  device_ms(library, lib_sets), nbytes,
+                                  flops, "bf16")
+
+    for label, sh in shapes.items():
+        S, A, H, Sm = sh["S"], sh["A"], sh["H"], sh["Sm"]
+        main = label == next(iter(shapes))
+        products = [("c_attn", S, 3 * A, None), ("c_proj", A, S, "residual"),
+                    ("mlp.c_fc", S, Sm, "gelu"),
+                    ("mlp.c_proj", Sm, S, "residual")]
+        if sh["enc"]:
+            products.insert(1, ("f6 c_attn (q)", S, A, None))
+        # -- gemv_int8
+        for what, K, N, epi in products:
+            w = rnd(K, N, dtype=torch.float32, scale=0.02)
+            b = rnd(N, scale=0.02)
+            qd = quantize_dense({"w": w, "b": b})
+            wq, sc = qd["w_q"], qd["s"]
+            x = rnd(B, K)
+            res = rnd(B, N) if epi == "residual" else None
+            what = f"{label} {what} [{B},{K}]x[{K},{N}]"
+            ref = ds.gemv_int8_plain(x, wq, sc, b, epi, res)
+            rep.check("gemv_int8", ds.gemv_int8(x, wq, sc, b, epi, res), ref,
+                      what)
+            refuse("gemv_int8", ds.gemv_int8(x, skip_col_tile(wq), sc, b,
+                                             epi, res), ref, what)
+            if epi == "residual":
+                # the res_scale residual x + (a + m) * rs, and the kept a
+                a2, rs = rnd(B, N), 1.0 / 79
+                for name, fn, fp, wts in (
+                        ("gemv_int8", ds.gemv_int8, ds.gemv_int8_plain,
+                         (wq, sc)),
+                        ("gemv_bf16", ds.gemv_bf16, ds.gemv_bf16_plain,
+                         (w.to(bf),))):
+                    rep.check(name, fn(x, *wts, b, "res_scale", res, a2, rs),
+                              fp(x, *wts, b, "res_scale", res, a2, rs),
+                              f"{what} res_scale")
+                    yk, ak = fn(x, *wts, b, "residual", res, keep=True)
+                    yp, ap = fp(x, *wts, b, "residual", res, keep=True)
+                    rep.check(name, yk, yp, f"{what} residual+kept")
+                    rep.check(name, ak, ap, f"{what} kept product")
+            wdq = (wq.float() * sc).to(bf)
+            sets = copies(lambda: (rnd(B, K), quantize_dense(
+                {"w": rnd(K, N, dtype=torch.float32, scale=0.02),
+                 "b": b})["w_q"], sc, b, epi, res), K * N)
+            time3("gemv_int8", what, ds.gemv_int8, ds.gemv_int8_plain,
+                  lambda x_, w_, b_: torch.addmm(b_, x_, w_), sets,
+                  [(a[0], wdq, b) for a in sets],
+                  K * N + N * 4 + B * K * 2 + N * 2
+                  + B * N * 2 * (2 if res is not None else 1),
+                  2 * B * K * N, main and what.startswith(f"{label} c_attn"))
+        # -- ring_attn_int8, every ring pattern of this prior
+        for f in (f for f in sh["funcs"] if f != 6):
+            shape = {0: (B, sh["n_ctx"], A), 1: (B, sh["bc"], A),
+                     2: (B, sh["bc"], sh["blocks"], A),
+                     3: (B, 2 * sh["bc"], A),
+                     7: (B, sh["prime"] or 1, A)}[f]
+            (kc, ks), (vc, vs) = int8_rows(*shape), int8_rows(*shape)
+            for t in attn_positions(sh, last_t[label]):
+                geom = ds.ring_geometry(f, t, shape, sh["bc"], sh["prime"])
+                qkv = rnd(B, 3 * A)
+                ca = [c.clone() for c in (kc, vc, ks, vs)]
+                cb = [c.clone() for c in (kc, vc, ks, vs)]
+                out = ds.ring_attn_int8(qkv, *ca, geom, H)
+                ref = ds.ring_attn_int8_plain(qkv, *cb, geom, H)
+                what = f"{label} f{f} t={t} rows {geom[2]}+{geom[3]}"
+                rep.check("ring_attn_int8", out, ref, what)
+                if not all(torch.equal(a, b) for a, b in zip(ca, cb)):
+                    raise AssertionError(f"ring_attn_int8 {what}: the "
+                                         f"written row or scale differs")
+                if t == last_t[label]:
+                    cc = [c.clone() for c in (kc, vc, ks, vs)]
+                    refuse("ring_attn_int8", ds.ring_attn_int8(
+                        skip_head(qkv, A, H), *cc, geom, H), ref, what)
+            if main and f == 3:
+                t = last_t[label]
+                n = ds.ring_geometry(f, t, shape, sh["bc"], sh["prime"])[3]
+                geom = (n, n - 1, 0, n)
+
+                def ring_set():
+                    (k_, ks_), (v_, vs_) = (int8_rows(B, n, A),
+                                            int8_rows(B, n, A))
+                    return (rnd(B, 3 * A), k_, v_, ks_, vs_, geom, H)
+                live = B * n * (A + 2) * 2
+                sets = copies(ring_set, live)
+                time3("ring_attn_int8", f"{label} f{f} t={t} ({n} rows)",
+                      ds.ring_attn_int8, ds.ring_attn_int8_plain,
+                      F.scaled_dot_product_attention, sets,
+                      [(heads(a[0][:, :A], H), heads(deq(a[1], a[3]), H),
+                        heads(deq(a[2], a[4]), H)) for a in sets],
+                      live + B * 3 * A * 2 + 2 * B * (A + 2) + B * A * 2,
+                      4 * B * n * A, True)
+        # -- cross_attn_decode (f6), bf16 and int8 encoder K/V
+        if sh["enc"]:
+            E = sh["enc"]
+            for int8 in (False, True):
+                def cross_set(int8=int8):
+                    if int8:
+                        (k_, ks_), (v_, vs_) = (int8_rows(B, E, A),
+                                                int8_rows(B, E, A))
+                        return (rnd(B, A), k_, v_, H, ks_, vs_)
+                    return (rnd(B, A), rnd(B, E, A), rnd(B, E, A), H, None,
+                            None)
+                q, k, v, _, ks, vs = cross_set()
+                what = f"{label} f6 {'int8' if int8 else 'bf16'} [{B},{E},{A}]"
+                ref = ds.cross_attn_decode_plain(q, k, v, H, ks, vs)
+                rep.check("cross_attn_decode",
+                          ds.cross_attn_decode(q, k, v, H, ks, vs), ref, what)
+                refuse("cross_attn_decode", ds.cross_attn_decode(
+                    skip_head(q, A, H), k, v, H, ks, vs), ref, what)
+                nbytes = (B * E * A * (1 if int8 else 2) * 2
+                          + (4 * B * E if int8 else 0) + 2 * B * A * 2)
+                sets = copies(cross_set, nbytes)
+                time3("cross_attn_decode", what, ds.cross_attn_decode,
+                      ds.cross_attn_decode_plain,
+                      F.scaled_dot_product_attention, sets,
+                      [(heads(a[0], H), heads(deq(a[1], a[4]), H),
+                        heads(deq(a[2], a[5]), H)) for a in sets],
+                      nbytes, 4 * B * E * A, main and int8)
+    # quantize_dense on the card against the host (numpy-free fp32 on the
+    # CPU), bit for bit, at the first label's c_attn shape
+    sh = next(iter(shapes.values()))
+    w = rnd(sh["S"], 3 * sh["A"], dtype=torch.float32, scale=0.02)
+    zb = torch.zeros(3 * sh["A"], device=device)
+    dev, host = (quantize_dense({"w": w, "b": zb}),
+                 quantize_dense({"w": w.cpu(), "b": zb.cpu()}))
+    if not (torch.equal(dev["w_q"].cpu(), host["w_q"])
+            and torch.equal(dev["s"].cpu(), host["s"])):
+        raise AssertionError("quantize_dense on the card differs from the "
+                             "host's")
+    log(f"  quantize_dense [{sh['S']},{3 * sh['A']}]: card == host, bit for "
+        f"bit")
+    for name, row in rep.rows.items():
+        row.update(timings.get(name, {}))
+    return {k: v for k, v in rep.rows.items()
+            if k in ("gemv_int8", "ring_attn_int8", "cross_attn_decode")}
 
 
 # ---------------------------------------------------------------------------
@@ -739,31 +990,58 @@ def check_adam(start, fp16, device, seed=7, time_it=True):
 # phase 3: one full-width decode step, kernel path against plain path
 # ---------------------------------------------------------------------------
 
-def check_stack_step(prior, B, device, gen):
+def check_stack_step(prior, B, device, gen, quantize=None):
+    """One full-width decode step of `prior`, the kernel path against the
+    plain path on twin caches after a one-block prefill (the f6 layers'
+    caches projected from a random encoder_kv; with quantize="int8" int8
+    weights and caches, converted after the prefill), then the step timed.
+    Returns the step's wall ms."""
     tr = prior.model.prior.transformer
     bc = tr.blocks[0].attn.block_ctx
-    dec = tr.prepare_decode_params(torch.bfloat16)
-    caches = tr.init_cache(B, torch.bfloat16, device)
+    dec = tr.prepare_decode_params(torch.bfloat16, quantize=quantize)
+    enc = None
+    if prior.model.prime_prior is not None:
+        enc = torch.randn((B, prior.n_tokens, tr.n_in), generator=gen,
+                          device=device).to(torch.bfloat16)
+    caches = tr.init_cache(B, torch.bfloat16, device, encoder_kv=enc,
+                           dec_params=dec)
     x0 = torch.randn((B, bc, tr.n_in), generator=gen, device=device)
-    tr.prefill_chunk(caches, x0, 0, 1, fp16=True)
+    tr.prefill_chunk(caches, x0, 0, 1, fp16=True, dec_params=dec)
+    if quantize:
+        tr.quantize_caches(caches)
     twin = [{k: c.clone() for k, c in cache.items()} for cache in caches]
     x = torch.randn((B, 1, tr.n_in), generator=gen, device=device)
     h_k = tr.decode_step(dec, caches, x, bc, fp16=True)
     h_p = tr.decode_step(dec, twin, x, bc, fp16=True, plain=True)
+    del twin
     lk, lp = prior.model.prior._logits(h_k), prior.model.prior._logits(h_p)
     e, rel = _err(lk, lp)
-    log(f"phase 3 level {prior.level}: {tr.n_depth} layers at t={bc}, max "
-        f"logit err {e:.3e} (rel {rel:.2e}, tol {STEP_TOL:g})")
+    mode = quantize or "bf16"
+    log(f"phase 3 level {prior.level} {mode}: {tr.n_depth} layers at t={bc},"
+        f" max logit err {e:.3e} (rel {rel:.2e}, tol {STEP_TOL:g})")
     if not (torch.isfinite(lk).all() and rel <= STEP_TOL):
-        raise AssertionError(f"level {prior.level}: kernel-path decode step "
-                             f"disagrees with the plain path ({e:.3e})")
+        raise AssertionError(f"level {prior.level} {mode}: kernel-path "
+                             f"decode step disagrees with the plain path "
+                             f"({e:.3e})")
     if x.is_cuda:
-        time_decode_step(tr, dec, caches, x, bc + 1, prior.level)
+        return time_decode_step(tr, dec, caches, x, bc + 1,
+                                f"{prior.level} {mode}", bool(quantize))
 
 
-def time_decode_step(tr, dec, caches, x, t, level, reps=20):
+def step_launches(tr, quantized, cache_int8):
+    """Kernel launches of one decode step of the whole stack."""
+    out = dict.fromkeys(ds.LAUNCHES, 0)
+    for d in range(tr.n_depth):
+        for k, v in ds.layer_launches(tr.attn_func(d), quantized,
+                                      cache_int8).items():
+            out[k] += v
+    return out
+
+
+def time_decode_step(tr, dec, caches, x, t, level, int8=False, reps=20):
     """Wall time of a kernel-path decode step (host clock, synchronised)
-    against the device time of its kernels (torch.profiler, summed)."""
+    against the device time of its kernels (torch.profiler, summed).
+    Returns the wall ms."""
     torch.cuda.synchronize()
     t0 = time.time()
     for i in range(reps):
@@ -777,12 +1055,13 @@ def time_decode_step(tr, dec, caches, x, t, level, reps=20):
         torch.cuda.synchronize()
     busy_ms = sum(getattr(e, "self_device_time_total", 0.0)
                   for e in p.key_averages()) / reps / 1e3
-    launches = tr.n_depth * sum(ds.LAUNCHES_PER_LAYER.values())
+    launches = sum(step_launches(tr, int8, int8).values())
     busy = (f"device busy {busy_ms:.2f} ms ({busy_ms / wall_ms:.0%})"
             if busy_ms > 0 else "device busy not measured (no profiler "
                                 "device time)")
     log(f"phase 3 level {level}: decode step {wall_ms:.2f} ms wall, {busy}, "
         f"{launches} launches = {wall_ms / launches * 1e3:.1f} us wall each")
+    return wall_ms
 
 
 # ---------------------------------------------------------------------------
@@ -813,9 +1092,10 @@ def decode_steps(priors, hps, sampling_kwargs):
 
 def cascade_layer_norms(priors, hps, sampling_kwargs):
     """LayerNorm kernel launches of the cascade: per window and batch, the
-    conditioner's LayerNorm (upsamplers) and two per layer for each whole
-    prefill chunk of the top's lyric prefix (chunk_size rounded to blocks;
-    the decode steps, the prefix's tail included, run ln_rows instead)."""
+    conditioner's LayerNorm (upsamplers), two per layer for each whole
+    prefill chunk of the 1b top's lyric prefix (chunk_size rounded to
+    blocks; the decode steps, the prefix's tail included, run ln_rows
+    instead), and the 5b_lyrics top's lyric encoder forward."""
     n = 0
     for level, prior in enumerate(priors):
         total = hps.sample_length // prior.raw_to_tokens
@@ -828,33 +1108,50 @@ def cascade_layer_norms(priors, hps, sampling_kwargs):
         if prior.single_enc_dec:
             bc = prior.model.prior.block_ctx
             chunks = prior.n_tokens // (max(1, skw["chunk_size"] // bc) * bc)
+        # a lyric encoder's forward: two per layer and prime_state_ln
+        enc = prior.model.prime_prior
         per_call = (int(prior.model.x_cond)
-                    + 2 * prior.model.prior.transformer.n_depth * chunks)
+                    + 2 * prior.model.prior.transformer.n_depth * chunks
+                    + (0 if enc is None else 2 * enc.transformer.n_depth + 1))
         n += windows * batches * per_call
     return {"layer_norm_fwd": n, "layer_norm_bwd": 0}
 
 
-def run_cascade(priors, hps, sampling_kwargs):
-    """ancestral_sample + checks. Returns a report dict: the decode
-    kernels' launches against their expected counts (launches, expected)
-    and the LayerNorm kernels' (ln_launches, ln_expected)."""
+def run_cascade(priors, hps, sampling_kwargs, int8=False):
+    """ancestral_sample + checks; int8=True samples in the int8 mode
+    (JUKEBOX_INT8_DECODE=1: int8 weights and ring caches in every prior).
+    Returns a report dict: the decode kernels' launches against their
+    expected counts (launches, expected) and the LayerNorm kernels'
+    (ln_launches, ln_expected)."""
     metas = [dict(artist="unknown", genre="unknown", lyrics=LYRICS,
                   total_length=hps.sample_length, offset=0)] * hps.n_samples
     labels = [p.labeller.get_batch_labels(metas) for p in priors]
     steps = decode_steps(priors, hps, sampling_kwargs)
-    depths = [p.model.prior.transformer.n_depth for p in priors]
-    expected = {k: sum(d * s for d, s in zip(depths, steps)) * per
-                for k, per in ds.LAUNCHES_PER_LAYER.items()}
+    expected = dict.fromkeys(ds.LAUNCHES, 0)
+    for prior, n in zip(priors, steps):
+        for k, v in step_launches(prior.model.prior.transformer, int8,
+                                  int8).items():
+            expected[k] += n * v
     cuda = next(priors[0].model.parameters()).is_cuda
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     ds.reset_launches()
     ln.reset_launches()
+    env = {k: os.environ.pop(k, None)
+           for k in ("JUKEBOX_INT8_DECODE", "JUKEBOX_INT8_CACHE")}
+    if int8:
+        os.environ["JUKEBOX_INT8_DECODE"] = "1"
     t0 = time.time()
-    zs = sample_mod.ancestral_sample(labels, sampling_kwargs, priors, hps)
-    if cuda:
-        torch.cuda.synchronize()
+    try:
+        zs = sample_mod.ancestral_sample(labels, sampling_kwargs, priors, hps)
+        if cuda:
+            torch.cuda.synchronize()
+    finally:
+        for k, v in env.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
     wall = time.time() - t0
     launches = dict(ds.LAUNCHES)
     report = dict(wall_s=wall, steps=steps, expected=expected,
@@ -1329,6 +1626,74 @@ def check_resume(seed, device, ckpt, n_more=2, wav_seconds=WAV_SECONDS,
                 launches=launches, expected=expected)
 
 
+def log_cascade(rep, label):
+    for level, lv in sorted(rep["levels"].items(), reverse=True):
+        log(f"  {label} level {level}: {lv['tokens']} codes, "
+            f"{lv['decode_steps']} decode steps in {lv['seconds']:.1f}s = "
+            f"{lv['tokens_per_s']:.1f} steps/s (x{N_SAMPLES} samples), "
+            f"audio rms {lv['audio_rms']:.3f}")
+    log(f"  {label} cascade {rep['wall_s']:.1f}s, vqvae decode "
+        f"{rep['vqvae_decode_s']:.1f}s, peak memory "
+        f"{rep['peak_mem_gb']:.1f} GB; launches {rep['launches']} == "
+        f"expected {rep['expected']}; LayerNorm {rep['ln_launches']} == "
+        f"expected {rep['ln_expected']}")
+
+
+def run_5b_lyrics(seed, device, gen):
+    """Phase 7: the 5b_lyrics cascade drawn from `seed` (the top at all 79
+    layers, the upsamplers at UPS_DEPTH): one full-width top decode step
+    kernel path against plain path in bf16 and in int8 and one int8
+    upsampler step (phase 3), then the ancestral cascade in the int8 mode;
+    then prior_5b at full width and one of its decode steps checked.
+    Returns the cascade's report."""
+    t = time.time()
+    hps = Hyperparams(n_samples=N_SAMPLES, sample_length=SAMPLE_LENGTH,
+                      sr=44100, hop_fraction=(1.0, 1.0, 0.125), seed=seed,
+                      name=tempfile.mkdtemp(prefix="jukebox_smoke_5b_"))
+    vqvae, priors = make_model("5b_lyrics", hps, device, prior_overrides=[
+        {"prior_depth": UPS_DEPTH}, {"prior_depth": UPS_DEPTH}, {}])
+    torch.cuda.synchronize()
+    top = priors[-1]
+    n_params = sum(p.numel() for p in top.model.parameters())
+    log(f"phase 7 models: 5b_lyrics drawn from seed {seed} in "
+        f"{time.time() - t:.1f}s, depths "
+        f"{[p.model.prior.transformer.n_depth for p in priors]}, top "
+        f"{n_params / 1e9:.3f} G parameters, "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB")
+    step_ms = {}
+    for prior, quantize in ((top, None), (top, "int8"), (priors[0], "int8")):
+        step_ms[(prior.level, quantize)] = check_stack_step(
+            prior, N_SAMPLES, device, gen, quantize)
+        torch.cuda.empty_cache()
+    skw = [dict(temp=TEMP, fp16=True, chunk_size=256,
+                max_batch_size=N_SAMPLES) for _ in priors]
+    log(f"phase 7 cascade: 5b_lyrics, int8 weights and caches "
+        f"(JUKEBOX_INT8_DECODE=1), {N_SAMPLES} x {hps.sample_length} "
+        f"samples, temp {TEMP}")
+    rep = run_cascade(priors, hps, skw, int8=True)
+    log_cascade(rep, "5b_lyrics")
+    lv = rep["levels"][2]
+    log(f"  5b_lyrics top: {lv['tokens_per_s']:.2f} decode steps/s "
+        f"(x{N_SAMPLES} samples, 79 layers, int8); phase 3 step walls "
+        f"bf16 {step_ms[(2, None)]:.2f} ms, int8 {step_ms[(2, 'int8')]:.2f} "
+        f"ms")
+    shutil.rmtree(hps.name, ignore_errors=True)
+    del vqvae, priors, top, prior
+    torch.cuda.empty_cache()
+    # the lyric-free prior_5b (order 2, no f6), built at full width: one
+    # decode step, kernel path against plain path
+    vq = make_vqvae(setup_hparams("vqvae", dict(
+        sample_length=SAMPLE_LENGTH, seed=seed)), device)
+    p5 = make_prior(setup_hparams("prior_5b", dict(seed=seed)), vq, device)
+    log(f"phase 7 prior_5b: {p5.model.prior.transformer.n_depth} layers, "
+        f"{sum(p.numel() for p in p5.model.parameters()) / 1e9:.3f} G "
+        f"parameters")
+    check_stack_step(p5, N_SAMPLES, device, gen)
+    del vq, p5
+    torch.cuda.empty_cache()
+    return rep
+
+
 # LayerNorm shapes of phase 2c: the top prior's training rows (n_ctx 6144
 # + 384 lyric tokens) in the training dtype, the upsamplers' width, and a
 # ragged shape
@@ -1371,11 +1736,18 @@ def main(argv=None):
     skw = [dict(temp=TEMP, fp16=True, chunk_size=256,
                 max_batch_size=N_SAMPLES) for _ in priors]
     top = priors[-1]
-    shapes = {"top": prior_shapes(top), "upsampler": prior_shapes(priors[0])}
+    shapes = {"top": prior_shapes(top), "upsampler": prior_shapes(priors[0]),
+              "5b top": preset_shapes("prior_5b_lyrics")}
     last_t = {"top": top.n_tokens + hps.sample_length // top.raw_to_tokens - 1,
-              "upsampler": priors[0].n_ctx - 1}
+              "upsampler": priors[0].n_ctx - 1,
+              "5b top": shapes["5b top"]["n_ctx"] - 1}
     log("phase 2 kernels against their plain versions")
     rows = check_kernels(shapes, N_SAMPLES, last_t, device, gen)
+    log("phase 2e int8 and cross-attention kernels against their plain "
+        "versions")
+    rows.update(check_int8_kernels(
+        {k: shapes[k] for k in ("5b top", "upsampler", "top")}, N_SAMPLES,
+        last_t, device, gen))
     log("phase 2b flash kernels against their plain versions")
     tr = top.model.prior.transformer
     rows.update(check_flash(1, tr.n_ctx, tr.blocks[0].attn.n_state,
@@ -1389,20 +1761,12 @@ def main(argv=None):
     log(f"phase 4 cascade: {N_SAMPLES} x {hps.sample_length} samples "
         f"({hps.sample_length / hps.sr:.2f} s), temp {TEMP}")
     rep = run_cascade(priors, hps, skw)
-    for level, lv in sorted(rep["levels"].items(), reverse=True):
-        log(f"  level {level}: {lv['tokens']} codes, {lv['decode_steps']} "
-            f"decode steps in {lv['seconds']:.1f}s = "
-            f"{lv['tokens_per_s']:.1f} steps/s (x{N_SAMPLES} samples), "
-            f"audio rms {lv['audio_rms']:.3f}")
-    log(f"  cascade {rep['wall_s']:.1f}s, vqvae decode "
-        f"{rep['vqvae_decode_s']:.1f}s, peak memory "
-        f"{rep['peak_mem_gb']:.1f} GB; launches {rep['launches']} == "
-        f"expected {rep['expected']}; LayerNorm {rep['ln_launches']} == "
-        f"expected {rep['ln_expected']}")
+    log_cascade(rep, "1b_lyrics")
 
     shutil.rmtree(hps.name, ignore_errors=True)
     del vqvae, priors, top, tr, prior
     torch.cuda.empty_cache()
+    rep5 = run_5b_lyrics(args.seed, device, gen)
 
     log("phase 2d Adam kernel against its plain version (on the top "
         "prior's parameters), then phase 5")
@@ -1445,7 +1809,8 @@ def main(argv=None):
     finally:
         shutil.rmtree(logdir, ignore_errors=True)
 
-    launches = dict(rep["launches"], **tr_rep["launches"],
+    launches = dict({k: rep["launches"][k] + rep5["launches"][k]
+                     for k in ds.LAUNCHES}, **tr_rep["launches"],
                     **tr_rep["kernel_launches"])
     sources = {k: f"jukebox_tpu_torch/csrc/{stem}.cu"
                for stem, mod in SOURCES.items() for k in mod.LAUNCHES}

@@ -1,33 +1,55 @@
-// Decode-step kernels for Hopper (sm_90a), bf16 activations and weights.
+// Decode-step kernels for Hopper (sm_90a): bf16 activations, bf16 or
+// weight-only int8 weights, bf16 or int8 ring caches.
 //
 // Replace: jukebox_tpu/ops/pallas/decode_stack.py::build_stack_decode
-// (the whole-stack Pallas megakernel, body `_kernel`). That kernel runs one
-// token through a segment of layers in one launch; here the same per-layer
-// arithmetic runs as three kernels launched per layer:
+// (the whole-stack Pallas megakernel, body `_kernel`), in all its options:
+// bf16 or `quantized` int8 weights, bf16 or `cache_quantized` int8 caches,
+// f6 cross-attention against a read-only encoder cache, every head width
+// (its sliced / masked / matmul head modes are Mosaic layouts of one piece
+// of math: here one block per (batch row, head) serves them all) and
+// `res_scale`. That kernel runs one token through a segment of layers in
+// one launch; here the same per-layer arithmetic runs as kernels launched
+// per layer:
 //
-//   ln_rows           LayerNorm of [B, S], fp32 statistics, eps given,
-//                     fp32 gain/bias, bf16 out. One block per row.
-//   gemv_bf16         y[B, N] = epilogue(x[B, K] @ W[K, N] + b), W bf16 in
-//                     the JAX (in, out) layout, fp32 accumulation. Serves
-//                     c_attn (qkv), c_proj (+ residual), mlp c_fc
-//                     (+ quick_gelu) and mlp c_proj (+ residual).
-//   ring_attn_decode  one token of one layer against its ring cache: write
-//                     the token's k, v into its slot, masked scores over the
-//                     live rows, fp32 softmax, bf16-rounded weights x V.
+//   ln_rows      LayerNorm of [B, S], fp32 statistics, eps given, fp32
+//                gain/bias, bf16 out. One block per row.
+//   gemv         y[B, N] = epilogue(x[B, K] @ W[K, N] (* s[N]) + b), W in
+//                the JAX (in, out) layout, fp32 accumulation: gemv_bf16
+//                (W bf16) and gemv_int8 (W int8 with one fp32 scale per
+//                output column, applied after the accumulation, as the
+//                megakernel's piece_mm does). Serves c_attn (qkv, or q
+//                alone in f6 layers), c_proj (+ residual), mlp c_fc
+//                (+ quick_gelu) and mlp c_proj (+ residual, or the
+//                res_scale residual x + (a + m) * res_scale).
+//   attn         one token of one layer against its cache, one block per
+//                (batch row, head): ring_attn_decode (bf16 ring: write the
+//                token's k, v into its slot, masked scores over the live
+//                rows, fp32 softmax, bf16-rounded weights x V);
+//                ring_attn_int8 (int8 ring with one bf16 scale per
+//                (batch row, slot): the new row is quantised on write,
+//                absmax over A / 127 floored at 1e-8, int8 = round(k * (1 /
+//                scale)), the bf16-rounded scale stored; on read the scales
+//                fold into the scores and the softmax weights, and the
+//                current token's own score and value use its unquantised
+//                k and v, as the megakernel's sc_new / w_ins patch does);
+//                cross_attn_decode (f6: a q-only query against the read-only
+//                encoder K/V, bf16 or int8, nothing written).
 //
 // What bounds them on an H100: a decode step at batch <= 16 does ~2 flops
-// per weight byte, far below the ~295 flop/byte ridge, so gemv_bf16 is bound
-// by streaming W from HBM (one read of every weight per token step). Its
-// design: each block owns a 16-column slice of N, every thread streams
-// 16-byte loads of W rows (two threads cover one 32-byte sector), x stays in
-// shared memory as fp32, and the K split inside the block is reduced with
-// warp shuffles and one shared-memory pass. ring_attn_decode is bound by the
-// cache rows it reads (the f0 dense layers read t+1 rows); it reads each live
-// row once for the scores and once for the values, one block per
-// (batch row, head), q/k/v taken from the qkv output with stride 3A (no
-// copy). ln_rows is bound by launch latency at these sizes. Fusing LN into
-// the GEMV, a persistent whole-stack kernel, CUDA graphs, wgmma/TMA and
-// int8 weights are later work.
+// per weight byte (~4 in int8), far below the ~295 flop/byte ridge, so the
+// GEMVs are bound by streaming W from HBM (one read of every weight per
+// token step; int8 halves the bytes). Their design: each block owns a slice
+// of N (16 columns in bf16, 32 in int8, so a row of the slice is one
+// 32-byte sector), every thread streams 8 weights per load, x stays in
+// shared memory as bf16, and the K split inside the block is reduced with
+// warp shuffles and one shared-memory pass. The attention kernels are bound
+// by the cache rows they read (the f0 dense layers read t+1 rows, f6 the
+// 512 encoder rows); they read each live row once for the scores and once
+// for the values, q (and the new k, v) taken from the GEMV output with its
+// row stride (no copy). ln_rows is bound by launch latency at these sizes.
+// Fusing LN into the GEMV, a persistent whole-stack kernel, CUDA graphs,
+// wgmma/TMA and splitting the attention rows over more blocks are later
+// work.
 //
 // Every entry point is a plain C function that launches on the given stream
 // and returns cudaGetLastError(); the Python wrappers
@@ -38,6 +60,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -119,30 +143,64 @@ ln_rows_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ g,
 }
 
 // ---------------------------------------------------------------------------
-// gemv_bf16: block = 256 threads over a 16-column slice of N. Thread
-// (tx = tid & 1, ky = tid >> 1) accumulates columns n0 + tx*8 .. +7 over the
-// rows k = ky, ky + 128, ... of W. BT is the batch bucket (>= B).
-// EPI: 0 none, 1 quick_gelu, 2 residual (out = res + bf16(y)).
+// gemv: block = 256 threads over a slice of 8 * TPR columns of N. Thread
+// (tx = tid % TPR, ky = tid / TPR) accumulates columns n0 + tx*8 .. +7 over
+// the rows k = ky, ky + 256 / TPR, ... of W, 8 weights per load (16 bytes of
+// bf16, TPR = 2; 8 bytes of int8, TPR = 4). BT is the batch bucket (>= B).
+// EPI: 0 none, 1 quick_gelu, 2 residual (out = res + bf16(y); aux, when
+// given, also receives bf16(y)), 3 res_scale (out = res + bf16(bf16(res2 +
+// bf16(y)) * bf16(rs)), the bf16 roundings of x + (a + m) * res_scale).
 // ---------------------------------------------------------------------------
-constexpr int kGemvCols = 16;
-constexpr int kGemvRows = kThreads / 2;
+template <typename WT>
+struct WLoad;
 
-template <int BT, int EPI>
+template <>
+struct WLoad<__nv_bfloat16> {
+  static constexpr int kTPR = 2;
+  static __device__ __forceinline__ void load8(const __nv_bfloat16* p,
+                                               float* wf) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* w2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(w2[j]);
+      wf[2 * j] = f.x;
+      wf[2 * j + 1] = f.y;
+    }
+  }
+};
+
+template <>
+struct WLoad<int8_t> {
+  static constexpr int kTPR = 4;
+  static __device__ __forceinline__ void load8(const int8_t* p, float* wf) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const int8_t* w1 = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) wf[j] = static_cast<float>(w1[j]);
+  }
+};
+
+template <typename WT, int BT, int EPI>
 __global__ void __launch_bounds__(kThreads)
-gemv_kernel(const __nv_bfloat16* __restrict__ x,
-            const __nv_bfloat16* __restrict__ W,
+gemv_kernel(const __nv_bfloat16* __restrict__ x, const WT* __restrict__ W,
+            const float* __restrict__ scale,
             const __nv_bfloat16* __restrict__ bias,
             const __nv_bfloat16* __restrict__ res,
-            __nv_bfloat16* __restrict__ y, int B, int K, int N) {
-  extern __shared__ float xs[];  // [B][K] fp32
-  __shared__ float red[kWarps][BT][kGemvCols];
-  for (int i = threadIdx.x; i < B * K; i += kThreads)
-    xs[i] = __bfloat162float(x[i]);
+            const __nv_bfloat16* __restrict__ res2,
+            __nv_bfloat16* __restrict__ aux, __nv_bfloat16* __restrict__ y,
+            int B, int K, int N, float rs) {
+  constexpr int TPR = WLoad<WT>::kTPR;
+  constexpr int COLS = 8 * TPR;
+  constexpr int ROWS = kThreads / TPR;
+  extern __shared__ __nv_bfloat16 xs[];  // [B][K]
+  __shared__ float red[kWarps][BT][COLS];
+  for (int i = threadIdx.x; i < B * K; i += kThreads) xs[i] = x[i];
   __syncthreads();
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int tx = threadIdx.x & 1, ky = threadIdx.x >> 1;
-  const int n0 = blockIdx.x * kGemvCols + tx * 8;
+  const int tx = threadIdx.x % TPR, ky = threadIdx.x / TPR;
+  const int n0 = blockIdx.x * COLS + tx * 8;
 
   float acc[BT][8];
 #pragma unroll
@@ -152,20 +210,13 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x,
 
   if (n0 < N) {
 #pragma unroll 4
-    for (int k = ky; k < K; k += kGemvRows) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(W + (size_t)k * N + n0);
-      const __nv_bfloat162* w2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+    for (int k = ky; k < K; k += ROWS) {
       float wf[8];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 f = __bfloat1622float2(w2[j]);
-        wf[2 * j] = f.x;
-        wf[2 * j + 1] = f.y;
-      }
+      WLoad<WT>::load8(W + (size_t)k * N + n0, wf);
 #pragma unroll
       for (int bb = 0; bb < BT; ++bb) {
         if (bb < B) {
-          const float xv = xs[bb * K + k];
+          const float xv = __bfloat162float(xs[bb * K + k]);
 #pragma unroll
           for (int j = 0; j < 8; ++j) acc[bb][j] = fmaf(xv, wf[j], acc[bb][j]);
         }
@@ -173,19 +224,18 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x,
     }
   }
 
-  // sum the 16 row-groups of each warp that share tx (lane bits 1..4)
+  // sum the row groups of each warp that share tx (lane bits above TPR)
 #pragma unroll
   for (int bb = 0; bb < BT; ++bb)
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       float v = acc[bb][j];
-      v += __shfl_xor_sync(0xffffffffu, v, 2);
-      v += __shfl_xor_sync(0xffffffffu, v, 4);
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
+#pragma unroll
+      for (int o = TPR; o < 32; o <<= 1)
+        v += __shfl_xor_sync(0xffffffffu, v, o);
       acc[bb][j] = v;
     }
-  if (lane < 2) {
+  if (lane < TPR) {
 #pragma unroll
     for (int bb = 0; bb < BT; ++bb)
 #pragma unroll
@@ -193,70 +243,134 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x,
   }
   __syncthreads();
 
-  for (int i = threadIdx.x; i < B * kGemvCols; i += kThreads) {
-    const int bb = i / kGemvCols, c = i % kGemvCols;
-    const int n = blockIdx.x * kGemvCols + c;
+  for (int i = threadIdx.x; i < B * COLS; i += kThreads) {
+    const int bb = i / COLS, c = i % COLS;
+    const int n = blockIdx.x * COLS + c;
     if (n >= N) continue;
     float s = 0.0f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) s += red[w][bb][c];
+    if constexpr (std::is_same<WT, int8_t>::value) s *= scale[n];
     s += __bfloat162float(bias[n]);
+    const size_t at = (size_t)bb * N + n;
     float out;
     if (EPI == 1) {
       out = s / (1.0f + expf(-1.702f * s));
     } else if (EPI == 2) {
-      out = __bfloat162float(res[(size_t)bb * N + n]) + bf16_round(s);
+      if (aux != nullptr) aux[at] = __float2bfloat16(s);
+      out = __bfloat162float(res[at]) + bf16_round(s);
+    } else if (EPI == 3) {
+      const float am = bf16_round(__bfloat162float(res2[at]) + bf16_round(s));
+      out = __bfloat162float(res[at]) + bf16_round(am * bf16_round(rs));
     } else {
       out = s;
     }
-    y[(size_t)bb * N + n] = __float2bfloat16(out);
+    y[at] = __float2bfloat16(out);
   }
 }
 
 // ---------------------------------------------------------------------------
-// ring_attn_decode: grid (B, H). Cache k/v [B, R, A] bf16; this token's
-// slot is row w (w < 0: no write); the live rows are r0 .. r0 + n - 1.
-// Dynamic shared memory: q [hd] | scores [n] | per-warp partial outputs
-// [kWarps][hd], all fp32.
+// attn_kernel: grid (B, H), one token of one layer. Caches k/v [B, R, A]
+// (CT = bf16, or int8 with bf16 row scales ks/vs [B, R]); q row b at
+// q + b * qstride; the token's new k, v (rows of the same stride) are
+// written to slot w (w < 0: no write, knew may be null); the live rows are
+// r0 .. r0 + n - 1. INT8: the slot row, when live, is read from the
+// unquantised knew / vnew instead of the cache. Dynamic shared memory:
+// q [hd] | scores [n] | per-warp partial outputs [kWarps][hd], all fp32.
 // ---------------------------------------------------------------------------
 constexpr int kMaxPairsPerLane = 8;  // hd <= 2 * 32 * 8 = 512
 
+template <bool INT8>
 __global__ void __launch_bounds__(kThreads)
-ring_attn_kernel(const __nv_bfloat16* __restrict__ qkv,
-                 __nv_bfloat16* __restrict__ kc, __nv_bfloat16* __restrict__ vc,
-                 __nv_bfloat16* __restrict__ o, int A, int H, int R, int r0,
-                 int n, int w, float scale) {
+attn_kernel(const __nv_bfloat16* __restrict__ q, int qstride,
+            const __nv_bfloat16* __restrict__ knew,
+            const __nv_bfloat16* __restrict__ vnew,
+            typename std::conditional<INT8, int8_t, __nv_bfloat16>::type* kc,
+            typename std::conditional<INT8, int8_t, __nv_bfloat16>::type* vc,
+            __nv_bfloat16* __restrict__ ks, __nv_bfloat16* __restrict__ vs,
+            __nv_bfloat16* __restrict__ o, int A, int H, int R, int r0, int n,
+            int w, float scale) {
+  using CT = typename std::conditional<INT8, int8_t, __nv_bfloat16>::type;
+  using CT2 = typename std::conditional<INT8, char2, __nv_bfloat162>::type;
   extern __shared__ float sm[];
   __shared__ float scratch[kWarps];
   const int b = blockIdx.x, h = blockIdx.y, hd = A / H, hd2 = hd / 2;
   float* qs = sm;
   float* sc = sm + hd;
   float* part = sc + n;
+  const int ins = (INT8 && w >= r0 && w < r0 + n) ? w - r0 : -1;
 
-  const __nv_bfloat16* row = qkv + (size_t)b * 3 * A + h * hd;
-  __nv_bfloat16* kb = kc + (size_t)b * R * A + h * hd;
-  __nv_bfloat16* vb = vc + (size_t)b * R * A + h * hd;
+  const __nv_bfloat16* qrow = q + (size_t)b * qstride + h * hd;
+  CT* kb = kc + (size_t)b * R * A + h * hd;
+  CT* vb = vc + (size_t)b * R * A + h * hd;
+  const __nv_bfloat16* kn = w >= 0 ? knew + (size_t)b * qstride : nullptr;
+  const __nv_bfloat16* vn = w >= 0 ? vnew + (size_t)b * qstride : nullptr;
 
-  for (int d = threadIdx.x; d < hd; d += kThreads) {
-    qs[d] = __bfloat162float(row[d]) * scale;
-    if (w >= 0) {
-      kb[(size_t)w * A + d] = row[A + d];
-      vb[(size_t)w * A + d] = row[2 * A + d];
+  for (int d = threadIdx.x; d < hd; d += kThreads)
+    qs[d] = __bfloat162float(qrow[d]) * scale;
+  if (w >= 0) {
+    if constexpr (INT8) {
+      // the row's scale is over all A columns (every head's block derives
+      // the same one); each block writes its own head's columns
+      float km = 0.0f, vm = 0.0f;
+      for (int i = threadIdx.x; i < A; i += kThreads) {
+        km = fmaxf(km, fabsf(__bfloat162float(kn[i])));
+        vm = fmaxf(vm, fabsf(__bfloat162float(vn[i])));
+      }
+      km = block_max(km, scratch);
+      vm = block_max(vm, scratch);
+      const float ksc = fmaxf(km / 127.0f, 1e-8f);
+      const float vsc = fmaxf(vm / 127.0f, 1e-8f);
+      const float kinv = 1.0f / ksc, vinv = 1.0f / vsc;
+      for (int d = threadIdx.x; d < hd; d += kThreads) {
+        const float kq = rintf(__bfloat162float(kn[h * hd + d]) * kinv);
+        const float vq = rintf(__bfloat162float(vn[h * hd + d]) * vinv);
+        kb[(size_t)w * A + d] = (CT)(int)fminf(fmaxf(kq, -127.0f), 127.0f);
+        vb[(size_t)w * A + d] = (CT)(int)fminf(fmaxf(vq, -127.0f), 127.0f);
+      }
+      if (h == 0 && threadIdx.x == 0) {
+        ks[(size_t)b * R + w] = __float2bfloat16(ksc);
+        vs[(size_t)b * R + w] = __float2bfloat16(vsc);
+      }
+    } else {
+      for (int d = threadIdx.x; d < hd; d += kThreads) {
+        kb[(size_t)w * A + d] = *reinterpret_cast<const CT*>(&kn[h * hd + d]);
+        vb[(size_t)w * A + d] = *reinterpret_cast<const CT*>(&vn[h * hd + d]);
+      }
     }
   }
   __syncthreads();  // the slot write is visible to the reads below
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int l = warp; l < n; l += kWarps) {
-    const __nv_bfloat162* kr =
-        reinterpret_cast<const __nv_bfloat162*>(kb + (size_t)(r0 + l) * A);
     float s = 0.0f;
-    for (int d2 = lane; d2 < hd2; d2 += 32) {
-      const float2 kf = __bfloat1622float2(kr[d2]);
-      s = fmaf(qs[2 * d2], kf.x * scale, s);
-      s = fmaf(qs[2 * d2 + 1], kf.y * scale, s);
+    if (l == ins) {
+      const __nv_bfloat162* kr =
+          reinterpret_cast<const __nv_bfloat162*>(kn + h * hd);
+      for (int d2 = lane; d2 < hd2; d2 += 32) {
+        const float2 kf = __bfloat1622float2(kr[d2]);
+        s = fmaf(qs[2 * d2], kf.x * scale, s);
+        s = fmaf(qs[2 * d2 + 1], kf.y * scale, s);
+      }
+      s = warp_sum(s);
+    } else {
+      const CT2* kr = reinterpret_cast<const CT2*>(kb + (size_t)(r0 + l) * A);
+      for (int d2 = lane; d2 < hd2; d2 += 32) {
+        if constexpr (INT8) {
+          const CT2 kv = kr[d2];
+          s = fmaf(qs[2 * d2], (float)kv.x, s);
+          s = fmaf(qs[2 * d2 + 1], (float)kv.y, s);
+        } else {
+          const float2 kf = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&kr[d2]));
+          s = fmaf(qs[2 * d2], kf.x * scale, s);
+          s = fmaf(qs[2 * d2 + 1], kf.y * scale, s);
+        }
+      }
+      s = warp_sum(s);
+      if constexpr (INT8)
+        s *= __bfloat162float(ks[(size_t)b * R + r0 + l]) * scale;
     }
-    s = warp_sum(s);
     if (lane == 0) sc[l] = s;
   }
   __syncthreads();
@@ -271,8 +385,13 @@ ring_attn_kernel(const __nv_bfloat16* __restrict__ qkv,
     sum += e;
   }
   sum = block_sum(sum, scratch);  // ends in __syncthreads: sc[] is complete
-  for (int l = threadIdx.x; l < n; l += kThreads)
-    sc[l] = bf16_round(sc[l] / sum);  // weights cast to bf16 before PV
+  for (int l = threadIdx.x; l < n; l += kThreads) {
+    const float p = sc[l] / sum;
+    if constexpr (INT8)  // fp32 weights; the V row scales fold into them
+      sc[l] = l == ins ? p : p * __bfloat162float(vs[(size_t)b * R + r0 + l]);
+    else
+      sc[l] = bf16_round(p);  // weights cast to bf16 before PV
+  }
   __syncthreads();
 
   float2 acc[kMaxPairsPerLane];
@@ -280,13 +399,24 @@ ring_attn_kernel(const __nv_bfloat16* __restrict__ qkv,
   for (int i = 0; i < kMaxPairsPerLane; ++i) acc[i] = make_float2(0.0f, 0.0f);
   for (int l = warp; l < n; l += kWarps) {
     const float p = sc[l];
-    const __nv_bfloat162* vr =
-        reinterpret_cast<const __nv_bfloat162*>(vb + (size_t)(r0 + l) * A);
+    const bool fresh = l == ins;
+    const __nv_bfloat162* vnr =
+        reinterpret_cast<const __nv_bfloat162*>(vn + h * hd);
+    const CT2* vr = reinterpret_cast<const CT2*>(vb + (size_t)(r0 + l) * A);
 #pragma unroll
     for (int i = 0; i < kMaxPairsPerLane; ++i) {
       const int d2 = lane + 32 * i;
       if (d2 < hd2) {
-        const float2 vf = __bfloat1622float2(vr[d2]);
+        float2 vf;
+        if (fresh) {
+          vf = __bfloat1622float2(vnr[d2]);
+        } else if constexpr (INT8) {
+          const CT2 vv = vr[d2];
+          vf = make_float2((float)vv.x, (float)vv.y);
+        } else {
+          vf = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&vr[d2]));
+        }
         acc[i].x = fmaf(p, vf.x, acc[i].x);
         acc[i].y = fmaf(p, vf.y, acc[i].y);
       }
@@ -311,37 +441,90 @@ ring_attn_kernel(const __nv_bfloat16* __restrict__ qkv,
 
 constexpr int kMaxDynSmem = 200 * 1024;
 
-template <int BT, int EPI>
-cudaError_t launch_gemv(const __nv_bfloat16* x, const __nv_bfloat16* W,
-                        const __nv_bfloat16* bias, const __nv_bfloat16* res,
-                        __nv_bfloat16* y, int B, int K, int N,
-                        cudaStream_t stream) {
+template <typename K>
+cudaError_t allow_dyn_smem(K kernel, bool* configured) {
+  if (*configured) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynSmem);
+  if (e == cudaSuccess) *configured = true;
+  return e;
+}
+
+// The pointers and sizes of one GEMV launch.
+template <typename WT>
+struct GemvArgs {
+  const __nv_bfloat16* x;
+  const WT* W;
+  const float* s;
+  const __nv_bfloat16* bias;
+  const __nv_bfloat16* res;
+  const __nv_bfloat16* res2;
+  __nv_bfloat16* aux;
+  __nv_bfloat16* y;
+  int B, K, N;
+  float rs;
+};
+
+template <typename WT, int BT, int EPI>
+cudaError_t launch_gemv(const GemvArgs<WT>& a, cudaStream_t stream) {
   static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        gemv_kernel<BT, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kMaxDynSmem);
-    if (e != cudaSuccess) return e;
-    configured = true;
-  }
-  const size_t smem = (size_t)B * K * sizeof(float);
-  const int grid = (N + kGemvCols - 1) / kGemvCols;
-  gemv_kernel<BT, EPI><<<grid, kThreads, smem, stream>>>(x, W, bias, res, y,
-                                                         B, K, N);
+  const cudaError_t e = allow_dyn_smem(gemv_kernel<WT, BT, EPI>, &configured);
+  if (e != cudaSuccess) return e;
+  constexpr int COLS = 8 * WLoad<WT>::kTPR;
+  const size_t smem = (size_t)a.B * a.K * sizeof(__nv_bfloat16);
+  const int grid = (a.N + COLS - 1) / COLS;
+  gemv_kernel<WT, BT, EPI><<<grid, kThreads, smem, stream>>>(
+      a.x, a.W, a.s, a.bias, a.res, a.res2, a.aux, a.y, a.B, a.K, a.N, a.rs);
   return cudaGetLastError();
 }
 
-template <int BT>
-cudaError_t launch_gemv_epi(int epi, const __nv_bfloat16* x,
-                            const __nv_bfloat16* W, const __nv_bfloat16* bias,
-                            const __nv_bfloat16* res, __nv_bfloat16* y, int B,
-                            int K, int N, cudaStream_t stream) {
+template <typename WT, int BT>
+cudaError_t launch_gemv_epi(int epi, const GemvArgs<WT>& a,
+                            cudaStream_t st) {
   switch (epi) {
-    case 0: return launch_gemv<BT, 0>(x, W, bias, res, y, B, K, N, stream);
-    case 1: return launch_gemv<BT, 1>(x, W, bias, res, y, B, K, N, stream);
-    case 2: return launch_gemv<BT, 2>(x, W, bias, res, y, B, K, N, stream);
+    case 0: return launch_gemv<WT, BT, 0>(a, st);
+    case 1: return launch_gemv<WT, BT, 1>(a, st);
+    case 2: return launch_gemv<WT, BT, 2>(a, st);
+    case 3: return launch_gemv<WT, BT, 3>(a, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <typename WT>
+int gemv_entry(const void* x, const void* W, const void* s, const void* bias,
+               const void* res, const void* res2, void* aux, void* y, int B,
+               int K, int N, int epi, float rs, void* stream) {
+  const GemvArgs<WT> a{(const __nv_bfloat16*)x, (const WT*)W,
+                       (const float*)s, (const __nv_bfloat16*)bias,
+                       (const __nv_bfloat16*)res, (const __nv_bfloat16*)res2,
+                       (__nv_bfloat16*)aux, (__nv_bfloat16*)y, B, K, N, rs};
+  const auto st = (cudaStream_t)stream;
+  cudaError_t e;
+  if (B <= 1) e = launch_gemv_epi<WT, 1>(epi, a, st);
+  else if (B <= 2) e = launch_gemv_epi<WT, 2>(epi, a, st);
+  else if (B <= 4) e = launch_gemv_epi<WT, 4>(epi, a, st);
+  else if (B <= 8) e = launch_gemv_epi<WT, 8>(epi, a, st);
+  else if (B <= 16) e = launch_gemv_epi<WT, 16>(epi, a, st);
+  else e = cudaErrorInvalidValue;
+  return (int)e;
+}
+
+template <bool INT8>
+int attn_entry(const void* q, int qstride, const void* knew, const void* vnew,
+               void* kc, void* vc, void* ks, void* vs, void* o, int B, int A,
+               int H, int R, int r0, int n, int w, float scale,
+               void* stream) {
+  using CT = typename std::conditional<INT8, int8_t, __nv_bfloat16>::type;
+  static bool configured = false;
+  const cudaError_t e = allow_dyn_smem(attn_kernel<INT8>, &configured);
+  if (e != cudaSuccess) return (int)e;
+  const int hd = A / H;
+  const size_t smem = (size_t)(hd + n + kWarps * hd) * sizeof(float);
+  attn_kernel<INT8><<<dim3(B, H), kThreads, smem, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, qstride, (const __nv_bfloat16*)knew,
+      (const __nv_bfloat16*)vnew, (CT*)kc, (CT*)vc, (__nv_bfloat16*)ks,
+      (__nv_bfloat16*)vs, (__nv_bfloat16*)o, A, H, R, r0, n, w, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -360,41 +543,31 @@ int jk_ln_rows(const void* x, const void* g, const void* b, void* y, int rows,
 }
 
 int jk_gemv_bf16(const void* x, const void* W, const void* bias,
-                 const void* res, void* y, int B, int K, int N, int epi,
-                 void* stream) {
-  const auto* xp = (const __nv_bfloat16*)x;
-  const auto* wp = (const __nv_bfloat16*)W;
-  const auto* bp = (const __nv_bfloat16*)bias;
-  const auto* rp = (const __nv_bfloat16*)res;
-  auto* yp = (__nv_bfloat16*)y;
-  const auto s = (cudaStream_t)stream;
-  cudaError_t e;
-  if (B <= 1) e = launch_gemv_epi<1>(epi, xp, wp, bp, rp, yp, B, K, N, s);
-  else if (B <= 2) e = launch_gemv_epi<2>(epi, xp, wp, bp, rp, yp, B, K, N, s);
-  else if (B <= 4) e = launch_gemv_epi<4>(epi, xp, wp, bp, rp, yp, B, K, N, s);
-  else if (B <= 8) e = launch_gemv_epi<8>(epi, xp, wp, bp, rp, yp, B, K, N, s);
-  else if (B <= 16) e = launch_gemv_epi<16>(epi, xp, wp, bp, rp, yp, B, K, N, s);
-  else e = cudaErrorInvalidValue;
-  return (int)e;
+                 const void* res, const void* res2, void* aux, void* y, int B,
+                 int K, int N, int epi, float rs, void* stream) {
+  return gemv_entry<__nv_bfloat16>(x, W, nullptr, bias, res, res2, aux, y, B,
+                                   K, N, epi, rs, stream);
 }
 
-int jk_ring_attn_decode(const void* qkv, void* kc, void* vc, void* o, int B,
-                        int A, int H, int R, int r0, int n, int w, float scale,
-                        void* stream) {
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ring_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kMaxDynSmem);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
-  }
-  const int hd = A / H;
-  const size_t smem = (size_t)(hd + n + kWarps * hd) * sizeof(float);
-  ring_attn_kernel<<<dim3(B, H), kThreads, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)qkv, (__nv_bfloat16*)kc, (__nv_bfloat16*)vc,
-      (__nv_bfloat16*)o, A, H, R, r0, n, w, scale);
-  return (int)cudaGetLastError();
+int jk_gemv_int8(const void* x, const void* W, const void* s,
+                 const void* bias, const void* res, const void* res2,
+                 void* aux, void* y, int B, int K, int N, int epi, float rs,
+                 void* stream) {
+  return gemv_entry<int8_t>(x, W, s, bias, res, res2, aux, y, B, K, N, epi,
+                            rs, stream);
+}
+
+// The attention kernels: int8 == 0 bf16 caches (ks, vs unused), 1 int8
+// caches with bf16 row scales. knew / vnew may be null when w < 0.
+int jk_attn_decode(const void* q, int qstride, const void* knew,
+                   const void* vnew, void* kc, void* vc, void* ks, void* vs,
+                   void* o, int B, int A, int H, int R, int r0, int n, int w,
+                   float scale, int int8, void* stream) {
+  if (int8)
+    return attn_entry<true>(q, qstride, knew, vnew, kc, vc, ks, vs, o, B, A,
+                            H, R, r0, n, w, scale, stream);
+  return attn_entry<false>(q, qstride, knew, vnew, kc, vc, ks, vs, o, B, A, H,
+                           R, r0, n, w, scale, stream);
 }
 
 }  // extern "C"

@@ -1,8 +1,9 @@
 """Hyperparameter registry of the PyTorch port: the config surface of
 jukebox_tpu/hparams.py (set names, keys, defaults, strict merge), holding
-only the presets of the 1b_lyrics cascade (vqvae, upsampler_level_0/1,
-prior_1b_lyrics), the training sets all_fp16 and cpu_ema, and the empty
-`teeny` set that tests build on.
+only the presets of the 1b_lyrics, 5b and 5b_lyrics cascades (vqvae,
+upsampler_level_0/1, prior_1b_lyrics, prior_5b, prior_5b_lyrics), the
+training sets all_fp16 and cpu_ema, and the empty `teeny` set that tests
+build on.
 """
 
 
@@ -112,6 +113,60 @@ _register(
     cond_res_scale=True,
     restore_prior=REMOTE_PREFIX + "jukebox/models/5b/prior_level_1.pth.tar",
     **_upsamplers_common,
+)
+
+_register(
+    "prior_5b",
+    level=2,
+    n_ctx=8192,
+    prior_width=4800,
+    prior_depth=72,
+    heads=8,
+    attn_order=2,
+    blocks=128,
+    init_scale=0.1,
+    c_res=1,
+    beta2=0.925,
+    min_duration=60.0,
+    max_duration=600.0,
+    use_tokens=False,
+    n_tokens=0,
+    prime_loss_fraction=0.0,
+    merged_decoder=True,
+    restore_prior=REMOTE_PREFIX + "jukebox/models/5b/prior_level_2.pth.tar",
+    fp16_params=True,
+    **_labels_v2,
+)
+
+_register(
+    "prior_5b_lyrics",
+    level=2,
+    n_ctx=8192,
+    prior_width=4800,
+    prior_depth=79,
+    heads=8,
+    attn_order=10,
+    blocks=128,
+    init_scale=0.1,
+    c_res=1,
+    prime_width=1280,
+    prime_depth=18,
+    prime_heads=4,
+    prime_attn_order=2,
+    prime_blocks=32,
+    prime_init_scale=0.7,
+    prime_c_res=1,
+    min_duration=23.8,
+    max_duration=600.0,
+    use_tokens=True,
+    n_tokens=512,
+    prime_loss_fraction=0.4,
+    merged_decoder=True,
+    restore_prior=REMOTE_PREFIX + "jukebox/models/5b_lyrics/prior_level_2.pth.tar",
+    fp16_params=True,
+    alignment_layer=68,
+    alignment_head=2,
+    **_labels_v2,
 )
 
 _register(

@@ -1,10 +1,12 @@
 """Factored (sparse) attention of the PyTorch port (counterpart of
 jukebox_tpu/models/attention.py), for the attention patterns of the
-1b_lyrics cascade:
+1b_lyrics, 5b and 5b_lyrics cascades:
     0 dense      attend to all previous positions
     1 row        attend within your block of the [blocks, block_ctx] grid
     2 column     attend to the same column of previous blocks
     3 prev-row   attend to the whole previous block
+    6 cross      attend to the lyric encoder's K/V (q-only c_attn, the
+                 encoder projected by c_enc_kv)
     7 prime      attend to the first _prime_len positions (lyric prefix)
 
 Three modes: the full-context forward (also the training forward, with
@@ -17,8 +19,12 @@ dense_attn, as the JAX package leaves them to XLA. Caches keep the standard
 layout [B, slots, A] with the JAX package's per-pattern retention:
     f0 [B, n_ctx, A]   f1 [B, bc, A]   f2 [B, bc, blocks, A]
     f3 [B, 2bc, A]     f7 [B, _prime_len, A]
-and are updated in place (the JAX functions return new caches instead).
-Positions t are host ints: the decode loop runs in Python.
+and are updated in place (the JAX functions return new caches instead);
+an f6 layer's cache is the encoder K/V [B, encoder_dims, A], projected once
+per window by init_cache and only read. Positions t are host ints: the
+decode loop runs in Python. prefill_chunk takes the layer's staged decode
+params (Transformer.prepare_decode_params) when they are int8, and then
+runs its products as the JAX package's int8 dense does.
 """
 
 import math
@@ -26,7 +32,7 @@ import math
 import torch
 import torch.nn as nn
 
-from jukebox_tpu_torch.ops.core import Dense, dropout, fold_seed
+from jukebox_tpu_torch.ops.core import Dense, dense_any, dropout, fold_seed
 from jukebox_tpu_torch.ops.flash_attention import flash_dense_attn
 
 NEG = -1e9
@@ -73,18 +79,25 @@ def dense_attn(q, k, v, n_head, mask=None, dropout_rate=0.0,
 class FactoredAttention(nn.Module):
     def __init__(self, n_in, n_ctx, n_state, n_head, attn_func=0, blocks=None,
                  prime_len=None, mask=False, zero_out=False, init_scale=1.0,
-                 attn_dropout=0.0, resid_dropout=0.0, device=None):
+                 attn_dropout=0.0, resid_dropout=0.0, encoder_dims=None,
+                 device=None):
         super().__init__()
-        if attn_func not in (0, 1, 2, 3, 7):
+        if attn_func not in (0, 1, 2, 3, 6, 7):
             raise NotImplementedError(f"attn_func {attn_func} is not ported")
         assert n_state % n_head == 0
         if blocks is not None:
             assert n_ctx % blocks == 0
         self.n_ctx, self.n_state, self.n_head = n_ctx, n_state, n_head
         self.attn_func, self.blocks, self.prime_len = attn_func, blocks, prime_len
+        self.encoder_dims = encoder_dims
         self.mask = mask
         self.attn_dropout, self.resid_dropout = attn_dropout, resid_dropout
-        self.c_attn = Dense(n_in, n_state * 3, init_scale, device=device)
+        if attn_func == 6:
+            self.c_attn = Dense(n_in, n_state, init_scale, device=device)
+            self.c_enc_kv = Dense(n_in, n_state * 2, init_scale,
+                                  device=device)
+        else:
+            self.c_attn = Dense(n_in, n_state * 3, init_scale, device=device)
         self.c_proj = Dense(n_state, n_in, init_scale, zero_out, device=device)
 
     @property
@@ -96,16 +109,26 @@ class FactoredAttention(nn.Module):
         """Block-aligned prime cache length (factored_attention.py:303-308)."""
         return (self.prime_len // self.blocks + 1) * self.blocks
 
-    def _qkv(self, x):
-        return self.c_attn(x).chunk(3, dim=2)
+    @staticmethod
+    def _lin(mod, x, p):
+        """mod(x), or the int8 dense of the staged dict p when given."""
+        return mod(x) if p is None else dense_any(x, p)
+
+    def _qkv(self, x, encoder_kv=None, p=None):
+        if self.attn_func == 6:
+            q = self._lin(self.c_attn, x, p)
+            k, v = self.c_enc_kv(encoder_kv.to(x.dtype)).chunk(2, dim=2)
+            return q, k, v
+        return self._lin(self.c_attn, x, p).chunk(3, dim=2)
 
     # -- full-context forward -------------------------------------------------
 
-    def forward(self, x, seed=None, plain=False):
-        """x [B, L, n_in] with L == n_ctx -> [B, L, n_in]. seed (an int)
-        turns on the training dropouts; plain=True runs the flash layers'
-        plain versions (the reference a kernel run is held against)."""
-        q, k, v = self._qkv(x)
+    def forward(self, x, seed=None, plain=False, encoder_kv=None):
+        """x [B, L, n_in] with L == n_ctx -> [B, L, n_in]; encoder_kv
+        [B, encoder_dims, n_in] feeds the f6 layers. seed (an int) turns on
+        the training dropouts; plain=True runs the flash layers' plain
+        versions (the reference a kernel run is held against)."""
+        q, k, v = self._qkv(x, encoder_kv)
         s_attn, s_resid = ((fold_seed(seed, 0), fold_seed(seed, 1))
                            if seed is not None else (None, None))
         a = self._pattern_full(q, k, v, s_attn, plain)
@@ -154,6 +177,8 @@ class FactoredAttention(nn.Module):
                                  dim=1).reshape(B * nb, bc, S)
             a = attn(q.reshape(B * nb, bc, S), shift(k), shift(v), None)
             return a.reshape(B, L, S)
+        if f == 6:
+            return attn(q, k, v, None)
         pl_ = self._prime_len  # f == 7
         return attn(q, k[:, :pl_], v[:, :pl_], "causal" if self.mask else None)
 
@@ -169,9 +194,18 @@ class FactoredAttention(nn.Module):
             return (bs, self.block_ctx, self.blocks, A)
         if f == 3:
             return (bs, 2 * self.block_ctx, A)
+        if f == 6:
+            return (bs, self.encoder_dims, A)
         return (bs, self._prime_len, A)
 
-    def init_cache(self, bs, dtype, device):
+    def init_cache(self, bs, dtype, device, encoder_kv=None, enc_kv=None):
+        """Zero ring caches; an f6 layer's holds encoder_kv projected by
+        c_enc_kv (or by enc_kv, its staged decode form) in `dtype`."""
+        if self.attn_func == 6:
+            kv = (self.c_enc_kv(encoder_kv.to(dtype)) if enc_kv is None
+                  else dense_any(encoder_kv.to(dtype), enc_kv))
+            k, v = kv.chunk(2, dim=2)
+            return {"k": k.contiguous(), "v": v.contiguous()}
         shape = self.cache_shape(bs)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -198,6 +232,10 @@ class FactoredAttention(nn.Module):
     def decode_step(self, cache, x, t):
         """One token x [B, 1, n_in] at position t -> [B, 1, n_in]."""
         f = self.attn_func
+        if f == 6:
+            q = self.c_attn(x)
+            return self.c_proj(dense_attn(q, cache["k"], cache["v"],
+                                          self.n_head))
         q, k, v = self._qkv(x)
         self._write_token(cache, k, v, t)
         kc, vc = cache["k"], cache["v"]
@@ -225,11 +263,20 @@ class FactoredAttention(nn.Module):
                     <= min(t, pl_ - 1)).float()[None]
         return self.c_proj(dense_attn(q, kc, vc, self.n_head, mask))
 
-    def prefill_chunk(self, cache, x, t0, n_blocks):
+    def prefill_chunk(self, cache, x, t0, n_blocks, p=None):
         """Prefill a block-aligned chunk x [B, C, n_in] starting at t0 (a
-        multiple of block_ctx; any C for f0/f7) -> [B, C, n_in]."""
+        multiple of block_ctx; any C for f0/f6/f7) -> [B, C, n_in]. p: the
+        layer's int8 staged decode params, whose products then replace the
+        module's."""
         f = self.attn_func
-        q, k, v = self._qkv(x)
+
+        def proj(a):
+            return self._lin(self.c_proj, a, None if p is None else p["proj"])
+        qp = None if p is None else p["qkv"]
+        if f == 6:
+            q = self._lin(self.c_attn, x, qp)
+            return proj(dense_attn(q, cache["k"], cache["v"], self.n_head))
+        q, k, v = self._qkv(x, p=qp)
         B, C, S = v.shape
         dev = x.device
         if f == 0:
@@ -239,7 +286,7 @@ class FactoredAttention(nn.Module):
             mask = (torch.arange(L, device=dev)[None, :]
                     <= (t0 + torch.arange(C, device=dev))[:, None]).float()
             a = dense_attn(q, cache["k"], cache["v"], self.n_head, mask)
-            return self.c_proj(a)
+            return proj(a)
         bc = self.block_ctx
         if f == 1:
             assert C == n_blocks * bc
@@ -248,7 +295,7 @@ class FactoredAttention(nn.Module):
                            causal_mask(bc, bc, dev))
             cache["k"].copy_(k[:, -bc:])
             cache["v"].copy_(v[:, -bc:])
-            return self.c_proj(a.reshape(B, C, S))
+            return proj(a.reshape(B, C, S))
         if f == 2:
             assert C == n_blocks * bc
             b0 = t0 // bc
@@ -264,7 +311,7 @@ class FactoredAttention(nn.Module):
                            cache["v"].reshape(B * bc, self.blocks, S),
                            self.n_head, mask)
             a = a.reshape(B, bc, n_blocks, S).transpose(1, 2).reshape(B, C, S)
-            return self.c_proj(a)
+            return proj(a)
         if f == 3:
             assert C == n_blocks * bc
             b0 = t0 // bc
@@ -282,7 +329,7 @@ class FactoredAttention(nn.Module):
                 ring = (b0 + n_blocks - 1 - back) % 2
                 cache["k"][:, ring * bc:(ring + 1) * bc] = kb[:, -1 - back]
                 cache["v"][:, ring * bc:(ring + 1) * bc] = vb[:, -1 - back]
-            return self.c_proj(a.reshape(B, C, S))
+            return proj(a.reshape(B, C, S))
         pl_ = self._prime_len  # f == 7
         pos = t0 + torch.arange(C, device=dev)
         n_in = max(0, min(C, pl_ - t0))  # chunk rows inside the prime cache
@@ -291,5 +338,5 @@ class FactoredAttention(nn.Module):
         mask = (torch.arange(pl_, device=dev)[None, :]
                 <= torch.clamp(pos, max=pl_ - 1)[:, None]).float()
         a = dense_attn(q, cache["k"], cache["v"], self.n_head, mask)
-        return self.c_proj(a)
+        return proj(a)
 

@@ -24,24 +24,33 @@ def cross_entropy_bpd(logits, targets):
 
 
 class ConditionalAutoregressive2D(nn.Module):
-    """The priors of the 1b_lyrics cascade, with x_emb shared as the output
-    projection: y-conditioned (the start token is the label embedding) or,
-    with y_cond=False, starting from a learnt start_token; x-conditioned by
+    """The priors of the 1b_lyrics, 5b and 5b_lyrics cascades:
+    y-conditioned (the start token is the label embedding) or, with
+    y_cond=False, starting from a learnt start_token; x-conditioned by
     x_cond (the codes of the level above, or the top's timing signal),
-    zeros when a caller passes none."""
+    zeros when a caller passes none. x_emb is shared as the output
+    projection, except with merged_decoder (the 5b priors): then x_out is
+    its own and x_cond is not added after the transformer. only_encode
+    (the 5b_lyrics lyric encoder) returns the activations instead of
+    logits; encoder_dims > 0 gives the f6 layers an encoder_kv to read."""
 
     def __init__(self, input_shape, bins, width=128, depth=2, heads=1,
                  attn_order=0, blocks=None, m_attn=0.25, m_mlp=1.0,
                  zero_out=False, init_scale=1.0, res_scale=False,
                  prime_len=None, mask=True, attn_dropout=0.0,
                  resid_dropout=0.0, emb_dropout=0.0, checkpoint_res=0,
-                 y_cond=True, device=None):
+                 y_cond=True, encoder_dims=0, only_encode=False,
+                 merged_decoder=False, device=None):
         super().__init__()
         self.input_shape, self.bins, self.width = tuple(input_shape), bins, width
         self.input_dims = int(np.prod(self.input_shape))
         self.blocks = blocks
         self.prime_len, self.emb_dropout = prime_len, emb_dropout
         self.y_cond, self.init_scale = y_cond, init_scale
+        self.only_encode = only_encode
+        # merged 5b checkpoints depend on both (autoregressive.py:87-93)
+        self.add_cond_after_transformer = not merged_decoder
+        self.share_x_emb_x_out = not merged_decoder
         if not y_cond:
             self.start_token = nn.Parameter(
                 torch.empty((1, width), device=device), requires_grad=False)
@@ -51,7 +60,11 @@ class ConditionalAutoregressive2D(nn.Module):
         self.transformer = Transformer(
             width, self.input_dims, heads, depth, attn_order, blocks,
             prime_len, m_attn, m_mlp, mask, zero_out, init_scale, res_scale,
-            attn_dropout, resid_dropout, checkpoint_res, device=device)
+            attn_dropout, resid_dropout, checkpoint_res,
+            encoder_dims or None, device=device)
+        if not only_encode and not self.share_x_emb_x_out:
+            self.x_out = Table((width, bins), 0.0, name="w",
+                               bound=1.0 / np.sqrt(width), device=device)
 
     def init_(self, gen):
         if not self.y_cond:
@@ -72,16 +85,20 @@ class ConditionalAutoregressive2D(nn.Module):
         return self.input_dims // self.blocks if self.blocks else None
 
     def _logits(self, h):
-        return torch.matmul(h.float(), self.x_emb.table.float().t())
+        w = (self.x_emb.table.t() if self.share_x_emb_x_out
+             else self.x_out.table)
+        return torch.matmul(h.float(), w.float())
 
     # -- teacher-forced forward -------------------------------------------------
 
     def forward(self, x, x_cond, y_cond, fp16=False, get_sep_loss=False,
-                seed=None, plain=False):
+                seed=None, plain=False, encoder_kv=None):
         """x [N, D] tokens -> (loss in bits per dim, logits [N, D, bins]);
         with get_sep_loss the loss is (prime_loss, gen_loss), split at
-        prime_len. seed (an int) turns on the training dropouts; plain=True
-        runs the flash layers' plain versions."""
+        prime_len; only_encode returns the activations [N, D, width]
+        alone. encoder_kv feeds the f6 layers. seed (an int) turns on the
+        training dropouts; plain=True runs the flash layers' plain
+        versions."""
         N, D = x.shape
         assert D == self.input_dims
         if x_cond is None:
@@ -97,7 +114,12 @@ class ConditionalAutoregressive2D(nn.Module):
                           fold_seed(seed, 1))
             t_seed = fold_seed(seed, 2)
         h = emb + pos + x_cond
-        h = self.transformer(h, fp16=fp16, seed=t_seed, plain=plain) + x_cond
+        h = self.transformer(h, fp16=fp16, seed=t_seed, plain=plain,
+                             encoder_kv=encoder_kv)
+        if self.add_cond_after_transformer:
+            h = h + x_cond
+        if self.only_encode:
+            return h
         logits = self._logits(h)
         if get_sep_loss:
             P = self.prime_len
@@ -123,7 +145,9 @@ class ConditionalAutoregressive2D(nn.Module):
                     n):
         h, cond = self._emb_at(t, x_tok, x_cond, y_cond, n)
         h = self.transformer.decode_step(dec_params, caches, h, t, fp16=fp16)
-        return self._logits(h + cond)
+        if self.add_cond_after_transformer:
+            h = h + cond
+        return self._logits(h)
 
     @staticmethod
     def _sample_tok(logits, gen, temp, top_k, top_p):
@@ -151,16 +175,21 @@ class ConditionalAutoregressive2D(nn.Module):
             toks.append(x_tok)
         return torch.cat(toks, dim=1), x_tok
 
-    def init_decode_caches(self, n_samples, device, fp16=False):
+    def init_decode_caches(self, n_samples, device, fp16=False,
+                           encoder_kv=None, dec_params=None, int8=False):
         dtype = torch.bfloat16 if fp16 else torch.float32
-        return self.transformer.init_cache(n_samples, dtype, device)
+        return self.transformer.init_cache(n_samples, dtype, device,
+                                           encoder_kv, dec_params, int8)
 
     @torch.no_grad()
     def prefill(self, caches, x_prime, x_cond, y_cond, fp16=False,
-                chunk_size=None, dec_params=None):
+                chunk_size=None, dec_params=None, int8=False):
         """Fill the caches with positions [0, P) of x_prime [N, P]: whole
-        block-aligned chunks through prefill_chunk, the tail token by token
-        through decode_step. Returns the last token [N, 1]."""
+        block-aligned chunks through prefill_chunk (into bf16 or fp32
+        caches), the tail token by token through decode_step. int8=True
+        converts the caches to int8 after the chunks (the prefill -> decode
+        boundary), so the tail decodes against int8 caches. Returns the last
+        token [N, 1]."""
         N, P = x_prime.shape
         dtype = torch.bfloat16 if fp16 else torch.float32
         emb_in = torch.cat([self.start_emb(y_cond, N).to(dtype),
@@ -176,7 +205,9 @@ class ConditionalAutoregressive2D(nn.Module):
         for i in range(n_chunks):
             self.transformer.prefill_chunk(
                 caches, h_in[:, i * chunk:(i + 1) * chunk], i * chunk,
-                n_chunk_blocks, fp16=fp16)
+                n_chunk_blocks, fp16=fp16, dec_params=dec_params)
+        if int8:
+            self.transformer.quantize_caches(caches)
         for t in range(n_chunks * chunk, P):
             self.transformer.decode_step(dec_params, caches, h_in[:, t:t + 1],
                                          t, fp16=fp16)

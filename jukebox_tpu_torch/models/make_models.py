@@ -28,6 +28,9 @@ from jukebox_tpu_torch.utils.convert import (from_jax_params, named_to_tree,
                                              vqvae_tree)
 
 MODELS = {
+    "5b": ("vqvae", "upsampler_level_0", "upsampler_level_1", "prior_5b"),
+    "5b_lyrics": ("vqvae", "upsampler_level_0", "upsampler_level_1",
+                  "prior_5b_lyrics"),
     "1b_lyrics": ("vqvae", "upsampler_level_0", "upsampler_level_1",
                   "prior_1b_lyrics"),
 }
@@ -35,7 +38,7 @@ MODELS = {
 
 # prior keys the port does not build, with the value that builds nothing
 _UNPORTED_PRIOR_KEYS = dict(spread=None, pos_init=False, copy_input=False,
-                            merged_decoder=False)
+                            prime_spread=None, prime_pos_init=False)
 # hps entries a checkpoint does not keep (jukebox_tpu save_model_checkpoint)
 _UNSAVED_HPS = ("metadata_v2", "metadata_v3", "alignments", "lyric_processor",
                 "midi_processor", "bandwidth")
@@ -111,12 +114,14 @@ def save_model_checkpoint(logdir, name, runtime, opt_state, step, hps,
                           params=None):
     """{logdir}/checkpoint_{name}.jkb with hps, params (the model's, or
     `params` as {name: tensor or array}, e.g. an EMA shadow), the JAX
-    layout of opt_state and step. Returns the path."""
+    layout of opt_state (None: no optimizer state, a sampling checkpoint)
+    and step. Returns the path."""
     save_hps = {k: v for k, v in dict(hps).items() if k not in _UNSAVED_HPS}
     tree = (to_jax_params(runtime.model) if params is None
             else named_to_tree(runtime.model, params))
-    payload = dict(hps=save_hps, params=tree, state=None,
-                   opt=opt_state_to_jax(runtime.model, opt_state), step=step)
+    opt = (None if opt_state is None
+           else opt_state_to_jax(runtime.model, opt_state))
+    payload = dict(hps=save_hps, params=tree, state=None, opt=opt, step=step)
     path = f"{logdir}/checkpoint_{name}.jkb"
     save_checkpoint(path, payload)
     return path
@@ -177,6 +182,18 @@ def make_prior(hps, vqvae, device="cuda"):
     prime_kwargs = dict(use_tokens=hps.use_tokens, n_tokens=hps.n_tokens,
                         bins=hps.n_vocab,
                         prime_loss_fraction=hps.prime_loss_fraction)
+    if hps.use_tokens and not hps.single_enc_dec:
+        # the lyric encoder (jukebox_tpu make_models.py:824-840)
+        prime_kwargs.update(
+            width=hps.prime_width, depth=hps.prime_depth,
+            heads=hps.prime_heads, attn_order=hps.prime_attn_order,
+            blocks=hps.prime_blocks, zero_out=hps.prime_zero_out,
+            res_scale=hps.prime_res_scale, init_scale=hps.prime_init_scale,
+            m_attn=hps.prime_m_attn, m_mlp=hps.prime_m_mlp,
+            attn_dropout=hps.prime_attn_dropout if train else 0.0,
+            resid_dropout=hps.prime_resid_dropout if train else 0.0,
+            emb_dropout=hps.prime_emb_dropout if train else 0.0,
+            checkpoint_res=hps.prime_c_res if train else 0)
     # z_shapes of every level when this level gets n_ctx codes
     z_shapes = [(z[0] * hps.n_ctx // vqvae.z_shapes[hps.level][0],)
                 for z in vqvae.z_shapes]
@@ -184,7 +201,8 @@ def make_prior(hps, vqvae, device="cuda"):
                         vqvae.strides_t, prior_kwargs, x_cond_kwargs,
                         y_cond_kwargs, prime_kwargs, labels=hps.labels,
                         labels_v3=hps.labels_v3,
-                        single_enc_dec=hps.single_enc_dec, device=device)
+                        single_enc_dec=hps.single_enc_dec,
+                        merged_decoder=hps.merged_decoder, device=device)
     init_weights(model, hps.get("seed", 0) + hps.level + 1, device)
     model.requires_grad_(bool(train))
     runtime = PriorRuntime(model.eval(), vqvae)
@@ -192,16 +210,34 @@ def make_prior(hps, vqvae, device="cuda"):
     return runtime
 
 
+def decode_mode(quantize=None):
+    """(quantize, cache_int8) of a decode staging, with jukebox_tpu's
+    switches (make_models.py:447-489, transformer.py:536-546): quantize
+    defaults to "int8" when JUKEBOX_INT8_DECODE is set; the ring caches are
+    int8 when the weights are, unless JUKEBOX_INT8_CACHE=1/0 says
+    otherwise."""
+    if quantize is None and os.environ.get("JUKEBOX_INT8_DECODE"):
+        quantize = "int8"
+    if quantize not in (None, "int8"):
+        raise ValueError(f"unknown decode quantization {quantize!r}")
+    env = os.environ.get("JUKEBOX_INT8_CACHE")
+    cache_int8 = quantize == "int8" if env is None else env != "0"
+    return quantize, cache_int8
+
+
 class PriorRuntime:
     """A prior with its sampling and training entry points. stage_decode
-    stages the bf16 decode form (weights the decode kernels stream); sample
-    runs one window: sample_init (conditioning + prefill), the token loop,
-    and sample_finish. params are the trainable fp32 masters by name; step
-    counts the optimizer steps taken."""
+    stages the decode form (the weights the decode kernels stream: bf16,
+    or int8 with stage_decode(quantize="int8") or JUKEBOX_INT8_DECODE=1);
+    sample runs one window: sample_init (conditioning, the lyric encoder,
+    caches, prefill), the token loop, and sample_finish. params are the
+    trainable fp32 masters by name; step counts the optimizer steps
+    taken."""
 
     def __init__(self, model, vqvae):
         self.model, self.vqvae = model, vqvae
         self.staged = None
+        self.staged_mode = None
         self.step = 0
 
     @property
@@ -212,13 +248,20 @@ class PriorRuntime:
         # n_ctx, raw_to_tokens, labeller, n_tokens, level, z_shapes, ...
         return getattr(self.__dict__["model"], name)
 
-    def stage_decode(self):
-        if self.staged is None:
+    def stage_decode(self, quantize=None):
+        """Stage the decode weights once per mode (decode_mode): a change
+        of mode, or of the environment switches, restages."""
+        mode = decode_mode(quantize)
+        if self.staged is None or self.staged_mode != mode:
+            self.staged = None
             self.staged = self.model.prior.transformer.prepare_decode_params(
-                torch.bfloat16)
+                torch.bfloat16, quantize=mode[0])
+            self.staged_mode = mode
+        return mode
 
     def release(self):
         self.staged = None
+        self.staged_mode = None
 
     def decode(self, zs, start_level=None, end_level=None, bs_chunks=1):
         start_level = self.model.level if start_level is None else start_level
@@ -230,15 +273,23 @@ class PriorRuntime:
                fp16=False, temp=1.0, top_k=0, top_p=0.0, chunk_size=None,
                sample_tokens=None):
         model = self.model
-        dec = None
+        dec, cache_int8 = None, False
         if fp16:
-            self.stage_decode()
+            # the mode staged before (stage_decode(quantize="int8")), else
+            # the environment's
+            mode = self.staged_mode if self.staged is not None else None
+            _, cache_int8 = mode or self.stage_decode()
             dec = self.staged
         if z is not None and z.shape[1] == 0:
             z = None
+        # the lyric encoder, once per window
+        encoder_kv = (model.encoder_kv_from_y(y, fp16)
+                      if y is not None and model.prime_prior is not None
+                      else None)
         caches, x_tok, x_cond, y_cond = model.sample_init(
             n_samples, z=z, z_conds=z_conds, y=y, fp16=fp16,
-            chunk_size=chunk_size, dec_params=dec)
+            chunk_size=chunk_size, dec_params=dec, encoder_kv=encoder_kv,
+            int8=cache_int8)
         t = model.sample_prefix_len(z)
         total = sample_tokens if sample_tokens is not None else model.n_ctx
         if model.single_enc_dec:

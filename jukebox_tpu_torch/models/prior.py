@@ -1,10 +1,15 @@
 """Per-level prior over VQ codes (counterpart of jukebox_tpu/models/prior.py),
-for the priors of the 1b_lyrics cascade: the top prior, which merges the
-lyric and VQ vocabularies and sequences into one stream (single_enc_dec),
-and the upsamplers, conditioned on the codes of the level above through a
-Conditioner. Host-side label bookkeeping (get_y / get_z_conds) is numpy.
-z_forward is the training loss: the prime (lyric) and gen (code) losses
-weighted by prime_loss_fraction and their share of the stream.
+for the priors of the 1b_lyrics, 5b and 5b_lyrics cascades. Lyrics reach a
+top prior one of two ways: the 1b_lyrics top merges the lyric and VQ
+vocabularies and sequences into one stream (single_enc_dec); the 5b_lyrics
+top runs a separate lyric encoder (prime_prior, an only_encode
+autoregressive transformer) whose activations, projected and normalised
+(prime_state_proj, prime_state_ln), are the encoder_kv its f6 layers
+cross-attend. The upsamplers are conditioned on the codes of the level
+above through a Conditioner. Host-side label bookkeeping (get_y /
+get_z_conds) is numpy. z_forward is the training loss: the prime (lyric)
+and gen (code) losses weighted by prime_loss_fraction and their share of
+the stream.
 """
 
 import numpy as np
@@ -12,23 +17,27 @@ import torch
 import torch.nn as nn
 
 from jukebox_tpu_torch.data.labels import EmptyLabeller, Labeller
-from jukebox_tpu_torch.models.autoregressive import ConditionalAutoregressive2D
+from jukebox_tpu_torch.models.autoregressive import (
+    ConditionalAutoregressive2D, cross_entropy_bpd)
 from jukebox_tpu_torch.models.conditioners import Conditioner, LabelConditioner
 from jukebox_tpu_torch.models.encdec import BlockCfg
 from jukebox_tpu_torch.models.vqvae import calculate_strides
+from jukebox_tpu_torch.ops.core import Dense, LayerNorm, Table, fold_seed
 
 
 class SimplePrior(nn.Module):
     def __init__(self, z_shapes, l_bins, level, downs_t, strides_t,
                  prior_kwargs, x_cond_kwargs, y_cond_kwargs, prime_kwargs,
                  labels=True, labels_v3=False, single_enc_dec=False,
-                 device=None):
+                 merged_decoder=False, device=None):
         super().__init__()
         prior_kwargs = dict(prior_kwargs)
-        self.n_tokens = prime_kwargs["n_tokens"]
-        self.prime_loss_fraction = prime_kwargs.get("prime_loss_fraction", 0.0)
-        if prime_kwargs["use_tokens"] and not single_enc_dec:
-            raise NotImplementedError("separate lyric encoders are not ported")
+        prime_kwargs = dict(prime_kwargs)
+        use_tokens = prime_kwargs.pop("use_tokens")
+        self.n_tokens = prime_kwargs.pop("n_tokens")
+        self.prime_loss_fraction = prime_kwargs.pop("prime_loss_fraction",
+                                                    0.0)
+        self.prime_prior = None
         self.z_shapes, self.levels = z_shapes, len(z_shapes)
         self.z_shape, self.level, self.l_bins = z_shapes[level], level, l_bins
         self.x_cond = level != self.levels - 1
@@ -60,9 +69,25 @@ class SimplePrior(nn.Module):
                 **prior_kwargs)
         else:
             self.prime_loss_dims = 0
+            if use_tokens and self.n_tokens:
+                # the lyric encoder (prior.py:119-137)
+                self.prime_loss_dims = self.n_tokens
+                width = prior_kwargs["width"]
+                self.prime_prior = ConditionalAutoregressive2D(
+                    input_shape=(self.n_tokens,), y_cond=False,
+                    only_encode=True, device=device, **prime_kwargs)
+                self.prime_state_proj = Dense(
+                    prime_kwargs["width"], width, prime_kwargs["init_scale"],
+                    device=device)
+                self.prime_state_ln = LayerNorm(width, device=device)
+                self.prime_x_out = Table(
+                    (width, prime_kwargs["bins"]),
+                    0.02 * prior_kwargs["init_scale"], name="w",
+                    device=device)
             self.gen_loss_dims = int(np.prod(self.z_shape))
             self.prior = ConditionalAutoregressive2D(
-                y_cond=self.y_cond, device=device, **prior_kwargs)
+                y_cond=self.y_cond, encoder_dims=self.prime_loss_dims,
+                merged_decoder=merged_decoder, device=device, **prior_kwargs)
         self.total_loss_dims = self.prime_loss_dims + self.gen_loss_dims
 
         self.n_ctx = self.gen_loss_dims
@@ -129,13 +154,39 @@ class SimplePrior(nn.Module):
                   else y_pos)
         return x_cond, y_cond, prime
 
+    # -- the lyric encoder (separate encoder-decoder, prior.py:249-269) -------
+
+    def get_encoder_kv(self, prime, fp16=False, seed=None, plain=False):
+        """Lyric tokens prime [N, n_tokens] -> encoder_kv [N, n_tokens,
+        width] (bf16 under fp16), or None without a lyric encoder."""
+        if self.prime_prior is None:
+            return None
+        acts = self.prime_prior(prime, None, None, fp16=fp16, seed=seed,
+                                plain=plain)
+        encoder_kv = self.prime_state_ln(self.prime_state_proj(acts), plain)
+        return encoder_kv.to(torch.bfloat16) if fp16 else encoder_kv
+
+    def get_prime_loss(self, encoder_kv, prime_t):
+        """The lyric encoder's own loss in bits per dim: encoder_kv through
+        prime_x_out against the lyric tokens."""
+        logits = torch.matmul(encoder_kv.float(),
+                              self.prime_x_out.table.float())
+        return cross_entropy_bpd(logits, prime_t)
+
+    def encoder_kv_from_y(self, y, fp16=False):
+        """The lyric encoder alone on the lyric tokens at the end of y."""
+        return self.get_encoder_kv(y[:, y.shape[1] - self.n_tokens:], fp16)
+
     def forward(self, z, z_conds, y):
         """Teacher-forced forward of the codes z [N, n_ctx] -> logits
         [N, n_ctx (+ lyric tokens), bins]."""
         x_cond, y_cond, prime = self.get_cond(z_conds, y)
         if self.single_enc_dec:
             z, x_cond = self.prior_preprocess([prime, z], [None, x_cond])
-        return self.prior(z, x_cond, y_cond)[1]
+            return self.prior(z, x_cond, y_cond)[1]
+        encoder_kv = (self.get_encoder_kv(prime) if prime is not None
+                      else None)
+        return self.prior(z, x_cond, y_cond, encoder_kv=encoder_kv)[1]
 
     def z_forward(self, z, z_conds=None, y=None, fp16=False, seed=None,
                   plain=False):
@@ -150,9 +201,17 @@ class SimplePrior(nn.Module):
                 z_all, x_cond, y_cond, fp16=fp16, get_sep_loss=True,
                 seed=seed, plain=plain)
         else:
+            encoder_kv = None
+            if self.prime_prior is not None and prime is not None:
+                encoder_kv = self.get_encoder_kv(
+                    prime, fp16, None if seed is None else fold_seed(seed, 1),
+                    plain)
             gen_loss, _ = self.prior(z, x_cond, y_cond, fp16=fp16,
-                                     seed=seed, plain=plain)
-            prime_loss = torch.zeros((), device=gen_loss.device)
+                                     seed=seed, plain=plain,
+                                     encoder_kv=encoder_kv)
+            prime_loss = (self.get_prime_loss(encoder_kv, prime)
+                          if encoder_kv is not None
+                          else torch.zeros((), device=gen_loss.device))
         loss = (self.prime_loss_fraction * prime_loss * self.prime_loss_dims
                 / self.total_loss_dims) \
             + (gen_loss * self.gen_loss_dims / self.total_loss_dims)
@@ -164,8 +223,12 @@ class SimplePrior(nn.Module):
 
     @torch.no_grad()
     def sample_init(self, n_samples, z=None, z_conds=None, y=None, fp16=False,
-                    chunk_size=None, dec_params=None):
-        """Conditioning, fresh caches and the context prefill. Returns
+                    chunk_size=None, dec_params=None, encoder_kv=None,
+                    int8=False):
+        """Conditioning, the lyric encoder's encoder_kv (once per window,
+        unless given), fresh caches (the f6 layers' projected from
+        encoder_kv) and the context prefill. int8: the caches decode as
+        int8 (made so, or converted after the prefill's chunks). Returns
         (caches, x_tok, x_cond, y_cond); sampling starts at
         sample_prefix_len(z)."""
         no_past_context = z is None or z.shape[1] == 0
@@ -177,15 +240,22 @@ class SimplePrior(nn.Module):
             xs = [prime] if no_past_context else [prime, z]
             prefill_tokens, x_cond = self.prior_preprocess(xs, [None, x_cond])
         else:
+            if prime is not None and encoder_kv is None:
+                encoder_kv = self.get_encoder_kv(prime, fp16)
             prefill_tokens = None if no_past_context else z
         if fp16:
             x_cond = x_cond.to(torch.bfloat16)
-        caches = self.prior.init_decode_caches(n_samples, device, fp16=fp16)
-        if prefill_tokens is not None and prefill_tokens.shape[1] > 0:
+            if encoder_kv is not None:
+                encoder_kv = encoder_kv.to(torch.bfloat16)
+        prefill = prefill_tokens is not None and prefill_tokens.shape[1] > 0
+        caches = self.prior.init_decode_caches(
+            n_samples, device, fp16=fp16, encoder_kv=encoder_kv,
+            dec_params=dec_params, int8=int8 and not prefill)
+        if prefill:
             x_tok = self.prior.prefill(caches, prefill_tokens.long(), x_cond,
                                        y_cond, fp16=fp16,
                                        chunk_size=chunk_size,
-                                       dec_params=dec_params)
+                                       dec_params=dec_params, int8=int8)
         else:
             x_tok = torch.zeros((n_samples, 1), dtype=torch.long,
                                 device=device)

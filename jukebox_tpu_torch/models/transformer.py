@@ -8,11 +8,17 @@ checkpoint_res=1 recomputing each block in the backward), one-token
 caches (a list with one {"k", "v"} dict per layer, updated in place).
 
 Decoding in bf16 runs each layer through the decode-step kernels
-(ops/decode_stack.py: LayerNorm, qkv GEMV, ring attention, proj GEMV +
-residual, LayerNorm, MLP GEMVs), the port of the JAX package's whole-stack
-megakernel, with the weights staged once as bf16 by prepare_decode_params.
-The fp32 decode path (and every prefill) runs the layer modules themselves,
-as the JAX package runs its fp32 decode and its prefill in XLA.
+(ops/decode_stack.py: LayerNorm, qkv GEMV, ring or cross attention, proj
+GEMV + residual, LayerNorm, MLP GEMVs), the port of the JAX package's
+whole-stack megakernel, with the weights staged once by
+prepare_decode_params: bf16, or weight-only int8 (quantize="int8", the JAX
+package's JUKEBOX_INT8_DECODE mode); the ring caches are bf16 or int8
+(init_cache(int8=True), or quantize_caches at the prefill -> decode
+boundary). The fp32 decode path (and every prefill) runs the layer modules
+themselves, as the JAX package runs its fp32 decode and its prefill in XLA;
+with int8 staged weights the prefill's products are the int8 dense.
+f6 (cross-attention) layers read the lyric encoder's encoder_kv: the full
+forward projects it per layer, init_cache once per window.
 """
 
 import torch
@@ -20,9 +26,11 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from jukebox_tpu_torch.models.attention import FactoredAttention
-from jukebox_tpu_torch.ops.core import (Dense, LayerNorm, dropout, fold_seed,
-                                        quick_gelu)
-from jukebox_tpu_torch.ops.decode_stack import ring_geometry, stack_layer_step
+from jukebox_tpu_torch.ops.core import (Dense, LayerNorm, dense_any, dropout,
+                                        fold_seed, quick_gelu,
+                                        quantize_dense_tree)
+from jukebox_tpu_torch.ops.decode_stack import (quantize_rows, ring_geometry,
+                                                stack_layer_step)
 
 # depth -> attn_func schedules (reference transformer.py:111-126)
 ATTN_ORDERS = {
@@ -50,7 +58,10 @@ class MLP(nn.Module):
         self.c_fc = Dense(n_in, n_state, init_scale, device=device)
         self.c_proj = Dense(n_state, n_in, init_scale, zero_out, device=device)
 
-    def forward(self, x, seed=None):
+    def forward(self, x, seed=None, p=None):
+        """p: the layer's int8 staged decode params (prefill)."""
+        if p is not None:
+            return dense_any(quick_gelu(dense_any(x, p["fc"])), p["mlp"])
         return dropout(self.c_proj(quick_gelu(self.c_fc(x))),
                        self.resid_dropout, seed)
 
@@ -59,13 +70,15 @@ class ResAttnBlock(nn.Module):
     def __init__(self, n_in, n_ctx, n_head, attn_func, blocks=None,
                  prime_len=None, m_attn=0.25, m_mlp=1.0, mask=False,
                  zero_out=False, init_scale=1.0, res_scale=1.0,
-                 attn_dropout=0.0, resid_dropout=0.0, device=None):
+                 attn_dropout=0.0, resid_dropout=0.0, encoder_dims=None,
+                 device=None):
         super().__init__()
         self.res_scale = res_scale
+        # f6 layers zero their c_proj at init (jukebox_tpu ResAttnBlock.attn)
         self.attn = FactoredAttention(
             n_in, n_ctx, int(m_attn * n_in), n_head, attn_func, blocks,
-            prime_len, mask, zero_out, init_scale, attn_dropout,
-            resid_dropout, device=device)
+            prime_len, mask, zero_out or attn_func == 6, init_scale,
+            attn_dropout, resid_dropout, encoder_dims, device=device)
         self.ln_0 = LayerNorm(n_in, device=device)
         self.mlp = MLP(n_in, int(m_mlp * n_in), zero_out, init_scale,
                        resid_dropout, device=device)
@@ -76,19 +89,19 @@ class ResAttnBlock(nn.Module):
             return x + a + m
         return x + self.res_scale * (a + m)
 
-    def forward(self, x, seed=None, plain=False):
+    def forward(self, x, seed=None, plain=False, encoder_kv=None):
         s_attn, s_mlp = ((fold_seed(seed, 0), fold_seed(seed, 1))
                          if seed is not None else (None, None))
-        a = self.attn(self.ln_0(x, plain), s_attn, plain)
+        a = self.attn(self.ln_0(x, plain), s_attn, plain, encoder_kv)
         return self._residual(x, a, self.mlp(self.ln_1(x + a, plain), s_mlp))
 
     def decode_step(self, cache, x, t):
         a = self.attn.decode_step(cache, self.ln_0(x), t)
         return self._residual(x, a, self.mlp(self.ln_1(x + a)))
 
-    def prefill_chunk(self, cache, x, t0, n_blocks):
-        a = self.attn.prefill_chunk(cache, self.ln_0(x), t0, n_blocks)
-        return self._residual(x, a, self.mlp(self.ln_1(x + a)))
+    def prefill_chunk(self, cache, x, t0, n_blocks, p=None):
+        a = self.attn.prefill_chunk(cache, self.ln_0(x), t0, n_blocks, p)
+        return self._residual(x, a, self.mlp(self.ln_1(x + a), p=p))
 
 
 class Transformer(nn.Module):
@@ -96,7 +109,7 @@ class Transformer(nn.Module):
                  blocks=None, prime_len=None, m_attn=0.25, m_mlp=1.0,
                  mask=False, zero_out=False, init_scale=1.0, res_scale=False,
                  attn_dropout=0.0, resid_dropout=0.0, checkpoint_res=0,
-                 device=None):
+                 encoder_dims=None, device=None):
         super().__init__()
         self.n_in, self.n_ctx, self.n_head = n_in, n_ctx, n_head
         self.n_depth, self.attn_order = n_depth, attn_order
@@ -108,16 +121,18 @@ class Transformer(nn.Module):
             ResAttnBlock(n_in, n_ctx, n_head, self.attn_func(d), blocks,
                          prime_len, m_attn, m_mlp, mask, zero_out, init_scale,
                          self.res_scale, attn_dropout, resid_dropout,
-                         device=device)
+                         encoder_dims, device=device)
             for d in range(n_depth)])
         self.layer_order = tuple(self._plan_order())
 
     def attn_func(self, d):
         return ATTN_ORDERS[self.attn_order](d)
 
-    def forward(self, x, fp16=False, seed=None, plain=False):
+    def forward(self, x, fp16=False, seed=None, plain=False,
+                encoder_kv=None):
         """Full-context forward, x [B, n_ctx, n_in] -> fp32, as
-        jukebox_tpu's Transformer.apply: bf16
+        jukebox_tpu's Transformer.apply (encoder_kv feeds the f6 layers):
+        bf16
         activations under fp16, layer d's dropouts seeded from
         fold_seed(seed, d) when seed is given (training), and with
         checkpoint_res == 1 and autograd on, each block recomputed in the
@@ -131,11 +146,12 @@ class Transformer(nn.Module):
         recompute = self.checkpoint_res == 1 and torch.is_grad_enabled()
         for d, block in enumerate(self.blocks):
             s = fold_seed(seed, d) if drop else None
+            enc = encoder_kv if self.attn_func(d) == 6 else None
             if recompute:
-                x = checkpoint(block, x, s, plain, use_reentrant=False,
+                x = checkpoint(block, x, s, plain, enc, use_reentrant=False,
                                preserve_rng_state=False)
             else:
-                x = block(x, s, plain)
+                x = block(x, s, plain, enc)
         return x.float()
 
     # -- incremental decoding -------------------------------------------------
@@ -182,35 +198,82 @@ class Transformer(nn.Module):
                 for s in seg[2]:
                     yield from range(s, s + len(seg[1]))
 
-    def prepare_decode_params(self, dtype=torch.bfloat16):
-        """Staged decode form of the stack: per layer, the weights the
-        decode-step kernels stream, as contiguous `dtype` (bf16 for the
+    def prepare_decode_params(self, dtype=torch.bfloat16, quantize=None):
+        """Staged decode form of the stack, per layer: fp32 LayerNorm
+        parameters (the JAX package's packing keeps them fp32 too) and the
+        dense dicts qkv (q alone in f6 layers), proj, fc and mlp, in the
+        (in, out) layout: {"w", "b"} as contiguous `dtype` (bf16 for the
         kernels; fp32 runs the same composition through the plain versions
-        on the CPU) in the (in, out) layout, with fp32 LayerNorm parameters
-        (the JAX package's bf16 packing keeps LN fp32 too)."""
-        if self.res_scale != 1.0:
-            raise NotImplementedError("the decode kernels add x + a + m; "
-                                      "res_scale stacks decode in fp32")
+        on the CPU), or with quantize="int8" the weight-only int8 form
+        {"w_q", "s", "b"} of quantize_dense (scales from the fp32 weights,
+        the bias in `dtype`). f6 layers keep enc_kv, their encoder
+        projection, which init_cache applies once per window: fp32, or int8
+        like the rest (jukebox_tpu quantizes the kept enc_proj too)."""
+        if quantize not in (None, "int8"):
+            raise ValueError(f"unknown decode quantization {quantize!r}")
 
-        def bf(t):
+        def cast(t):
             return t.detach().to(dtype).contiguous()
 
         def f32(t):
             return t.detach().float().contiguous()
+
+        def dense(m):
+            # int8: quantize_dense_tree below reads the fp32 weights
+            return {"w": m.w.detach() if quantize else cast(m.w),
+                    "b": cast(m.b)}
         staged = []
         for blk in self.blocks:
             at, mlp = blk.attn, blk.mlp
-            staged.append(dict(
-                ln0_g=f32(blk.ln_0.g), ln0_b=f32(blk.ln_0.b),
-                w_qkv=bf(at.c_attn.w), b_qkv=bf(at.c_attn.b),
-                w_proj=bf(at.c_proj.w), b_proj=bf(at.c_proj.b),
-                ln1_g=f32(blk.ln_1.g), ln1_b=f32(blk.ln_1.b),
-                w_fc=bf(mlp.c_fc.w), b_fc=bf(mlp.c_fc.b),
-                w_mlp=bf(mlp.c_proj.w), b_mlp=bf(mlp.c_proj.b)))
-        return staged
+            p = dict(ln0_g=f32(blk.ln_0.g), ln0_b=f32(blk.ln_0.b),
+                     qkv=dense(at.c_attn), proj=dense(at.c_proj),
+                     ln1_g=f32(blk.ln_1.g), ln1_b=f32(blk.ln_1.b),
+                     fc=dense(mlp.c_fc), mlp=dense(mlp.c_proj))
+            if at.attn_func == 6:
+                p["enc_kv"] = {"w": at.c_enc_kv.w.detach(),
+                               "b": at.c_enc_kv.b.detach()}
+            staged.append(p)
+        return quantize_dense_tree(staged) if quantize else staged
 
-    def init_cache(self, bs, dtype, device):
-        return [blk.attn.init_cache(bs, dtype, device) for blk in self.blocks]
+    def init_cache(self, bs, dtype, device, encoder_kv=None, dec_params=None,
+                   int8=False):
+        """Per-layer caches: zero rings, the f6 layers' encoder K/V projected
+        from encoder_kv (through dec_params' enc_kv when staged). int8=True
+        makes int8 caches with zero row scales, the f6 K/V quantised as
+        quantize_caches does."""
+        caches = []
+        for d, blk in enumerate(self.blocks):
+            f = blk.attn.attn_func
+            enc_kv = dec_params[d]["enc_kv"] if (
+                f == 6 and dec_params is not None) else None
+            if int8 and f != 6:
+                shape = blk.attn.cache_shape(bs)
+                c = {k: torch.zeros(shape, dtype=torch.int8, device=device)
+                     for k in ("k", "v")}
+                c.update({k: torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                         device=device) for k in ("ks", "vs")})
+            else:
+                c = blk.attn.init_cache(bs, dtype, device,
+                                        encoder_kv if f == 6 else None,
+                                        enc_kv)
+                if int8:
+                    c = self._quantize_cache(c)
+            caches.append(c)
+        return caches
+
+    @staticmethod
+    def _quantize_cache(c):
+        (k, ks), (v, vs) = quantize_rows(c["k"]), quantize_rows(c["v"])
+        return {"k": k, "v": v, "ks": ks, "vs": vs}
+
+    def quantize_caches(self, caches):
+        """bf16 caches -> int8 caches with bf16 row scales, in place of the
+        list (the prefill -> decode boundary of the int8 cache mode, as
+        jukebox_tpu's pack_caches(quantize=True) converts them)."""
+        for d, c in enumerate(caches):
+            if "ks" not in c:
+                caches[d] = self._quantize_cache(c)
+        return caches
 
     def decode_step(self, dec_params, caches, x, t, fp16=False,
                     fp16_out=False, plain=False):
@@ -222,7 +285,7 @@ class Transformer(nn.Module):
         if dec_params is not None:
             B, _, S = x.shape
             h = x.reshape(B, S).contiguous()
-            geoms = {}
+            geoms = {6: None}
             for d in self.layer_order:
                 attn = self.blocks[d].attn
                 f = attn.attn_func
@@ -232,18 +295,23 @@ class Transformer(nn.Module):
                         attn.block_ctx if attn.blocks else None,
                         attn._prime_len if f == 7 else None)
                 h = stack_layer_step(dec_params[d], caches[d], h, geoms[f],
-                                     self.n_head, plain)
+                                     self.n_head, plain, self.res_scale)
             x = h.reshape(B, 1, S)
         else:
             for d in self.layer_order:
                 x = self.blocks[d].decode_step(caches[d], x, t)
         return x if fp16_out else x.float()
 
-    def prefill_chunk(self, caches, x, t0, n_blocks, fp16=False):
+    def prefill_chunk(self, caches, x, t0, n_blocks, fp16=False,
+                      dec_params=None):
         """Prefill the caches with a block-aligned chunk x [B, C, n_in] at
-        t0; returns the chunk's output in the compute dtype."""
+        t0; returns the chunk's output in the compute dtype. dec_params:
+        the staged decode form; when int8, the layers' products run the
+        int8 dense (jukebox_tpu's _recon_group prefill)."""
         if fp16:
             x = x.to(torch.bfloat16)
+        int8 = dec_params is not None and "w_q" in dec_params[0]["qkv"]
         for d in self.layer_order:
-            x = self.blocks[d].prefill_chunk(caches[d], x, t0, n_blocks)
+            p = dec_params[d] if int8 else None
+            x = self.blocks[d].prefill_chunk(caches[d], x, t0, n_blocks, p)
         return x

@@ -31,9 +31,9 @@ SIGNATURES = {
     "decode_stack": {
         "jk_max_dyn_smem": [],
         "jk_ln_rows": [_P, _P, _P, _P, _I, _I, _F, _P],
-        "jk_gemv_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-        "jk_ring_attn_decode": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                _F, _P],
+        "jk_gemv_bf16": [_P] * 7 + [_I] * 4 + [_F, _P],
+        "jk_gemv_int8": [_P] * 8 + [_I] * 4 + [_F, _P],
+        "jk_attn_decode": [_P, _I] + [_P] * 7 + [_I] * 7 + [_F, _I, _P],
     },
     "flash_attention": {
         "jk_flash_smem": [_I, _I],
@@ -127,7 +127,8 @@ def ptxas_summary(text):
     for line in text.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
-            m = re.search(r"\d+([a-z_]+_kernel)(?:ILi(\d+)ELi(\d+)E)?", mangled)
+            m = re.search(r"\d+([a-z_0-9]+_kernel)(?:ILi(\d+)ELi(\d+)E)?",
+                          mangled)
             kernel = (mangled if m is None else m.group(1) if not m.group(2)
                       else f"{m.group(1)}<{m.group(2)},{m.group(3)}>")
             spill = ""

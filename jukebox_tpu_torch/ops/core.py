@@ -26,6 +26,45 @@ def dense(x, w, b):
     return torch.matmul(x, w.to(x.dtype)) + b.to(x.dtype)
 
 
+def dense_any(x, p):
+    """dense of a param dict: {"w", "b"}, or the weight-only int8 form
+    {"w_q", "s", "b"} of quantize_dense, computed as the JAX package's
+    dense computes it (ops/core.py:43-60): the product with the int8
+    weights cast to x's dtype, then the per-column scale and the bias, each
+    in x's dtype."""
+    if "w_q" in p:
+        y = torch.matmul(x, p["w_q"].to(x.dtype))
+        return y * p["s"].to(x.dtype) + p["b"].to(x.dtype)
+    return dense(x, p["w"], p["b"])
+
+
+def quantize_dense(p):
+    """Weight-only int8 form of a dense param dict {"w", "b"} (w [..., in,
+    out]): per-output-column absmax over the input axis / 127, floored at
+    1e-12, w_q = clip(round(w / s), -127, 127) as int8, s fp32 [..., out].
+    Every step is one correctly rounded fp32 operation (the divisors are
+    tensors: a host-scalar divisor turns into a product with its reciprocal
+    on the card), so the result is bit-identical to jukebox_tpu's numpy
+    quantize_dense on the CPU and on the card. b passes through."""
+    w = p["w"].detach().float()
+    s = torch.amax(w.abs(), dim=-2, keepdim=True)
+    s = torch.clamp_min(s / torch.full_like(s, 127.0), 1e-12)
+    w_q = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
+    return {"w_q": w_q, "s": s.squeeze(-2).contiguous(), "b": p["b"]}
+
+
+def quantize_dense_tree(tree):
+    """quantize_dense of every dense dict ({"w", "b"} with a matrix w) in a
+    tree of dicts and lists; LayerNorm and other leaves pass through."""
+    if isinstance(tree, dict):
+        if set(tree) == {"w", "b"} and tree["w"].ndim >= 2:
+            return quantize_dense(tree)
+        return {k: quantize_dense_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(quantize_dense_tree(v) for v in tree)
+    return tree
+
+
 def layer_norm(x, g, b, eps=1e-5, plain=False):
     """LayerNorm of the last axis in x's dtype, fp32 statistics: the
     LayerNorm kernels on the card (plain=True: their plain versions)."""
@@ -176,15 +215,20 @@ class ConvTranspose1d(nn.Module):
 
 
 class Table(nn.Module):
-    """One named normal-initialised table, e.g. an embedding {"weight"}."""
+    """One named table, e.g. an embedding {"weight"}: normal with std, or
+    uniform in [-bound, bound) when bound is given (an unshared x_out)."""
 
-    def __init__(self, shape, std, name="weight", device=None):
+    def __init__(self, shape, std, name="weight", bound=None, device=None):
         super().__init__()
-        self.std, self.name = std, name
+        self.std, self.name, self.bound = std, name, bound
         self.register_parameter(name, _param(shape, device))
 
     def init_(self, gen):
-        getattr(self, self.name).normal_(0.0, self.std, generator=gen)
+        if self.bound is not None:
+            getattr(self, self.name).uniform_(-self.bound, self.bound,
+                                              generator=gen)
+        else:
+            getattr(self, self.name).normal_(0.0, self.std, generator=gen)
 
     @property
     def table(self):

@@ -4,10 +4,13 @@ Replaces jukebox_tpu/ops/pallas/decode_stack.py::build_stack_decode, the
 whole-stack Pallas megakernel that runs every sampled token of the priors.
 The port keeps what that kernel computes per layer (fp32-statistics
 LayerNorm -> qkv -> ring-cache attention -> proj + residual -> LayerNorm ->
-quick_gelu MLP + residual) and drops its TPU blocking (single launch,
-ping-pong VMEM canvas, slot-leading lane-padded caches): here three CUDA
-kernels (csrc/decode_stack.cu) run per layer against the standard cache
-layout [B, slots, A] of models/attention.py.
+quick_gelu MLP + residual) in all its options (bf16 or int8 weights, bf16
+or int8 ring caches, f6 cross-attention, any head width, res_scale) and
+drops its TPU blocking (single launch, ping-pong VMEM canvas, slot-leading
+lane-padded caches): here the CUDA kernels of csrc/decode_stack.cu run per
+layer against the standard cache layout [B, slots, A] of
+models/attention.py. An int8 cache is {"k", "v"} int8 [B, ..., A] with
+{"ks", "vs"} bf16 [B, ...]: one scale per (batch row, slot).
 
 Each wrapper takes the plain PyTorch version for tensors on the CPU (that is
 what the CPU tests run) and, for CUDA tensors, checks device, dtype, shape
@@ -20,9 +23,10 @@ import torch
 
 from jukebox_tpu_torch.ops import _build
 
-LAUNCHES = {"ln_rows": 0, "gemv_bf16": 0, "ring_attn_decode": 0}
-LAUNCHES_PER_LAYER = {"ln_rows": 2, "gemv_bf16": 4, "ring_attn_decode": 1}
-EPILOGUES = {None: 0, "gelu": 1, "residual": 2}
+LAUNCHES = {"ln_rows": 0, "gemv_bf16": 0, "gemv_int8": 0,
+            "ring_attn_decode": 0, "ring_attn_int8": 0,
+            "cross_attn_decode": 0}
+EPILOGUES = {None: 0, "gelu": 1, "residual": 2, "res_scale": 3}
 MAX_BATCH = 16
 BF16 = torch.bfloat16
 
@@ -30,6 +34,14 @@ BF16 = torch.bfloat16
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def layer_launches(attn_func, quantized, cache_int8):
+    """Kernel launches of one decode step of one layer (stack_layer_step)."""
+    attn = ("cross_attn_decode" if attn_func == 6 else
+            "ring_attn_int8" if cache_int8 else "ring_attn_decode")
+    return {"ln_rows": 2, "gemv_int8" if quantized else "gemv_bf16": 4,
+            attn: 1}
 
 
 def _stream():
@@ -53,6 +65,11 @@ def _require(t, name, dtype, shape=None):
 def _check(err, name):
     if err:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def _ptr(t):
+    """A tensor's address for ctypes, None (NULL) for no tensor."""
+    return None if t is None else t.data_ptr()
 
 
 # ---------------------------------------------------------------------------
@@ -86,41 +103,108 @@ def ln_rows(x, g, b, eps=1e-5):
 
 
 # ---------------------------------------------------------------------------
-# gemv_bf16: y = epilogue(x @ W + b); W (in, out) bf16, fp32 accumulation
+# gemv_bf16 / gemv_int8: y = epilogue(x @ W (* s) + b); W (in, out) bf16, or
+# int8 with fp32 per-column scales s applied after the fp32 accumulation
 # ---------------------------------------------------------------------------
 
-def gemv_bf16_plain(x, w, b, epilogue=None, res=None):
-    y = x.float() @ w.float() + b.float()
+def _epilogue(y, x_dtype, epilogue, res, res2, rs, keep):
+    """y fp32 (the product, scaled, plus bias) -> the epilogue's output in
+    x_dtype, rounding where the kernels round to bf16."""
     if epilogue == "gelu":
-        y = y * torch.sigmoid(1.702 * y)
-    elif epilogue == "residual":
-        y = res.float() + y.to(x.dtype).float()
-    return y.to(x.dtype)
+        return (y * torch.sigmoid(1.702 * y)).to(x_dtype)
+    if epilogue is None:
+        return y.to(x_dtype)
+    a = y.to(x_dtype)
+    if epilogue == "residual":
+        out = (res.float() + a.float()).to(x_dtype)
+        return (out, a) if keep else out
+    am = (res2.float() + a.float()).to(x_dtype)
+    rsb = torch.tensor(rs, dtype=x_dtype).float()
+    return (res.float() + (am.float() * rsb).to(x_dtype).float()).to(x_dtype)
 
 
-def gemv_bf16(x, w, b, epilogue=None, res=None):
-    """epilogue: None, "gelu" (quick_gelu) or "residual" (res + bf16(y))."""
-    if (epilogue == "residual") != (res is not None):
-        raise ValueError("res is given exactly for the residual epilogue")
-    if not x.is_cuda:
-        return gemv_bf16_plain(x, w, b, epilogue, res)
+def gemv_bf16_plain(x, w, b, epilogue=None, res=None, res2=None, rs=1.0,
+                    keep=False):
+    y = x.float() @ w.float() + b.float()
+    return _epilogue(y, x.dtype, epilogue, res, res2, rs, keep)
+
+
+def gemv_int8_plain(x, w_q, s, b, epilogue=None, res=None, res2=None,
+                    rs=1.0, keep=False):
+    y = (x.float() @ w_q.float()) * s.float() + b.float()
+    return _epilogue(y, x.dtype, epilogue, res, res2, rs, keep)
+
+
+def _check_epilogue(epilogue, res, res2, keep):
+    if epilogue not in EPILOGUES:
+        raise ValueError(f"unknown epilogue {epilogue!r}")
+    if (epilogue in ("residual", "res_scale")) != (res is not None):
+        raise ValueError("res is given exactly for the residual epilogues")
+    if (epilogue == "res_scale") != (res2 is not None):
+        raise ValueError("res2 is given exactly for the res_scale epilogue")
+    if keep and epilogue != "residual":
+        raise ValueError("keep returns the product beside a residual only")
+
+
+def _gemv_launch(name, fn, x, w, s, b, epilogue, res, res2, rs, keep):
     B, K = x.shape
     N = w.shape[1]
-    if not 1 <= B <= MAX_BATCH or N % 8:
-        raise ValueError(f"gemv_bf16 takes 1..{MAX_BATCH} rows and N % 8 == 0"
-                         f" (got B={B}, N={N})")
+    lib = _build.lib()
+    if not 1 <= B <= MAX_BATCH or N % 8 or B * K * 2 > lib.jk_max_dyn_smem():
+        raise ValueError(f"{name} takes 1..{MAX_BATCH} rows of at most "
+                         f"{lib.jk_max_dyn_smem() // (2 * B)} inputs and "
+                         f"N % 8 == 0 (got B={B}, K={K}, N={N})")
     _require(x, "x", BF16)
-    _require(w, "w", BF16, (K, N))
+    _require(w, "w", BF16 if s is None else torch.int8, (K, N))
     _require(b, "b", BF16, (N,))
-    if res is not None:
-        _require(res, "res", BF16, (B, N))
+    if s is not None:
+        _require(s, "s", torch.float32, (N,))
+    for nm, t in (("res", res), ("res2", res2)):
+        if t is not None:
+            _require(t, nm, BF16, (B, N))
     y = torch.empty((B, N), dtype=BF16, device=x.device)
-    _check(_build.lib().jk_gemv_bf16(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(),
-        res.data_ptr() if res is not None else None, y.data_ptr(),
-        B, K, N, EPILOGUES[epilogue], _stream()), "gemv_bf16")
-    LAUNCHES["gemv_bf16"] += 1
-    return y
+    aux = torch.empty_like(y) if keep else None
+    args = [x.data_ptr(), w.data_ptr()] + ([s.data_ptr()] if s is not None
+                                           else [])
+    _check(fn(lib)(*args, b.data_ptr(), _ptr(res), _ptr(res2), _ptr(aux),
+                   y.data_ptr(), B, K, N, EPILOGUES[epilogue], float(rs),
+                   _stream()), name)
+    LAUNCHES[name] += 1
+    return (y, aux) if keep else y
+
+
+def gemv_bf16(x, w, b, epilogue=None, res=None, res2=None, rs=1.0,
+              keep=False):
+    """epilogue: None, "gelu" (quick_gelu), "residual" (res + bf16(y); with
+    keep=True also returns bf16(y)) or "res_scale" (res + bf16(bf16(res2 +
+    bf16(y)) * bf16(rs)): x + (a + m) * res_scale with res = x, res2 = a)."""
+    _check_epilogue(epilogue, res, res2, keep)
+    if not x.is_cuda:
+        return gemv_bf16_plain(x, w, b, epilogue, res, res2, rs, keep)
+    return _gemv_launch("gemv_bf16", lambda lib: lib.jk_gemv_bf16, x, w,
+                        None, b, epilogue, res, res2, rs, keep)
+
+
+def gemv_int8(x, w_q, s, b, epilogue=None, res=None, res2=None, rs=1.0,
+              keep=False):
+    """gemv_bf16 with int8 weights w_q (in, out) and fp32 column scales s:
+    y = (x @ w_q) * s + b, accumulated in fp32, then the epilogue."""
+    _check_epilogue(epilogue, res, res2, keep)
+    if not x.is_cuda:
+        return gemv_int8_plain(x, w_q, s, b, epilogue, res, res2, rs, keep)
+    return _gemv_launch("gemv_int8", lambda lib: lib.jk_gemv_int8, x, w_q,
+                        s, b, epilogue, res, res2, rs, keep)
+
+
+def gemv(x, p, epilogue=None, res=None, res2=None, rs=1.0, keep=False,
+         plain=False):
+    """The GEMV of a staged dense dict: {"w", "b"} -> gemv_bf16,
+    {"w_q", "s", "b"} -> gemv_int8 (plain=True: their plain versions)."""
+    if "w_q" in p:
+        fn = gemv_int8_plain if plain else gemv_int8
+        return fn(x, p["w_q"], p["s"], p["b"], epilogue, res, res2, rs, keep)
+    fn = gemv_bf16_plain if plain else gemv_bf16
+    return fn(x, p["w"], p["b"], epilogue, res, res2, rs, keep)
 
 
 # ---------------------------------------------------------------------------
@@ -144,6 +228,8 @@ def ring_geometry(attn_func, t, cache_shape, block_ctx=None, prime_len=None):
                 block that ring is the zero init: scores 0, output 0)
       f7 prime  [B, prime_len, A]: write t while t < prime_len (later writes
                 are dropped), read 0..min(t, prime_len - 1)
+      f6 cross  [B, encoder_dims, A]: the read-only encoder K/V, no write,
+                read every row
     """
     rows = 1
     for d in cache_shape[1:-1]:
@@ -164,14 +250,29 @@ def ring_geometry(attn_func, t, cache_shape, block_ctx=None, prime_len=None):
     if attn_func == 7:
         return (rows, t if t < prime_len else -1, 0,
                 min(t, prime_len - 1) + 1)
+    if attn_func == 6:
+        return rows, -1, 0, rows
     raise NotImplementedError(f"attn_func {attn_func} has no decode kernel")
+
+
+def _attn_plain(q, k3, v3, r0, n, n_head):
+    """bf16 (or fp32) cache rows r0 .. r0 + n - 1 of [B, rows, A]: the
+    weights cast to the activation dtype before the PV product, as
+    dense_attn does."""
+    B, A = q.shape
+    hd = A // n_head
+    scale = hd ** -0.25
+    qs = (q.float() * scale).view(B, n_head, hd)
+    kr = (k3[:, r0:r0 + n].float() * scale).view(B, n, n_head, hd)
+    vr = v3[:, r0:r0 + n].float().view(B, n, n_head, hd)
+    p = torch.softmax(torch.einsum("bhd,bnhd->bhn", qs, kr), dim=-1)
+    o = torch.einsum("bhn,bnhd->bhd", p.to(q.dtype).float(), vr)
+    return o.reshape(B, A).to(q.dtype)
 
 
 def ring_attn_decode_plain(qkv, k_cache, v_cache, geom, n_head):
     B, A3 = qkv.shape
     A = A3 // 3
-    hd = A // n_head
-    scale = hd ** -0.25
     rows, w, r0, n = geom
     k3 = k_cache.view(B, rows, A)
     v3 = v_cache.view(B, rows, A)
@@ -179,12 +280,123 @@ def ring_attn_decode_plain(qkv, k_cache, v_cache, geom, n_head):
     if w >= 0:
         k3[:, w] = k
         v3[:, w] = v
+    return _attn_plain(q, k3, v3, r0, n, n_head)
+
+
+
+def _attn_int8_plain(q, kq, vq, ks, vs, r0, n, n_head, ins=-1, k_new=None,
+                     v_new=None):
+    """int8 rows r0 .. r0 + n - 1 of [B, rows, A] with row scales [B, rows]:
+    the megakernel's arithmetic (decode_stack.py:738-810): (q * scale) .
+    k_int * (k_scale * scale) per row, fp32 softmax, fp32 weights times
+    v_scale against v_int; row ins (the current token's slot) scores and
+    weighs its unquantised k_new, v_new instead."""
+    B, A = q.shape
+    hd = A // n_head
+    scale = hd ** -0.25
     qs = (q.float() * scale).view(B, n_head, hd)
-    kr = (k3[:, r0:r0 + n].float() * scale).view(B, n, n_head, hd)
-    vr = v3[:, r0:r0 + n].float().view(B, n, n_head, hd)
-    p = torch.softmax(torch.einsum("bhd,bnhd->bhn", qs, kr), dim=-1)
-    o = torch.einsum("bhn,bnhd->bhd", p.to(qkv.dtype).float(), vr)
-    return o.reshape(B, A).to(qkv.dtype)
+    kr = kq[:, r0:r0 + n].float().view(B, n, n_head, hd)
+    vr = vq[:, r0:r0 + n].float().view(B, n, n_head, hd)
+    st = torch.einsum("bhd,bnhd->bhn", qs, kr) \
+        * (ks[:, r0:r0 + n].float() * scale)[:, None]
+    if ins >= 0:
+        kn = (k_new.float() * scale).view(B, n_head, hd)
+        st[:, :, ins] = (qs * kn).sum(-1)
+    p = torch.softmax(st, dim=-1)
+    pv = p * vs[:, r0:r0 + n].float()[:, None]
+    if ins >= 0:
+        pv[:, :, ins] = 0.0
+    o = torch.einsum("bhn,bnhd->bhd", pv, vr)
+    if ins >= 0:
+        o = o + p[:, :, ins, None] * v_new.float().view(B, n_head, hd)
+    return o.reshape(B, A).to(q.dtype)
+
+
+def quantize_row(x):
+    """The megakernel's on-write int8 row (decode_stack.py:671-689): absmax
+    over the last axis / 127 floored at 1e-8 (fp32 scale s), int8 =
+    clip(round(x * (1 / s))), and the bf16-rounded scale. Divisors are
+    tensors so the card rounds as the kernels do."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    s = torch.clamp_min(amax / torch.full_like(amax, 127.0), 1e-8)
+    inv = torch.ones_like(s) / s
+    q = torch.clamp(torch.round(xf * inv[..., None]), -127, 127)
+    return q.to(torch.int8), s.to(BF16)
+
+
+def quantize_rows(c):
+    """An existing bf16 cache [..., A] as int8 rows and bf16 scales [...],
+    as pack_caches(quantize=True) converts them at the prefill -> decode
+    boundary (decode_stack.py:316-324): the same scale, but int8 =
+    clip(round(x / s))."""
+    cf = c.float()
+    amax = cf.abs().amax(dim=-1, keepdim=True)
+    s = torch.clamp_min(amax / torch.full_like(amax, 127.0), 1e-8)
+    q = torch.clamp(torch.round(cf / s), -127, 127)
+    return q.to(torch.int8), s[..., 0].to(BF16)
+
+
+def ring_attn_int8_plain(qkv, k_cache, v_cache, k_scale, v_scale, geom,
+                         n_head):
+    B, A3 = qkv.shape
+    A = A3 // 3
+    rows, w, r0, n = geom
+    k3, v3 = k_cache.view(B, rows, A), v_cache.view(B, rows, A)
+    ks2, vs2 = k_scale.view(B, rows), v_scale.view(B, rows)
+    q, k, v = qkv.split(A, dim=1)
+    if w >= 0:
+        k3[:, w], ks2[:, w] = quantize_row(k)
+        v3[:, w], vs2[:, w] = quantize_row(v)
+    ins = w - r0 if r0 <= w < r0 + n else -1
+    return _attn_int8_plain(q, k3, v3, ks2, vs2, r0, n, n_head, ins, k, v)
+
+
+def cross_attn_decode_plain(q, k_cache, v_cache, n_head, k_scale=None,
+                            v_scale=None):
+    B, A = q.shape
+    rows = k_cache.shape[1]
+    if k_scale is None:
+        return _attn_plain(q, k_cache, v_cache, 0, rows, n_head)
+    return _attn_int8_plain(q, k_cache, v_cache, k_scale, v_scale, 0, rows,
+                            n_head)
+
+
+def _attn_launch(name, q, qstride, A, kv_new, caches, scales, geom, n_head):
+    """Shared checks and launch of the attention kernels."""
+    B = q.shape[0]
+    rows, w, r0, n = geom
+    hd = A // n_head
+    if A % n_head or hd % 2 or hd > 512 or not 1 <= B <= MAX_BATCH:
+        raise ValueError(f"{name} takes even head widths <= 512 and "
+                         f"1..{MAX_BATCH} rows (A={A}, H={n_head}, B={B})")
+    if not (0 <= r0 and r0 + n <= rows and -1 <= w < rows and n >= 1):
+        raise ValueError(f"ring geometry {geom} out of range")
+    lib = _build.lib()
+    if (hd + n + 8 * hd) * 4 > lib.jk_max_dyn_smem():
+        raise ValueError(f"{n} live rows exceed the kernel's shared memory")
+    _require(q, "q", BF16)
+    int8 = scales is not None
+    for nm, c in zip(("k_cache", "v_cache"), caches):
+        _require(c, nm, torch.int8 if int8 else BF16)
+        if c.shape[0] != B or c.shape[-1] != A or c.numel() != B * rows * A:
+            raise ValueError(f"{nm} shape {tuple(c.shape)} does not match "
+                             f"[{B}, {rows} rows, {A}]")
+    if int8:
+        for nm, c in zip(("k_scale", "v_scale"), scales):
+            _require(c, nm, BF16)
+            if c.numel() != B * rows:
+                raise ValueError(f"{nm} holds {c.numel()} scales, not "
+                                 f"{B} x {rows}")
+    ks, vs = scales if int8 else (None, None)
+    o = torch.empty((B, A), dtype=BF16, device=q.device)
+    _check(lib.jk_attn_decode(
+        q.data_ptr(), qstride, _ptr(kv_new[0]), _ptr(kv_new[1]),
+        caches[0].data_ptr(), caches[1].data_ptr(), _ptr(ks), _ptr(vs),
+        o.data_ptr(), B, A, n_head, rows, r0, n, w, hd ** -0.25, int(int8),
+        _stream()), name)
+    LAUNCHES[name] += 1
+    return o
 
 
 def ring_attn_decode(qkv, k_cache, v_cache, geom, n_head):
@@ -192,49 +404,77 @@ def ring_attn_decode(qkv, k_cache, v_cache, geom, n_head):
     in place at the token's slot; geom from ring_geometry. Returns [B, A]."""
     if not qkv.is_cuda:
         return ring_attn_decode_plain(qkv, k_cache, v_cache, geom, n_head)
-    B, A3 = qkv.shape
-    A = A3 // 3
-    rows, w, r0, n = geom
-    hd = A // n_head
-    if A % n_head or hd % 2 or hd > 512 or not 1 <= B <= MAX_BATCH:
-        raise ValueError(f"ring_attn_decode takes even head widths <= 512 "
-                         f"and 1..{MAX_BATCH} rows (A={A}, H={n_head}, B={B})")
-    if not (0 <= r0 and r0 + n <= rows and -1 <= w < rows and n >= 1):
-        raise ValueError(f"ring geometry {geom} out of range")
-    lib = _build.lib()
-    if (hd + n + 8 * hd) * 4 > lib.jk_max_dyn_smem():
-        raise ValueError(f"{n} live rows exceed the kernel's shared memory")
     _require(qkv, "qkv", BF16)
-    for name, c in (("k_cache", k_cache), ("v_cache", v_cache)):
-        _require(c, name, BF16)
-        if c.shape[0] != B or c.shape[-1] != A or c.numel() != B * rows * A:
-            raise ValueError(f"{name} shape {tuple(c.shape)} does not match "
-                             f"[{B}, {rows} rows, {A}]")
-    o = torch.empty((B, A), dtype=BF16, device=qkv.device)
-    _check(lib.jk_ring_attn_decode(
-        qkv.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), o.data_ptr(),
-        B, A, n_head, rows, r0, n, w, hd ** -0.25, _stream()),
-        "ring_attn_decode")
-    LAUNCHES["ring_attn_decode"] += 1
-    return o
+    A = qkv.shape[1] // 3
+    return _attn_launch("ring_attn_decode", qkv, 3 * A, A,
+                        (qkv[:, A:], qkv[:, 2 * A:]), (k_cache, v_cache),
+                        None, geom, n_head)
+
+
+def ring_attn_int8(qkv, k_cache, v_cache, k_scale, v_scale, geom, n_head):
+    """ring_attn_decode against int8 caches [B, ...slots..., A] with bf16
+    row scales [B, ...slots...], all updated in place at the token's slot
+    (the row quantised as quantize_row does)."""
+    if not qkv.is_cuda:
+        return ring_attn_int8_plain(qkv, k_cache, v_cache, k_scale, v_scale,
+                                    geom, n_head)
+    _require(qkv, "qkv", BF16)
+    A = qkv.shape[1] // 3
+    return _attn_launch("ring_attn_int8", qkv, 3 * A, A,
+                        (qkv[:, A:], qkv[:, 2 * A:]), (k_cache, v_cache),
+                        (k_scale, v_scale), geom, n_head)
+
+
+def cross_attn_decode(q, k_cache, v_cache, n_head, k_scale=None,
+                      v_scale=None):
+    """f6: q [B, A] bf16 against the read-only encoder K/V [B, rows, A]
+    (bf16, or int8 with bf16 row scales [B, rows]). Returns [B, A]."""
+    if not q.is_cuda:
+        return cross_attn_decode_plain(q, k_cache, v_cache, n_head, k_scale,
+                                       v_scale)
+    rows = k_cache.shape[1]
+    scales = None if k_scale is None else (k_scale, v_scale)
+    return _attn_launch("cross_attn_decode", q, q.shape[1], q.shape[1],
+                        (None, None), (k_cache, v_cache), scales,
+                        (rows, -1, 0, rows), n_head)
 
 
 # ---------------------------------------------------------------------------
-# One layer of the decode stack, composed from the three kernels
+# One layer of the decode stack, composed from the kernels
 # ---------------------------------------------------------------------------
 
-def stack_layer_step(p, cache, x, geom, n_head, plain=False):
-    """x [B, S] -> x + a + m for one layer (ResAttnBlock.decode_step), with
-    p the layer's staged params (Transformer.prepare_decode_params) and
-    cache its {"k", "v"} ring cache, updated in place. plain=True runs the
-    plain versions on any device: the reference a kernel run is held
+def stack_layer_step(p, cache, x, geom, n_head, plain=False, res_scale=1.0):
+    """x [B, S] -> x + a + m (or x + (a + m) * res_scale) for one layer
+    (ResAttnBlock.decode_step), with p the layer's staged params
+    (Transformer.prepare_decode_params: "qkv" is q alone in f6 layers) and
+    cache its ring cache, updated in place: {"k", "v"}, plus {"ks", "vs"}
+    when int8; an f6 layer's is the read-only encoder K/V. plain=True runs
+    the plain versions on any device: the reference a kernel run is held
     against."""
-    ln, gemv, attn = ((ln_rows_plain, gemv_bf16_plain, ring_attn_decode_plain)
-                      if plain else (ln_rows, gemv_bf16, ring_attn_decode))
+    if plain:
+        ln, ring, ring8, cross = (ln_rows_plain, ring_attn_decode_plain,
+                                  ring_attn_int8_plain,
+                                  cross_attn_decode_plain)
+    else:
+        ln, ring, ring8, cross = (ln_rows, ring_attn_decode, ring_attn_int8,
+                                  cross_attn_decode)
     u = ln(x, p["ln0_g"], p["ln0_b"])
-    qkv = gemv(u, p["w_qkv"], p["b_qkv"])
-    o = attn(qkv, cache["k"], cache["v"], geom, n_head)
-    r = gemv(o, p["w_proj"], p["b_proj"], "residual", x)
+    qkv = gemv(u, p["qkv"], plain=plain)
+    int8 = "ks" in cache
+    if geom is None:  # f6
+        o = cross(qkv, cache["k"], cache["v"], n_head, cache.get("ks"),
+                  cache.get("vs"))
+    elif int8:
+        o = ring8(qkv, cache["k"], cache["v"], cache["ks"], cache["vs"],
+                  geom, n_head)
+    else:
+        o = ring(qkv, cache["k"], cache["v"], geom, n_head)
+    if res_scale == 1.0:
+        r = gemv(o, p["proj"], "residual", x, plain=plain)
+    else:
+        r, a = gemv(o, p["proj"], "residual", x, keep=True, plain=plain)
     um = ln(r, p["ln1_g"], p["ln1_b"])
-    h = gemv(um, p["w_fc"], p["b_fc"], "gelu")
-    return gemv(h, p["w_mlp"], p["b_mlp"], "residual", r)
+    h = gemv(um, p["fc"], "gelu", plain=plain)
+    if res_scale == 1.0:
+        return gemv(h, p["mlp"], "residual", r, plain=plain)
+    return gemv(h, p["mlp"], "res_scale", x, a, res_scale, plain=plain)

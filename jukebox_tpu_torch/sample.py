@@ -2,6 +2,10 @@
 jukebox_tpu/sample.py, sequential scheduler): the top level's codes first,
 then each upsampler level, window by window, then VQ-VAE decode, data.jkb
 and wav per level into hps.name. Everything runs in the calling thread.
+Each window's conditioning (a 5b_lyrics top's lyric encoder included, run
+once per window) and its decode mode (bf16, or int8 under
+JUKEBOX_INT8_DECODE=1 / stage_decode(quantize="int8")) belong to
+PriorRuntime.sample.
 
 Randomness: window i of a level at `start` samples with a torch.Generator
 seeded (seed, level, start * 131 + i) on the sampling device; the JAX

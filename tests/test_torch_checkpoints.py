@@ -16,6 +16,9 @@ against jukebox_tpu's, on the CPU:
 * restore specs resolve as in jukebox_tpu: a missing file or an uncached
   REMOTE_PREFIX path prints the same fresh-init message and keeps the
   fresh weights, a cached one restores, a local .pth.tar raises;
+* a 5b_lyrics-like prior (lyric encoder, f6 layers' c_enc_kv, the
+  unshared x_out of merged_decoder) round-trips through `.jkb` both ways,
+  exactly;
 * make_prior raises for the prior options it does not build."""
 
 import collections
@@ -239,8 +242,44 @@ def test_missing_checkpoint_keeps_fresh_init(capsys):
 
 @pytest.mark.parametrize("key,value", [("spread", 2), ("pos_init", True),
                                        ("copy_input", True),
-                                       ("merged_decoder", True)])
+                                       ("prime_spread", 2)])
 def test_unported_prior_options_raise(key, value):
     vq = tmm.make_vqvae(thp.setup_hparams("teeny", dict(VQ)), "cpu")
     with pytest.raises(NotImplementedError, match=key):
         tmm.make_prior(_hps(thp, **{key: value}), vq, "cpu")
+
+
+def test_5b_lyrics_checkpoint_round_trip(tmp_path):
+    """A JAX-written 5b_lyrics-like prior restores into the port, and the
+    port's file restores into jukebox_tpu: every leaf equal, the lyric
+    encoder (prime_prior, prime_state_proj / _ln, prime_x_out), the f6
+    layer's c_enc_kv and merged_decoder's x_out among them."""
+    from test_torch_5b import TOP_5B_LYRICS, VQ as VQ5
+
+    def hps(pkg, **kw):
+        return pkg.setup_hparams("teeny", dict(TOP_5B_LYRICS, **VQ5, **kw))
+    jvq = jmm.make_vqvae(jhp.setup_hparams("teeny", dict(VQ5)))
+    tvq = tmm.make_vqvae(thp.setup_hparams("teeny", dict(VQ5)), "cpu")
+    jp = jmm.make_prior(hps(jhp), jvq)
+    rs = np.random.RandomState(6)
+    params = jax.tree_util.tree_map(
+        lambda a: np.asarray(a) + rs.randn(*np.shape(a)).astype(np.float32),
+        _np(jp.params))
+    jmm.save_model_checkpoint(str(tmp_path), "jax",
+                              types.SimpleNamespace(params=params), None, 3,
+                              hps(jhp))
+    rt = tmm.make_prior(hps(thp, restore_prior=str(
+        tmp_path / "checkpoint_jax.jkb")), tvq, "cpu")
+    assert rt.step == 3
+    names = set(rt.params)
+    for want in ("prime_prior.transformer.blocks.1.attn.c_attn.w",
+                 "prime_state_proj.w", "prime_state_ln.g", "prime_x_out.w",
+                 "prior.transformer.blocks.18.attn.c_enc_kv.w",
+                 "prior.x_out.w"):
+        assert want in names, want
+    _assert_trees_equal(to_jax_params(rt.model), params)
+    path = tmm.save_model_checkpoint(str(tmp_path), "port", rt, None, 4,
+                                     hps(thp))
+    jrt = jmm.make_prior(hps(jhp, restore_prior=path), jvq)
+    assert jrt.step == 4
+    _assert_trees_equal(jrt.params, params)

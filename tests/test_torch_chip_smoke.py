@@ -48,16 +48,42 @@ def priors():
             make_prior(setup_hparams("teeny", dict(TOP)), vq, "cpu")]
 
 
-def test_kernel_checks(priors):
+# the 5b_lyrics layout cut to size: an order-10 top of 20 layers (the f6
+# layer at 18) with 4 heads of width 6, merged_decoder, and a 2-layer lyric
+# encoder over 8 lyric tokens; the order-2 upsamplers of UP
+TOP5 = dict(level=2, n_ctx=64, prior_width=96, prior_depth=20, heads=4,
+            attn_order=10, blocks=8, init_scale=0.2, labels=True,
+            y_bins=(120, 4111), t_bins=16, max_bow_genre_size=5, n_vocab=80,
+            min_duration=0.0, max_duration=600.0, use_tokens=True,
+            n_tokens=8, prime_width=32, prime_depth=2, prime_heads=2,
+            prime_attn_order=2, prime_blocks=4, prime_init_scale=0.7,
+            prime_loss_fraction=0.4, merged_decoder=True, sr=8000)
+
+
+@pytest.fixture(scope="module")
+def priors5():
+    vq = make_vqvae(setup_hparams("teeny", dict(VQ)), "cpu")
+    return [make_prior(setup_hparams("teeny", dict(UP, level=0)), vq, "cpu"),
+            make_prior(setup_hparams("teeny", dict(UP, level=1)), vq, "cpu"),
+            make_prior(setup_hparams("teeny", dict(TOP5)), vq, "cpu")]
+
+
+def test_kernel_checks(priors, priors5):
     top, ups = priors[-1], priors[0]
     shapes = {"top": chip_smoke.prior_shapes(top),
               "upsampler": chip_smoke.prior_shapes(ups)}
     assert shapes["top"]["funcs"] == [0, 1, 2, 3, 7]
     assert shapes["top"]["prime"] == 32 and shapes["top"]["bc"] == 15
-    last_t = {"top": 24 + 512 // top.raw_to_tokens - 1, "upsampler": 63}
-    rows = chip_smoke.check_kernels(shapes, 2, last_t, "cpu",
-                                    torch.Generator().manual_seed(0),
+    shapes["5b top"] = chip_smoke.prior_shapes(priors5[-1])
+    shapes["5b top"]["enc"] = priors5[-1].n_tokens
+    assert shapes["5b top"]["funcs"] == [1, 2, 3, 6]
+    last_t = {"top": 24 + 512 // top.raw_to_tokens - 1, "upsampler": 63,
+              "5b top": 63}
+    gen = torch.Generator().manual_seed(0)
+    rows = chip_smoke.check_kernels(shapes, 2, last_t, "cpu", gen,
                                     time_it=False)
+    rows.update(chip_smoke.check_int8_kernels(shapes, 2, last_t, "cpu", gen,
+                                              time_it=False))
     assert set(rows) == set(ds.LAUNCHES)
     assert all(r["max_abs_err"] == 0.0 for r in rows.values())
 
@@ -66,6 +92,42 @@ def test_stack_step_check(priors):
     for prior in (priors[-1], priors[0]):
         chip_smoke.check_stack_step(prior, 2, "cpu",
                                     torch.Generator().manual_seed(1))
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"])
+def test_5b_stack_step_check(priors5, quantize):
+    for prior in (priors5[-1], priors5[0]):
+        chip_smoke.check_stack_step(prior, 2, "cpu",
+                                    torch.Generator().manual_seed(1),
+                                    quantize)
+
+
+def test_5b_int8_cascade_launch_accounting(priors5, tmp_path, monkeypatch):
+    """Phase 7's accounting: the int8 cascade of the 5b-like family, every
+    decode kernel's plain calls (f6 cross-attention included) and the
+    LayerNorm calls (the lyric encoder's forward, the conditioners) equal
+    their expected counts."""
+    from jukebox_tpu_torch.ops import layer_norm as ln
+    calls = _count_plain(monkeypatch, ds, ds.LAUNCHES)
+    ln_calls = _count_plain(monkeypatch, ln, ln.LAUNCHES)
+    hps = Hyperparams(n_samples=2, sample_length=VQ["sample_length"],
+                      sr=VQ["sr"], hop_fraction=(1.0, 1.0, 0.125), seed=0,
+                      name=str(tmp_path / "smoke5"))
+    skw = [dict(temp=0.99, fp16=True, chunk_size=32, max_batch_size=2)
+           for _ in priors5]
+    rep = chip_smoke.run_cascade(priors5, hps, skw, int8=True)
+    assert rep["steps"] == [128, 64, 32]
+    # 32 top steps x (19 ring + 1 cross); 192 upsampler steps x 3 layers
+    assert rep["expected"]["cross_attn_decode"] == 32
+    assert rep["expected"]["ring_attn_int8"] == 32 * 19 + 192 * 3
+    assert rep["expected"]["gemv_int8"] == 4 * (32 * 20 + 192 * 3)
+    assert rep["expected"]["gemv_bf16"] == rep["expected"][
+        "ring_attn_decode"] == 0
+    assert calls == rep["expected"]
+    # conditioners: 2 + 1 windows; the lyric encoder: 2 x 2 layers + 1
+    assert rep["ln_expected"]["layer_norm_fwd"] == 3 + 5
+    assert ln_calls == rep["ln_expected"]
+    assert rep["launches"] == dict.fromkeys(ds.LAUNCHES, 0)
 
 
 def test_cascade_launch_accounting(priors, tmp_path, monkeypatch):

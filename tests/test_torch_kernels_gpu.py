@@ -5,6 +5,16 @@ attention pattern at positions crossing block and prime boundaries, and the
 slot each writes. Tolerance 1e-2 x max(1, |plain|): the two sum in different
 orders in fp32 and can round one bf16 output differently.
 
+The int8 and cross-attention decode kernels (gemv_int8, ring_attn_int8,
+cross_attn_decode) and the res_scale epilogues through
+chip_smoke.check_int8_kernels, and the bf16 decode kernels through
+chip_smoke.check_kernels, at the 5b_lyrics top's shapes (S 4800, A 1200,
+8 heads of width 150, 512 encoder rows, f2 at 128 rows) and the
+upsamplers': the same 1e-2 tolerance, the written rows and scales equal,
+and each kernel fed a planted fault (a skipped column tile, a dropped
+head) refused by the same check; quantize_dense on the card bit for bit
+against the host.
+
 Flash kernels (ops/flash_attention.py) through chip_smoke.check_flash, at
 L 1000 and a ragged 517 with head widths 64 and 256, at dropout rates 0
 and 0.1: out, lse, dq, dk, dv held to ops/flash_attention.py `agreement`
@@ -88,6 +98,21 @@ def test_cuda_kernels_match_plain(S, A, H, bc, blocks, n_ctx, prime):
             close(ds.ring_attn_decode(qkv, k1, v1, geom, H),
                   ds.ring_attn_decode_plain(qkv, k2, v2, geom, H))
             assert torch.equal(k1, k2) and torch.equal(v1, v2)
+
+
+@pytest.mark.gpu
+def test_5b_and_int8_decode_kernels_match_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    shapes = {"5b top": chip_smoke.preset_shapes("prior_5b_lyrics"),
+              "upsampler": chip_smoke.preset_shapes("upsampler_level_0")}
+    last_t = {"5b top": 8191, "upsampler": 8191}
+    rows = chip_smoke.check_kernels(shapes, 4, last_t, "cuda", gen,
+                                    time_it=False)
+    rows.update(chip_smoke.check_int8_kernels(shapes, 4, last_t, "cuda", gen,
+                                              time_it=False))
+    assert set(rows) == set(ds.LAUNCHES)
 
 
 @pytest.mark.gpu
