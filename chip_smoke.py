@@ -10,8 +10,12 @@ Phases, each printing timestamped lines:
              the shapes of the 1b_lyrics priors (top: S 2048, A 512, 2
              heads; upsamplers: S 1920, A 480, 1 head) and of the 5b_lyrics
              top (S 4800, A 1200, 8 heads), every attention pattern at
-             positions that cross block and prime boundaries; times per
-             launch beside the bound, the plain version and one library call
+             positions that cross block and prime boundaries, f0 also at
+             129 rows and at n_ctx (its rows split over blocks, the slot
+             row in the last, ragged split), and at every split position
+             a planted fault (one split left out of the combine) that the
+             check must refuse; times per launch beside the bound, the
+             plain version and one library call
   3 step     one full-width decode step per prior, kernel path against the
              plain path on the same caches after a one-block prefill
   2b flash   the flash-attention kernels (forward, dq, dk/dv) against their
@@ -32,9 +36,11 @@ Phases, each printing timestamped lines:
   2e int8    gemv_int8, ring_attn_int8 (every ring pattern) and
              cross_attn_decode (f6, bf16 and int8 encoder K/V) against their
              plain versions at the 5b_lyrics top's shapes (S 4800, A 1200,
-             8 heads of 150, 512 encoder rows), the upsamplers' and the 1b
-             top's; the res_scale epilogues; a planted fault for each (a
-             skipped column tile, a dropped head); quantize_dense on the
+             8 heads of 150, 512 encoder rows and a ragged 500), the
+             upsamplers' and the 1b top's; the res_scale epilogues; a
+             planted fault for each (a skipped column tile, a dropped head,
+             and wherever the rows split, one split left out of the
+             combine); quantize_dense on the
              card bit for bit against the host; times beside the bound, the
              plain version and one library call
   7 5b       the 5b_lyrics cascade from --seed: one full-width top decode
@@ -63,7 +69,8 @@ Phases, each printing timestamped lines:
              the run; then a run restored from the checkpoint holds its
              params, optimizer state and step bit for bit and takes two
              more steps, and a sampling make_prior restored from it holds
-             its params; the checkpoint's size, save and load times
+             its params as fp16_params casts them (bf16, LayerNorms fp32);
+             the checkpoint's size, save and load times
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failed check raises: exit code != 0.
 It runs on the GPU only; without one it exits with an error.
@@ -92,8 +99,8 @@ from jukebox_tpu_torch import sample as sample_mod
 from jukebox_tpu_torch import train as train_mod
 from jukebox_tpu_torch.data.files_dataset import FixedMetadataDataset
 from jukebox_tpu_torch.hparams import Hyperparams, setup_hparams
-from jukebox_tpu_torch.models.make_models import (make_model, make_prior,
-                                                  make_vqvae)
+from jukebox_tpu_torch.models.make_models import (LN_KEYS, make_model,
+                                                  make_prior, make_vqvae)
 from jukebox_tpu_torch.models.transformer import ATTN_ORDERS
 from jukebox_tpu_torch.ops import _build
 from jukebox_tpu_torch.ops import adam as ad
@@ -284,12 +291,60 @@ def preset_shapes(name):
                               for d in range(h.prior_depth)}))
 
 
-def attn_positions(sh, last_t):
+def attn_positions(sh, last_t, f=None):
+    """Positions that cross block and prime boundaries up to last_t; the
+    dense f0 ring also at ONE_SPLIT_ROWS (n one past a single split: three
+    splits, the last of two rows) and at n_ctx - 1 (the whole cache), so
+    its live rows span several splits with the slot row in the last,
+    ragged one."""
     bc = sh["bc"]
     ts = {0, bc - 1, bc, 2 * bc + 1, last_t}
     if sh["prime"]:
         ts |= {sh["prime"] - 1, sh["prime"]}
-    return sorted(t for t in ts if t <= last_t)
+    ts = {t for t in ts if t <= last_t}
+    if f == 0:
+        ts |= {ds.ONE_SPLIT_ROWS + 1, sh["n_ctx"] - 1}
+    return sorted(t for t in ts if t < sh["n_ctx"])
+
+
+def dropped_split(geom, B, H, hd, device):
+    """(lo, hi) cache rows of one split of the attention kernels' plan for
+    this geometry (a middle one, never the slot row's), or None when the
+    rows run in one split: the split that the planted split fault leaves
+    out of the combine."""
+    rows, w, r0, n = geom
+    splits, chunk, _ = ds.attn_split_plan(n, B, H, hd, ds.sm_count(device))
+    if splits == 1:
+        return None
+    z = splits // 2
+    if r0 + z * chunk <= w < r0 + (z + 1) * chunk:
+        z -= 1
+    return r0 + z * chunk, r0 + min((z + 1) * chunk, n)
+
+
+def split_fault_caches(q, caches, lo, hi, A, H):
+    """The planted split fault, as inputs: (caches with the split's values
+    raised, so its share of the output shows, and the same caches with that
+    split's keys turned against q, so the split's weights are exactly 0 and
+    a kernel fed them computes the output without that split). caches:
+    (k, v) bf16 [B, rows, A], or (k, v, ks, vs) int8 with row scales."""
+    B = q.shape[0]
+    sign = torch.sign(q[:, :A].float()).reshape(B, 1, A)
+    shown = [c.clone() for c in caches]
+    v3 = shown[1].view(B, -1, A)
+    if len(caches) == 2:
+        v3[:, lo:hi] = (v3[:, lo:hi].float() + 8.0).to(v3.dtype)
+    else:
+        v3[:, lo:hi] = 127
+        shown[3].view(B, -1)[:, lo:hi] = 0.06
+    dropped = [c.clone() for c in shown]
+    k3 = dropped[0].view(B, -1, A)
+    if len(caches) == 2:
+        k3[:, lo:hi] = (-64.0 * sign).to(k3.dtype)
+    else:
+        k3[:, lo:hi] = (-127.0 * sign).to(torch.int8)
+        dropped[2].view(B, -1)[:, lo:hi] = 0.5
+    return shown, dropped
 
 
 def check_kernels(shapes, B, last_t, device, gen, time_it=True):
@@ -358,16 +413,24 @@ def check_kernels(shapes, B, last_t, device, gen, time_it=True):
                      2: (B, sh["bc"], sh["blocks"], A), 3: (B, 2 * sh["bc"], A),
                      7: (B, sh["prime"] or 1, A)}[f]
             kc, vc = rnd(*shape), rnd(*shape)
-            for t in attn_positions(sh, last_t[label]):
+            for t in attn_positions(sh, last_t[label], f):
                 geom = ds.ring_geometry(f, t, shape, sh["bc"], sh["prime"])
                 qkv = rnd(B, 3 * A)
                 k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
                 out = ds.ring_attn_decode(qkv, k1, v1, geom, H)
                 ref = ds.ring_attn_decode_plain(qkv, k2, v2, geom, H)
-                rep.check("ring_attn_decode", out, ref,
-                          f"{label} f{f} t={t} rows {geom[2]}+{geom[3]}")
+                what = f"{label} f{f} t={t} rows {geom[2]}+{geom[3]}"
+                rep.check("ring_attn_decode", out, ref, what)
                 if not (torch.equal(k1, k2) and torch.equal(v1, v2)):
                     raise AssertionError(f"f{f} t={t}: cache write differs")
+                cut = dropped_split(geom, B, H, A // H, device)
+                if cut is not None:
+                    shown, dropped = split_fault_caches(qkv, (kc, vc), *cut,
+                                                        A, H)
+                    refuse("ring_attn_decode",
+                           ds.ring_attn_decode(qkv, *dropped, geom, H),
+                           ds.ring_attn_decode_plain(qkv, *shown, geom, H),
+                           f"{what} split {cut[0]}:{cut[1]} dropped")
             # time the same work (n live rows read, one slot written) on
             # caches holding just those rows, so the rotated copies stay small
             t = last_t[label]
@@ -527,13 +590,17 @@ def check_int8_kernels(shapes, B, last_t, device, gen, time_it=True):
                      3: (B, 2 * sh["bc"], A),
                      7: (B, sh["prime"] or 1, A)}[f]
             (kc, ks), (vc, vs) = int8_rows(*shape), int8_rows(*shape)
-            for t in attn_positions(sh, last_t[label]):
+            for t in attn_positions(sh, last_t[label], f):
                 geom = ds.ring_geometry(f, t, shape, sh["bc"], sh["prime"])
                 qkv = rnd(B, 3 * A)
+                # the c_attn product's fp32 values, of which qkv is the
+                # bf16 rounding: the new row is quantised from them
+                qkv32 = qkv.float() + rnd(B, 3 * A, dtype=torch.float32,
+                                          scale=2e-3) * qkv.float().abs()
                 ca = [c.clone() for c in (kc, vc, ks, vs)]
                 cb = [c.clone() for c in (kc, vc, ks, vs)]
-                out = ds.ring_attn_int8(qkv, *ca, geom, H)
-                ref = ds.ring_attn_int8_plain(qkv, *cb, geom, H)
+                out = ds.ring_attn_int8(qkv, *ca, geom, H, qkv32)
+                ref = ds.ring_attn_int8_plain(qkv, *cb, geom, H, qkv32)
                 what = f"{label} f{f} t={t} rows {geom[2]}+{geom[3]}"
                 rep.check("ring_attn_int8", out, ref, what)
                 if not all(torch.equal(a, b) for a, b in zip(ca, cb)):
@@ -542,7 +609,17 @@ def check_int8_kernels(shapes, B, last_t, device, gen, time_it=True):
                 if t == last_t[label]:
                     cc = [c.clone() for c in (kc, vc, ks, vs)]
                     refuse("ring_attn_int8", ds.ring_attn_int8(
-                        skip_head(qkv, A, H), *cc, geom, H), ref, what)
+                        skip_head(qkv, A, H), *cc, geom, H, qkv32), ref,
+                        what)
+                cut = dropped_split(geom, B, H, A // H, device)
+                if cut is not None:
+                    shown, dropped = split_fault_caches(
+                        qkv, (kc, vc, ks, vs), *cut, A, H)
+                    refuse("ring_attn_int8",
+                           ds.ring_attn_int8(qkv, *dropped, geom, H, qkv32),
+                           ds.ring_attn_int8_plain(qkv, *shown, geom, H,
+                                                   qkv32),
+                           f"{what} split {cut[0]}:{cut[1]} dropped")
             if main and f == 3:
                 t = last_t[label]
                 n = ds.ring_geometry(f, t, shape, sh["bc"], sh["prime"])[3]
@@ -551,7 +628,8 @@ def check_int8_kernels(shapes, B, last_t, device, gen, time_it=True):
                 def ring_set():
                     (k_, ks_), (v_, vs_) = (int8_rows(B, n, A),
                                             int8_rows(B, n, A))
-                    return (rnd(B, 3 * A), k_, v_, ks_, vs_, geom, H)
+                    qkv_ = rnd(B, 3 * A)
+                    return (qkv_, k_, v_, ks_, vs_, geom, H, qkv_.float())
                 live = B * n * (A + 2) * 2
                 sets = copies(ring_set, live)
                 time3("ring_attn_int8", f"{label} f{f} t={t} ({n} rows)",
@@ -559,13 +637,17 @@ def check_int8_kernels(shapes, B, last_t, device, gen, time_it=True):
                       F.scaled_dot_product_attention, sets,
                       [(heads(a[0][:, :A], H), heads(deq(a[1], a[3]), H),
                         heads(deq(a[2], a[4]), H)) for a in sets],
-                      live + B * 3 * A * 2 + 2 * B * (A + 2) + B * A * 2,
-                      4 * B * n * A, True)
+                      live + B * 3 * A * 2 + 2 * B * A * 4
+                      + 2 * B * (A + 2) + B * A * 2, 4 * B * n * A, True)
         # -- cross_attn_decode (f6), bf16 and int8 encoder K/V
-        if sh["enc"]:
-            E = sh["enc"]
+        # the encoder rows, and where they split, a cut of them whose last
+        # split is ragged
+        enc_rows = [sh["enc"]] if sh["enc"] else []
+        if sh["enc"] and sh["enc"] > ds.ONE_SPLIT_ROWS:
+            enc_rows.append(sh["enc"] - 12)
+        for E in enc_rows:
             for int8 in (False, True):
-                def cross_set(int8=int8):
+                def cross_set(int8=int8, E=E):
                     if int8:
                         (k_, ks_), (v_, vs_) = (int8_rows(B, E, A),
                                                 int8_rows(B, E, A))
@@ -579,6 +661,19 @@ def check_int8_kernels(shapes, B, last_t, device, gen, time_it=True):
                           ds.cross_attn_decode(q, k, v, H, ks, vs), ref, what)
                 refuse("cross_attn_decode", ds.cross_attn_decode(
                     skip_head(q, A, H), k, v, H, ks, vs), ref, what)
+                cut = dropped_split((E, -1, 0, E), B, H, A // H, device)
+                if cut is not None:
+                    shown, dropped = split_fault_caches(
+                        q, (k, v, ks, vs)[:4 if int8 else 2], *cut, A, H)
+                    pad = [None] * (2 if not int8 else 0)
+                    refuse("cross_attn_decode",
+                           ds.cross_attn_decode(q, dropped[0], dropped[1], H,
+                                                *dropped[2:], *pad),
+                           ds.cross_attn_decode_plain(q, shown[0], shown[1],
+                                                      H, *shown[2:], *pad),
+                           f"{what} split {cut[0]}:{cut[1]} dropped")
+                if E != sh["enc"]:
+                    continue
                 nbytes = (B * E * A * (1 if int8 else 2) * 2
                           + (4 * B * E if int8 else 0) + 2 * B * A * 2)
                 sets = copies(cross_set, nbytes)
@@ -994,8 +1089,8 @@ def check_stack_step(prior, B, device, gen, quantize=None):
     """One full-width decode step of `prior`, the kernel path against the
     plain path on twin caches after a one-block prefill (the f6 layers'
     caches projected from a random encoder_kv; with quantize="int8" int8
-    weights and caches, converted after the prefill), then the step timed.
-    Returns the step's wall ms."""
+    weights and caches, the prefill writing int8 rows), then the step
+    timed. Returns the step's wall ms."""
     tr = prior.model.prior.transformer
     bc = tr.blocks[0].attn.block_ctx
     dec = tr.prepare_decode_params(torch.bfloat16, quantize=quantize)
@@ -1004,11 +1099,9 @@ def check_stack_step(prior, B, device, gen, quantize=None):
         enc = torch.randn((B, prior.n_tokens, tr.n_in), generator=gen,
                           device=device).to(torch.bfloat16)
     caches = tr.init_cache(B, torch.bfloat16, device, encoder_kv=enc,
-                           dec_params=dec)
+                           dec_params=dec, int8=bool(quantize))
     x0 = torch.randn((B, bc, tr.n_in), generator=gen, device=device)
     tr.prefill_chunk(caches, x0, 0, 1, fp16=True, dec_params=dec)
-    if quantize:
-        tr.quantize_caches(caches)
     twin = [{k: c.clone() for k, c in cache.items()} for cache in caches]
     x = torch.randn((B, 1, tr.n_in), generator=gen, device=device)
     h_k = tr.decode_step(dec, caches, x, bc, fp16=True)
@@ -1562,7 +1655,8 @@ def check_resume(seed, device, ckpt, n_more=2, wav_seconds=WAV_SECONDS,
     """Phase 6 (a) and (b): a new train.run restored from the checkpoint
     `ckpt` holds its params, optimizer state and step bit for bit, then
     takes n_more finite steps through the kernels; a sampling make_prior
-    restored from it holds its params. Returns a report dict (checkpoint
+    restored from it holds its params as convert_params_bf16 casts them.
+    Returns a report dict (checkpoint
     bytes, load and restore seconds, the resumed records, launches)."""
     cuda = torch.device(device).type == "cuda"
     t = time.time()
@@ -1616,14 +1710,30 @@ def check_resume(seed, device, ckpt, n_more=2, wav_seconds=WAV_SECONDS,
     t = time.time()
     sampler = make_prior(shps, make_vqvae(shps, device), device)
     sample_s = time.time() - t
-    assert_same(sampler.params, named_leaves(sampler.model, file["params"]),
-                "sampling params")
+    # the sampling prior holds the checkpoint's tensors as
+    # convert_params_bf16 casts them (hps.fp16_params): bf16 except the
+    # LayerNorms, bit for bit
+    ref = named_leaves(sampler.model, file["params"])
+    if set(ref) != set(sampler.params):
+        raise AssertionError("sampling params: names differ from the file's")
+    for n, t in sampler.params.items():
+        want = torch.from_numpy(np.ascontiguousarray(ref[n]))
+        if not set(n.split(".")) & set(LN_KEYS):
+            want = want.to(torch.bfloat16)
+        if t.dtype != want.dtype or not torch.equal(
+                t.detach().cpu(), want.reshape(t.shape)):
+            raise AssertionError(f"sampling params: {n} differs from the "
+                                 f"file's tensor cast by "
+                                 f"convert_params_bf16")
     if sampler.step != step:
         raise AssertionError(f"sampling runtime step {sampler.step}")
+    dtypes = {}
+    for t in sampler.params.values():
+        dtypes[str(t.dtype)] = dtypes.get(str(t.dtype), 0) + 1
     del sampler, file
     return dict(bytes=os.path.getsize(ckpt), load_s=load_s, setup_s=setup_s,
                 sample_restore_s=sample_s, step=step, records=records,
-                launches=launches, expected=expected)
+                launches=launches, expected=expected, sampling_dtypes=dtypes)
 
 
 def log_cascade(rep, label):
@@ -1799,7 +1909,8 @@ def main(argv=None):
             f"{tr_rep['records'][0]['save_s']:.1f}s, loaded in "
             f"{res['load_s']:.1f}s; restored bit for bit into train.setup "
             f"({res['setup_s']:.1f}s, two reads) and into a sampling "
-            f"make_prior ({res['sample_restore_s']:.1f}s)")
+            f"make_prior ({res['sample_restore_s']:.1f}s) as fp16_params "
+            f"casts it: {res['sampling_dtypes']} tensors")
         for r in res["records"]:
             log(f"  resumed step {r['it']}: loss {r['loss']:.6f} gn "
                 f"{r['gn']:.6g} step_ok {r['step_ok']} wall "

@@ -6,7 +6,7 @@
 // bf16 or `quantized` int8 weights, bf16 or `cache_quantized` int8 caches,
 // f6 cross-attention against a read-only encoder cache, every head width
 // (its sliced / masked / matmul head modes are Mosaic layouts of one piece
-// of math: here one block per (batch row, head) serves them all) and
+// of math: here blocks per (batch row, head) serve them all) and
 // `res_scale`. That kernel runs one token through a segment of layers in
 // one launch; here the same per-layer arithmetic runs as kernels launched
 // per layer:
@@ -21,19 +21,20 @@
 //                alone in f6 layers), c_proj (+ residual), mlp c_fc
 //                (+ quick_gelu) and mlp c_proj (+ residual, or the
 //                res_scale residual x + (a + m) * res_scale).
-//   attn         one token of one layer against its cache, one block per
-//                (batch row, head): ring_attn_decode (bf16 ring: write the
-//                token's k, v into its slot, masked scores over the live
-//                rows, fp32 softmax, bf16-rounded weights x V);
-//                ring_attn_int8 (int8 ring with one bf16 scale per
-//                (batch row, slot): the new row is quantised on write,
-//                absmax over A / 127 floored at 1e-8, int8 = round(k * (1 /
-//                scale)), the bf16-rounded scale stored; on read the scales
-//                fold into the scores and the softmax weights, and the
-//                current token's own score and value use its unquantised
-//                k and v, as the megakernel's sc_new / w_ins patch does);
-//                cross_attn_decode (f6: a q-only query against the read-only
-//                encoder K/V, bf16 or int8, nothing written).
+//   attn         one token of one layer against its cache, its live rows
+//                split over blocks (grid B x H x splits):
+//                ring_attn_decode (bf16 ring: write the token's k, v into
+//                its slot, masked scores over the live rows, fp32 softmax,
+//                bf16-rounded weights x V); ring_attn_int8 (int8 ring with
+//                one bf16 scale per (batch row, slot): the new row is
+//                quantised on write from its fp32 values, absmax over A /
+//                127 floored at 1e-8, int8 = round(k * (1 / scale)), the
+//                bf16-rounded scale stored; on read the scales fold into
+//                the scores and the softmax weights, and the current
+//                token's own score and value use its bf16 k and v, as the
+//                megakernel's sc_new / w_ins patch does); cross_attn_decode
+//                (f6: a q-only query against the read-only encoder K/V,
+//                bf16 or int8, nothing written).
 //
 // What bounds them on an H100: a decode step at batch <= 16 does ~2 flops
 // per weight byte (~4 in int8), far below the ~295 flop/byte ridge, so the
@@ -43,13 +44,21 @@
 // 32-byte sector), every thread streams 8 weights per load, x stays in
 // shared memory as bf16, and the K split inside the block is reduced with
 // warp shuffles and one shared-memory pass. The attention kernels are bound
-// by the cache rows they read (the f0 dense layers read t+1 rows, f6 the
-// 512 encoder rows); they read each live row once for the scores and once
-// for the values, q (and the new k, v) taken from the GEMV output with its
-// row stride (no copy). ln_rows is bound by launch latency at these sizes.
-// Fusing LN into the GEMV, a persistent whole-stack kernel, CUDA graphs,
-// wgmma/TMA and splitting the attention rows over more blocks are later
-// work.
+// by the cache rows they read (the f0 dense layer reads t+1 rows, f6 the
+// 512 encoder rows: 19.9 MB at the 1b top's last f0 position, 5.95 us at
+// 3.35 TB/s). With one block per (batch row, head) that is 8 blocks on 132
+// SMs, so the rows are split: the host picks `splits` blocks per head
+// (ops/decode_stack.py attn_split_plan: enough to fill the SMs a few times,
+// 64-256 rows each; one split up to 128 rows), each warp reads its rows' K
+// and V 16 bytes a lane with several rows in flight and keeps an online
+// softmax in registers (no block-wide step before the end), and the last
+// block of each head to finish combines the splits' partial sums in the
+// same launch: a decode layer still launches one attention kernel. Where
+// the bf16 mode rounds: the weight that multiplies V is e = exp(s - m),
+// m the running max of the warp's rows, rounded to bf16 (the plain version
+// rounds the normalised p = e / sum); the sums and the final division are
+// fp32, as the flash forward rounds p. Fusing LN into the GEMV, a
+// persistent whole-stack kernel, CUDA graphs and wgmma/TMA are later work.
 //
 // Every entry point is a plain C function that launches on the given stream
 // and returns cudaGetLastError(); the Python wrappers
@@ -147,6 +156,8 @@ ln_rows_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ g,
 // (tx = tid % TPR, ky = tid / TPR) accumulates columns n0 + tx*8 .. +7 over
 // the rows k = ky, ky + 256 / TPR, ... of W, 8 weights per load (16 bytes of
 // bf16, TPR = 2; 8 bytes of int8, TPR = 4). BT is the batch bucket (>= B).
+// y32, when given, receives the fp32 product (scaled, plus bias) before the
+// epilogue: the int8 cache mode quantises the new k, v rows from it.
 // EPI: 0 none, 1 quick_gelu, 2 residual (out = res + bf16(y); aux, when
 // given, also receives bf16(y)), 3 res_scale (out = res + bf16(bf16(res2 +
 // bf16(y)) * bf16(rs)), the bf16 roundings of x + (a + m) * res_scale).
@@ -188,8 +199,8 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x, const WT* __restrict__ W,
             const __nv_bfloat16* __restrict__ bias,
             const __nv_bfloat16* __restrict__ res,
             const __nv_bfloat16* __restrict__ res2,
-            __nv_bfloat16* __restrict__ aux, __nv_bfloat16* __restrict__ y,
-            int B, int K, int N, float rs) {
+            __nv_bfloat16* __restrict__ aux, float* __restrict__ y32,
+            __nv_bfloat16* __restrict__ y, int B, int K, int N, float rs) {
   constexpr int TPR = WLoad<WT>::kTPR;
   constexpr int COLS = 8 * TPR;
   constexpr int ROWS = kThreads / TPR;
@@ -253,6 +264,7 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x, const WT* __restrict__ W,
     if constexpr (std::is_same<WT, int8_t>::value) s *= scale[n];
     s += __bfloat162float(bias[n]);
     const size_t at = (size_t)bb * N + n;
+    if (y32 != nullptr) y32[at] = s;
     float out;
     if (EPI == 1) {
       out = s / (1.0f + expf(-1.702f * s));
@@ -270,52 +282,129 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x, const WT* __restrict__ W,
 }
 
 // ---------------------------------------------------------------------------
-// attn_kernel: grid (B, H), one token of one layer. Caches k/v [B, R, A]
-// (CT = bf16, or int8 with bf16 row scales ks/vs [B, R]); q row b at
-// q + b * qstride; the token's new k, v (rows of the same stride) are
-// written to slot w (w < 0: no write, knew may be null); the live rows are
-// r0 .. r0 + n - 1. INT8: the slot row, when live, is read from the
-// unquantised knew / vnew instead of the cache. Dynamic shared memory:
-// q [hd] | scores [n] | per-warp partial outputs [kWarps][hd], all fp32.
+// attn_kernel: grid (B, H, splits), one token of one layer. Caches k/v
+// [B, R, A] (CT = bf16, or int8 with bf16 row scales ks/vs [B, R]); q row b
+// at q + b * qstride; the live rows are r0 .. r0 + n - 1, and split z of the
+// grid reads rows r0 + z * chunk .. + chunk - 1 (the last split ragged).
+// The token's new k, v (bf16 rows of stride qstride; for INT8 also their
+// fp32 values k32 / v32, rows of stride stride32) go to slot w (w < 0: no
+// write, knew may be null). Split 0 of each head writes that head's
+// columns of the slot (and head 0 the int8 row scales); no block reads the
+// slot row from the cache: the split holding it takes its score and value
+// from knew / vnew, as the megakernel's sc_new / w_ins patch does.
+//
+// Each block: q in registers, its rows read 16 bytes a lane (8 bf16 or 16
+// int8 values; 2 values a lane when the head width is not a multiple of
+// that; CPL vectors a lane), U rows in flight per warp; block-wide max and
+// sum of its scores; P.V accumulated per warp and summed in shared memory.
+//   splits == 1: p = e / sum (bf16-rounded in the bf16 mode) and o written
+//     directly: the arithmetic of the one-block design.
+//   splits > 1: the split's max m, sum l of e = exp(s - m) and fp32 partial
+//     output sum(bf16(e) v) (int8: sum(e * v_scale * v_int)) go to the
+//     workspace ws [B, H, splits, 2 + hd]; the block that arrives last at
+//     the (b, h) counter (atomicAdd after __threadfence) combines them, each
+//     warp a fixed subset of splits and the warps summed in a fixed order,
+//     so the result does not depend on which block came last: o = sum_z
+//     exp(m_z - M) acc_z / sum_z exp(m_z - M) l_z. It resets the counter
+//     for the next launch.
+// Dynamic shared memory: per-warp partial outputs [kWarps][hd] | scores
+// [chunk], fp32.
 // ---------------------------------------------------------------------------
-constexpr int kMaxPairsPerLane = 8;  // hd <= 2 * 32 * 8 = 512
+constexpr int kMaxHead = 512;
 
-template <bool INT8>
+template <typename CT, int VEC>
+struct RowLoad;
+
+template <>
+struct RowLoad<__nv_bfloat16, 8> {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              float* f) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 t = __bfloat1622float2(h2[j]);
+      f[2 * j] = t.x;
+      f[2 * j + 1] = t.y;
+    }
+  }
+};
+
+template <>
+struct RowLoad<__nv_bfloat16, 2> {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              float* f) {
+    const float2 t =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    f[0] = t.x;
+    f[1] = t.y;
+  }
+};
+
+template <>
+struct RowLoad<int8_t, 16> {
+  static __device__ __forceinline__ void load(const int8_t* p, float* f) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) f[j] = static_cast<float>(c[j]);
+  }
+};
+
+template <>
+struct RowLoad<int8_t, 2> {
+  static __device__ __forceinline__ void load(const int8_t* p, float* f) {
+    const char2 c = *reinterpret_cast<const char2*>(p);
+    f[0] = static_cast<float>(c.x);
+    f[1] = static_cast<float>(c.y);
+  }
+};
+
+template <bool INT8, int VEC, int CPL>
 __global__ void __launch_bounds__(kThreads)
 attn_kernel(const __nv_bfloat16* __restrict__ q, int qstride,
             const __nv_bfloat16* __restrict__ knew,
             const __nv_bfloat16* __restrict__ vnew,
+            const float* __restrict__ k32, const float* __restrict__ v32,
+            int stride32,
             typename std::conditional<INT8, int8_t, __nv_bfloat16>::type* kc,
             typename std::conditional<INT8, int8_t, __nv_bfloat16>::type* vc,
             __nv_bfloat16* __restrict__ ks, __nv_bfloat16* __restrict__ vs,
-            __nv_bfloat16* __restrict__ o, int A, int H, int R, int r0, int n,
-            int w, float scale) {
+            __nv_bfloat16* __restrict__ o, float* __restrict__ ws,
+            int* __restrict__ counters, int A, int H, int R, int r0, int n,
+            int w, int chunk, float scale) {
   using CT = typename std::conditional<INT8, int8_t, __nv_bfloat16>::type;
-  using CT2 = typename std::conditional<INT8, char2, __nv_bfloat162>::type;
+  constexpr int NE = CPL * VEC;              // values a lane, at most
+  constexpr int U = NE >= 16 ? 4 : 8;        // rows in flight per warp
   extern __shared__ float sm[];
-  __shared__ float scratch[kWarps];
-  const int b = blockIdx.x, h = blockIdx.y, hd = A / H, hd2 = hd / 2;
-  float* qs = sm;
-  float* sc = sm + hd;
-  float* part = sc + n;
-  const int ins = (INT8 && w >= r0 && w < r0 + n) ? w - r0 : -1;
+  __shared__ float scratch[kWarps], wl[kWarps];
+  __shared__ int is_last;
+  const int b = blockIdx.x, h = blockIdx.y, z = blockIdx.z;
+  const int splits = gridDim.z, hd = A / H, nvec = hd / VEC;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lo = z * chunk, cnt = min(chunk, n - lo);
+  float* part = sm;
+  float* sc = sm + kWarps * hd;
+  // the slot row's index among this split's rows, or -1
+  const int ins = (w >= r0 + lo && w < r0 + lo + cnt) ? w - r0 - lo : -1;
 
-  const __nv_bfloat16* qrow = q + (size_t)b * qstride + h * hd;
+  const __nv_bfloat16* kn = w >= 0 ? knew + (size_t)b * qstride + h * hd
+                                   : nullptr;
+  const __nv_bfloat16* vn = w >= 0 ? vnew + (size_t)b * qstride + h * hd
+                                   : nullptr;
   CT* kb = kc + (size_t)b * R * A + h * hd;
   CT* vb = vc + (size_t)b * R * A + h * hd;
-  const __nv_bfloat16* kn = w >= 0 ? knew + (size_t)b * qstride : nullptr;
-  const __nv_bfloat16* vn = w >= 0 ? vnew + (size_t)b * qstride : nullptr;
 
-  for (int d = threadIdx.x; d < hd; d += kThreads)
-    qs[d] = __bfloat162float(qrow[d]) * scale;
-  if (w >= 0) {
+  if (w >= 0 && z == 0) {
     if constexpr (INT8) {
-      // the row's scale is over all A columns (every head's block derives
-      // the same one); each block writes its own head's columns
+      // quantise the row from its fp32 values: the scale is over all A
+      // columns (every head's block derives the same one)
+      const float* k32r = k32 + (size_t)b * stride32;
+      const float* v32r = v32 + (size_t)b * stride32;
       float km = 0.0f, vm = 0.0f;
       for (int i = threadIdx.x; i < A; i += kThreads) {
-        km = fmaxf(km, fabsf(__bfloat162float(kn[i])));
-        vm = fmaxf(vm, fabsf(__bfloat162float(vn[i])));
+        km = fmaxf(km, fabsf(k32r[i]));
+        vm = fmaxf(vm, fabsf(v32r[i]));
       }
       km = block_max(km, scratch);
       vm = block_max(vm, scratch);
@@ -323,8 +412,8 @@ attn_kernel(const __nv_bfloat16* __restrict__ q, int qstride,
       const float vsc = fmaxf(vm / 127.0f, 1e-8f);
       const float kinv = 1.0f / ksc, vinv = 1.0f / vsc;
       for (int d = threadIdx.x; d < hd; d += kThreads) {
-        const float kq = rintf(__bfloat162float(kn[h * hd + d]) * kinv);
-        const float vq = rintf(__bfloat162float(vn[h * hd + d]) * vinv);
+        const float kq = rintf(k32r[h * hd + d] * kinv);
+        const float vq = rintf(v32r[h * hd + d] * vinv);
         kb[(size_t)w * A + d] = (CT)(int)fminf(fmaxf(kq, -127.0f), 127.0f);
         vb[(size_t)w * A + d] = (CT)(int)fminf(fmaxf(vq, -127.0f), 127.0f);
       }
@@ -334,109 +423,218 @@ attn_kernel(const __nv_bfloat16* __restrict__ q, int qstride,
       }
     } else {
       for (int d = threadIdx.x; d < hd; d += kThreads) {
-        kb[(size_t)w * A + d] = *reinterpret_cast<const CT*>(&kn[h * hd + d]);
-        vb[(size_t)w * A + d] = *reinterpret_cast<const CT*>(&vn[h * hd + d]);
+        kb[(size_t)w * A + d] = kn[d];
+        vb[(size_t)w * A + d] = vn[d];
       }
     }
   }
-  __syncthreads();  // the slot write is visible to the reads below
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int l = warp; l < n; l += kWarps) {
-    float s = 0.0f;
-    if (l == ins) {
-      const __nv_bfloat162* kr =
-          reinterpret_cast<const __nv_bfloat162*>(kn + h * hd);
-      for (int d2 = lane; d2 < hd2; d2 += 32) {
-        const float2 kf = __bfloat1622float2(kr[d2]);
-        s = fmaf(qs[2 * d2], kf.x * scale, s);
-        s = fmaf(qs[2 * d2 + 1], kf.y * scale, s);
-      }
-      s = warp_sum(s);
-    } else {
-      const CT2* kr = reinterpret_cast<const CT2*>(kb + (size_t)(r0 + l) * A);
-      for (int d2 = lane; d2 < hd2; d2 += 32) {
-        if constexpr (INT8) {
-          const CT2 kv = kr[d2];
-          s = fmaf(qs[2 * d2], (float)kv.x, s);
-          s = fmaf(qs[2 * d2 + 1], (float)kv.y, s);
+  // q (times scale) in registers, in the lane's vector layout
+  float qf[NE];
+  {
+    const __nv_bfloat16* qrow = q + (size_t)b * qstride + h * hd;
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      const int v = lane + 32 * c;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        qf[c * VEC + e] =
+            v < nvec ? __bfloat162float(qrow[v * VEC + e]) * scale : 0.0f;
+    }
+  }
+  const float kscale = INT8 ? 1.0f : scale;  // bf16: (q s) . (k s)
+
+  // scores of this split's rows, U rows in flight per warp
+  for (int i0 = warp; i0 < cnt; i0 += kWarps * U) {
+    float kv[U][NE];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int l = i0 + u * kWarps;
+      const bool live = l < cnt && l != ins;
+      const CT* row = kb + (size_t)(r0 + lo + l) * A;
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        const int v = lane + 32 * c;
+        if (live && v < nvec) {
+          RowLoad<CT, VEC>::load(row + v * VEC, &kv[u][c * VEC]);
         } else {
-          const float2 kf = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(&kr[d2]));
-          s = fmaf(qs[2 * d2], kf.x * scale, s);
-          s = fmaf(qs[2 * d2 + 1], kf.y * scale, s);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) kv[u][c * VEC + e] = 0.0f;
         }
       }
-      s = warp_sum(s);
-      if constexpr (INT8)
-        s *= __bfloat162float(ks[(size_t)b * R + r0 + l]) * scale;
     }
-    if (lane == 0) sc[l] = s;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float s = 0.0f;
+#pragma unroll
+      for (int e = 0; e < NE; ++e) s = fmaf(qf[e], kv[u][e] * kscale, s);
+      s = warp_sum(s);
+      const int l = i0 + u * kWarps;
+      if (lane == 0 && l < cnt && l != ins) {
+        if constexpr (INT8)
+          s *= __bfloat162float(ks[(size_t)b * R + r0 + lo + l]) * scale;
+        sc[l] = s;
+      }
+    }
+  }
+  if (ins >= 0 && warp == 0) {  // the slot row's score from its bf16 k
+    float s = 0.0f;
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      const int v = lane + 32 * c;
+      if (v < nvec) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          s = fmaf(qf[c * VEC + e],
+                   __bfloat162float(kn[v * VEC + e]) * scale, s);
+      }
+    }
+    s = warp_sum(s);
+    if (lane == 0) sc[ins] = s;
   }
   __syncthreads();
 
   float m = -INFINITY;
-  for (int l = threadIdx.x; l < n; l += kThreads) m = fmaxf(m, sc[l]);
+  for (int l = threadIdx.x; l < cnt; l += kThreads) m = fmaxf(m, sc[l]);
   m = block_max(m, scratch);
   float sum = 0.0f;
-  for (int l = threadIdx.x; l < n; l += kThreads) {
+  for (int l = threadIdx.x; l < cnt; l += kThreads) {
     const float e = expf(sc[l] - m);
     sc[l] = e;
     sum += e;
   }
   sum = block_sum(sum, scratch);  // ends in __syncthreads: sc[] is complete
-  for (int l = threadIdx.x; l < n; l += kThreads) {
-    const float p = sc[l] / sum;
+  for (int l = threadIdx.x; l < cnt; l += kThreads) {
+    // one split: the normalised weight; several: exp(s - m) of the split
+    const float p = splits == 1 ? sc[l] / sum : sc[l];
     if constexpr (INT8)  // fp32 weights; the V row scales fold into them
-      sc[l] = l == ins ? p : p * __bfloat162float(vs[(size_t)b * R + r0 + l]);
+      sc[l] = l == ins ? p
+                       : p * __bfloat162float(vs[(size_t)b * R + r0 + lo + l]);
     else
       sc[l] = bf16_round(p);  // weights cast to bf16 before PV
   }
   __syncthreads();
 
-  float2 acc[kMaxPairsPerLane];
+  float acc[NE];
 #pragma unroll
-  for (int i = 0; i < kMaxPairsPerLane; ++i) acc[i] = make_float2(0.0f, 0.0f);
-  for (int l = warp; l < n; l += kWarps) {
-    const float p = sc[l];
-    const bool fresh = l == ins;
-    const __nv_bfloat162* vnr =
-        reinterpret_cast<const __nv_bfloat162*>(vn + h * hd);
-    const CT2* vr = reinterpret_cast<const CT2*>(vb + (size_t)(r0 + l) * A);
+  for (int e = 0; e < NE; ++e) acc[e] = 0.0f;
+  for (int i0 = warp; i0 < cnt; i0 += kWarps * U) {
+    float vv[U][NE];
 #pragma unroll
-    for (int i = 0; i < kMaxPairsPerLane; ++i) {
-      const int d2 = lane + 32 * i;
-      if (d2 < hd2) {
-        float2 vf;
-        if (fresh) {
-          vf = __bfloat1622float2(vnr[d2]);
-        } else if constexpr (INT8) {
-          const CT2 vv = vr[d2];
-          vf = make_float2((float)vv.x, (float)vv.y);
+    for (int u = 0; u < U; ++u) {
+      const int l = i0 + u * kWarps;
+      const bool live = l < cnt && l != ins;
+      const CT* row = vb + (size_t)(r0 + lo + l) * A;
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        const int v = lane + 32 * c;
+        if (live && v < nvec) {
+          RowLoad<CT, VEC>::load(row + v * VEC, &vv[u][c * VEC]);
         } else {
-          vf = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(&vr[d2]));
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) vv[u][c * VEC + e] = 0.0f;
         }
-        acc[i].x = fmaf(p, vf.x, acc[i].x);
-        acc[i].y = fmaf(p, vf.y, acc[i].y);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int l = i0 + u * kWarps;
+      const float p = (l < cnt && l != ins) ? sc[l] : 0.0f;
+#pragma unroll
+      for (int e = 0; e < NE; ++e) acc[e] = fmaf(p, vv[u][e], acc[e]);
+    }
+  }
+  if (ins >= 0 && warp == 0) {  // the slot row's value from its bf16 v
+    const float p = sc[ins];
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      const int v = lane + 32 * c;
+      if (v < nvec) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          acc[c * VEC + e] = fmaf(p, __bfloat162float(vn[v * VEC + e]),
+                                  acc[c * VEC + e]);
       }
     }
   }
 #pragma unroll
-  for (int i = 0; i < kMaxPairsPerLane; ++i) {
-    const int d2 = lane + 32 * i;
-    if (d2 < hd2) {
-      part[warp * hd + 2 * d2] = acc[i].x;
-      part[warp * hd + 2 * d2 + 1] = acc[i].y;
+  for (int c = 0; c < CPL; ++c) {
+    const int v = lane + 32 * c;
+    if (v < nvec) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        part[warp * hd + v * VEC + e] = acc[c * VEC + e];
     }
   }
   __syncthreads();
+
+  const int bh = b * H + h;
+  if (splits == 1) {
+    for (int d = threadIdx.x; d < hd; d += kThreads) {
+      float s = 0.0f;
+#pragma unroll
+      for (int ww = 0; ww < kWarps; ++ww) s += part[ww * hd + d];
+      o[(size_t)b * A + h * hd + d] = __float2bfloat16(s);
+    }
+    return;
+  }
+
+  // several splits: publish this split's (m, l, partial output)
+  const int wst = 2 + hd;
+  float* mine = ws + ((size_t)bh * splits + z) * wst;
   for (int d = threadIdx.x; d < hd; d += kThreads) {
     float s = 0.0f;
 #pragma unroll
     for (int ww = 0; ww < kWarps; ++ww) s += part[ww * hd + d];
-    o[(size_t)b * A + h * hd + d] = __float2bfloat16(s);
+    mine[2 + d] = s;
   }
+  if (threadIdx.x == 0) {
+    mine[0] = m;
+    mine[1] = sum;
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    is_last = atomicAdd(&counters[bh], 1) == splits - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+
+  // the last block combines every split: warp ww takes splits ww, ww +
+  // kWarps, ..., its lanes the columns; then the warps are summed in order
+  const float* all = ws + (size_t)bh * splits * wst;
+  float gm = -INFINITY;
+  for (int s = lane; s < splits; s += 32)
+    gm = fmaxf(gm, __ldcg(all + (size_t)s * wst));
+  gm = warp_max(gm);
+  float num[kMaxHead / 32], den = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kMaxHead / 32; ++j) num[j] = 0.0f;
+  for (int s = warp; s < splits; s += kWarps) {
+    const float* ps = all + (size_t)s * wst;
+    const float f = expf(__ldcg(ps) - gm);
+    den = fmaf(f, __ldcg(ps + 1), den);
+#pragma unroll
+    for (int j = 0; j < kMaxHead / 32; ++j)
+      if (lane + 32 * j < hd)
+        num[j] = fmaf(f, __ldcg(ps + 2 + lane + 32 * j), num[j]);
+  }
+  __syncthreads();  // part[] is free again
+#pragma unroll
+  for (int j = 0; j < kMaxHead / 32; ++j)
+    if (lane + 32 * j < hd) part[warp * hd + lane + 32 * j] = num[j];
+  if (lane == 0) wl[warp] = den;
+  __syncthreads();
+  float tden = 0.0f;
+#pragma unroll
+  for (int ww = 0; ww < kWarps; ++ww) tden += wl[ww];
+  for (int d = threadIdx.x; d < hd; d += kThreads) {
+    float s = 0.0f;
+#pragma unroll
+    for (int ww = 0; ww < kWarps; ++ww) s += part[ww * hd + d];
+    o[(size_t)b * A + h * hd + d] = __float2bfloat16(s / tden);
+  }
+  if (threadIdx.x == 0) counters[bh] = 0;
 }
 
 constexpr int kMaxDynSmem = 200 * 1024;
@@ -460,6 +658,7 @@ struct GemvArgs {
   const __nv_bfloat16* res;
   const __nv_bfloat16* res2;
   __nv_bfloat16* aux;
+  float* y32;
   __nv_bfloat16* y;
   int B, K, N;
   float rs;
@@ -474,7 +673,8 @@ cudaError_t launch_gemv(const GemvArgs<WT>& a, cudaStream_t stream) {
   const size_t smem = (size_t)a.B * a.K * sizeof(__nv_bfloat16);
   const int grid = (a.N + COLS - 1) / COLS;
   gemv_kernel<WT, BT, EPI><<<grid, kThreads, smem, stream>>>(
-      a.x, a.W, a.s, a.bias, a.res, a.res2, a.aux, a.y, a.B, a.K, a.N, a.rs);
+      a.x, a.W, a.s, a.bias, a.res, a.res2, a.aux, a.y32, a.y, a.B, a.K, a.N,
+      a.rs);
   return cudaGetLastError();
 }
 
@@ -492,12 +692,14 @@ cudaError_t launch_gemv_epi(int epi, const GemvArgs<WT>& a,
 
 template <typename WT>
 int gemv_entry(const void* x, const void* W, const void* s, const void* bias,
-               const void* res, const void* res2, void* aux, void* y, int B,
-               int K, int N, int epi, float rs, void* stream) {
+               const void* res, const void* res2, void* aux, void* y32,
+               void* y, int B, int K, int N, int epi, float rs,
+               void* stream) {
   const GemvArgs<WT> a{(const __nv_bfloat16*)x, (const WT*)W,
                        (const float*)s, (const __nv_bfloat16*)bias,
                        (const __nv_bfloat16*)res, (const __nv_bfloat16*)res2,
-                       (__nv_bfloat16*)aux, (__nv_bfloat16*)y, B, K, N, rs};
+                       (__nv_bfloat16*)aux, (float*)y32, (__nv_bfloat16*)y,
+                       B, K, N, rs};
   const auto st = (cudaStream_t)stream;
   cudaError_t e;
   if (B <= 1) e = launch_gemv_epi<WT, 1>(epi, a, st);
@@ -509,21 +711,31 @@ int gemv_entry(const void* x, const void* W, const void* s, const void* bias,
   return (int)e;
 }
 
-template <bool INT8>
-int attn_entry(const void* q, int qstride, const void* knew, const void* vnew,
-               void* kc, void* vc, void* ks, void* vs, void* o, int B, int A,
-               int H, int R, int r0, int n, int w, float scale,
-               void* stream) {
+// Dynamic shared memory of one attention block (bytes).
+size_t attn_smem(int hd, int chunk) {
+  return (size_t)(kWarps * hd + chunk) * sizeof(float);
+}
+
+template <bool INT8, int VEC, int CPL>
+int attn_launch(const void* q, int qstride, const void* knew,
+                const void* vnew, const void* k32, const void* v32,
+                int stride32, void* kc, void* vc, void* ks, void* vs, void* o,
+                void* ws, void* counters, int B, int A, int H, int R, int r0,
+                int n, int w, int splits, int chunk, float scale,
+                void* stream) {
   using CT = typename std::conditional<INT8, int8_t, __nv_bfloat16>::type;
   static bool configured = false;
-  const cudaError_t e = allow_dyn_smem(attn_kernel<INT8>, &configured);
+  const cudaError_t e =
+      allow_dyn_smem(attn_kernel<INT8, VEC, CPL>, &configured);
   if (e != cudaSuccess) return (int)e;
-  const int hd = A / H;
-  const size_t smem = (size_t)(hd + n + kWarps * hd) * sizeof(float);
-  attn_kernel<INT8><<<dim3(B, H), kThreads, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, qstride, (const __nv_bfloat16*)knew,
-      (const __nv_bfloat16*)vnew, (CT*)kc, (CT*)vc, (__nv_bfloat16*)ks,
-      (__nv_bfloat16*)vs, (__nv_bfloat16*)o, A, H, R, r0, n, w, scale);
+  attn_kernel<INT8, VEC, CPL>
+      <<<dim3(B, H, splits), kThreads, attn_smem(A / H, chunk),
+         (cudaStream_t)stream>>>(
+          (const __nv_bfloat16*)q, qstride, (const __nv_bfloat16*)knew,
+          (const __nv_bfloat16*)vnew, (const float*)k32, (const float*)v32,
+          stride32, (CT*)kc, (CT*)vc, (__nv_bfloat16*)ks,
+          (__nv_bfloat16*)vs, (__nv_bfloat16*)o, (float*)ws, (int*)counters,
+          A, H, R, r0, n, w, chunk, scale);
   return (int)cudaGetLastError();
 }
 
@@ -543,31 +755,52 @@ int jk_ln_rows(const void* x, const void* g, const void* b, void* y, int rows,
 }
 
 int jk_gemv_bf16(const void* x, const void* W, const void* bias,
-                 const void* res, const void* res2, void* aux, void* y, int B,
-                 int K, int N, int epi, float rs, void* stream) {
-  return gemv_entry<__nv_bfloat16>(x, W, nullptr, bias, res, res2, aux, y, B,
-                                   K, N, epi, rs, stream);
+                 const void* res, const void* res2, void* aux, void* y32,
+                 void* y, int B, int K, int N, int epi, float rs,
+                 void* stream) {
+  return gemv_entry<__nv_bfloat16>(x, W, nullptr, bias, res, res2, aux, y32,
+                                   y, B, K, N, epi, rs, stream);
 }
 
 int jk_gemv_int8(const void* x, const void* W, const void* s,
                  const void* bias, const void* res, const void* res2,
-                 void* aux, void* y, int B, int K, int N, int epi, float rs,
-                 void* stream) {
-  return gemv_entry<int8_t>(x, W, s, bias, res, res2, aux, y, B, K, N, epi,
-                            rs, stream);
+                 void* aux, void* y32, void* y, int B, int K, int N, int epi,
+                 float rs, void* stream) {
+  return gemv_entry<int8_t>(x, W, s, bias, res, res2, aux, y32, y, B, K, N,
+                            epi, rs, stream);
 }
 
-// The attention kernels: int8 == 0 bf16 caches (ks, vs unused), 1 int8
-// caches with bf16 row scales. knew / vnew may be null when w < 0.
+// The attention kernels: int8 == 0 bf16 caches (ks, vs, k32, v32 unused),
+// 1 int8 caches with bf16 row scales, the new row quantised from its fp32
+// values k32 / v32 (rows of stride stride32). knew / vnew may be null when
+// w < 0. splits > 1 needs ws (B * H * splits * (2 + hd) floats) and
+// counters (B * H ints, zero; every launch leaves them zero). A head row is
+// read 16 bytes a lane when the head width and A are multiples of 8 (bf16)
+// or 16 (int8), else 2 values a lane.
 int jk_attn_decode(const void* q, int qstride, const void* knew,
-                   const void* vnew, void* kc, void* vc, void* ks, void* vs,
-                   void* o, int B, int A, int H, int R, int r0, int n, int w,
+                   const void* vnew, const void* k32, const void* v32,
+                   int stride32, void* kc, void* vc, void* ks, void* vs,
+                   void* o, void* ws, void* counters, int B, int A, int H,
+                   int R, int r0, int n, int w, int splits, int chunk,
                    float scale, int int8, void* stream) {
-  if (int8)
-    return attn_entry<true>(q, qstride, knew, vnew, kc, vc, ks, vs, o, B, A,
-                            H, R, r0, n, w, scale, stream);
-  return attn_entry<false>(q, qstride, knew, vnew, kc, vc, ks, vs, o, B, A, H,
-                           R, r0, n, w, scale, stream);
+  const int hd = A / H;
+  if (A % H || hd % 2 || hd > kMaxHead || splits < 1 || chunk < 1 ||
+      (long)(splits - 1) * chunk >= n || (long)splits * chunk < n ||
+      attn_smem(hd, chunk) > (size_t)kMaxDynSmem)
+    return (int)cudaErrorInvalidValue;
+#define JK_ATTN(I8, V, C)                                                    \
+  attn_launch<I8, V, C>(q, qstride, knew, vnew, k32, v32, stride32, kc, vc,  \
+                        ks, vs, o, ws, counters, B, A, H, R, r0, n, w,       \
+                        splits, chunk, scale, stream)
+  // VEC values a lane per load, CPL loads a lane per row
+  if (int8) {
+    if (hd % 16 == 0 && A % 16 == 0) return JK_ATTN(true, 16, 1);
+    return hd <= 256 ? JK_ATTN(true, 2, 4) : JK_ATTN(true, 2, 8);
+  }
+  if (hd % 8 == 0 && A % 8 == 0)
+    return hd <= 256 ? JK_ATTN(false, 8, 1) : JK_ATTN(false, 8, 2);
+  return hd <= 256 ? JK_ATTN(false, 2, 4) : JK_ATTN(false, 2, 8);
+#undef JK_ATTN
 }
 
 }  // extern "C"

@@ -37,13 +37,34 @@
 // (BH = 2, L = 6528, hd = 256) the causal products are 43.6 (fwd), 65.5 (dq)
 // and 87.3 (dkv) GFLOP against ~30 MB of operands, so all three are bound by
 // tensor-core operations (44 / 66 / 88 us at 989 TFLOP/s), far above the
-// bytes (~10 us at 3.35 TB/s). This first design is simple, not fast: one
-// block of 8 warps per (bh, tile), nvcuda::wmma 16x16x16 bf16 products with
-// fp32 accumulators, operand tiles staged in shared memory by 16-byte loads,
-// the fp32 accumulator (O, dQ or dK/dV) kept in shared memory, and the
-// softmax/dropout pass done by plain threads between the products. No
-// cp.async/TMA pipelining, no wgmma, one block per SM at hd 256; those are
-// the next steps.
+// bytes (~10 us at 3.35 TB/s).
+//
+// The forward runs on Hopper's warpgroup products: two warpgroups per 128
+// query rows, each 64; S = Q.K^T by wgmma from shared memory (Q and K in
+// the 128-byte swizzled layout of wgmma's descriptors), the S tile, the
+// softmax statistics and the O [64 x hd] accumulator of a warpgroup in
+// its registers, P converted to bf16 in registers and fed to P.V as the
+// register A operand of wgmma (V read MN-major from shared memory); K and
+// V tiles of 64 rows in a two-stage cp.async ring shared by both
+// warpgroups (193 KB at hd 256, one block per SM); the mask applied on
+// the diagonal tiles only; the running max raised lazily (kRescale) so
+// most tiles skip the O rescale. At [2, 6528, 256] it is bound by the
+// bytes the blocks copy from L2 (every K/V tile once per 128 query rows)
+// and by the causal grid's longest tile: the host's schedule
+// (ops/flash_attention.py fwd_schedule) runs the work longest first and
+// splits the long q tiles' K/V ranges in two, merged by the block that
+// finishes second. Slower on the H100 in this design's card runs: one
+// warpgroup on 64 rows (twice the L2 traffic), mma.sync register tiles
+// (several shapes), two blocks per SM, a 3-stage ring, row-wise bulk
+// copies, three-way splits, and the softmax of tile j + 1 overlapped with
+// P.V_j (255 registers). TMA copies and ping-ponging warpgroups are the
+// next step.
+//
+// dq and dk/dv are the first, simple design: one block of 8 warps per
+// (bh, tile), nvcuda::wmma 16x16x16 bf16 products with fp32 accumulators,
+// operand tiles staged in shared memory by 16-byte loads, the fp32
+// accumulator (dQ or dK/dV) kept in shared memory, and the softmax/dropout
+// pass done by plain threads between the products.
 //
 // Every entry point is a plain C function that launches on the given stream
 // and returns cudaGetLastError().
@@ -69,8 +90,7 @@ constexpr int kPadH = 8;  // bf16 row padding (elements), keeps 32-byte tiles
 constexpr int kPadF = 4;  // fp32 row padding
 constexpr int kMaxHead = 256;
 
-// tile rows: forward (q, kv), dq (q, kv), dkv (q, kv)
-constexpr int kFwdBQ = 64, kFwdBK = 64;
+// tile rows: dq (q, kv), dkv (q, kv)
 constexpr int kDqBQ = 64, kDqBK = 32;
 constexpr int kDkvBQ = 64, kDkvBK = 32;
 
@@ -184,100 +204,371 @@ __device__ void store_rows(bf16* dst, const float* acc, int ld, int r0,
 }
 
 // ---------------------------------------------------------------------------
-// forward: one block per (q tile, bh); loops over the kv tiles on or below
-// the diagonal with an online softmax.
+// forward helpers
 // ---------------------------------------------------------------------------
 
-constexpr int fwd_smem(int hdp) {
-  return (kFwdBQ + 2 * kFwdBK) * (hdp + kPadH) * 2   // Q, K, V
-         + kFwdBQ * (hdp + kPadF) * 4                // O accumulator
-         + kFwdBQ * (kFwdBK + kPadF) * 4             // S
-         + kFwdBQ * (kFwdBK + kPadH) * 2             // P (bf16)
-         + 3 * kFwdBQ * 4;                           // m, l, alpha
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x, 0 for -inf
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, zero-filled when !pred
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// the running max is raised only when a tile's max exceeds it by more than
+// this (natural log units): p = exp(s - m) then stays below e^8, and the
+// O and l rescales are skipped on most tiles (lse = m + log l and out =
+// acc / l use the same m, so the result is unchanged up to rounding)
+constexpr float kRescale = 8.0f;
+
+
+// d[64 x 64] (+)= A . B on the tensor cores of a warpgroup, bf16 in, fp32
+// accumulators in the mma.sync layout (each warp 16 rows). wgmma_ss: A and
+// B from shared memory (descriptors), both K-major; scale_d 0 overwrites d.
+// wgmma_rs: A from registers (the mma.sync A fragment of each warp's 16
+// rows), B from shared memory MN-major (transposed); accumulates.
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ---------------------------------------------------------------------------
+// forward on warpgroup products (wgmma): one block of two warpgroups (8
+// warps) per work item, a q tile of 128 rows (64 a warpgroup) of one head
+// row and a range of its K/V tiles. Q, K and V tiles sit in shared memory
+// in the 128-byte swizzled layout that wgmma's descriptors read: per 64
+// columns of the head dim an atom of [rows][64] bf16, the 16-byte chunk c
+// of row r at chunk c ^ (r % 8). S = Q.K^T reads both from shared memory
+// (K-major); P stays in registers as the A operand of P.V, V read
+// MN-major. Both warpgroups read every K and V tile of 64 rows, which
+// stream through a two-stage cp.async ring: tile j + 1's copies in flight
+// while tile j's products and softmax run. Scores scaled after the
+// product, -1e9 above the diagonal (applied on the diagonal tiles only);
+// online softmax in registers with a lazy running max (kRescale); dropout
+// by the keep mask; out = acc / l, lse = m + log l. The host's work items
+// run longest first; a long q tile's K/V range is split between two
+// blocks, and the second to finish merges the first's partial (O, m, l).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// shared-memory matrix descriptor, 128-byte swizzle; byte strides
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)1 << 62);
+}
+
+// rows [r0, r0 + 64) of a row-major [L, hd] matrix into a swizzled tile of
+// HDP / 64 atoms [64][64], zero-filling rows >= L and columns >= hd
+template <int HDP>
+__device__ __forceinline__ void load_sw_tile(bf16* dst, const bf16* src,
+                                             int r0, int L, int hd) {
+  constexpr int CH = HDP / 8, RS = 256 / CH;  // 16-byte chunks a row
+  const int c = threadIdx.x % CH, r = threadIdx.x / CH;
+  const bf16* s = src + (size_t)(r0 + r) * hd + c * 8;
+  bf16* atom = dst + (c >> 3) * 64 * 64;
+  const bool col = c * 8 < hd;
+#pragma unroll
+  for (int i = 0; i < 64 / RS; ++i) {
+    const int rr = r + i * RS;
+    const bool ok = col && r0 + rr < L;
+    cp_async16(atom + rr * 64 + (((c & 7) ^ (rr & 7)) << 3),
+               ok ? s + (size_t)i * RS * hd : src, ok);
+  }
+}
+
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Q (two warpgroups' rows) and the two-stage K and V ring (193 KB at hd
+// 256), plus the slack that aligns Q to the 1024-byte period of the swizzle
+__host__ __device__ constexpr int fwd_smem_bytes(int hdp) {
+  return 6 * 64 * hdp * 2 + 1024;
+}
+
+// the head dim padded to a whole number of 64-column atoms
+int fwd_hdp(int hd) { return hd <= 64 ? 64 : hd <= 128 ? 128 : 256; }
+
+template <int HDP>
+__global__ void __launch_bounds__(256, 1)
     flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ out,
-                     float* __restrict__ lse, int L, int hd, float scale,
-                     Dropout drop) {
-  constexpr int BQ = kFwdBQ, BK = kFwdBK, RPW = BQ / kWarps;
-  const int hdp = round16(hd), ldh = hdp + kPadH, ldo = hdp + kPadF;
-  constexpr int lds = BK + kPadF, ldp = BK + kPadH;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + BQ * ldh;
-  bf16* Vs = Ks + BK * ldh;
-  float* Os = reinterpret_cast<float*>(Vs + BK * ldh);
-  float* Ss = Os + BQ * ldo;
-  bf16* Ps = reinterpret_cast<bf16*>(Ss + BQ * lds);
-  float* m_s = reinterpret_cast<float*>(Ps + BQ * ldp);
-  float* l_s = m_s + BQ;
-  float* a_s = l_s + BQ;
+                     float* __restrict__ lse, const int* __restrict__ items,
+                     float* __restrict__ ws, int* __restrict__ counters,
+                     int L, int hd, float scale, Dropout drop) {
+  constexpr int BQ = 128, BK = 64, NA = HDP / 64, TILE = 64 * HDP;
+  constexpr int PART = (NA * 32 + 4) * 256;  // one half's (O, m, l) floats
+  __shared__ int is_last;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
+  bf16* Ks = Qs + 2 * TILE;  // [2][TILE]
+  bf16* Vs = Ks + 2 * TILE;  // [2][TILE]
 
-  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // this block's work item: the q tile of a head row, its K/V tiles
+  // [kv_lo, kv_hi), and the pair it shares the tile with (-1: none)
+  const int* it = items + 5 * blockIdx.x;
+  const int bh = it[0], q0 = it[1] * BQ, kv_lo = it[2], kv_hi = it[3];
+  const int pair = it[4];
+  const int tid = threadIdx.x, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int wg = tid >> 7;  // warpgroup: rows q0 + 64 wg .. + 63
+  const int g = lane >> 2, t4 = lane & 3;
   const size_t base = (size_t)bh * L * hd;
   q += base; k += base; v += base; out += base;
+  const int wrow = q0 + wg * 64 + warp * 16;
+  const int row0 = wrow + g;
+  const int wg_last = (q0 + wg * 64 + 63) / BK;  // its last K/V tile
 
-  load_tile(Qs, ldh, q, q0, BQ, L, hd, hdp);
-  for (int i = threadIdx.x; i < BQ * ldo; i += kThreads) Os[i] = 0.0f;
-  for (int r = threadIdx.x; r < BQ; r += kThreads) {
-    m_s[r] = kNeg;
-    l_s[r] = 0.0f;
-  }
-  const int n_kv = min(q0 + BQ - 1, L - 1) / BK + 1;
-  for (int j = 0; j < n_kv; ++j) {
-    const int kv0 = j * BK;
-    __syncthreads();  // the previous tile's products are done with K, V, P
-    load_tile(Ks, ldh, k, kv0, BK, L, hd, hdp);
-    load_tile(Vs, ldh, v, kv0, BK, L, hd, hdp);
-    __syncthreads();
-    mma_tiles<false, true>(Ss, lds, Qs, ldh, Ks, ldh, BQ, BK, hdp, false);
-    __syncthreads();
-    // online softmax: each warp owns RPW rows, each lane two columns
-    for (int rr = 0; rr < RPW; ++rr) {
-      const int r = warp * RPW + rr, qp = q0 + r;
-      float s[2], mx = kNeg;
+  load_sw_tile<HDP>(Qs, q, q0, L, hd);
+  load_sw_tile<HDP>(Qs + TILE, q, q0 + 64, L, hd);
+  load_sw_tile<HDP>(Ks, k, kv_lo * BK, L, hd);
+  load_sw_tile<HDP>(Vs, v, kv_lo * BK, L, hd);
+  cp_async_commit();
+
+  float o[NA][32];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int c = lane + 32 * h;
-        float x = Ss[r * lds + c] * scale;
-        if (qp < kv0 + c) x = kNeg;
-        s[h] = x;
-        mx = fmaxf(mx, x);
-      }
-      mx = warp_max(mx);
-      const float m_old = m_s[r], m_new = fmaxf(m_old, mx);
-      float sum = 0.0f;
+  for (int a = 0; a < NA; ++a)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int c = lane + 32 * h;
-        float p = expf(s[h] - m_new);
-        sum += p;
-        if (drop.on) p = kept(drop, bh, qp, kv0 + c) ? p * drop.inv_keep : 0.0f;
-        Ps[r * ldp + c] = __float2bfloat16(p);
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        l_s[r] = l_s[r] * alpha + sum;
-        m_s[r] = m_new;
-        a_s[r] = alpha;
-      }
+    for (int e = 0; e < 32; ++e) o[a][e] = 0.0f;
+  float m_r[2] = {kNeg, kNeg}, l_r[2] = {0.0f, 0.0f};
+  const uint64_t dq = sw128_desc(Qs + wg * TILE, 16, 1024);
+
+  for (int j = kv_lo; j < kv_hi; ++j) {
+    const int kv0 = j * BK, st = (j - kv_lo) & 1;  // the ring's stage
+    const bf16* Kt = Ks + st * TILE;
+    const bf16* Vt = Vs + st * TILE;
+    if (j + 1 < kv_hi) {  // the next tile's copies overlap this tile's work
+      const int st = (j + 1 - kv_lo) & 1;
+      load_sw_tile<HDP>(Ks + st * TILE, k, kv0 + BK, L, hd);
+      load_sw_tile<HDP>(Vs + st * TILE, v, kv0 + BK, L, hd);
     }
+    cp_async_commit();
+    cp_async_wait<1>();    // K_j, V_j and Q
+    fence_async_shared();  // the copies are visible to the tensor cores
     __syncthreads();
-    for (int i = threadIdx.x; i < BQ * hdp; i += kThreads) {
-      const int r = i / hdp, c = i % hdp;
-      Os[r * ldo + c] *= a_s[r];
+    if (j <= wg_last) {  // warpgroup-uniform: the first one ends a tile early
+
+      float s[32];
+      const uint64_t dk = sw128_desc(Kt, 16, 1024);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HDP / 16; ++kk) {
+        // k step kk: atom kk / 4, 32 bytes per step inside it
+        const uint64_t off = ((kk >> 2) * 64 * 128 + (kk & 3) * 32) >> 4;
+        wgmma_ss(s, dq + off, dk + off, kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+
+      const bool diag = kv0 + BK - 1 > wrow;
+      float mx[2] = {kNeg, kNeg};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int rh = e >> 1;
+          float x = s[4 * i + e] * scale;
+          if (diag && row0 + 8 * rh < kv0 + i * 8 + 2 * t4 + (e & 1)) x = kNeg;
+          s[4 * i + e] = x;
+          mx[rh] = fmaxf(mx[rh], x);
+        }
+      bool raise = false;
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh) {
+        mx[rh] = fmaxf(mx[rh], __shfl_xor_sync(0xffffffffu, mx[rh], 1));
+        mx[rh] = fmaxf(mx[rh], __shfl_xor_sync(0xffffffffu, mx[rh], 2));
+        raise |= mx[rh] > m_r[rh] + kRescale;
+      }
+      if (__any_sync(0xffffffffu, raise)) {
+        float alpha[2];
+#pragma unroll
+        for (int rh = 0; rh < 2; ++rh) {
+          const float m_new = fmaxf(m_r[rh], mx[rh]);
+          alpha[rh] = ex2((m_r[rh] - m_new) * kLog2e);
+          m_r[rh] = m_new;
+          l_r[rh] *= alpha[rh];
+        }
+#pragma unroll
+        for (int a = 0; a < NA; ++a)
+#pragma unroll
+          for (int e = 0; e < 32; ++e) o[a][e] *= alpha[(e >> 1) & 1];
+      }
+      const float mb[2] = {m_r[0] * kLog2e, m_r[1] * kLog2e};
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int rh = e >> 1;
+          p[e] = ex2(fmaf(s[4 * i + e], kLog2e, -mb[rh]));
+          l_r[rh] += p[e];
+          if (drop.on)
+            p[e] = kept(drop, bh, row0 + 8 * rh, kv0 + i * 8 + 2 * t4 + (e & 1))
+                       ? p[e] * drop.inv_keep
+                       : 0.0f;
+        }
+        pa[i >> 1][(i & 1) * 2] = pack_bf16(p[0], p[1]);
+        pa[i >> 1][(i & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+      }
+      // O += P.V: kv step kb (16 rows, 2048 bytes), head-dim atom a
+      const uint64_t dv = sw128_desc(Vt, 64 * 128, 1024);
+      wgmma_fence();
+#pragma unroll
+      for (int kb = 0; kb < BK / 16; ++kb)
+#pragma unroll
+        for (int a = 0; a < NA; ++a)
+          wgmma_rs(o[a], pa[kb], dv + ((a * 64 * 128 + kb * 2048) >> 4));
+      wgmma_commit();
+      wgmma_wait0();
     }
-    __syncthreads();
-    mma_tiles<false, false>(Os, ldo, Ps, ldp, Vs, ldh, BQ, hdp, BK, true);
+    __syncthreads();  // every warp is done with this stage before its refill
   }
-  __syncthreads();
-  store_rows(out, Os, ldo, q0, BQ, L, hd, l_s);
-  for (int r = threadIdx.x; r < BQ; r += kThreads)
-    if (q0 + r < L) lse[(size_t)bh * L + q0 + r] = m_s[r] + logf(l_s[r]);
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {  // l over the quad's columns
+    l_r[rh] += __shfl_xor_sync(0xffffffffu, l_r[rh], 1);
+    l_r[rh] += __shfl_xor_sync(0xffffffffu, l_r[rh], 2);
+  }
+
+  if (pair >= 0) {
+    // the q tile's K/V range is split between two blocks: publish this
+    // half's (O, m, l) in its fragment layout; the block that arrives
+    // second merges the other half into its registers
+    const int half = kv_lo == 0 ? 0 : 1;
+    float* mine = ws + ((size_t)pair * 2 + half) * PART;
+#pragma unroll
+    for (int a = 0; a < NA; ++a)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) mine[(a * 32 + e) * 256 + tid] = o[a][e];
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      mine[(NA * 32 + rh) * 256 + tid] = m_r[rh];
+      mine[(NA * 32 + 2 + rh) * 256 + tid] = l_r[rh];
+    }
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) is_last = atomicAdd(&counters[pair], 1) == 1;
+    __syncthreads();
+    if (!is_last) return;
+    __threadfence();
+    // the halves are summed in half order, whichever block merges, so the
+    // result does not depend on which finished first
+    const float* other = ws + ((size_t)pair * 2 + 1 - half) * PART;
+    auto merge = [&](float mine_v, float other_v, float f_mine,
+                     float f_other) {
+      return half == 0 ? fmaf(other_v, f_other, mine_v * f_mine)
+                       : fmaf(mine_v, f_mine, other_v * f_other);
+    };
+    float fs[2], fo[2];
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      const float m1 = __ldcg(other + (NA * 32 + rh) * 256 + tid);
+      const float mm = fmaxf(m_r[rh], m1);
+      fs[rh] = ex2((m_r[rh] - mm) * kLog2e);
+      fo[rh] = ex2((m1 - mm) * kLog2e);
+      l_r[rh] = merge(l_r[rh], __ldcg(other + (NA * 32 + 2 + rh) * 256 + tid),
+                      fs[rh], fo[rh]);
+      m_r[rh] = mm;
+    }
+#pragma unroll
+    for (int a = 0; a < NA; ++a)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int rh = (e >> 1) & 1;
+        o[a][e] = merge(o[a][e], __ldcg(other + (a * 32 + e) * 256 + tid),
+                        fs[rh], fo[rh]);
+      }
+    if (tid == 0) counters[pair] = 0;
+  }
+
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    const float l = l_r[rh];
+    const int row = row0 + 8 * rh;
+    if (row < L) {
+#pragma unroll
+      for (int a = 0; a < NA; ++a)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int col = a * 64 + i * 8 + 2 * t4;
+          if (col < hd)
+            *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * hd + col) =
+                __floats2bfloat162_rn(o[a][4 * i + 2 * rh] / l,
+                                      o[a][4 * i + 2 * rh + 1] / l);
+        }
+      if (t4 == 0) lse[(size_t)bh * L + row] = m_r[rh] + logf(l);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -452,6 +743,21 @@ cudaError_t set_smem(Kernel kernel, int bytes) {
                               bytes);
 }
 
+template <int HDP>
+int fwd_launch(const void* q, const void* k, const void* v, void* out,
+               void* lse, const void* items, int n_items, void* ws,
+               void* counters, int L, int hd, float scale,
+               const Dropout& drop, void* stream) {
+  constexpr int smem = fwd_smem_bytes(HDP);
+  const cudaError_t e = set_smem(flash_fwd_kernel<HDP>, smem);
+  if (e != cudaSuccess) return (int)e;
+  flash_fwd_kernel<HDP><<<n_items, 256, smem, (cudaStream_t)stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out,
+      (float*)lse, (const int*)items, (float*)ws, (int*)counters, L, hd,
+      scale, drop);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -460,23 +766,35 @@ extern "C" {
 // 1 dq, 2 dk/dv.
 int jk_flash_smem(int kernel, int hd) {
   const int hdp = round16(hd);
-  return kernel == 0 ? fwd_smem(hdp) : kernel == 1 ? dq_smem(hdp)
-                                                   : dkv_smem(hdp);
+  return kernel == 0 ? fwd_smem_bytes(fwd_hdp(hd))
+                     : kernel == 1 ? dq_smem(hdp) : dkv_smem(hdp);
 }
 
+// The forward's work items (5 ints each: head row, q tile, first and end
+// K/V tile, pair or -1; ops/flash_attention.py fwd_schedule); ws holds two
+// partials of (hd-padded O, m, l) per pair, counters one zero int per pair
+// (every launch leaves them zero).
 int jk_flash_fwd(const void* q, const void* k, const void* v, void* out,
-                 void* lse, int BH, int L, int hd, float scale, int dropout,
-                 unsigned seed, unsigned thresh, float inv_keep,
+                 void* lse, const void* items, int n_items, void* ws,
+                 void* counters, int BH, int L, int hd, float scale,
+                 int dropout, unsigned seed, unsigned thresh, float inv_keep,
                  void* stream) {
-  if (bad_shape(BH, L, hd)) return (int)cudaErrorInvalidValue;
-  const int smem = fwd_smem(round16(hd));
-  cudaError_t e = set_smem(flash_fwd_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((L + kFwdBQ - 1) / kFwdBQ, BH);
-  flash_fwd_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out,
-      (float*)lse, L, hd, scale, make_dropout(dropout, seed, thresh, inv_keep));
-  return (int)cudaGetLastError();
+  if (bad_shape(BH, L, hd) || n_items < 1) return (int)cudaErrorInvalidValue;
+  const Dropout drop = make_dropout(dropout, seed, thresh, inv_keep);
+#define JK_FWD(HDP)                                                          \
+  fwd_launch<HDP>(q, k, v, out, lse, items, n_items, ws, counters, L, hd,   \
+                  scale, drop, stream)
+  switch (fwd_hdp(hd)) {
+    case 64: return JK_FWD(64);
+    case 128: return JK_FWD(128);
+    default: return JK_FWD(256);
+  }
+#undef JK_FWD
+}
+
+// floats of one pair's two partials at head width hd
+int jk_flash_fwd_pair_floats(int hd) {
+  return 2 * (fwd_hdp(hd) / 64 * 32 + 4) * 256;
 }
 
 int jk_flash_dq(const void* q, const void* k, const void* v, const void* g,

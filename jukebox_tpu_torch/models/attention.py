@@ -24,7 +24,12 @@ an f6 layer's cache is the encoder K/V [B, encoder_dims, A], projected once
 per window by init_cache and only read. Positions t are host ints: the
 decode loop runs in Python. prefill_chunk takes the layer's staged decode
 params (Transformer.prepare_decode_params) when they are int8, and then
-runs its products as the JAX package's int8 dense does.
+runs its products as the JAX package's int8 dense does. Against an int8
+cache ({"k", "v"} int8 with {"ks", "vs"} row scales) prefill_chunk writes
+each chunk's rows quantised (quantize_rows) and reads cache rows back
+dequantised to the activation dtype, as the JAX package's kernel-cache
+prefill does (attention.py _prefill_chunk_kernel): no bf16 copy of the
+cache exists.
 """
 
 import math
@@ -33,6 +38,7 @@ import torch
 import torch.nn as nn
 
 from jukebox_tpu_torch.ops.core import Dense, dense_any, dropout, fold_seed
+from jukebox_tpu_torch.ops.decode_stack import quantize_rows
 from jukebox_tpu_torch.ops.flash_attention import flash_dense_attn
 
 NEG = -1e9
@@ -263,6 +269,27 @@ class FactoredAttention(nn.Module):
                     <= min(t, pl_ - 1)).float()[None]
         return self.c_proj(dense_attn(q, kc, vc, self.n_head, mask))
 
+    @staticmethod
+    def _put(cache, idx, k, v):
+        """cache[key][idx] = k, v in place; an int8 cache stores the rows
+        quantised from their values in the activation dtype (absmax / 127
+        floored at 1e-8, round(x / s)) and their bf16 scales."""
+        if "ks" not in cache:
+            cache["k"][idx] = k
+            cache["v"][idx] = v
+            return
+        (cache["k"][idx], cache["ks"][idx]) = quantize_rows(k)
+        (cache["v"][idx], cache["vs"][idx]) = quantize_rows(v)
+
+    @staticmethod
+    def _read(cache, key, idx, dtype):
+        """cache[key][idx], dequantised to `dtype` when int8."""
+        c = cache[key][idx]
+        if "ks" not in cache:
+            return c
+        s = cache[key + "s"][idx]
+        return (c.float() * s.float()[..., None]).to(dtype)
+
     def prefill_chunk(self, cache, x, t0, n_blocks, p=None):
         """Prefill a block-aligned chunk x [B, C, n_in] starting at t0 (a
         multiple of block_ctx; any C for f0/f6/f7) -> [B, C, n_in]. p: the
@@ -273,19 +300,22 @@ class FactoredAttention(nn.Module):
         def proj(a):
             return self._lin(self.c_proj, a, None if p is None else p["proj"])
         qp = None if p is None else p["qkv"]
+        everything = (slice(None),)
+
+        def read(key, idx=everything):
+            return self._read(cache, key, idx, x.dtype)
         if f == 6:
             q = self._lin(self.c_attn, x, qp)
-            return proj(dense_attn(q, cache["k"], cache["v"], self.n_head))
+            return proj(dense_attn(q, read("k"), read("v"), self.n_head))
         q, k, v = self._qkv(x, p=qp)
         B, C, S = v.shape
         dev = x.device
         if f == 0:
-            cache["k"][:, t0:t0 + C] = k
-            cache["v"][:, t0:t0 + C] = v
+            self._put(cache, (slice(None), slice(t0, t0 + C)), k, v)
             L = cache["k"].shape[1]
             mask = (torch.arange(L, device=dev)[None, :]
                     <= (t0 + torch.arange(C, device=dev))[:, None]).float()
-            a = dense_attn(q, cache["k"], cache["v"], self.n_head, mask)
+            a = dense_attn(q, read("k"), read("v"), self.n_head, mask)
             return proj(a)
         bc = self.block_ctx
         if f == 1:
@@ -293,22 +323,21 @@ class FactoredAttention(nn.Module):
             a = dense_attn(q.reshape(-1, bc, S), k.reshape(-1, bc, S),
                            v.reshape(-1, bc, S), self.n_head,
                            causal_mask(bc, bc, dev))
-            cache["k"].copy_(k[:, -bc:])
-            cache["v"].copy_(v[:, -bc:])
+            self._put(cache, everything, k[:, -bc:], v[:, -bc:])
             return proj(a.reshape(B, C, S))
         if f == 2:
             assert C == n_blocks * bc
             b0 = t0 // bc
-            cache["k"][:, :, b0:b0 + n_blocks] = \
-                k.reshape(B, n_blocks, bc, S).transpose(1, 2)
-            cache["v"][:, :, b0:b0 + n_blocks] = \
-                v.reshape(B, n_blocks, bc, S).transpose(1, 2)
+            cols = (slice(None), slice(None), slice(b0, b0 + n_blocks))
+            self._put(cache, cols,
+                      k.reshape(B, n_blocks, bc, S).transpose(1, 2),
+                      v.reshape(B, n_blocks, bc, S).transpose(1, 2))
             qc = q.reshape(B, n_blocks, bc, S).transpose(1, 2)
             mask = (torch.arange(self.blocks, device=dev)[None, :]
                     <= (b0 + torch.arange(n_blocks, device=dev))[:, None]).float()
             a = dense_attn(qc.reshape(B * bc, n_blocks, S),
-                           cache["k"].reshape(B * bc, self.blocks, S),
-                           cache["v"].reshape(B * bc, self.blocks, S),
+                           read("k").reshape(B * bc, self.blocks, S),
+                           read("v").reshape(B * bc, self.blocks, S),
                            self.n_head, mask)
             a = a.reshape(B, bc, n_blocks, S).transpose(1, 2).reshape(B, C, S)
             return proj(a)
@@ -317,8 +346,8 @@ class FactoredAttention(nn.Module):
             b0 = t0 // bc
             prev = (b0 - 1) % 2
             kb, vb = k.reshape(B, n_blocks, bc, S), v.reshape(B, n_blocks, bc, S)
-            pk = cache["k"][:, prev * bc:(prev + 1) * bc]
-            pv = cache["v"][:, prev * bc:(prev + 1) * bc]
+            ring = (slice(None), slice(prev * bc, (prev + 1) * bc))
+            pk, pv = read("k", ring), read("v", ring)
             k_shift = torch.cat([pk[:, None], kb[:, :-1]], dim=1)
             v_shift = torch.cat([pv[:, None], vb[:, :-1]], dim=1)
             a = dense_attn(q.reshape(B * n_blocks, bc, S),
@@ -327,16 +356,17 @@ class FactoredAttention(nn.Module):
             # the double buffer keeps the chunk's last two blocks
             for back in range(min(n_blocks, 2)):
                 ring = (b0 + n_blocks - 1 - back) % 2
-                cache["k"][:, ring * bc:(ring + 1) * bc] = kb[:, -1 - back]
-                cache["v"][:, ring * bc:(ring + 1) * bc] = vb[:, -1 - back]
+                rows = (slice(None), slice(ring * bc, (ring + 1) * bc))
+                self._put(cache, rows, kb[:, -1 - back], vb[:, -1 - back])
             return proj(a.reshape(B, C, S))
         pl_ = self._prime_len  # f == 7
         pos = t0 + torch.arange(C, device=dev)
         n_in = max(0, min(C, pl_ - t0))  # chunk rows inside the prime cache
-        cache["k"][:, t0:t0 + n_in] = k[:, :n_in]
-        cache["v"][:, t0:t0 + n_in] = v[:, :n_in]
+        if n_in:
+            self._put(cache, (slice(None), slice(t0, t0 + n_in)),
+                      k[:, :n_in], v[:, :n_in])
         mask = (torch.arange(pl_, device=dev)[None, :]
                 <= torch.clamp(pos, max=pl_ - 1)[:, None]).float()
-        a = dense_attn(q, cache["k"], cache["v"], self.n_head, mask)
+        a = dense_attn(q, read("k"), read("v"), self.n_head, mask)
         return proj(a)
 

@@ -183,13 +183,11 @@ class ConditionalAutoregressive2D(nn.Module):
 
     @torch.no_grad()
     def prefill(self, caches, x_prime, x_cond, y_cond, fp16=False,
-                chunk_size=None, dec_params=None, int8=False):
+                chunk_size=None, dec_params=None):
         """Fill the caches with positions [0, P) of x_prime [N, P]: whole
-        block-aligned chunks through prefill_chunk (into bf16 or fp32
-        caches), the tail token by token through decode_step. int8=True
-        converts the caches to int8 after the chunks (the prefill -> decode
-        boundary), so the tail decodes against int8 caches. Returns the last
-        token [N, 1]."""
+        block-aligned chunks through prefill_chunk (into bf16, fp32 or int8
+        caches: int8 ones take each chunk's rows quantised), the tail token
+        by token through decode_step. Returns the last token [N, 1]."""
         N, P = x_prime.shape
         dtype = torch.bfloat16 if fp16 else torch.float32
         emb_in = torch.cat([self.start_emb(y_cond, N).to(dtype),
@@ -206,8 +204,6 @@ class ConditionalAutoregressive2D(nn.Module):
             self.transformer.prefill_chunk(
                 caches, h_in[:, i * chunk:(i + 1) * chunk], i * chunk,
                 n_chunk_blocks, fp16=fp16, dec_params=dec_params)
-        if int8:
-            self.transformer.quantize_caches(caches)
         for t in range(n_chunks * chunk, P):
             self.transformer.decode_step(dec_params, caches, h_in[:, t:t + 1],
                                          t, fp16=fp16)

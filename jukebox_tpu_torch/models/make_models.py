@@ -7,7 +7,8 @@ path cached under ~/.cache as the JAX package looks for it; a path that
 does not exist falls back to the fresh init with a message, as in the JAX
 package. With hps.train a prior's parameters are trainable fp32 masters and
 its dropouts and activation checkpointing follow hps; the VQ-VAE stays
-frozen.
+frozen. A sampling prior with hps.fp16_params holds its weights in bf16
+after the restore, LayerNorms in fp32 (convert_params_bf16).
 """
 
 import os
@@ -207,7 +208,26 @@ def make_prior(hps, vqvae, device="cuda"):
     model.requires_grad_(bool(train))
     runtime = PriorRuntime(model.eval(), vqvae)
     runtime.step = restore_model(model, hps.restore_prior)
+    if hps.get("fp16_params", False) and not train:
+        convert_params_bf16(model)
     return runtime
+
+
+LN_KEYS = ("ln", "ln_0", "ln_1", "prime_state_ln")
+
+
+@torch.no_grad()
+def convert_params_bf16(model):
+    """Cast every fp32 parameter of `model` to bf16 in place, except the
+    LayerNorms' (any name part in LN_KEYS), as jukebox_tpu's
+    convert_params_bf16 casts a sampling prior's params after its restore
+    (make_models.py:868-893). The decode staging then reads the bf16
+    weights. Returns the model."""
+    for name, p in model.named_parameters():
+        if p.dtype == torch.float32 and not set(name.split(".")) & set(
+                LN_KEYS):
+            p.data = p.data.to(torch.bfloat16)
+    return model
 
 
 def decode_mode(quantize=None):

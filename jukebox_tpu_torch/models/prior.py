@@ -227,8 +227,8 @@ class SimplePrior(nn.Module):
                     int8=False):
         """Conditioning, the lyric encoder's encoder_kv (once per window,
         unless given), fresh caches (the f6 layers' projected from
-        encoder_kv) and the context prefill. int8: the caches decode as
-        int8 (made so, or converted after the prefill's chunks). Returns
+        encoder_kv) and the context prefill. int8: the caches are int8 from
+        the start, the prefill writing its rows quantised. Returns
         (caches, x_tok, x_cond, y_cond); sampling starts at
         sample_prefix_len(z)."""
         no_past_context = z is None or z.shape[1] == 0
@@ -250,12 +250,12 @@ class SimplePrior(nn.Module):
         prefill = prefill_tokens is not None and prefill_tokens.shape[1] > 0
         caches = self.prior.init_decode_caches(
             n_samples, device, fp16=fp16, encoder_kv=encoder_kv,
-            dec_params=dec_params, int8=int8 and not prefill)
+            dec_params=dec_params, int8=int8)
         if prefill:
             x_tok = self.prior.prefill(caches, prefill_tokens.long(), x_cond,
                                        y_cond, fp16=fp16,
                                        chunk_size=chunk_size,
-                                       dec_params=dec_params, int8=int8)
+                                       dec_params=dec_params)
         else:
             x_tok = torch.zeros((n_samples, 1), dtype=torch.long,
                                 device=device)

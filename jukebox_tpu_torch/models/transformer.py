@@ -13,8 +13,8 @@ GEMV + residual, LayerNorm, MLP GEMVs), the port of the JAX package's
 whole-stack megakernel, with the weights staged once by
 prepare_decode_params: bf16, or weight-only int8 (quantize="int8", the JAX
 package's JUKEBOX_INT8_DECODE mode); the ring caches are bf16 or int8
-(init_cache(int8=True), or quantize_caches at the prefill -> decode
-boundary). The fp32 decode path (and every prefill) runs the layer modules
+(init_cache(int8=True): the prefill writes int8 rows, the decode step
+quantises its new row from the fp32 c_attn output). The fp32 decode path (and every prefill) runs the layer modules
 themselves, as the JAX package runs its fp32 decode and its prefill in XLA;
 with int8 staged weights the prefill's products are the int8 dense.
 f6 (cross-attention) layers read the lyric encoder's encoder_kv: the full
@@ -239,8 +239,8 @@ class Transformer(nn.Module):
                    int8=False):
         """Per-layer caches: zero rings, the f6 layers' encoder K/V projected
         from encoder_kv (through dec_params' enc_kv when staged). int8=True
-        makes int8 caches with zero row scales, the f6 K/V quantised as
-        quantize_caches does."""
+        makes int8 caches with zero row scales, the f6 K/V quantised by
+        quantize_rows (pack_caches(quantize=True) of the JAX package)."""
         caches = []
         for d, blk in enumerate(self.blocks):
             f = blk.attn.attn_func
@@ -265,15 +265,6 @@ class Transformer(nn.Module):
     def _quantize_cache(c):
         (k, ks), (v, vs) = quantize_rows(c["k"]), quantize_rows(c["v"])
         return {"k": k, "v": v, "ks": ks, "vs": vs}
-
-    def quantize_caches(self, caches):
-        """bf16 caches -> int8 caches with bf16 row scales, in place of the
-        list (the prefill -> decode boundary of the int8 cache mode, as
-        jukebox_tpu's pack_caches(quantize=True) converts them)."""
-        for d, c in enumerate(caches):
-            if "ks" not in c:
-                caches[d] = self._quantize_cache(c)
-        return caches
 
     def decode_step(self, dec_params, caches, x, t, fp16=False,
                     fp16_out=False, plain=False):

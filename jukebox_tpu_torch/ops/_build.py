@@ -31,13 +31,16 @@ SIGNATURES = {
     "decode_stack": {
         "jk_max_dyn_smem": [],
         "jk_ln_rows": [_P, _P, _P, _P, _I, _I, _F, _P],
-        "jk_gemv_bf16": [_P] * 7 + [_I] * 4 + [_F, _P],
-        "jk_gemv_int8": [_P] * 8 + [_I] * 4 + [_F, _P],
-        "jk_attn_decode": [_P, _I] + [_P] * 7 + [_I] * 7 + [_F, _I, _P],
+        "jk_gemv_bf16": [_P] * 8 + [_I] * 4 + [_F, _P],
+        "jk_gemv_int8": [_P] * 9 + [_I] * 4 + [_F, _P],
+        "jk_attn_decode": [_P, _I] + [_P] * 4 + [_I] + [_P] * 7 + [_I] * 9
+        + [_F, _I, _P],
     },
     "flash_attention": {
         "jk_flash_smem": [_I, _I],
-        "jk_flash_fwd": [_P] * 5 + [_I] * 3 + [_F, _I, _U, _U, _F, _P],
+        "jk_flash_fwd": [_P] * 6 + [_I, _P, _P] + [_I] * 3
+        + [_F, _I, _U, _U, _F, _P],
+        "jk_flash_fwd_pair_floats": [_I],
         "jk_flash_dq": [_P] * 7 + [_I] * 3 + [_F, _I, _U, _U, _F, _P],
         "jk_flash_dkv": [_P] * 8 + [_I] * 3 + [_F, _I, _U, _U, _F, _P],
     },

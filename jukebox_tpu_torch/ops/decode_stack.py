@@ -10,7 +10,10 @@ drops its TPU blocking (single launch, ping-pong VMEM canvas, slot-leading
 lane-padded caches): here the CUDA kernels of csrc/decode_stack.cu run per
 layer against the standard cache layout [B, slots, A] of
 models/attention.py. An int8 cache is {"k", "v"} int8 [B, ..., A] with
-{"ks", "vs"} bf16 [B, ...]: one scale per (batch row, slot).
+{"ks", "vs"} bf16 [B, ...]: one scale per (batch row, slot). The
+attention kernels split a head's live rows over blocks (attn_split_plan)
+and combine the splits in the same launch, through an fp32 workspace and
+per-head counters kept per device (workspace).
 
 Each wrapper takes the plain PyTorch version for tensors on the CPU (that is
 what the CPU tests run) and, for CUDA tensors, checks device, dtype, shape
@@ -18,6 +21,8 @@ and contiguity, launches its kernel on the current stream, raises if the
 launch failed, and adds one to LAUNCHES[name]. There is no fallback from a
 CUDA tensor to the plain version.
 """
+
+import functools
 
 import torch
 
@@ -107,9 +112,12 @@ def ln_rows(x, g, b, eps=1e-5):
 # int8 with fp32 per-column scales s applied after the fp32 accumulation
 # ---------------------------------------------------------------------------
 
-def _epilogue(y, x_dtype, epilogue, res, res2, rs, keep):
+def _epilogue(y, x_dtype, epilogue, res, res2, rs, keep, out32=False):
     """y fp32 (the product, scaled, plus bias) -> the epilogue's output in
-    x_dtype, rounding where the kernels round to bf16."""
+    x_dtype, rounding where the kernels round to bf16; with out32, also y
+    itself."""
+    if out32:
+        return _epilogue(y, x_dtype, epilogue, res, res2, rs, keep), y
     if epilogue == "gelu":
         return (y * torch.sigmoid(1.702 * y)).to(x_dtype)
     if epilogue is None:
@@ -124,18 +132,18 @@ def _epilogue(y, x_dtype, epilogue, res, res2, rs, keep):
 
 
 def gemv_bf16_plain(x, w, b, epilogue=None, res=None, res2=None, rs=1.0,
-                    keep=False):
+                    keep=False, out32=False):
     y = x.float() @ w.float() + b.float()
-    return _epilogue(y, x.dtype, epilogue, res, res2, rs, keep)
+    return _epilogue(y, x.dtype, epilogue, res, res2, rs, keep, out32)
 
 
 def gemv_int8_plain(x, w_q, s, b, epilogue=None, res=None, res2=None,
-                    rs=1.0, keep=False):
+                    rs=1.0, keep=False, out32=False):
     y = (x.float() @ w_q.float()) * s.float() + b.float()
-    return _epilogue(y, x.dtype, epilogue, res, res2, rs, keep)
+    return _epilogue(y, x.dtype, epilogue, res, res2, rs, keep, out32)
 
 
-def _check_epilogue(epilogue, res, res2, keep):
+def _check_epilogue(epilogue, res, res2, keep, out32=False):
     if epilogue not in EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}")
     if (epilogue in ("residual", "res_scale")) != (res is not None):
@@ -144,9 +152,12 @@ def _check_epilogue(epilogue, res, res2, keep):
         raise ValueError("res2 is given exactly for the res_scale epilogue")
     if keep and epilogue != "residual":
         raise ValueError("keep returns the product beside a residual only")
+    if out32 and keep:
+        raise ValueError("out32 and keep do not combine")
 
 
-def _gemv_launch(name, fn, x, w, s, b, epilogue, res, res2, rs, keep):
+def _gemv_launch(name, fn, x, w, s, b, epilogue, res, res2, rs, keep,
+                 out32):
     B, K = x.shape
     N = w.shape[1]
     lib = _build.lib()
@@ -164,47 +175,53 @@ def _gemv_launch(name, fn, x, w, s, b, epilogue, res, res2, rs, keep):
             _require(t, nm, BF16, (B, N))
     y = torch.empty((B, N), dtype=BF16, device=x.device)
     aux = torch.empty_like(y) if keep else None
+    y32 = (torch.empty((B, N), dtype=torch.float32, device=x.device)
+           if out32 else None)
     args = [x.data_ptr(), w.data_ptr()] + ([s.data_ptr()] if s is not None
                                            else [])
     _check(fn(lib)(*args, b.data_ptr(), _ptr(res), _ptr(res2), _ptr(aux),
-                   y.data_ptr(), B, K, N, EPILOGUES[epilogue], float(rs),
-                   _stream()), name)
+                   _ptr(y32), y.data_ptr(), B, K, N, EPILOGUES[epilogue],
+                   float(rs), _stream()), name)
     LAUNCHES[name] += 1
-    return (y, aux) if keep else y
+    return (y, aux) if keep else (y, y32) if out32 else y
 
 
 def gemv_bf16(x, w, b, epilogue=None, res=None, res2=None, rs=1.0,
-              keep=False):
+              keep=False, out32=False):
     """epilogue: None, "gelu" (quick_gelu), "residual" (res + bf16(y); with
     keep=True also returns bf16(y)) or "res_scale" (res + bf16(bf16(res2 +
-    bf16(y)) * bf16(rs)): x + (a + m) * res_scale with res = x, res2 = a)."""
-    _check_epilogue(epilogue, res, res2, keep)
+    bf16(y)) * bf16(rs)): x + (a + m) * res_scale with res = x, res2 = a).
+    out32=True also returns y in fp32 (the product plus bias, before the
+    epilogue), written by the same launch."""
+    _check_epilogue(epilogue, res, res2, keep, out32)
     if not x.is_cuda:
-        return gemv_bf16_plain(x, w, b, epilogue, res, res2, rs, keep)
+        return gemv_bf16_plain(x, w, b, epilogue, res, res2, rs, keep, out32)
     return _gemv_launch("gemv_bf16", lambda lib: lib.jk_gemv_bf16, x, w,
-                        None, b, epilogue, res, res2, rs, keep)
+                        None, b, epilogue, res, res2, rs, keep, out32)
 
 
 def gemv_int8(x, w_q, s, b, epilogue=None, res=None, res2=None, rs=1.0,
-              keep=False):
+              keep=False, out32=False):
     """gemv_bf16 with int8 weights w_q (in, out) and fp32 column scales s:
     y = (x @ w_q) * s + b, accumulated in fp32, then the epilogue."""
-    _check_epilogue(epilogue, res, res2, keep)
+    _check_epilogue(epilogue, res, res2, keep, out32)
     if not x.is_cuda:
-        return gemv_int8_plain(x, w_q, s, b, epilogue, res, res2, rs, keep)
+        return gemv_int8_plain(x, w_q, s, b, epilogue, res, res2, rs, keep,
+                               out32)
     return _gemv_launch("gemv_int8", lambda lib: lib.jk_gemv_int8, x, w_q,
-                        s, b, epilogue, res, res2, rs, keep)
+                        s, b, epilogue, res, res2, rs, keep, out32)
 
 
 def gemv(x, p, epilogue=None, res=None, res2=None, rs=1.0, keep=False,
-         plain=False):
+         plain=False, out32=False):
     """The GEMV of a staged dense dict: {"w", "b"} -> gemv_bf16,
     {"w_q", "s", "b"} -> gemv_int8 (plain=True: their plain versions)."""
     if "w_q" in p:
         fn = gemv_int8_plain if plain else gemv_int8
-        return fn(x, p["w_q"], p["s"], p["b"], epilogue, res, res2, rs, keep)
+        return fn(x, p["w_q"], p["s"], p["b"], epilogue, res, res2, rs, keep,
+                  out32)
     fn = gemv_bf16_plain if plain else gemv_bf16
-    return fn(x, p["w"], p["b"], epilogue, res, res2, rs, keep)
+    return fn(x, p["w"], p["b"], epilogue, res, res2, rs, keep, out32)
 
 
 # ---------------------------------------------------------------------------
@@ -253,6 +270,35 @@ def ring_geometry(attn_func, t, cache_shape, block_ctx=None, prime_len=None):
     if attn_func == 6:
         return rows, -1, 0, rows
     raise NotImplementedError(f"attn_func {attn_func} has no decode kernel")
+
+
+# The split plan of the attention kernels: up to ONE_SPLIT_ROWS live rows
+# run in one block per (batch row, head); more are cut into chunks of
+# SPLIT_MIN_ROWS..SPLIT_MAX_ROWS rows (a multiple of the block's 8 warps),
+# as many as make B x H x splits about SPLIT_WAVES blocks per SM (two:
+# the blocks that fit on an SM at once, so every split runs in the first
+# wave). Chosen on the H100 over 16-128 one-split rows, 16-64 row chunks
+# and 1-4 waves: the short rings (24-128 rows) gain most from 16-row
+# chunks, the dense f0 ring from two waves.
+ONE_SPLIT_ROWS, SPLIT_MIN_ROWS, SPLIT_MAX_ROWS, SPLIT_WAVES = 32, 16, 256, 2
+H100_SMS = 132
+
+
+def attn_split_plan(n, B, H, hd, sms=H100_SMS):
+    """(splits, chunk, workspace floats) of an attention launch over n live
+    rows: split z reads rows z * chunk .. min((z + 1) * chunk, n) - 1 of
+    the live range (the last split ragged), and the splits' partial sums
+    take B * H * splits * (2 + hd) fp32 workspace floats (0 for one
+    split). The split holding the slot row is (w - r0) // chunk."""
+    if n <= ONE_SPLIT_ROWS:
+        return 1, n, 0
+    want = -(-SPLIT_WAVES * sms // (B * H))
+    chunk = min(max(-(-n // want), SPLIT_MIN_ROWS), SPLIT_MAX_ROWS)
+    chunk = -(-chunk // 8) * 8
+    splits = -(-n // chunk)
+    if splits == 1:
+        return 1, n, 0
+    return splits, chunk, B * H * splits * (2 + hd)
 
 
 def _attn_plain(q, k3, v3, r0, n, n_head):
@@ -338,7 +384,7 @@ def quantize_rows(c):
 
 
 def ring_attn_int8_plain(qkv, k_cache, v_cache, k_scale, v_scale, geom,
-                         n_head):
+                         n_head, qkv32):
     B, A3 = qkv.shape
     A = A3 // 3
     rows, w, r0, n = geom
@@ -346,8 +392,9 @@ def ring_attn_int8_plain(qkv, k_cache, v_cache, k_scale, v_scale, geom,
     ks2, vs2 = k_scale.view(B, rows), v_scale.view(B, rows)
     q, k, v = qkv.split(A, dim=1)
     if w >= 0:
-        k3[:, w], ks2[:, w] = quantize_row(k)
-        v3[:, w], vs2[:, w] = quantize_row(v)
+        _, k32, v32 = qkv32.split(A, dim=1)
+        k3[:, w], ks2[:, w] = quantize_row(k32)
+        v3[:, w], vs2[:, w] = quantize_row(v32)
     ins = w - r0 if r0 <= w < r0 + n else -1
     return _attn_int8_plain(q, k3, v3, ks2, vs2, r0, n, n_head, ins, k, v)
 
@@ -362,7 +409,36 @@ def cross_attn_decode_plain(q, k_cache, v_cache, n_head, k_scale=None,
                             n_head)
 
 
-def _attn_launch(name, q, qstride, A, kv_new, caches, scales, geom, n_head):
+_WORKSPACE = {}  # (user, device) -> (fp32 workspace, int32 counters)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device):
+    """The SMs of a CUDA device, the split plan's unit (the H100's for
+    another device: its plain versions do not split)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return H100_SMS
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+
+def workspace(user, device, floats, counters):
+    """A kernel's fp32 workspace and int32 counters on `device` (user: the
+    kernel's name), kept across launches and grown when a launch needs
+    more, so a decode step does not pay the allocator on every layer. The
+    counters start at zero and every launch leaves them at zero."""
+    ws, cnt = _WORKSPACE.get((user, device), (None, None))
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(max(floats, 1), dtype=torch.float32, device=device)
+    if cnt is None or cnt.numel() < counters:
+        cnt = torch.zeros(max(counters, 1), dtype=torch.int32, device=device)
+    _WORKSPACE[(user, device)] = (ws, cnt)
+    return ws, cnt
+
+
+def _attn_launch(name, q, qstride, A, kv_new, caches, scales, geom, n_head,
+                 kv32=(None, None)):
     """Shared checks and launch of the attention kernels."""
     B = q.shape[0]
     rows, w, r0, n = geom
@@ -373,8 +449,11 @@ def _attn_launch(name, q, qstride, A, kv_new, caches, scales, geom, n_head):
     if not (0 <= r0 and r0 + n <= rows and -1 <= w < rows and n >= 1):
         raise ValueError(f"ring geometry {geom} out of range")
     lib = _build.lib()
-    if (hd + n + 8 * hd) * 4 > lib.jk_max_dyn_smem():
-        raise ValueError(f"{n} live rows exceed the kernel's shared memory")
+    splits, chunk, floats = attn_split_plan(n, B, n_head, hd,
+                                            sm_count(q.device))
+    if (8 * hd + chunk) * 4 > lib.jk_max_dyn_smem():
+        raise ValueError(f"{chunk} rows a block exceed the kernel's shared "
+                         f"memory")
     _require(q, "q", BF16)
     int8 = scales is not None
     for nm, c in zip(("k_cache", "v_cache"), caches):
@@ -389,12 +468,15 @@ def _attn_launch(name, q, qstride, A, kv_new, caches, scales, geom, n_head):
                 raise ValueError(f"{nm} holds {c.numel()} scales, not "
                                  f"{B} x {rows}")
     ks, vs = scales if int8 else (None, None)
+    ws, cnt = (workspace("attn", q.device, floats, B * n_head)
+               if splits > 1 else (None, None))
     o = torch.empty((B, A), dtype=BF16, device=q.device)
     _check(lib.jk_attn_decode(
         q.data_ptr(), qstride, _ptr(kv_new[0]), _ptr(kv_new[1]),
-        caches[0].data_ptr(), caches[1].data_ptr(), _ptr(ks), _ptr(vs),
-        o.data_ptr(), B, A, n_head, rows, r0, n, w, hd ** -0.25, int(int8),
-        _stream()), name)
+        _ptr(kv32[0]), _ptr(kv32[1]), 3 * A, caches[0].data_ptr(),
+        caches[1].data_ptr(), _ptr(ks), _ptr(vs), o.data_ptr(), _ptr(ws),
+        _ptr(cnt), B, A, n_head, rows, r0, n, w, splits, chunk, hd ** -0.25,
+        int(int8), _stream()), name)
     LAUNCHES[name] += 1
     return o
 
@@ -411,18 +493,23 @@ def ring_attn_decode(qkv, k_cache, v_cache, geom, n_head):
                         None, geom, n_head)
 
 
-def ring_attn_int8(qkv, k_cache, v_cache, k_scale, v_scale, geom, n_head):
+def ring_attn_int8(qkv, k_cache, v_cache, k_scale, v_scale, geom, n_head,
+                   qkv32):
     """ring_attn_decode against int8 caches [B, ...slots..., A] with bf16
-    row scales [B, ...slots...], all updated in place at the token's slot
-    (the row quantised as quantize_row does)."""
+    row scales [B, ...slots...], all updated in place at the token's slot:
+    the row quantised as quantize_row does from qkv32 [B, 3A], the fp32
+    values of qkv (gemv(..., out32=True)), as the megakernel quantises its
+    fp32 accumulator; the token's own score and value use the bf16 qkv."""
     if not qkv.is_cuda:
         return ring_attn_int8_plain(qkv, k_cache, v_cache, k_scale, v_scale,
-                                    geom, n_head)
+                                    geom, n_head, qkv32)
     _require(qkv, "qkv", BF16)
     A = qkv.shape[1] // 3
+    _require(qkv32, "qkv32", torch.float32, qkv.shape)
     return _attn_launch("ring_attn_int8", qkv, 3 * A, A,
                         (qkv[:, A:], qkv[:, 2 * A:]), (k_cache, v_cache),
-                        (k_scale, v_scale), geom, n_head)
+                        (k_scale, v_scale), geom, n_head,
+                        (qkv32[:, A:], qkv32[:, 2 * A:]))
 
 
 def cross_attn_decode(q, k_cache, v_cache, n_head, k_scale=None,
@@ -459,15 +546,17 @@ def stack_layer_step(p, cache, x, geom, n_head, plain=False, res_scale=1.0):
         ln, ring, ring8, cross = (ln_rows, ring_attn_decode, ring_attn_int8,
                                   cross_attn_decode)
     u = ln(x, p["ln0_g"], p["ln0_b"])
-    qkv = gemv(u, p["qkv"], plain=plain)
     int8 = "ks" in cache
     if geom is None:  # f6
+        qkv = gemv(u, p["qkv"], plain=plain)
         o = cross(qkv, cache["k"], cache["v"], n_head, cache.get("ks"),
                   cache.get("vs"))
     elif int8:
+        qkv, qkv32 = gemv(u, p["qkv"], plain=plain, out32=True)
         o = ring8(qkv, cache["k"], cache["v"], cache["ks"], cache["vs"],
-                  geom, n_head)
+                  geom, n_head, qkv32)
     else:
+        qkv = gemv(u, p["qkv"], plain=plain)
         o = ring(qkv, cache["k"], cache["v"], geom, n_head)
     if res_scale == 1.0:
         r = gemv(o, p["proj"], "residual", x, plain=plain)

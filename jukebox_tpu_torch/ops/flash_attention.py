@@ -31,7 +31,8 @@ import math
 import torch
 
 from jukebox_tpu_torch.ops import _build
-from jukebox_tpu_torch.ops.decode_stack import _check, _require, _stream
+from jukebox_tpu_torch.ops.decode_stack import (_check, _require, _stream,
+                                                sm_count, workspace)
 
 LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 # launches per f0 layer and train step under checkpoint_res=1: the forward
@@ -192,17 +193,64 @@ def _dropout_args(rate, seed):
     return 1, int(seed) & _M32, keep_threshold(rate), 1.0 / (1.0 - rate)
 
 
+FWD_Q, FWD_KV = 128, 64  # rows of the forward's q and K/V tiles
+
+
+def fwd_schedule(BH, L, sms=132):
+    """The forward's work items, longest first: (head row, q tile, first
+    K/V tile, end K/V tile, pair). Under the causal mask q tile i reads
+    ~2i + 2 K/V tiles, so the last q tiles would bound the launch: a q
+    tile longer than `cut` K/V tiles is split in two halves, whose blocks
+    merge their partial sums (pair -1: whole). cut is the larger of half
+    the longest tile and the average work per SM, so a launch with work
+    enough for every SM is not split. Returns (items, number of pairs)."""
+    nq = -(-L // FWD_Q)
+    counts = [min(t * FWD_Q + FWD_Q - 1, L - 1) // FWD_KV + 1
+              for t in range(nq)]
+    cut = max(-(-counts[-1] // 2), -(-BH * sum(counts) // sms))
+    items, pairs = [], 0
+    for t, n in enumerate(counts):
+        for bh in range(BH):
+            if n > cut:
+                items += [(bh, t, 0, n // 2, pairs), (bh, t, n // 2, n, pairs)]
+                pairs += 1
+            else:
+                items.append((bh, t, 0, n, -1))
+    items.sort(key=lambda it: it[2] - it[3])  # stable: longest first
+    return items, pairs
+
+
+_FWD_PLANS = {}  # (device, BH, L) -> (items int32 tensor, number of pairs)
+
+
+def _fwd_plan(device, BH, L, hd, lib):
+    """The work items on the card, kept per shape, and the halves'
+    workspace (ops/decode_stack.py workspace)."""
+    key = (device, BH, L)
+    if key not in _FWD_PLANS:
+        items, pairs = fwd_schedule(BH, L, sm_count(device))
+        _FWD_PLANS[key] = (torch.tensor(items, dtype=torch.int32,
+                                        device=device), pairs)
+    items, pairs = _FWD_PLANS[key]
+    ws, cnt = workspace("flash_fwd", device,
+                        pairs * lib.jk_flash_fwd_pair_floats(hd), pairs)
+    return items, ws, cnt
+
+
 def flash_fwd(qh, kh, vh, scale, rate=0.0, seed=0):
     """heads [BH, L, hd] bf16 -> (out [BH, L, hd] bf16, lse [BH, L] fp32)."""
     if not qh.is_cuda:
         return flash_fwd_plain(qh, kh, vh, scale, rate, seed)
     BH, L, hd = qh.shape
     _require_heads({"q": qh, "k": kh, "v": vh}, BH, L, hd)
+    lib = _build.lib("flash_attention")
+    items, ws, cnt = _fwd_plan(qh.device, BH, L, hd, lib)
     out = torch.empty_like(qh)
     lse = torch.empty((BH, L), dtype=torch.float32, device=qh.device)
-    _check(_build.lib("flash_attention").jk_flash_fwd(
+    _check(lib.jk_flash_fwd(
         qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), BH, L, hd, scale, *_dropout_args(rate, seed),
+        lse.data_ptr(), items.data_ptr(), items.shape[0], ws.data_ptr(),
+        cnt.data_ptr(), BH, L, hd, scale, *_dropout_args(rate, seed),
         _stream()), "flash_fwd")
     LAUNCHES["flash_fwd"] += 1
     return out, lse

@@ -14,11 +14,14 @@ Tolerances, relative to max(1, |ref|):
   the softmax weights to bf16 before the PV product; the megakernel keeps
   both in fp32).
 * int8 weights and caches: INT8_TOL 0.05, the bound the JAX package holds
-  its own int8 megakernel to against its XLA path: on top of the bf16
-  differences, the port quantises the new k, v rows from their bf16
-  values where the megakernel quantises the fp32 accumulator, so a row
-  may differ by one int8 step (1/127 of its absmax) in a few elements, and
-  every later token reads it.
+  its own int8 megakernel to against its XLA path. Both quantise the new
+  k, v rows from the fp32 output of the c_attn product, and where a
+  layer's input is the same they write the same int8 rows and scales bit
+  for bit (tests/test_torch_int8_cache.py); deeper in the stack the bf16
+  differences above reach a layer's input, so its fp32 row can differ by
+  a bf16 step and its int8 row by one int8 step (1/127 of its absmax) in
+  the elements near a rounding boundary, and every later token reads
+  it.
 * res_scale: BF_TOL against the megakernel and against the JAX XLA bf16
   decode step.
 """
@@ -57,10 +60,11 @@ def _perturbed(tree, seed):
             np.float32), tree)
 
 
-def pair(order, depth, seed=0, res_scale=False, n_head=H, enc=ENC):
+def pair(order, depth, seed=0, res_scale=False, n_head=H, enc=ENC,
+         prime_len=None):
     kw = dict(n_ctx=N_CTX, n_head=n_head, n_depth=depth, attn_order=order,
               blocks=BLOCKS, m_attn=0.25, m_mlp=1.0, mask=True,
-              res_scale=res_scale)
+              res_scale=res_scale, prime_len=prime_len)
     jt = JTransformer(n_in=S, encoder_dims=enc, **kw)
     params = _perturbed(jt.init(jax.random.key(seed)), seed)
     tt = Transformer(S, device="cpu", encoder_dims=enc, **kw)

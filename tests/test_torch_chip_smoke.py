@@ -304,3 +304,9 @@ def test_checkpoint_phase(counted_flash, monkeypatch, tmp_path):
     assert dict(counted_flash, **ln_calls, **adam_calls) == res["expected"]
     assert res["launches"] == dict.fromkeys(res["expected"], 0)
     assert res["bytes"] > 0
+    # the sampling prior restored from the checkpoint holds it as
+    # fp16_params casts it: bf16 weights, fp32 LayerNorms (g and b of the
+    # two LayerNorms of every layer)
+    tr_depth = TRAIN_OVER["prior_depth"]
+    assert res["sampling_dtypes"]["torch.float32"] == 2 * 2 * tr_depth
+    assert res["sampling_dtypes"]["torch.bfloat16"] > 0

@@ -3,7 +3,11 @@
 Decode kernels (ops/decode_stack.py) at the 1b_lyrics priors' shapes: every
 attention pattern at positions crossing block and prime boundaries, and the
 slot each writes. Tolerance 1e-2 x max(1, |plain|): the two sum in different
-orders in fp32 and can round one bf16 output differently.
+orders in fp32 and can round one bf16 output differently. The attention
+kernels also where their rows split over blocks (f0 up to n_ctx rows, bf16
+and int8; f6 over 512 and a ragged 500 encoder rows), at batch 1, 4 and 16:
+the same tolerance, the same result on a second launch, and a planted fault
+(one split left out of the combine) refused.
 
 The int8 and cross-attention decode kernels (gemv_int8, ring_attn_int8,
 cross_attn_decode) and the res_scale epilogues through
@@ -16,7 +20,8 @@ head) refused by the same check; quantize_dense on the card bit for bit
 against the host.
 
 Flash kernels (ops/flash_attention.py) through chip_smoke.check_flash, at
-L 1000 and a ragged 517 with head widths 64 and 256, at dropout rates 0
+L 1000 and a ragged 517 with head widths 64, 72, 128 and 256 (the forward's
+register tiles pad them to 64, 128 or 256), at dropout rates 0
 and 0.1: out, lse, dq, dk, dv held to ops/flash_attention.py `agreement`
 (elementwise: two bf16 steps of |plain| plus 2^-5 of the row's RMS, where
 the kernels round p and ds to bf16 for their second products and the plain
@@ -116,7 +121,90 @@ def test_5b_and_int8_decode_kernels_match_plain():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hd", [64, 256])
+@pytest.mark.parametrize("B", [1, 4, 16])
+def test_split_attention_matches_plain(B):
+    """The attention kernels where their rows split over blocks
+    (attn_split_plan): the 1b top's f0 ring up to n_ctx rows, bf16 and
+    int8, with the slot row in the last, ragged split; the 5b_lyrics top's
+    f6 cross-attention over 512 and a ragged 500 encoder rows, bf16 and
+    int8. Each against its plain version (1e-2 x max(1, |plain|)), the
+    written rows and scales equal, the same result on a second launch (the
+    combine sums the splits in a fixed order), and a planted fault (one
+    split left out of the combine) refused by the same check."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def rnd(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    def int8_rows(*shape):
+        q = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                          dtype=torch.int32).to(torch.int8)
+        return q, (torch.rand(shape[:-1], generator=gen, device="cuda")
+                   * 0.02 + 0.002).to(torch.bfloat16)
+
+    def close(out, ref):
+        assert _rel_err(out.float().cpu(), ref.float().cpu()) <= 1e-2
+
+    def refused(out, ref):
+        assert _rel_err(out.float().cpu(), ref.float().cpu()) > 1e-2
+
+    A, H, n_ctx = 512, 2, 6528
+    kc, vc = rnd(B, n_ctx, A), rnd(B, n_ctx, A)
+    (k8, ks), (v8, vs) = int8_rows(B, n_ctx, A), int8_rows(B, n_ctx, A)
+    for t in (129, 700, 2431, n_ctx - 1):
+        geom = ds.ring_geometry(0, t, (B, n_ctx, A))
+        splits, chunk, _ = ds.attn_split_plan(t + 1, B, H, A // H)
+        assert splits > 1 and (t // chunk) == splits - 1
+        qkv = rnd(B, 3 * A)
+        qkv32 = qkv.float()
+        bf = [[c.clone() for c in (kc, vc)] for _ in range(3)]
+        i8 = [[c.clone() for c in (k8, v8, ks, vs)] for _ in range(3)]
+        out = ds.ring_attn_decode(qkv, *bf[0], geom, H)
+        close(out, ds.ring_attn_decode_plain(qkv, *bf[1], geom, H))
+        assert torch.equal(out, ds.ring_attn_decode(qkv, *bf[2], geom, H))
+        assert all(torch.equal(a, b) for a, b in zip(bf[0], bf[1]))
+        out = ds.ring_attn_int8(qkv, *i8[0], geom, H, qkv32)
+        close(out, ds.ring_attn_int8_plain(qkv, *i8[1], geom, H, qkv32))
+        assert torch.equal(out, ds.ring_attn_int8(qkv, *i8[2], geom, H,
+                                                  qkv32))
+        assert all(torch.equal(a, b) for a, b in zip(i8[0], i8[1]))
+        cut = chip_smoke.dropped_split(geom, B, H, A // H, "cuda")
+        for caches, kern, plain, extra in (
+                ((kc, vc), ds.ring_attn_decode, ds.ring_attn_decode_plain,
+                 ()),
+                ((k8, v8, ks, vs), ds.ring_attn_int8,
+                 ds.ring_attn_int8_plain, (qkv32,))):
+            shown, dropped = chip_smoke.split_fault_caches(qkv, caches, *cut,
+                                                           A, H)
+            refused(kern(qkv, *dropped, geom, H, *extra),
+                    plain(qkv, *shown, geom, H, *extra))
+    A, H = 1200, 8
+    for E in (512, 500):
+        q = rnd(B, A)
+        for int8 in (False, True):
+            caches = ((*int8_rows(B, E, A), *int8_rows(B, E, A)) if int8
+                      else (rnd(B, E, A), rnd(B, E, A)))
+            k, v = caches[0], caches[2 if int8 else 1]
+            sc = (caches[1], caches[3]) if int8 else (None, None)
+            out = ds.cross_attn_decode(q, k, v, H, *sc)
+            close(out, ds.cross_attn_decode_plain(q, k, v, H, *sc))
+            assert torch.equal(out, ds.cross_attn_decode(q, k, v, H, *sc))
+            cut = chip_smoke.dropped_split((E, -1, 0, E), B, H, A // H,
+                                           "cuda")
+            shown, dropped = chip_smoke.split_fault_caches(
+                q, (k, v, *sc) if int8 else (k, v), *cut, A, H)
+            pad = [] if int8 else [None, None]
+            refused(ds.cross_attn_decode(q, *dropped[:2], H, *dropped[2:],
+                                         *pad),
+                    ds.cross_attn_decode_plain(q, *shown[:2], H, *shown[2:],
+                                               *pad))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 72, 128, 256])
 def test_flash_kernels_match_plain(hd):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
