@@ -14,15 +14,19 @@ Phases, each printing timestamped lines:
              129 rows and at n_ctx (its rows split over blocks, the slot
              row in the last, ragged split), and at every split position
              a planted fault (one split left out of the combine) that the
-             check must refuse; times per launch beside the bound, the
-             plain version and one library call
+             check must refuse; the attention reads q in fp32 (the c_attn
+             product's fp32 row, its bf16 rounding feeding the new k, v);
+             times per launch beside the bound, the plain version and one
+             library call
   3 step     one full-width decode step per prior, kernel path against the
              plain path on the same caches after a one-block prefill
   2b flash   the flash-attention kernels (forward, dq, dk/dv) against their
              plain versions at the top prior's f0 shape (B 1, L 6528, S 512,
              2 heads) and a ragged L, at dropout rates 0 and 0.1, and a
              planted fault (one tile skipped) that the check must refuse;
-             times per launch beside the bound, the plain version and SDPA
+             dq and dk/dv also give the same bits on a second call and are
+             refused with one split pair left out of the merge; times per
+             launch beside the bound, the plain version and SDPA
   2c ln      the LayerNorm kernels (forward, backward) against their plain
              versions at the top's training rows [6528, 2048] bf16, at
              [6528, 1920] fp32 and a ragged [1000, 1000] bf16, and a planted
@@ -415,21 +419,24 @@ def check_kernels(shapes, B, last_t, device, gen, time_it=True):
             kc, vc = rnd(*shape), rnd(*shape)
             for t in attn_positions(sh, last_t[label], f):
                 geom = ds.ring_geometry(f, t, shape, sh["bc"], sh["prime"])
-                qkv = rnd(B, 3 * A)
+                # the c_attn product's fp32 row and its bf16 rounding
+                qkv32 = rnd(B, 3 * A, dtype=torch.float32)
+                qkv = qkv32.to(bf)
                 k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
-                out = ds.ring_attn_decode(qkv, k1, v1, geom, H)
-                ref = ds.ring_attn_decode_plain(qkv, k2, v2, geom, H)
+                out = ds.ring_attn_decode(qkv, k1, v1, geom, H, qkv32)
+                ref = ds.ring_attn_decode_plain(qkv, k2, v2, geom, H, qkv32)
                 what = f"{label} f{f} t={t} rows {geom[2]}+{geom[3]}"
                 rep.check("ring_attn_decode", out, ref, what)
                 if not (torch.equal(k1, k2) and torch.equal(v1, v2)):
                     raise AssertionError(f"f{f} t={t}: cache write differs")
                 cut = dropped_split(geom, B, H, A // H, device)
                 if cut is not None:
-                    shown, dropped = split_fault_caches(qkv, (kc, vc), *cut,
-                                                        A, H)
+                    shown, dropped = split_fault_caches(qkv32, (kc, vc),
+                                                        *cut, A, H)
                     refuse("ring_attn_decode",
-                           ds.ring_attn_decode(qkv, *dropped, geom, H),
-                           ds.ring_attn_decode_plain(qkv, *shown, geom, H),
+                           ds.ring_attn_decode(qkv, *dropped, geom, H, qkv32),
+                           ds.ring_attn_decode_plain(qkv, *shown, geom, H,
+                                                     qkv32),
                            f"{what} split {cut[0]}:{cut[1]} dropped")
             # time the same work (n live rows read, one slot written) on
             # caches holding just those rows, so the rotated copies stay small
@@ -437,15 +444,19 @@ def check_kernels(shapes, B, last_t, device, gen, time_it=True):
             _, w, _, n = ds.ring_geometry(f, t, shape, sh["bc"], sh["prime"])
             geom = (n, n - 1 if w >= 0 else -1, 0, n)
             hd, live = A // H, B * n * A * 2 * 2
-            sets = copies(lambda: (rnd(B, 3 * A), rnd(B, n, A), rnd(B, n, A),
-                                   geom, H), live)
+
+            def ring_set():
+                q32 = rnd(B, 3 * A, dtype=torch.float32)
+                return (q32.to(bf), rnd(B, n, A), rnd(B, n, A), geom, H, q32)
+            sets = copies(ring_set, live)
             lib_sets = [tuple(z.reshape(B, -1, H, hd).transpose(1, 2).contiguous()
                               for z in (qkv_[:, :A], k_, v_))
-                        for qkv_, k_, v_, _, _ in sets]
+                        for qkv_, k_, v_, *_ in sets]
             time3("ring_attn_decode", f"{label} f{f} t={t} ({n} rows)",
                   ds.ring_attn_decode, ds.ring_attn_decode_plain,
                   F.scaled_dot_product_attention, sets, lib_sets,
-                  live + B * 3 * A * 2 + (2 * B * A * 2 if w >= 0 else 0)
+                  live + B * A * 4 + B * 2 * A * 2
+                  + (2 * B * A * 2 if w >= 0 else 0)
                   + B * A * 2, 4 * B * n * A, "bf16", main and f == 0)
     for name, row in rep.rows.items():
         row.update(timings.get(name, {}))
@@ -609,12 +620,12 @@ def check_int8_kernels(shapes, B, last_t, device, gen, time_it=True):
                 if t == last_t[label]:
                     cc = [c.clone() for c in (kc, vc, ks, vs)]
                     refuse("ring_attn_int8", ds.ring_attn_int8(
-                        skip_head(qkv, A, H), *cc, geom, H, qkv32), ref,
+                        qkv, *cc, geom, H, skip_head(qkv32, A, H)), ref,
                         what)
                 cut = dropped_split(geom, B, H, A // H, device)
                 if cut is not None:
                     shown, dropped = split_fault_caches(
-                        qkv, (kc, vc, ks, vs), *cut, A, H)
+                        qkv32, (kc, vc, ks, vs), *cut, A, H)
                     refuse("ring_attn_int8",
                            ds.ring_attn_int8(qkv, *dropped, geom, H, qkv32),
                            ds.ring_attn_int8_plain(qkv, *shown, geom, H,
@@ -637,7 +648,7 @@ def check_int8_kernels(shapes, B, last_t, device, gen, time_it=True):
                       F.scaled_dot_product_attention, sets,
                       [(heads(a[0][:, :A], H), heads(deq(a[1], a[3]), H),
                         heads(deq(a[2], a[4]), H)) for a in sets],
-                      live + B * 3 * A * 2 + 2 * B * A * 4
+                      live + B * 2 * A * 2 + 3 * B * A * 4
                       + 2 * B * (A + 2) + B * A * 2, 4 * B * n * A, True)
         # -- cross_attn_decode (f6), bf16 and int8 encoder K/V
         # the encoder rows, and where they split, a cut of them whose last
@@ -651,9 +662,10 @@ def check_int8_kernels(shapes, B, last_t, device, gen, time_it=True):
                     if int8:
                         (k_, ks_), (v_, vs_) = (int8_rows(B, E, A),
                                                 int8_rows(B, E, A))
-                        return (rnd(B, A), k_, v_, H, ks_, vs_)
-                    return (rnd(B, A), rnd(B, E, A), rnd(B, E, A), H, None,
-                            None)
+                        return (rnd(B, A, dtype=torch.float32), k_, v_, H,
+                                ks_, vs_)
+                    return (rnd(B, A, dtype=torch.float32), rnd(B, E, A),
+                            rnd(B, E, A), H, None, None)
                 q, k, v, _, ks, vs = cross_set()
                 what = f"{label} f6 {'int8' if int8 else 'bf16'} [{B},{E},{A}]"
                 ref = ds.cross_attn_decode_plain(q, k, v, H, ks, vs)
@@ -675,12 +687,12 @@ def check_int8_kernels(shapes, B, last_t, device, gen, time_it=True):
                 if E != sh["enc"]:
                     continue
                 nbytes = (B * E * A * (1 if int8 else 2) * 2
-                          + (4 * B * E if int8 else 0) + 2 * B * A * 2)
+                          + (4 * B * E if int8 else 0) + B * A * (4 + 2))
                 sets = copies(cross_set, nbytes)
                 time3("cross_attn_decode", what, ds.cross_attn_decode,
                       ds.cross_attn_decode_plain,
                       F.scaled_dot_product_attention, sets,
-                      [(heads(a[0], H), heads(deq(a[1], a[4]), H),
+                      [(heads(a[0].to(bf), H), heads(deq(a[1], a[4]), H),
                         heads(deq(a[2], a[5]), H)) for a in sets],
                       nbytes, 4 * B * E * A, main and int8)
     # quantize_dense on the card against the host (numpy-free fp32 on the
@@ -729,13 +741,40 @@ def skip_tile(t):
     return t
 
 
+@contextlib.contextmanager
+def unmerged_pair(name, q):
+    """While open, the flash kernel `name` runs at q's shape on work items
+    whose first pair has both halves marked whole: each half writes its own
+    partial sum and the other half is left out of the merge, the planted
+    merge fault. Yields False (and plants nothing) when nothing splits, or
+    on the CPU, whose plain versions take no work items."""
+    BH, L = q.shape[:2]
+    items, pairs = fa.SCHEDULES[name](BH, L, ds.sm_count(q.device))
+    planted = pairs > 0 and q.is_cuda
+    key = (name, q.device, BH, L)
+    saved = fa._PLANS.get(key)
+    if planted:
+        fa._PLANS[key] = (torch.tensor(
+            [(*it[:4], -1) if it[4] == 0 else it for it in items],
+            dtype=torch.int32, device=q.device), pairs)
+    try:
+        yield planted
+    finally:
+        if saved is None:
+            fa._PLANS.pop(key, None)
+        else:
+            fa._PLANS[key] = saved
+
+
 def check_flash(B, L, S, H, device, gen, time_it=True, ragged=2500,
                 seed=1234):
     """Hold flash_fwd (out, lse), flash_dq and flash_dkv against their plain
     versions (fa.agreement) on random heads at [B*H, L, S/H] and a ragged
     L, at dropout rates 0 and 0.1, and check that each kernel fed the
-    planted fault of skip_tile fails the same comparison; time the main
-    shape at rate 0 beside the bound, the plain version and SDPA (causal
+    planted fault of skip_tile fails the same comparison, that dq and
+    dk/dv give the same bits on a second call, and that they fail it too
+    with one split pair left unmerged (unmerged_pair); time the main shape
+    at rate 0 beside the bound, the plain version and SDPA (causal
     forward; its autograd backward, which computes dq, dk and dv together,
     for both backward kernels). Returns {name: row}."""
     BH, hd = B * H, S // H
@@ -774,13 +813,33 @@ def check_flash(B, L, S, H, device, gen, time_it=True, ragged=2500,
             check("flash_fwd.lse", lse, ref_lse, None, what)
             dd = (g.float() * ref.float()).sum(-1)
             args = (q, k, v, g, ref_lse, dd, scale, rate, seed)
-            check("flash_dq", fa.flash_dq(*args), fa.flash_dq_plain(*args),
+            dq, ref_dq = fa.flash_dq(*args), fa.flash_dq_plain(*args)
+            check("flash_dq", dq, ref_dq,
                   fa.flash_dq(q, k, skip_tile(v), *args[3:]), what)
+            dkv, ref_dkv = fa.flash_dkv(*args), fa.flash_dkv_plain(*args)
             bad = fa.flash_dkv(q, k, v, skip_tile(g), ref_lse, skip_tile(dd),
                                *args[6:])
-            for n, a, b, f in zip(("dk", "dv"), fa.flash_dkv(*args),
-                                  fa.flash_dkv_plain(*args), bad):
+            for n, a, b, f in zip(("dk", "dv"), dkv, ref_dkv, bad):
                 check("flash_dkv", a, b, f, f"{n} {what}")
+            outs = {"flash_dq": (dq,), "flash_dkv": dkv}
+            refs = {"flash_dq": (ref_dq,), "flash_dkv": ref_dkv}
+            for name, fn in (("flash_dq", fa.flash_dq),
+                             ("flash_dkv", fa.flash_dkv)):
+                again = fn(*args)
+                again = again if isinstance(again, tuple) else (again,)
+                if not all(torch.equal(a, b)
+                           for a, b in zip(again, outs[name])):
+                    raise AssertionError(f"{name} {what}: a second call on "
+                                         f"the same inputs gave other bits")
+                with unmerged_pair(name, q) as planted:
+                    if planted:
+                        bad = fn(*args)
+                        bad = bad if isinstance(bad, tuple) else (bad,)
+                        for a, b, f in zip(outs[name], refs[name], bad):
+                            check(name, a, b, f,
+                                  f"{what} (one split pair unmerged)")
+            log(f"  flash_dq, flash_dkv {what}: a second call gives the "
+                f"same bits")
     if not time_it:
         return rep.rows
     q, k, v, g = heads(L)

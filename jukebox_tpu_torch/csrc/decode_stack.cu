@@ -25,7 +25,7 @@
 //                split over blocks (grid B x H x splits):
 //                ring_attn_decode (bf16 ring: write the token's k, v into
 //                its slot, masked scores over the live rows, fp32 softmax,
-//                bf16-rounded weights x V); ring_attn_int8 (int8 ring with
+//                fp32 weights x V); ring_attn_int8 (int8 ring with
 //                one bf16 scale per (batch row, slot): the new row is
 //                quantised on write from its fp32 values, absmax over A /
 //                127 floored at 1e-8, int8 = round(k * (1 / scale)), the
@@ -53,11 +53,12 @@
 // and V 16 bytes a lane with several rows in flight and keeps an online
 // softmax in registers (no block-wide step before the end), and the last
 // block of each head to finish combines the splits' partial sums in the
-// same launch: a decode layer still launches one attention kernel. Where
-// the bf16 mode rounds: the weight that multiplies V is e = exp(s - m),
-// m the running max of the warp's rows, rounded to bf16 (the plain version
-// rounds the normalised p = e / sum); the sums and the final division are
-// fp32, as the flash forward rounds p. Fusing LN into the GEMV, a
+// same launch: a decode layer still launches one attention kernel. The
+// arithmetic is the megakernel's (decode_stack.py:649-653, 766-799): q is
+// the fp32 row of the c_attn product plus bias (the GEMV's out32 row),
+// not its bf16 rounding; the new token's k and v are the bf16 rows (int8:
+// quantised from the fp32 rows); the fp32 softmax weights multiply V and
+// only the head output is rounded to bf16. Fusing LN into the GEMV, a
 // persistent whole-stack kernel, CUDA graphs and wgmma/TMA are later work.
 //
 // Every entry point is a plain C function that launches on the given stream
@@ -283,8 +284,8 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x, const WT* __restrict__ W,
 
 // ---------------------------------------------------------------------------
 // attn_kernel: grid (B, H, splits), one token of one layer. Caches k/v
-// [B, R, A] (CT = bf16, or int8 with bf16 row scales ks/vs [B, R]); q row b
-// at q + b * qstride; the live rows are r0 .. r0 + n - 1, and split z of the
+// [B, R, A] (CT = bf16, or int8 with bf16 row scales ks/vs [B, R]); the
+// fp32 q row b at q + b * qstride; the live rows are r0 .. r0 + n - 1, and split z of the
 // grid reads rows r0 + z * chunk .. + chunk - 1 (the last split ragged).
 // The token's new k, v (bf16 rows of stride qstride; for INT8 also their
 // fp32 values k32 / v32, rows of stride stride32) go to slot w (w < 0: no
@@ -296,11 +297,11 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x, const WT* __restrict__ W,
 // Each block: q in registers, its rows read 16 bytes a lane (8 bf16 or 16
 // int8 values; 2 values a lane when the head width is not a multiple of
 // that; CPL vectors a lane), U rows in flight per warp; block-wide max and
-// sum of its scores; P.V accumulated per warp and summed in shared memory.
-//   splits == 1: p = e / sum (bf16-rounded in the bf16 mode) and o written
-//     directly: the arithmetic of the one-block design.
+// sum of its scores; P.V accumulated per warp in fp32 and summed in shared
+// memory.
+//   splits == 1: p = e / sum in fp32 and o written directly.
 //   splits > 1: the split's max m, sum l of e = exp(s - m) and fp32 partial
-//     output sum(bf16(e) v) (int8: sum(e * v_scale * v_int)) go to the
+//     output sum(e v) (int8: sum(e * v_scale * v_int)) go to the
 //     workspace ws [B, H, splits, 2 + hd]; the block that arrives last at
 //     the (b, h) counter (atomicAdd after __threadfence) combines them, each
 //     warp a fixed subset of splits and the warps summed in a fixed order,
@@ -362,7 +363,7 @@ struct RowLoad<int8_t, 2> {
 
 template <bool INT8, int VEC, int CPL>
 __global__ void __launch_bounds__(kThreads)
-attn_kernel(const __nv_bfloat16* __restrict__ q, int qstride,
+attn_kernel(const float* __restrict__ q, int qstride,
             const __nv_bfloat16* __restrict__ knew,
             const __nv_bfloat16* __restrict__ vnew,
             const float* __restrict__ k32, const float* __restrict__ v32,
@@ -432,14 +433,13 @@ attn_kernel(const __nv_bfloat16* __restrict__ q, int qstride,
   // q (times scale) in registers, in the lane's vector layout
   float qf[NE];
   {
-    const __nv_bfloat16* qrow = q + (size_t)b * qstride + h * hd;
+    const float* qrow = q + (size_t)b * qstride + h * hd;
 #pragma unroll
     for (int c = 0; c < CPL; ++c) {
       const int v = lane + 32 * c;
 #pragma unroll
       for (int e = 0; e < VEC; ++e)
-        qf[c * VEC + e] =
-            v < nvec ? __bfloat162float(qrow[v * VEC + e]) * scale : 0.0f;
+        qf[c * VEC + e] = v < nvec ? qrow[v * VEC + e] * scale : 0.0f;
     }
   }
   const float kscale = INT8 ? 1.0f : scale;  // bf16: (q s) . (k s)
@@ -505,13 +505,12 @@ attn_kernel(const __nv_bfloat16* __restrict__ q, int qstride,
   }
   sum = block_sum(sum, scratch);  // ends in __syncthreads: sc[] is complete
   for (int l = threadIdx.x; l < cnt; l += kThreads) {
-    // one split: the normalised weight; several: exp(s - m) of the split
-    const float p = splits == 1 ? sc[l] / sum : sc[l];
-    if constexpr (INT8)  // fp32 weights; the V row scales fold into them
-      sc[l] = l == ins ? p
-                       : p * __bfloat162float(vs[(size_t)b * R + r0 + lo + l]);
-    else
-      sc[l] = bf16_round(p);  // weights cast to bf16 before PV
+    // one split: the normalised weight; several: exp(s - m) of the split;
+    // fp32 either way (int8: the V row scales fold into them)
+    float p = splits == 1 ? sc[l] / sum : sc[l];
+    if (INT8 && l != ins)
+      p *= __bfloat162float(vs[(size_t)b * R + r0 + lo + l]);
+    sc[l] = p;
   }
   __syncthreads();
 
@@ -731,7 +730,7 @@ int attn_launch(const void* q, int qstride, const void* knew,
   attn_kernel<INT8, VEC, CPL>
       <<<dim3(B, H, splits), kThreads, attn_smem(A / H, chunk),
          (cudaStream_t)stream>>>(
-          (const __nv_bfloat16*)q, qstride, (const __nv_bfloat16*)knew,
+          (const float*)q, qstride, (const __nv_bfloat16*)knew,
           (const __nv_bfloat16*)vnew, (const float*)k32, (const float*)v32,
           stride32, (CT*)kc, (CT*)vc, (__nv_bfloat16*)ks,
           (__nv_bfloat16*)vs, (__nv_bfloat16*)o, (float*)ws, (int*)counters,
@@ -770,7 +769,8 @@ int jk_gemv_int8(const void* x, const void* W, const void* s,
                             epi, rs, stream);
 }
 
-// The attention kernels: int8 == 0 bf16 caches (ks, vs, k32, v32 unused),
+// The attention kernels, q the fp32 q rows (row b at b * qstride floats):
+// int8 == 0 bf16 caches (ks, vs, k32, v32 unused),
 // 1 int8 caches with bf16 row scales, the new row quantised from its fp32
 // values k32 / v32 (rows of stride stride32). knew / vnew may be null when
 // w < 0. splits > 1 needs ws (B * H * splits * (2 + hd) floats) and

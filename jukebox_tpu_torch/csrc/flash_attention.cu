@@ -60,11 +60,34 @@
 // P.V_j (255 registers). TMA copies and ping-ponging warpgroups are the
 // next step.
 //
-// dq and dk/dv are the first, simple design: one block of 8 warps per
-// (bh, tile), nvcuda::wmma 16x16x16 bf16 products with fp32 accumulators,
-// operand tiles staged in shared memory by 16-byte loads, the fp32
-// accumulator (dQ or dK/dV) kept in shared memory, and the softmax/dropout
-// pass done by plain threads between the products.
+// dq and dk/dv run on the same machinery (warpgroup products, swizzled
+// tiles, cp.async copies, host schedule):
+//   dq: two warpgroups per 128 q rows (64 each), Q and G resident in shared
+//     memory, K and V tiles of 64 rows in one stage (193 KB at hd 256; two
+//     stages would need 256 KB, over the 227 KB a block may have). On the
+//     H100 (scripts/chip_flash_bwd_probe.py) this beat 32-row tiles in a
+//     two- or three-stage cp.async ring by ~9%: the copies then overlap
+//     the products, but m64n32 products read their shared-memory A
+//     operand twice as often per flop. S = Q.K^T and dP = G.V^T by wgmma
+//     from shared memory; p = exp(s - lse) needs no running max; dS =
+//     p (dp - dd), scaled and rounded to bf16 in registers, is the register
+//     A operand of dQ += dS.K, K read MN-major as V is in P.V. The dQ
+//     accumulator [64 x hd] of a warpgroup (128 fp32 a thread at hd 256)
+//     stays in its registers.
+//   dk/dv: one block per 64 kv rows, K and V resident, Q, G (and their lse,
+//     dd) in tiles of 64 q rows through a two-stage ring (210 KB at hd
+//     256). The two fp32 accumulators of 64 rows would take 256 registers a
+//     thread in one warpgroup, so they are split: warpgroup 0 computes
+//     S^T = K.Q^T and owns dV += P^T.G, warpgroup 1 computes dP^T = V.G^T
+//     and owns dK += dS^T.Q (G and Q read MN-major); warpgroup 0 hands p to
+//     warpgroup 1 through shared memory behind a named barrier, its sign
+//     carrying the keep mask.
+//   Both take work items from the host (ops/flash_attention.py
+//     dq_schedule, dkv_schedule), longest first; a range longer than the
+//     cut is split in two halves, and the block that finishes second adds
+//     the other's fp32 accumulators to its own. a + b == b + a in fp32, so
+//     the result is the same bits whichever half finishes first, and no
+//     output is summed with atomics.
 //
 // Every entry point is a plain C function that launches on the given stream
 // and returns cudaGetLastError().
@@ -72,40 +95,14 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
-
-#include <type_traits>
-
-using namespace nvcuda;
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kWarps = kThreads / 32;
 constexpr float kNeg = -1e9f;
-constexpr int kPadH = 8;  // bf16 row padding (elements), keeps 32-byte tiles
-constexpr int kPadF = 4;  // fp32 row padding
 constexpr int kMaxHead = 256;
-
-// tile rows: dq (q, kv), dkv (q, kv)
-constexpr int kDqBQ = 64, kDqBK = 32;
-constexpr int kDkvBQ = 64, kDkvBK = 32;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 // _keep_mask's hash (jukebox_tpu/ops/pallas/flash_attention.py:38).
 __device__ __forceinline__ uint32_t keep_hash(uint32_t seed, uint32_t bh,
@@ -132,79 +129,8 @@ __device__ __forceinline__ bool kept(const Dropout& d, uint32_t bh, int q_pos,
   return keep_hash(d.seed, bh, (uint32_t)q_pos, (uint32_t)kv_pos) >= d.thresh;
 }
 
-__host__ __device__ constexpr int round16(int x) { return (x + 15) / 16 * 16; }
-
-// rows [r0, r0 + rows) of a row-major [L, hd] bf16 matrix into shared
-// memory [rows][ld], zero-filling rows >= L and columns [hd, hdp).
-__device__ void load_tile(bf16* dst, int ld, const bf16* src, int r0,
-                          int rows, int L, int hd, int hdp) {
-  const int chunks = hdp / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < rows * chunks; i += kThreads) {
-    const int r = i / chunks, c = (i % chunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < L && c < hd)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * hd + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-  }
-}
-
-// fp32 rows [r0, r0 + rows) of a [L] vector; 0 past L.
-__device__ void load_rows(float* dst, const float* src, int r0, int rows,
-                          int L) {
-  for (int r = threadIdx.x; r < rows; r += kThreads)
-    dst[r] = r0 + r < L ? src[r0 + r] : 0.0f;
-}
-
-// C[M, N] (fp32, shared, ldc) (+)= A[M, K] . B[K, N], bf16 operands in
-// shared memory. kATrans: A is Xᵀ for a row-major X [K][lda]; kBTrans: B is
-// Yᵀ for a row-major Y [N][ldb]. The warps split the 16x16 output tiles.
-template <bool kATrans, bool kBTrans>
-__device__ void mma_tiles(float* C, int ldc, const bf16* A, int lda,
-                          const bf16* B, int ldb, int M, int N, int K,
-                          bool accumulate) {
-  using ALay = typename std::conditional<kATrans, wmma::col_major,
-                                         wmma::row_major>::type;
-  using BLay = typename std::conditional<kBTrans, wmma::col_major,
-                                         wmma::row_major>::type;
-  const int warp = threadIdx.x >> 5;
-  const int tn = N / 16, tiles = (M / 16) * tn;
-  for (int t = warp; t < tiles; t += kWarps) {
-    const int i = t / tn, j = t % tn;
-    float* c = C + i * 16 * ldc + j * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    if (accumulate)
-      wmma::load_matrix_sync(acc, c, ldc, wmma::mem_row_major);
-    else
-      wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < K; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, ALay> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLay> b;
-      wmma::load_matrix_sync(a, kATrans ? A + kk * lda + i * 16
-                                        : A + i * 16 * lda + kk, lda);
-      wmma::load_matrix_sync(b, kBTrans ? B + j * 16 * ldb + kk
-                                        : B + kk * ldb + j * 16, ldb);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(c, acc, ldc, wmma::mem_row_major);
-  }
-}
-
-// rows [r0, r0 + rows) of an fp32 [rows][ld] accumulator, each divided by
-// row_div[r] when given, to a bf16 [L, hd] output (rows < L, columns < hd).
-__device__ void store_rows(bf16* dst, const float* acc, int ld, int r0,
-                           int rows, int L, int hd, const float* row_div) {
-  for (int i = threadIdx.x; i < rows * hd; i += kThreads) {
-    const int r = i / hd, c = i % hd;
-    if (r0 + r < L) {
-      float x = acc[r * ld + c];
-      if (row_div) x /= row_div[r];
-      dst[(size_t)(r0 + r) * hd + c] = __float2bfloat16(x);
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// forward helpers
+// helpers: copies, warpgroup products, descriptors
 // ---------------------------------------------------------------------------
 
 constexpr float kLog2e = 1.4426950408889634f;
@@ -225,6 +151,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(pred ? 16 : 0));
+}
+
+// 4 bytes global -> shared, zero-filled when !pred
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(pred ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -269,6 +203,21 @@ __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[64 x 32] (+)= A . B, as wgmma_ss with an N of 32
+__device__ __forceinline__ void wgmma_ss32(float* d, uint64_t da, uint64_t db,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -327,18 +276,20 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)1 << 62);
 }
 
-// rows [r0, r0 + 64) of a row-major [L, hd] matrix into a swizzled tile of
-// HDP / 64 atoms [64][64], zero-filling rows >= L and columns >= hd
-template <int HDP>
+// rows [r0, r0 + ROWS) of a row-major [L, hd] matrix into a swizzled tile
+// of HDP / 64 atoms [ROWS][64], zero-filling rows >= L and columns >= hd
+// (all 256 threads of the block issue the copies)
+template <int HDP, int ROWS>
 __device__ __forceinline__ void load_sw_tile(bf16* dst, const bf16* src,
                                              int r0, int L, int hd) {
   constexpr int CH = HDP / 8, RS = 256 / CH;  // 16-byte chunks a row
+  static_assert(ROWS % RS == 0, "whole passes of the block's threads");
   const int c = threadIdx.x % CH, r = threadIdx.x / CH;
   const bf16* s = src + (size_t)(r0 + r) * hd + c * 8;
-  bf16* atom = dst + (c >> 3) * 64 * 64;
+  bf16* atom = dst + (c >> 3) * ROWS * 64;
   const bool col = c * 8 < hd;
 #pragma unroll
-  for (int i = 0; i < 64 / RS; ++i) {
+  for (int i = 0; i < ROWS / RS; ++i) {
     const int rr = r + i * RS;
     const bool ok = col && r0 + rr < L;
     cp_async16(atom + rr * 64 + (((c & 7) ^ (rr & 7)) << 3),
@@ -389,10 +340,10 @@ __global__ void __launch_bounds__(256, 1)
   const int row0 = wrow + g;
   const int wg_last = (q0 + wg * 64 + 63) / BK;  // its last K/V tile
 
-  load_sw_tile<HDP>(Qs, q, q0, L, hd);
-  load_sw_tile<HDP>(Qs + TILE, q, q0 + 64, L, hd);
-  load_sw_tile<HDP>(Ks, k, kv_lo * BK, L, hd);
-  load_sw_tile<HDP>(Vs, v, kv_lo * BK, L, hd);
+  load_sw_tile<HDP, 64>(Qs, q, q0, L, hd);
+  load_sw_tile<HDP, 64>(Qs + TILE, q, q0 + 64, L, hd);
+  load_sw_tile<HDP, 64>(Ks, k, kv_lo * BK, L, hd);
+  load_sw_tile<HDP, 64>(Vs, v, kv_lo * BK, L, hd);
   cp_async_commit();
 
   float o[NA][32];
@@ -409,8 +360,8 @@ __global__ void __launch_bounds__(256, 1)
     const bf16* Vt = Vs + st * TILE;
     if (j + 1 < kv_hi) {  // the next tile's copies overlap this tile's work
       const int st = (j + 1 - kv_lo) & 1;
-      load_sw_tile<HDP>(Ks + st * TILE, k, kv0 + BK, L, hd);
-      load_sw_tile<HDP>(Vs + st * TILE, v, kv0 + BK, L, hd);
+      load_sw_tile<HDP, 64>(Ks + st * TILE, k, kv0 + BK, L, hd);
+      load_sw_tile<HDP, 64>(Vs + st * TILE, v, kv0 + BK, L, hd);
     }
     cp_async_commit();
     cp_async_wait<1>();    // K_j, V_j and Q
@@ -571,155 +522,373 @@ __global__ void __launch_bounds__(256, 1)
   }
 }
 
-// ---------------------------------------------------------------------------
-// dq: one block per (q tile, bh); loops over the kv tiles on or below the
-// diagonal, recomputing p from lse.
-// ---------------------------------------------------------------------------
-
-constexpr int dq_smem(int hdp) {
-  return (2 * kDqBQ + 2 * kDqBK) * (hdp + kPadH) * 2  // Q, G, K, V
-         + kDqBQ * (hdp + kPadF) * 4                  // dQ accumulator
-         + 2 * kDqBQ * (kDqBK + kPadF) * 4            // S, dP
-         + kDqBQ * (kDqBK + kPadH) * 2                // dS (bf16)
-         + 2 * kDqBQ * 4;                             // lse, dd
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-__global__ void __launch_bounds__(kThreads)
+// A work item split in two halves (pair >= 0): publish this half's fp32
+// accumulators (NA x 32 a thread, in their fragment layout) to ws; the
+// block that arrives second adds the other half's to its own and returns
+// true, the first returns false. Every launch leaves the counters zero.
+template <int NA>
+__device__ __forceinline__ bool merge_halves(float (&acc)[NA][32], float* ws,
+                                             int* counters, int pair,
+                                             int half, int* is_last) {
+  constexpr int PART = NA * 32 * 256;
+  const int tid = threadIdx.x;
+  float* mine = ws + ((size_t)pair * 2 + half) * PART;
+#pragma unroll
+  for (int a = 0; a < NA; ++a)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) mine[(a * 32 + e) * 256 + tid] = acc[a][e];
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) *is_last = atomicAdd(&counters[pair], 1) == 1;
+  __syncthreads();
+  if (!*is_last) return false;
+  __threadfence();
+  const float* other = ws + ((size_t)pair * 2 + 1 - half) * PART;
+#pragma unroll
+  for (int a = 0; a < NA; ++a)
+#pragma unroll
+    for (int e = 0; e < 32; ++e)
+      acc[a][e] += __ldcg(other + (a * 32 + e) * 256 + tid);
+  if (tid == 0) counters[pair] = 0;
+  return true;
+}
+
+// a warpgroup's fp32 [64 x HDP] accumulator (each thread rows row0 and
+// row0 + 8 of its warp) to a bf16 [L, hd] matrix, rows < L, columns < hd
+template <int NA>
+__device__ __forceinline__ void store_acc(bf16* dst, const float (&acc)[NA][32],
+                                          int row0, int L, int hd, int t4) {
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    const int row = row0 + 8 * rh;
+    if (row >= L) continue;
+#pragma unroll
+    for (int a = 0; a < NA; ++a)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int col = a * 64 + i * 8 + 2 * t4;
+        if (col < hd)
+          *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)row * hd + col) =
+              __floats2bfloat162_rn(acc[a][4 * i + 2 * rh],
+                                    acc[a][4 * i + 2 * rh + 1]);
+      }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dq: one block of two warpgroups per work item, a q tile of 128 rows of
+// one head row and a range of its K/V tiles (64 rows).
+// ---------------------------------------------------------------------------
+
+// K/V tile rows (32: wgmma n32, or 64: n64) and ring stages; compile-time
+// alternatives that scripts/chip_flash_bwd_probe.py measures
+#ifndef JK_DQ_KV_ROWS
+#define JK_DQ_KV_ROWS 64
+#endif
+#ifndef JK_DQ_STAGES
+#define JK_DQ_STAGES 1
+#endif
+constexpr int kDqQ = 128, kDqKV = JK_DQ_KV_ROWS, kDqStages = JK_DQ_STAGES;
+static_assert(kDqKV == 32 || kDqKV == 64, "wgmma n32 or n64");
+
+// Q and G (two warpgroups' rows) and the K and V ring, plus the slack that
+// aligns them to the 1024-byte period of the swizzle
+__host__ __device__ constexpr int dq_smem_bytes(int hdp) {
+  return (4 * 64 + 2 * kDqStages * kDqKV) * hdp * 2 + 1024;
+}
+
+template <int HDP>
+__global__ void __launch_bounds__(256, 1)
     flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ g,
+                    const bf16* __restrict__ v, const bf16* __restrict__ go,
                     const float* __restrict__ lse,
                     const float* __restrict__ dd, bf16* __restrict__ dq,
-                    int L, int hd, float scale, Dropout drop) {
-  constexpr int BQ = kDqBQ, BK = kDqBK;
-  const int hdp = round16(hd), ldh = hdp + kPadH, ldo = hdp + kPadF;
-  constexpr int lds = BK + kPadF, ldp = BK + kPadH;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Gs = Qs + BQ * ldh;
-  bf16* Ks = Gs + BQ * ldh;
-  bf16* Vs = Ks + BK * ldh;
-  float* dQs = reinterpret_cast<float*>(Vs + BK * ldh);
-  float* Ss = dQs + BQ * ldo;
-  float* dPs = Ss + BQ * lds;
-  bf16* dSs = reinterpret_cast<bf16*>(dPs + BQ * lds);
-  float* lse_s = reinterpret_cast<float*>(dSs + BQ * ldp);
-  float* dd_s = lse_s + BQ;
+                    const int* __restrict__ items, float* __restrict__ ws,
+                    int* __restrict__ counters, int L, int hd, float scale,
+                    Dropout drop) {
+  constexpr int BQ = kDqQ, BK = kDqKV, NS = kDqStages, NA = HDP / 64;
+  constexpr int QT = 64 * HDP, KT = BK * HDP;  // elements of a tile
+  __shared__ int is_last;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
+  bf16* Gs = Qs + 2 * QT;
+  bf16* Ks = Gs + 2 * QT;   // [NS][KT]
+  bf16* Vs = Ks + NS * KT;  // [NS][KT]
 
-  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
+  // the work item: the q tile of a head row, its K/V tiles [kv_lo, kv_hi),
+  // and the pair it shares the tile with (-1: none)
+  const int* it = items + 5 * blockIdx.x;
+  const int bh = it[0], q0 = it[1] * BQ, kv_lo = it[2], kv_hi = it[3];
+  const int pair = it[4];
+  const int tid = threadIdx.x, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int wg = tid >> 7, g = lane >> 2, t4 = lane & 3;
   const size_t base = (size_t)bh * L * hd;
-  q += base; k += base; v += base; g += base; dq += base;
+  q += base; k += base; v += base; go += base; dq += base;
+  const int wrow = q0 + wg * 64 + warp * 16, row0 = wrow + g;
+  const int wg_last = (q0 + wg * 64 + 63) / BK;  // its last K/V tile
 
-  load_tile(Qs, ldh, q, q0, BQ, L, hd, hdp);
-  load_tile(Gs, ldh, g, q0, BQ, L, hd, hdp);
-  load_rows(lse_s, lse + (size_t)bh * L, q0, BQ, L);
-  load_rows(dd_s, dd + (size_t)bh * L, q0, BQ, L);
-  for (int i = threadIdx.x; i < BQ * ldo; i += kThreads) dQs[i] = 0.0f;
-  const int n_kv = min(q0 + BQ - 1, L - 1) / BK + 1;
-  for (int j = 0; j < n_kv; ++j) {
-    const int kv0 = j * BK;
-    __syncthreads();
-    load_tile(Ks, ldh, k, kv0, BK, L, hd, hdp);
-    load_tile(Vs, ldh, v, kv0, BK, L, hd, hdp);
-    __syncthreads();
-    mma_tiles<false, true>(Ss, lds, Qs, ldh, Ks, ldh, BQ, BK, hdp, false);
-    mma_tiles<false, true>(dPs, lds, Gs, ldh, Vs, ldh, BQ, BK, hdp, false);
-    __syncthreads();
-    for (int i = threadIdx.x; i < BQ * BK; i += kThreads) {
-      const int r = i / BK, c = i % BK, qp = q0 + r, kp = kv0 + c;
-      float x = Ss[r * lds + c] * scale;
-      if (qp < kp) x = kNeg;
-      const float p = expf(x - lse_s[r]);
-      float dp = dPs[r * lds + c];
-      if (drop.on) dp = kept(drop, bh, qp, kp) ? dp * drop.inv_keep : 0.0f;
-      dSs[r * ldp + c] = __float2bfloat16(scale * (p * (dp - dd_s[r])));
+  load_sw_tile<HDP, 64>(Qs, q, q0, L, hd);
+  load_sw_tile<HDP, 64>(Qs + QT, q, q0 + 64, L, hd);
+  load_sw_tile<HDP, 64>(Gs, go, q0, L, hd);
+  load_sw_tile<HDP, 64>(Gs + QT, go, q0 + 64, L, hd);
+#pragma unroll
+  for (int s = 0; s < NS - 1; ++s) {
+    if (kv_lo + s < kv_hi) {
+      load_sw_tile<HDP, BK>(Ks + s * KT, k, (kv_lo + s) * BK, L, hd);
+      load_sw_tile<HDP, BK>(Vs + s * KT, v, (kv_lo + s) * BK, L, hd);
     }
-    __syncthreads();
-    mma_tiles<false, false>(dQs, ldo, dSs, ldp, Ks, ldh, BQ, hdp, BK, true);
+    cp_async_commit();
   }
-  __syncthreads();
-  store_rows(dq, dQs, ldo, q0, BQ, L, hd, nullptr);
+  float lse2[2], dd_r[2];  // lse in log2 units
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    const int row = row0 + 8 * rh;
+    lse2[rh] = row < L ? lse[(size_t)bh * L + row] * kLog2e : 0.0f;
+    dd_r[rh] = row < L ? dd[(size_t)bh * L + row] : 0.0f;
+  }
+  float acc[NA][32];
+#pragma unroll
+  for (int a = 0; a < NA; ++a)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[a][e] = 0.0f;
+  const float sl2 = scale * kLog2e;
+  const uint64_t qd = sw128_desc(Qs + wg * QT, 16, 1024);
+  const uint64_t gd = sw128_desc(Gs + wg * QT, 16, 1024);
+
+  for (int j = kv_lo; j < kv_hi; ++j) {
+    const int kv0 = j * BK, st = (j - kv_lo) % NS;
+    if (j + NS - 1 < kv_hi) {  // a later tile's copies overlap this one
+      const int sn = (j + NS - 1 - kv_lo) % NS;
+      load_sw_tile<HDP, BK>(Ks + sn * KT, k, (j + NS - 1) * BK, L, hd);
+      load_sw_tile<HDP, BK>(Vs + sn * KT, v, (j + NS - 1) * BK, L, hd);
+    }
+    cp_async_commit();
+    cp_async_wait<NS - 1>();  // K_j, V_j, Q and G
+    fence_async_shared();
+    __syncthreads();
+    if (j <= wg_last) {  // warpgroup-uniform: the first one ends early
+      const bf16* Kt = Ks + st * KT;
+      const bf16* Vt = Vs + st * KT;
+      float s[BK / 2], dp[BK / 2];
+      const uint64_t kd = sw128_desc(Kt, 16, 1024);
+      const uint64_t vd = sw128_desc(Vt, 16, 1024);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HDP / 16; ++kk) {
+        // k step kk: atom kk / 4, 32 bytes per step inside it
+        const uint64_t oa = ((kk >> 2) * 64 * 128 + (kk & 3) * 32) >> 4;
+        const uint64_t ob = ((kk >> 2) * BK * 128 + (kk & 3) * 32) >> 4;
+        if constexpr (BK == 32) {
+          wgmma_ss32(s, qd + oa, kd + ob, kk > 0);
+          wgmma_ss32(dp, gd + oa, vd + ob, kk > 0);
+        } else {
+          wgmma_ss(s, qd + oa, kd + ob, kk > 0);
+          wgmma_ss(dp, gd + oa, vd + ob, kk > 0);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait0();
+
+      const bool diag = kv0 + BK - 1 > wrow;
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int i = 0; i < BK / 8; ++i) {
+        float d[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int rh = e >> 1, row = row0 + 8 * rh;
+          const int col = kv0 + i * 8 + 2 * t4 + (e & 1);
+          float p = ex2(fmaf(s[4 * i + e], sl2, -lse2[rh]));
+          if (diag && row < col) p = 0.0f;
+          float dpv = dp[4 * i + e];
+          if (drop.on)
+            dpv = kept(drop, bh, row, col) ? dpv * drop.inv_keep : 0.0f;
+          d[e] = scale * (p * (dpv - dd_r[rh]));
+        }
+        pa[i >> 1][(i & 1) * 2] = pack_bf16(d[0], d[1]);
+        pa[i >> 1][(i & 1) * 2 + 1] = pack_bf16(d[2], d[3]);
+      }
+      // dQ += dS.K: kv step kb (16 rows, 2048 bytes), head-dim atom a
+      const uint64_t kmn = sw128_desc(Kt, BK * 128, 1024);
+      wgmma_fence();
+#pragma unroll
+      for (int kb = 0; kb < BK / 16; ++kb)
+#pragma unroll
+        for (int a = 0; a < NA; ++a)
+          wgmma_rs(acc[a], pa[kb], kmn + ((a * BK * 128 + kb * 2048) >> 4));
+      wgmma_commit();
+      wgmma_wait0();
+    }
+    __syncthreads();  // every warp is done with this stage before its refill
+  }
+  if (pair >= 0 && !merge_halves<NA>(acc, ws, counters, pair,
+                                     kv_lo == 0 ? 0 : 1, &is_last))
+    return;
+  store_acc<NA>(dq, acc, row0, L, hd, t4);
 }
 
 // ---------------------------------------------------------------------------
-// dk/dv: one block per (kv tile, bh); loops over the q tiles on or below
-// the diagonal. No atomics: each block owns its rows of dk and dv.
+// dk/dv: one block of two warpgroups per work item, a kv tile of 64 rows of
+// one head row and a range of its q tiles of 64 rows; warpgroup 0 owns dV,
+// warpgroup 1 dK.
 // ---------------------------------------------------------------------------
 
-constexpr int dkv_smem(int hdp) {
-  return (2 * kDkvBK + 2 * kDkvBQ) * (hdp + kPadH) * 2  // K, V, Q, G
-         + 2 * kDkvBK * (hdp + kPadF) * 4               // dK, dV accumulators
-         + 2 * kDkvBQ * (kDkvBK + kPadF) * 4            // S, dP
-         + 2 * kDkvBQ * (kDkvBK + kPadH) * 2            // P, dS (bf16)
-         + 2 * kDkvBQ * 4;                              // lse, dd
+constexpr int kDkvKV = 64, kDkvQ = 64, kDkvStages = 2;
+
+__host__ __device__ constexpr int dkv_smem_bytes(int hdp) {
+  return (2 + 2 * kDkvStages) * 64 * hdp * 2  // K, V; the Q and G ring
+         + 64 * 64 * 4                        // p, warpgroup 0 -> 1
+         + 2 * kDkvStages * kDkvQ * 4         // lse, dd of the ring's rows
+         + 1024;
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int HDP>
+__global__ void __launch_bounds__(256, 1)
     flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ g,
+                     const bf16* __restrict__ v, const bf16* __restrict__ go,
                      const float* __restrict__ lse,
                      const float* __restrict__ dd, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int L, int hd, float scale,
-                     Dropout drop) {
-  constexpr int BQ = kDkvBQ, BK = kDkvBK;
-  const int hdp = round16(hd), ldh = hdp + kPadH, ldo = hdp + kPadF;
-  constexpr int lds = BK + kPadF, ldp = BK + kPadH;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + BK * ldh;
-  bf16* Qs = Vs + BK * ldh;
-  bf16* Gs = Qs + BQ * ldh;
-  float* dKs = reinterpret_cast<float*>(Gs + BQ * ldh);
-  float* dVs = dKs + BK * ldo;
-  float* Ss = dVs + BK * ldo;
-  float* dPs = Ss + BQ * lds;
-  bf16* Ps = reinterpret_cast<bf16*>(dPs + BQ * lds);
-  bf16* dSs = Ps + BQ * ldp;
-  float* lse_s = reinterpret_cast<float*>(dSs + BQ * ldp);
-  float* dd_s = lse_s + BQ;
+                     bf16* __restrict__ dv, const int* __restrict__ items,
+                     float* __restrict__ ws, int* __restrict__ counters,
+                     int L, int hd, float scale, Dropout drop) {
+  constexpr int BK = kDkvKV, BQ = kDkvQ, NS = kDkvStages, NA = HDP / 64;
+  constexpr int T = 64 * HDP;  // elements of a tile
+  __shared__ int is_last;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
+  bf16* Vs = Ks + T;
+  bf16* Qs = Vs + T;       // [NS][T]
+  bf16* Gs = Qs + NS * T;  // [NS][T]
+  float* Ps = reinterpret_cast<float*>(Gs + NS * T);  // [32][128]
+  float* lse_s = Ps + 64 * 64;    // [NS][BQ]
+  float* dd_s = lse_s + NS * BQ;  // [NS][BQ]
 
-  const int bh = blockIdx.y, kv0 = blockIdx.x * BK;
+  // the work item: the kv tile of a head row, its q tiles [q_lo, q_hi),
+  // and the pair it shares the tile with (-1: none)
+  const int* it = items + 5 * blockIdx.x;
+  const int bh = it[0], kv_t = it[1], q_lo = it[2], q_hi = it[3];
+  const int pair = it[4], kv0 = kv_t * BK;
+  const int tid = threadIdx.x, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int wg = tid >> 7, g = lane >> 2, t4 = lane & 3, tw = tid & 127;
   const size_t base = (size_t)bh * L * hd;
-  q += base; k += base; v += base; g += base; dk += base; dv += base;
+  q += base; k += base; v += base; go += base; dk += base; dv += base;
+  lse += (size_t)bh * L;
+  dd += (size_t)bh * L;
+  const int krow0 = kv0 + warp * 16 + g;  // rows krow0, krow0 + 8
 
-  load_tile(Ks, ldh, k, kv0, BK, L, hd, hdp);
-  load_tile(Vs, ldh, v, kv0, BK, L, hd, hdp);
-  for (int i = threadIdx.x; i < BK * ldo; i += kThreads) {
-    dKs[i] = 0.0f;
-    dVs[i] = 0.0f;
-  }
-  const int n_q = (L - 1) / BQ + 1;
-  for (int qi = kv0 / BQ; qi < n_q; ++qi) {
-    const int q0 = qi * BQ;
-    __syncthreads();
-    load_tile(Qs, ldh, q, q0, BQ, L, hd, hdp);
-    load_tile(Gs, ldh, g, q0, BQ, L, hd, hdp);
-    load_rows(lse_s, lse + (size_t)bh * L, q0, BQ, L);
-    load_rows(dd_s, dd + (size_t)bh * L, q0, BQ, L);
-    __syncthreads();
-    mma_tiles<false, true>(Ss, lds, Qs, ldh, Ks, ldh, BQ, BK, hdp, false);
-    mma_tiles<false, true>(dPs, lds, Gs, ldh, Vs, ldh, BQ, BK, hdp, false);
-    __syncthreads();
-    for (int i = threadIdx.x; i < BQ * BK; i += kThreads) {
-      const int r = i / BK, c = i % BK, qp = q0 + r, kp = kv0 + c;
-      float x = Ss[r * lds + c] * scale;
-      if (qp < kp) x = kNeg;
-      const float p = expf(x - lse_s[r]);
-      float pv = p, dp = dPs[r * lds + c];
-      if (drop.on) {
-        const bool keep = kept(drop, bh, qp, kp);
-        pv = keep ? p * drop.inv_keep : 0.0f;
-        dp = keep ? dp * drop.inv_keep : 0.0f;
-      }
-      Ps[r * ldp + c] = __float2bfloat16(pv);
-      dSs[r * ldp + c] = __float2bfloat16(scale * (p * (dp - dd_s[r])));
+  // q tile j's Q, G, lse and dd into ring stage s (zeros past L)
+  auto load_q = [&](int j, int s) {
+    load_sw_tile<HDP, 64>(Qs + s * T, q, j * BQ, L, hd);
+    load_sw_tile<HDP, 64>(Gs + s * T, go, j * BQ, L, hd);
+    if (tid < 2 * BQ) {
+      const int row = j * BQ + tid % BQ;
+      const float* src = tid < BQ ? lse : dd;
+      float* dst = (tid < BQ ? lse_s : dd_s) + s * BQ + tid % BQ;
+      cp_async4(dst, row < L ? src + row : src, row < L);
     }
-    __syncthreads();
-    mma_tiles<true, false>(dVs, ldo, Ps, ldp, Gs, ldh, BK, hdp, BQ, true);
-    mma_tiles<true, false>(dKs, ldo, dSs, ldp, Qs, ldh, BK, hdp, BQ, true);
+  };
+  load_sw_tile<HDP, 64>(Ks, k, kv0, L, hd);
+  load_sw_tile<HDP, 64>(Vs, v, kv0, L, hd);
+#pragma unroll
+  for (int s = 0; s < NS - 1; ++s) {
+    if (q_lo + s < q_hi) load_q(q_lo + s, s);
+    cp_async_commit();
   }
-  __syncthreads();
-  store_rows(dk, dKs, ldo, kv0, BK, L, hd, nullptr);
-  store_rows(dv, dVs, ldo, kv0, BK, L, hd, nullptr);
+  float acc[NA][32];
+#pragma unroll
+  for (int a = 0; a < NA; ++a)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[a][e] = 0.0f;
+  const float sl2 = scale * kLog2e;
+  // S^T = K.Q^T (warpgroup 0), dP^T = V.G^T (warpgroup 1)
+  const uint64_t ad = sw128_desc(wg == 0 ? Ks : Vs, 16, 1024);
+
+  for (int j = q_lo; j < q_hi; ++j) {
+    const int q0 = j * BQ, st = (j - q_lo) % NS;
+    if (j + NS - 1 < q_hi) load_q(j + NS - 1, (j + NS - 1 - q_lo) % NS);
+    cp_async_commit();
+    cp_async_wait<NS - 1>();  // tile j, K and V
+    fence_async_shared();
+    __syncthreads();
+    const bf16* Qt = Qs + st * T;
+    const bf16* Gt = Gs + st * T;
+    const float* lse_t = lse_s + st * BQ;
+    const float* dd_t = dd_s + st * BQ;
+
+    float x[32];
+    const uint64_t bd = sw128_desc(wg == 0 ? Qt : Gt, 16, 1024);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HDP / 16; ++kk) {
+      const uint64_t off = ((kk >> 2) * 64 * 128 + (kk & 3) * 32) >> 4;
+      wgmma_ss(x, ad + off, bd + off, kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+
+    const bool diag = q0 < kv0 + BK;  // the first q tile holds the diagonal
+    uint32_t pa[BQ / 16][4];
+    if (wg == 0) {
+#pragma unroll
+      for (int i = 0; i < BQ / 8; ++i) {
+        float d[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int krow = krow0 + 8 * (e >> 1);
+          const int c = i * 8 + 2 * t4 + (e & 1), qrow = q0 + c;
+          float p = ex2(fmaf(x[4 * i + e], sl2, -lse_t[c] * kLog2e));
+          if (diag && qrow < krow) p = 0.0f;
+          const bool keep = !drop.on || kept(drop, bh, qrow, krow);
+          Ps[(4 * i + e) * 128 + tw] = keep ? p : -p;
+          d[e] = keep ? p * drop.inv_keep : 0.0f;
+        }
+        pa[i >> 1][(i & 1) * 2] = pack_bf16(d[0], d[1]);
+        pa[i >> 1][(i & 1) * 2 + 1] = pack_bf16(d[2], d[3]);
+      }
+      named_arrive(1, 256);
+    } else {
+      named_sync(1, 256);  // warpgroup 0's p of this tile
+#pragma unroll
+      for (int i = 0; i < BQ / 8; ++i) {
+        float d[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = i * 8 + 2 * t4 + (e & 1);
+          const float pv = Ps[(4 * i + e) * 128 + tw];
+          const float dpv = signbit(pv) ? 0.0f : x[4 * i + e] * drop.inv_keep;
+          d[e] = scale * (fabsf(pv) * (dpv - dd_t[c]));
+        }
+        pa[i >> 1][(i & 1) * 2] = pack_bf16(d[0], d[1]);
+        pa[i >> 1][(i & 1) * 2 + 1] = pack_bf16(d[2], d[3]);
+      }
+    }
+    // dV += P^T.G (warpgroup 0), dK += dS^T.Q (warpgroup 1): q step kb
+    // (16 rows, 2048 bytes), head-dim atom a, G and Q read MN-major
+    const uint64_t bmn = sw128_desc(wg == 0 ? Gt : Qt, 64 * 128, 1024);
+    wgmma_fence();
+#pragma unroll
+    for (int kb = 0; kb < BQ / 16; ++kb)
+#pragma unroll
+      for (int a = 0; a < NA; ++a)
+        wgmma_rs(acc[a], pa[kb], bmn + ((a * 64 * 128 + kb * 2048) >> 4));
+    wgmma_commit();
+    wgmma_wait0();
+    __syncthreads();  // the stage and Ps are free for the next tile
+  }
+  if (pair >= 0 && !merge_halves<NA>(acc, ws, counters, pair,
+                                     q_lo == kv_t * BK / BQ ? 0 : 1,
+                                     &is_last))
+    return;
+  store_acc<NA>(wg == 0 ? dv : dk, acc, krow0, L, hd, t4);
 }
 
 bool bad_shape(int BH, int L, int hd) {
@@ -743,18 +912,12 @@ cudaError_t set_smem(Kernel kernel, int bytes) {
                               bytes);
 }
 
-template <int HDP>
-int fwd_launch(const void* q, const void* k, const void* v, void* out,
-               void* lse, const void* items, int n_items, void* ws,
-               void* counters, int L, int hd, float scale,
-               const Dropout& drop, void* stream) {
-  constexpr int smem = fwd_smem_bytes(HDP);
-  const cudaError_t e = set_smem(flash_fwd_kernel<HDP>, smem);
+// one block of 256 threads per work item
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, int n_items, int smem, void* stream, Args... args) {
+  const cudaError_t e = set_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  flash_fwd_kernel<HDP><<<n_items, 256, smem, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out,
-      (float*)lse, (const int*)items, (float*)ws, (int*)counters, L, hd,
-      scale, drop);
+  kernel<<<n_items, 256, smem, (cudaStream_t)stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
@@ -765,15 +928,24 @@ extern "C" {
 // Dynamic shared memory of a block at head width hd: kernel 0 forward,
 // 1 dq, 2 dk/dv.
 int jk_flash_smem(int kernel, int hd) {
-  const int hdp = round16(hd);
-  return kernel == 0 ? fwd_smem_bytes(fwd_hdp(hd))
-                     : kernel == 1 ? dq_smem(hdp) : dkv_smem(hdp);
+  const int hdp = fwd_hdp(hd);
+  return kernel == 0 ? fwd_smem_bytes(hdp)
+                     : kernel == 1 ? dq_smem_bytes(hdp) : dkv_smem_bytes(hdp);
 }
 
-// The forward's work items (5 ints each: head row, q tile, first and end
-// K/V tile, pair or -1; ops/flash_attention.py fwd_schedule); ws holds two
-// partials of (hd-padded O, m, l) per pair, counters one zero int per pair
-// (every launch leaves them zero).
+// The three entry points take work items of 5 ints each (head row, tile,
+// first and end tile of the other side, pair or -1; ops/flash_attention.py
+// fwd_schedule, dq_schedule, dkv_schedule); ws holds the two halves'
+// partials of each pair (jk_flash_fwd_pair_floats,
+// jk_flash_bwd_pair_floats), counters one zero int per pair (every launch
+// leaves them zero).
+#define JK_HDP(CALL)                         \
+  switch (fwd_hdp(hd)) {                     \
+    case 64: return CALL(64);                \
+    case 128: return CALL(128);              \
+    default: return CALL(256);               \
+  }
+
 int jk_flash_fwd(const void* q, const void* k, const void* v, void* out,
                  void* lse, const void* items, int n_items, void* ws,
                  void* counters, int BH, int L, int hd, float scale,
@@ -782,13 +954,11 @@ int jk_flash_fwd(const void* q, const void* k, const void* v, void* out,
   if (bad_shape(BH, L, hd) || n_items < 1) return (int)cudaErrorInvalidValue;
   const Dropout drop = make_dropout(dropout, seed, thresh, inv_keep);
 #define JK_FWD(HDP)                                                          \
-  fwd_launch<HDP>(q, k, v, out, lse, items, n_items, ws, counters, L, hd,   \
-                  scale, drop, stream)
-  switch (fwd_hdp(hd)) {
-    case 64: return JK_FWD(64);
-    case 128: return JK_FWD(128);
-    default: return JK_FWD(256);
-  }
+  launch(flash_fwd_kernel<HDP>, n_items, fwd_smem_bytes(HDP), stream,       \
+         (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out,        \
+         (float*)lse, (const int*)items, (float*)ws, (int*)counters, L, hd, \
+         scale, drop)
+  JK_HDP(JK_FWD)
 #undef JK_FWD
 }
 
@@ -797,36 +967,43 @@ int jk_flash_fwd_pair_floats(int hd) {
   return 2 * (fwd_hdp(hd) / 64 * 32 + 4) * 256;
 }
 
+int jk_flash_bwd_pair_floats(int hd) {
+  return 2 * (fwd_hdp(hd) / 64 * 32) * 256;
+}
+
 int jk_flash_dq(const void* q, const void* k, const void* v, const void* g,
-                const void* lse, const void* dd, void* dq, int BH, int L,
-                int hd, float scale, int dropout, unsigned seed,
-                unsigned thresh, float inv_keep, void* stream) {
-  if (bad_shape(BH, L, hd)) return (int)cudaErrorInvalidValue;
-  const int smem = dq_smem(round16(hd));
-  cudaError_t e = set_smem(flash_dq_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((L + kDqBQ - 1) / kDqBQ, BH);
-  flash_dq_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)g,
-      (const float*)lse, (const float*)dd, (bf16*)dq, L, hd, scale,
-      make_dropout(dropout, seed, thresh, inv_keep));
-  return (int)cudaGetLastError();
+                const void* lse, const void* dd, void* dq, const void* items,
+                int n_items, void* ws, void* counters, int BH, int L, int hd,
+                float scale, int dropout, unsigned seed, unsigned thresh,
+                float inv_keep, void* stream) {
+  if (bad_shape(BH, L, hd) || n_items < 1) return (int)cudaErrorInvalidValue;
+  const Dropout drop = make_dropout(dropout, seed, thresh, inv_keep);
+#define JK_DQ(HDP)                                                           \
+  launch(flash_dq_kernel<HDP>, n_items, dq_smem_bytes(HDP), stream,         \
+         (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)g,    \
+         (const float*)lse, (const float*)dd, (bf16*)dq, (const int*)items, \
+         (float*)ws, (int*)counters, L, hd, scale, drop)
+  JK_HDP(JK_DQ)
+#undef JK_DQ
 }
 
 int jk_flash_dkv(const void* q, const void* k, const void* v, const void* g,
-                 const void* lse, const void* dd, void* dk, void* dv, int BH,
-                 int L, int hd, float scale, int dropout, unsigned seed,
-                 unsigned thresh, float inv_keep, void* stream) {
-  if (bad_shape(BH, L, hd)) return (int)cudaErrorInvalidValue;
-  const int smem = dkv_smem(round16(hd));
-  cudaError_t e = set_smem(flash_dkv_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((L + kDkvBK - 1) / kDkvBK, BH);
-  flash_dkv_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)g,
-      (const float*)lse, (const float*)dd, (bf16*)dk, (bf16*)dv, L, hd,
-      scale, make_dropout(dropout, seed, thresh, inv_keep));
-  return (int)cudaGetLastError();
+                 const void* lse, const void* dd, void* dk, void* dv,
+                 const void* items, int n_items, void* ws, void* counters,
+                 int BH, int L, int hd, float scale, int dropout,
+                 unsigned seed, unsigned thresh, float inv_keep,
+                 void* stream) {
+  if (bad_shape(BH, L, hd) || n_items < 1) return (int)cudaErrorInvalidValue;
+  const Dropout drop = make_dropout(dropout, seed, thresh, inv_keep);
+#define JK_DKV(HDP)                                                          \
+  launch(flash_dkv_kernel<HDP>, n_items, dkv_smem_bytes(HDP), stream,       \
+         (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)g,    \
+         (const float*)lse, (const float*)dd, (bf16*)dk, (bf16*)dv,         \
+         (const int*)items, (float*)ws, (int*)counters, L, hd, scale, drop)
+  JK_HDP(JK_DKV)
+#undef JK_DKV
 }
+
+#undef JK_HDP
 
 }  // extern "C"

@@ -41,8 +41,11 @@ SIGNATURES = {
         "jk_flash_fwd": [_P] * 6 + [_I, _P, _P] + [_I] * 3
         + [_F, _I, _U, _U, _F, _P],
         "jk_flash_fwd_pair_floats": [_I],
-        "jk_flash_dq": [_P] * 7 + [_I] * 3 + [_F, _I, _U, _U, _F, _P],
-        "jk_flash_dkv": [_P] * 8 + [_I] * 3 + [_F, _I, _U, _U, _F, _P],
+        "jk_flash_bwd_pair_floats": [_I],
+        "jk_flash_dq": [_P] * 8 + [_I, _P, _P] + [_I] * 3
+        + [_F, _I, _U, _U, _F, _P],
+        "jk_flash_dkv": [_P] * 9 + [_I, _P, _P] + [_I] * 3
+        + [_F, _I, _U, _U, _F, _P],
     },
     "layer_norm": {
         "jk_layer_norm_fwd": [_P] * 6 + [_I, _I, _F, _I, _P],

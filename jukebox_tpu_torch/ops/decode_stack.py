@@ -301,46 +301,48 @@ def attn_split_plan(n, B, H, hd, sms=H100_SMS):
     return splits, chunk, B * H * splits * (2 + hd)
 
 
-def _attn_plain(q, k3, v3, r0, n, n_head):
-    """bf16 (or fp32) cache rows r0 .. r0 + n - 1 of [B, rows, A]: the
-    weights cast to the activation dtype before the PV product, as
-    dense_attn does."""
-    B, A = q.shape
+def _attn_plain(q32, k3, v3, r0, n, n_head, dtype):
+    """bf16 (or fp32) cache rows r0 .. r0 + n - 1 of [B, rows, A] against
+    the fp32 q row q32 [B, A]: the megakernel's arithmetic
+    (jukebox_tpu/ops/pallas/decode_stack.py:649-653, 766-799): (q * scale)
+    . (k * scale) in fp32, fp32 softmax, fp32 weights times V, the head
+    output rounded once to dtype."""
+    B, A = q32.shape
     hd = A // n_head
     scale = hd ** -0.25
-    qs = (q.float() * scale).view(B, n_head, hd)
+    qs = (q32.float() * scale).view(B, n_head, hd)
     kr = (k3[:, r0:r0 + n].float() * scale).view(B, n, n_head, hd)
     vr = v3[:, r0:r0 + n].float().view(B, n, n_head, hd)
     p = torch.softmax(torch.einsum("bhd,bnhd->bhn", qs, kr), dim=-1)
-    o = torch.einsum("bhn,bnhd->bhd", p.to(q.dtype).float(), vr)
-    return o.reshape(B, A).to(q.dtype)
+    o = torch.einsum("bhn,bnhd->bhd", p, vr)
+    return o.reshape(B, A).to(dtype)
 
 
-def ring_attn_decode_plain(qkv, k_cache, v_cache, geom, n_head):
+def ring_attn_decode_plain(qkv, k_cache, v_cache, geom, n_head, qkv32):
     B, A3 = qkv.shape
     A = A3 // 3
     rows, w, r0, n = geom
     k3 = k_cache.view(B, rows, A)
     v3 = v_cache.view(B, rows, A)
-    q, k, v = qkv.split(A, dim=1)
+    _, k, v = qkv.split(A, dim=1)
     if w >= 0:
         k3[:, w] = k
         v3[:, w] = v
-    return _attn_plain(q, k3, v3, r0, n, n_head)
+    return _attn_plain(qkv32[:, :A], k3, v3, r0, n, n_head, qkv.dtype)
 
 
-
-def _attn_int8_plain(q, kq, vq, ks, vs, r0, n, n_head, ins=-1, k_new=None,
-                     v_new=None):
-    """int8 rows r0 .. r0 + n - 1 of [B, rows, A] with row scales [B, rows]:
-    the megakernel's arithmetic (decode_stack.py:738-810): (q * scale) .
-    k_int * (k_scale * scale) per row, fp32 softmax, fp32 weights times
-    v_scale against v_int; row ins (the current token's slot) scores and
-    weighs its unquantised k_new, v_new instead."""
-    B, A = q.shape
+def _attn_int8_plain(q32, kq, vq, ks, vs, r0, n, n_head, dtype, ins=-1,
+                     k_new=None, v_new=None):
+    """int8 rows r0 .. r0 + n - 1 of [B, rows, A] with row scales [B, rows]
+    against the fp32 q row q32 [B, A]: the megakernel's arithmetic
+    (decode_stack.py:738-810): (q * scale) . k_int * (k_scale * scale) per
+    row, fp32 softmax, fp32 weights times v_scale against v_int, the head
+    output rounded once to dtype; row ins (the current token's slot)
+    scores and weighs its unquantised bf16 k_new, v_new instead."""
+    B, A = q32.shape
     hd = A // n_head
     scale = hd ** -0.25
-    qs = (q.float() * scale).view(B, n_head, hd)
+    qs = (q32.float() * scale).view(B, n_head, hd)
     kr = kq[:, r0:r0 + n].float().view(B, n, n_head, hd)
     vr = vq[:, r0:r0 + n].float().view(B, n, n_head, hd)
     st = torch.einsum("bhd,bnhd->bhn", qs, kr) \
@@ -355,7 +357,7 @@ def _attn_int8_plain(q, kq, vq, ks, vs, r0, n, n_head, ins=-1, k_new=None,
     o = torch.einsum("bhn,bnhd->bhd", pv, vr)
     if ins >= 0:
         o = o + p[:, :, ins, None] * v_new.float().view(B, n_head, hd)
-    return o.reshape(B, A).to(q.dtype)
+    return o.reshape(B, A).to(dtype)
 
 
 def quantize_row(x):
@@ -390,23 +392,23 @@ def ring_attn_int8_plain(qkv, k_cache, v_cache, k_scale, v_scale, geom,
     rows, w, r0, n = geom
     k3, v3 = k_cache.view(B, rows, A), v_cache.view(B, rows, A)
     ks2, vs2 = k_scale.view(B, rows), v_scale.view(B, rows)
-    q, k, v = qkv.split(A, dim=1)
+    _, k, v = qkv.split(A, dim=1)
     if w >= 0:
         _, k32, v32 = qkv32.split(A, dim=1)
         k3[:, w], ks2[:, w] = quantize_row(k32)
         v3[:, w], vs2[:, w] = quantize_row(v32)
     ins = w - r0 if r0 <= w < r0 + n else -1
-    return _attn_int8_plain(q, k3, v3, ks2, vs2, r0, n, n_head, ins, k, v)
+    return _attn_int8_plain(qkv32[:, :A], k3, v3, ks2, vs2, r0, n, n_head,
+                            qkv.dtype, ins, k, v)
 
 
-def cross_attn_decode_plain(q, k_cache, v_cache, n_head, k_scale=None,
-                            v_scale=None):
-    B, A = q.shape
+def cross_attn_decode_plain(q32, k_cache, v_cache, n_head, k_scale=None,
+                            v_scale=None, dtype=BF16):
     rows = k_cache.shape[1]
     if k_scale is None:
-        return _attn_plain(q, k_cache, v_cache, 0, rows, n_head)
-    return _attn_int8_plain(q, k_cache, v_cache, k_scale, v_scale, 0, rows,
-                            n_head)
+        return _attn_plain(q32, k_cache, v_cache, 0, rows, n_head, dtype)
+    return _attn_int8_plain(q32, k_cache, v_cache, k_scale, v_scale, 0, rows,
+                            n_head, dtype)
 
 
 _WORKSPACE = {}  # (user, device) -> (fp32 workspace, int32 counters)
@@ -439,7 +441,8 @@ def workspace(user, device, floats, counters):
 
 def _attn_launch(name, q, qstride, A, kv_new, caches, scales, geom, n_head,
                  kv32=(None, None)):
-    """Shared checks and launch of the attention kernels."""
+    """Shared checks and launch of the attention kernels; q: the fp32 q
+    rows, row b at b * qstride."""
     B = q.shape[0]
     rows, w, r0, n = geom
     hd = A // n_head
@@ -454,7 +457,7 @@ def _attn_launch(name, q, qstride, A, kv_new, caches, scales, geom, n_head,
     if (8 * hd + chunk) * 4 > lib.jk_max_dyn_smem():
         raise ValueError(f"{chunk} rows a block exceed the kernel's shared "
                          f"memory")
-    _require(q, "q", BF16)
+    _require(q, "q32", torch.float32)
     int8 = scales is not None
     for nm, c in zip(("k_cache", "v_cache"), caches):
         _require(c, nm, torch.int8 if int8 else BF16)
@@ -481,14 +484,20 @@ def _attn_launch(name, q, qstride, A, kv_new, caches, scales, geom, n_head,
     return o
 
 
-def ring_attn_decode(qkv, k_cache, v_cache, geom, n_head):
-    """qkv [B, 3A] bf16 (q | k | v); caches [B, ...slots..., A] bf16, updated
-    in place at the token's slot; geom from ring_geometry. Returns [B, A]."""
+def ring_attn_decode(qkv, k_cache, v_cache, geom, n_head, qkv32):
+    """qkv [B, 3A] bf16 (q | k | v) and qkv32 [B, 3A] its fp32 values (the
+    c_attn product plus bias before rounding, gemv(..., out32=True));
+    caches [B, ...slots..., A] bf16, updated in place at the token's slot
+    with the bf16 k, v; geom from ring_geometry. The scores take the fp32
+    q, the fp32 softmax weights multiply V, and the head output is rounded
+    to bf16 once, as in the megakernel. Returns [B, A]."""
     if not qkv.is_cuda:
-        return ring_attn_decode_plain(qkv, k_cache, v_cache, geom, n_head)
+        return ring_attn_decode_plain(qkv, k_cache, v_cache, geom, n_head,
+                                      qkv32)
     _require(qkv, "qkv", BF16)
     A = qkv.shape[1] // 3
-    return _attn_launch("ring_attn_decode", qkv, 3 * A, A,
+    _require(qkv32, "qkv32", torch.float32, qkv.shape)
+    return _attn_launch("ring_attn_decode", qkv32, 3 * A, A,
                         (qkv[:, A:], qkv[:, 2 * A:]), (k_cache, v_cache),
                         None, geom, n_head)
 
@@ -497,33 +506,37 @@ def ring_attn_int8(qkv, k_cache, v_cache, k_scale, v_scale, geom, n_head,
                    qkv32):
     """ring_attn_decode against int8 caches [B, ...slots..., A] with bf16
     row scales [B, ...slots...], all updated in place at the token's slot:
-    the row quantised as quantize_row does from qkv32 [B, 3A], the fp32
-    values of qkv (gemv(..., out32=True)), as the megakernel quantises its
-    fp32 accumulator; the token's own score and value use the bf16 qkv."""
+    the row quantised as quantize_row does from the fp32 k, v of qkv32, as
+    the megakernel quantises its fp32 accumulator; the token's own score
+    and value use the bf16 k and v of qkv, the scores the fp32 q."""
     if not qkv.is_cuda:
         return ring_attn_int8_plain(qkv, k_cache, v_cache, k_scale, v_scale,
                                     geom, n_head, qkv32)
     _require(qkv, "qkv", BF16)
     A = qkv.shape[1] // 3
     _require(qkv32, "qkv32", torch.float32, qkv.shape)
-    return _attn_launch("ring_attn_int8", qkv, 3 * A, A,
+    return _attn_launch("ring_attn_int8", qkv32, 3 * A, A,
                         (qkv[:, A:], qkv[:, 2 * A:]), (k_cache, v_cache),
                         (k_scale, v_scale), geom, n_head,
                         (qkv32[:, A:], qkv32[:, 2 * A:]))
 
 
-def cross_attn_decode(q, k_cache, v_cache, n_head, k_scale=None,
-                      v_scale=None):
-    """f6: q [B, A] bf16 against the read-only encoder K/V [B, rows, A]
-    (bf16, or int8 with bf16 row scales [B, rows]). Returns [B, A]."""
-    if not q.is_cuda:
-        return cross_attn_decode_plain(q, k_cache, v_cache, n_head, k_scale,
-                                       v_scale)
+def cross_attn_decode(q32, k_cache, v_cache, n_head, k_scale=None,
+                      v_scale=None, dtype=BF16):
+    """f6: the fp32 q row q32 [B, A] (gemv(..., out32=True) of the q-only
+    c_attn) against the read-only encoder K/V [B, rows, A] (bf16, or int8
+    with bf16 row scales [B, rows]). Returns [B, A] in dtype (the kernel:
+    bf16)."""
+    if not q32.is_cuda:
+        return cross_attn_decode_plain(q32, k_cache, v_cache, n_head,
+                                       k_scale, v_scale, dtype)
+    if dtype != BF16:
+        raise TypeError(f"cross_attn_decode returns bf16, not {dtype}")
     rows = k_cache.shape[1]
     scales = None if k_scale is None else (k_scale, v_scale)
-    return _attn_launch("cross_attn_decode", q, q.shape[1], q.shape[1],
-                        (None, None), (k_cache, v_cache), scales,
-                        (rows, -1, 0, rows), n_head)
+    return _attn_launch("cross_attn_decode", q32, q32.shape[1],
+                        q32.shape[1], (None, None), (k_cache, v_cache),
+                        scales, (rows, -1, 0, rows), n_head)
 
 
 # ---------------------------------------------------------------------------
@@ -546,18 +559,16 @@ def stack_layer_step(p, cache, x, geom, n_head, plain=False, res_scale=1.0):
         ln, ring, ring8, cross = (ln_rows, ring_attn_decode, ring_attn_int8,
                                   cross_attn_decode)
     u = ln(x, p["ln0_g"], p["ln0_b"])
-    int8 = "ks" in cache
+    # the attention reads q in fp32, as the megakernel's qkv pieces
+    qkv, qkv32 = gemv(u, p["qkv"], plain=plain, out32=True)
     if geom is None:  # f6
-        qkv = gemv(u, p["qkv"], plain=plain)
-        o = cross(qkv, cache["k"], cache["v"], n_head, cache.get("ks"),
-                  cache.get("vs"))
-    elif int8:
-        qkv, qkv32 = gemv(u, p["qkv"], plain=plain, out32=True)
+        o = cross(qkv32, cache["k"], cache["v"], n_head, cache.get("ks"),
+                  cache.get("vs"), x.dtype)
+    elif "ks" in cache:
         o = ring8(qkv, cache["k"], cache["v"], cache["ks"], cache["vs"],
                   geom, n_head, qkv32)
     else:
-        qkv = gemv(u, p["qkv"], plain=plain)
-        o = ring(qkv, cache["k"], cache["v"], geom, n_head)
+        o = ring(qkv, cache["k"], cache["v"], geom, n_head, qkv32)
     if res_scale == 1.0:
         r = gemv(o, p["proj"], "residual", x, plain=plain)
     else:

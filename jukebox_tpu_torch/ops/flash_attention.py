@@ -18,6 +18,11 @@ softmax denominator sums the undropped weights and the weights that multiply
 V are dropped by `keep_mask` (the murmur3 hash of the Pallas `_keep_mask`,
 bit for bit) and scaled by 1 / (1 - rate).
 
+On the card each kernel runs one block per work item of a host schedule
+(fwd_schedule, dq_schedule, dkv_schedule: longest first, the longest
+tiles split in two halves that the kernel merges in a fixed order), kept
+per shape with its workspace.
+
 Each wrapper takes the plain PyTorch version for tensors on the CPU (what
 the CPU tests run) and, for CUDA tensors, checks them, launches its kernel
 on the current stream, raises if the launch failed, and adds one to
@@ -193,47 +198,79 @@ def _dropout_args(rate, seed):
     return 1, int(seed) & _M32, keep_threshold(rate), 1.0 / (1.0 - rate)
 
 
-FWD_Q, FWD_KV = 128, 64  # rows of the forward's q and K/V tiles
+# rows of the tiles: forward (q, K/V), dq (q, K/V), dk/dv (K/V, q)
+FWD_Q, FWD_KV = 128, 64
+DQ_Q, DQ_KV = 128, 64  # DQ_KV: flash_attention.cu JK_DQ_KV_ROWS
+DKV_KV, DKV_Q = 64, 64
 
 
-def fwd_schedule(BH, L, sms=132):
-    """The forward's work items, longest first: (head row, q tile, first
-    K/V tile, end K/V tile, pair). Under the causal mask q tile i reads
-    ~2i + 2 K/V tiles, so the last q tiles would bound the launch: a q
-    tile longer than `cut` K/V tiles is split in two halves, whose blocks
-    merge their partial sums (pair -1: whole). cut is the larger of half
-    the longest tile and the average work per SM, so a launch with work
-    enough for every SM is not split. Returns (items, number of pairs)."""
-    nq = -(-L // FWD_Q)
-    counts = [min(t * FWD_Q + FWD_Q - 1, L - 1) // FWD_KV + 1
-              for t in range(nq)]
-    cut = max(-(-counts[-1] // 2), -(-BH * sum(counts) // sms))
+def _longest_first(BH, ranges, sms):
+    """Work items of a causal pass whose tile t of each head row reads the
+    tiles ranges[t] = (first, end) of the other side: (head row, tile,
+    first, end, pair), longest first. Under the causal mask the last tiles
+    would bound the launch, so a tile longer than `cut` is split in two
+    halves, whose blocks merge their partial sums (pair -1: whole). cut is
+    the larger of half the longest tile and the average work per SM, so a
+    launch with work enough for every SM is not split. Returns (items,
+    number of pairs)."""
+    lengths = [end - first for first, end in ranges]
+    cut = max(-(-max(lengths) // 2), -(-BH * sum(lengths) // sms))
     items, pairs = [], 0
-    for t, n in enumerate(counts):
+    for t, (first, end) in enumerate(ranges):
+        n = end - first
         for bh in range(BH):
             if n > cut:
-                items += [(bh, t, 0, n // 2, pairs), (bh, t, n // 2, n, pairs)]
+                mid = first + n // 2
+                items += [(bh, t, first, mid, pairs),
+                          (bh, t, mid, end, pairs)]
                 pairs += 1
             else:
-                items.append((bh, t, 0, n, -1))
+                items.append((bh, t, first, end, -1))
     items.sort(key=lambda it: it[2] - it[3])  # stable: longest first
     return items, pairs
 
 
-_FWD_PLANS = {}  # (device, BH, L) -> (items int32 tensor, number of pairs)
+def _q_ranges(L, bq, bkv):
+    """(0, end) K/V tiles of bkv rows read by each q tile of bq rows."""
+    return [(0, min(t * bq + bq - 1, L - 1) // bkv + 1)
+            for t in range(-(-L // bq))]
 
 
-def _fwd_plan(device, BH, L, hd, lib):
-    """The work items on the card, kept per shape, and the halves'
-    workspace (ops/decode_stack.py workspace)."""
-    key = (device, BH, L)
-    if key not in _FWD_PLANS:
-        items, pairs = fwd_schedule(BH, L, sm_count(device))
-        _FWD_PLANS[key] = (torch.tensor(items, dtype=torch.int32,
-                                        device=device), pairs)
-    items, pairs = _FWD_PLANS[key]
-    ws, cnt = workspace("flash_fwd", device,
-                        pairs * lib.jk_flash_fwd_pair_floats(hd), pairs)
+def fwd_schedule(BH, L, sms=132):
+    """The forward's work items: per q tile of FWD_Q rows, its K/V tiles
+    of FWD_KV rows (_longest_first)."""
+    return _longest_first(BH, _q_ranges(L, FWD_Q, FWD_KV), sms)
+
+
+def dq_schedule(BH, L, sms=132):
+    """dq's work items: per q tile of DQ_Q rows, its K/V tiles of DQ_KV
+    rows (_longest_first)."""
+    return _longest_first(BH, _q_ranges(L, DQ_Q, DQ_KV), sms)
+
+
+def dkv_schedule(BH, L, sms=132):
+    """dk/dv's work items: per K/V tile of DKV_KV rows, the q tiles of
+    DKV_Q rows on and below the diagonal (_longest_first)."""
+    nq = -(-L // DKV_Q)
+    return _longest_first(BH, [(t * DKV_KV // DKV_Q, nq)
+                               for t in range(-(-L // DKV_KV))], sms)
+
+
+SCHEDULES = {"flash_fwd": fwd_schedule, "flash_dq": dq_schedule,
+             "flash_dkv": dkv_schedule}
+_PLANS = {}  # (kernel, device, BH, L) -> (items int32 tensor, pairs)
+
+
+def _plan(name, device, BH, L, pair_floats):
+    """A kernel's work items on the card, kept per shape, and the halves'
+    workspace (ops/decode_stack.py workspace) at pair_floats a pair."""
+    key = (name, device, BH, L)
+    if key not in _PLANS:
+        items, pairs = SCHEDULES[name](BH, L, sm_count(device))
+        _PLANS[key] = (torch.tensor(items, dtype=torch.int32,
+                                    device=device), pairs)
+    items, pairs = _PLANS[key]
+    ws, cnt = workspace(name, device, pairs * pair_floats, pairs)
     return items, ws, cnt
 
 
@@ -244,7 +281,8 @@ def flash_fwd(qh, kh, vh, scale, rate=0.0, seed=0):
     BH, L, hd = qh.shape
     _require_heads({"q": qh, "k": kh, "v": vh}, BH, L, hd)
     lib = _build.lib("flash_attention")
-    items, ws, cnt = _fwd_plan(qh.device, BH, L, hd, lib)
+    items, ws, cnt = _plan("flash_fwd", qh.device, BH, L,
+                           lib.jk_flash_fwd_pair_floats(hd))
     out = torch.empty_like(qh)
     lse = torch.empty((BH, L), dtype=torch.float32, device=qh.device)
     _check(lib.jk_flash_fwd(
@@ -261,17 +299,28 @@ def _require_rows(lse, dd, BH, L):
     _require(dd, "dd", torch.float32, (BH, L))
 
 
+def _bwd_args(name, qh, kh, vh, g, lse, dd):
+    """Checks of a backward kernel's inputs; its library, work items,
+    workspace and counters."""
+    BH, L, hd = qh.shape
+    _require_heads({"q": qh, "k": kh, "v": vh, "g": g}, BH, L, hd)
+    _require_rows(lse, dd, BH, L)
+    lib = _build.lib("flash_attention")
+    items, ws, cnt = _plan(name, qh.device, BH, L,
+                           lib.jk_flash_bwd_pair_floats(hd))
+    return lib, (items.data_ptr(), items.shape[0], ws.data_ptr(),
+                 cnt.data_ptr(), BH, L, hd)
+
+
 def flash_dq(qh, kh, vh, g, lse, dd, scale, rate=0.0, seed=0):
     """dq [BH, L, hd] bf16 of the flash forward, given its lse and dd."""
     if not qh.is_cuda:
         return flash_dq_plain(qh, kh, vh, g, lse, dd, scale, rate, seed)
-    BH, L, hd = qh.shape
-    _require_heads({"q": qh, "k": kh, "v": vh, "g": g}, BH, L, hd)
-    _require_rows(lse, dd, BH, L)
+    lib, plan = _bwd_args("flash_dq", qh, kh, vh, g, lse, dd)
     dq = torch.empty_like(qh)
-    _check(_build.lib("flash_attention").jk_flash_dq(
+    _check(lib.jk_flash_dq(
         qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), g.data_ptr(),
-        lse.data_ptr(), dd.data_ptr(), dq.data_ptr(), BH, L, hd, scale,
+        lse.data_ptr(), dd.data_ptr(), dq.data_ptr(), *plan, scale,
         *_dropout_args(rate, seed), _stream()), "flash_dq")
     LAUNCHES["flash_dq"] += 1
     return dq
@@ -281,14 +330,12 @@ def flash_dkv(qh, kh, vh, g, lse, dd, scale, rate=0.0, seed=0):
     """(dk, dv) [BH, L, hd] bf16 of the flash forward."""
     if not qh.is_cuda:
         return flash_dkv_plain(qh, kh, vh, g, lse, dd, scale, rate, seed)
-    BH, L, hd = qh.shape
-    _require_heads({"q": qh, "k": kh, "v": vh, "g": g}, BH, L, hd)
-    _require_rows(lse, dd, BH, L)
+    lib, plan = _bwd_args("flash_dkv", qh, kh, vh, g, lse, dd)
     dk, dv = torch.empty_like(kh), torch.empty_like(vh)
-    _check(_build.lib("flash_attention").jk_flash_dkv(
+    _check(lib.jk_flash_dkv(
         qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), g.data_ptr(),
-        lse.data_ptr(), dd.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH, L,
-        hd, scale, *_dropout_args(rate, seed), _stream()), "flash_dkv")
+        lse.data_ptr(), dd.data_ptr(), dk.data_ptr(), dv.data_ptr(), *plan,
+        scale, *_dropout_args(rate, seed), _stream()), "flash_dkv")
     LAUNCHES["flash_dkv"] += 1
     return dk, dv
 

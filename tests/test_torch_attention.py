@@ -81,7 +81,7 @@ def test_decode_four_blocks(f):
                                        **TOL)
             geom = ring_geometry(f, t, kc["k"].shape, BC, ta._prime_len)
             qkv = ta.c_attn(torch.from_numpy(x[:, 0]))
-            o = ring_attn_decode_plain(qkv, kc["k"], kc["v"], geom, H)
+            o = ring_attn_decode_plain(qkv, kc["k"], kc["v"], geom, H, qkv)
             np.testing.assert_allclose(ta.c_proj(o).numpy(), ref[:, 0],
                                        err_msg=f"ring t={t}", **TOL)
     for key in ("k", "v"):

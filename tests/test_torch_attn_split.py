@@ -144,3 +144,68 @@ def test_flash_forward_schedule(BH, L):
         assert len(items) == 154 and pairs == 52 and max(lengths) == 51
     if (BH, L) == (8, 8192):  # work enough for every SM: no split
         assert pairs == 0
+
+
+def causal_ranges(kind, L):
+    """The tiles each tile of a flash kernel reads under the causal mask,
+    recomputed from the tile sizes: (first, end) per tile."""
+    from jukebox_tpu_torch.ops import flash_attention as fa
+    if kind == "flash_dkv":
+        nq = -(-L // fa.DKV_Q)
+        return [(t * fa.DKV_KV // fa.DKV_Q, nq)
+                for t in range(-(-L // fa.DKV_KV))]
+    bq, bkv = ((fa.FWD_Q, fa.FWD_KV) if kind == "flash_fwd"
+               else (fa.DQ_Q, fa.DQ_KV))
+    return [(0, min(t * bq + bq - 1, L - 1) // bkv + 1)
+            for t in range(-(-L // bq))]
+
+
+@pytest.mark.parametrize("kind", ["flash_dq", "flash_dkv"])
+@pytest.mark.parametrize("BH,L", [(2, 6528), (1, 6528), (2, 2500), (3, 517),
+                                  (1, 64), (1, 129), (3, 1000), (8, 8192)])
+def test_flash_backward_schedules(kind, BH, L):
+    """The work items of flash_dq (q tiles of 128 rows, K/V tiles of 64)
+    and flash_dkv (K/V tiles of 64 rows, q tiles of 64 on and below the
+    diagonal): every (head row, tile) covers exactly its causal range,
+    once; a split tile is two halves of one pair, each pair merged once
+    (two items, one first half, one second); nothing longer than the cut;
+    longest first; and no split at all when the work already fills every
+    SM (the cut reaches the longest tile)."""
+    from jukebox_tpu_torch.ops import flash_attention as fa
+    items, pairs = fa.SCHEDULES[kind](BH, L, SMS)
+    ranges = causal_ranges(kind, L)
+    lengths = [end - first for first, end in ranges]
+    cut = max(-(-max(lengths) // 2), -(-BH * sum(lengths) // SMS))
+    seen, by_pair = {}, {}
+    for bh, t, lo, hi, pair in items:
+        assert 0 <= bh < BH and lo < hi
+        seen.setdefault((bh, t), []).append((lo, hi, pair))
+        if pair >= 0:
+            by_pair.setdefault(pair, []).append((bh, t, lo, hi))
+    assert set(seen) == {(bh, t) for bh in range(BH)
+                         for t in range(len(ranges))}
+    for (bh, t), parts in seen.items():
+        parts.sort()
+        first, end = ranges[t]
+        assert parts[0][0] == first and parts[-1][1] == end
+        assert all(a[1] == b[0] for a, b in zip(parts, parts[1:]))
+        if end - first > cut:
+            assert len(parts) == 2 and parts[0][2] == parts[1][2] >= 0
+        else:
+            assert parts == [(first, end, -1)]
+    assert sorted(by_pair) == list(range(pairs))
+    for halves in by_pair.values():
+        (bh0, t0, lo0, hi0), (bh1, t1, lo1, hi1) = sorted(halves,
+                                                          key=lambda h: h[2])
+        assert (bh0, t0) == (bh1, t1) and hi0 == lo1
+        assert lo0 == ranges[t0][0]  # the kernels tell the halves apart so
+    item_lengths = [hi - lo for _, _, lo, hi, _ in items]
+    assert item_lengths == sorted(item_lengths, reverse=True)
+    assert max(item_lengths) <= cut
+    if BH * sum(lengths) >= SMS * max(lengths):
+        assert pairs == 0
+    if (BH, L) == (2, 6528):  # the 1b top's f0 layer
+        assert (len(items), pairs, max(item_lengths)) == (
+            (154, 52, 51) if kind == "flash_dq" else (248, 44, 80))
+    if (BH, L) == (8, 8192):  # work enough for every SM: no split
+        assert pairs == 0

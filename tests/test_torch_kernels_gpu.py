@@ -26,7 +26,9 @@ and 0.1: out, lse, dq, dk, dv held to ops/flash_attention.py `agreement`
 (elementwise: two bf16 steps of |plain| plus 2^-5 of the row's RMS, where
 the kernels round p and ds to bf16 for their second products and the plain
 versions keep fp32; lse 1e-5 relative), and each kernel fed a planted fault
-(one tile skipped) refused by the same check.
+(one tile skipped) refused by the same check; dq and dk/dv give the same
+bits on a second call, and are refused with one split pair of their work
+items left out of the merge.
 
 LayerNorm kernels (ops/layer_norm.py) through chip_smoke.check_layer_norm
 at ragged and wide shapes in fp32, bf16 and fp16: y, mu, rstd, dx, dg, db
@@ -98,10 +100,11 @@ def test_cuda_kernels_match_plain(S, A, H, bc, blocks, n_ctx, prime):
         kc, vc = rnd(*shapes[f]), rnd(*shapes[f])
         for t in (0, bc - 1, bc, 2 * bc + 1, 447, 448, 2000):
             geom = ds.ring_geometry(f, t, shapes[f], bc, prime)
-            qkv = rnd(B, 3 * A)
+            qkv32 = rnd(B, 3 * A, dtype=torch.float32)
+            qkv = qkv32.to(torch.bfloat16)
             k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
-            close(ds.ring_attn_decode(qkv, k1, v1, geom, H),
-                  ds.ring_attn_decode_plain(qkv, k2, v2, geom, H))
+            close(ds.ring_attn_decode(qkv, k1, v1, geom, H, qkv32),
+                  ds.ring_attn_decode_plain(qkv, k2, v2, geom, H, qkv32))
             assert torch.equal(k1, k2) and torch.equal(v1, v2)
 
 
@@ -158,13 +161,14 @@ def test_split_attention_matches_plain(B):
         geom = ds.ring_geometry(0, t, (B, n_ctx, A))
         splits, chunk, _ = ds.attn_split_plan(t + 1, B, H, A // H)
         assert splits > 1 and (t // chunk) == splits - 1
-        qkv = rnd(B, 3 * A)
-        qkv32 = qkv.float()
+        qkv32 = rnd(B, 3 * A, dtype=torch.float32)
+        qkv = qkv32.to(torch.bfloat16)
         bf = [[c.clone() for c in (kc, vc)] for _ in range(3)]
         i8 = [[c.clone() for c in (k8, v8, ks, vs)] for _ in range(3)]
-        out = ds.ring_attn_decode(qkv, *bf[0], geom, H)
-        close(out, ds.ring_attn_decode_plain(qkv, *bf[1], geom, H))
-        assert torch.equal(out, ds.ring_attn_decode(qkv, *bf[2], geom, H))
+        out = ds.ring_attn_decode(qkv, *bf[0], geom, H, qkv32)
+        close(out, ds.ring_attn_decode_plain(qkv, *bf[1], geom, H, qkv32))
+        assert torch.equal(out, ds.ring_attn_decode(qkv, *bf[2], geom, H,
+                                                    qkv32))
         assert all(torch.equal(a, b) for a, b in zip(bf[0], bf[1]))
         out = ds.ring_attn_int8(qkv, *i8[0], geom, H, qkv32)
         close(out, ds.ring_attn_int8_plain(qkv, *i8[1], geom, H, qkv32))
@@ -172,18 +176,17 @@ def test_split_attention_matches_plain(B):
                                                   qkv32))
         assert all(torch.equal(a, b) for a, b in zip(i8[0], i8[1]))
         cut = chip_smoke.dropped_split(geom, B, H, A // H, "cuda")
-        for caches, kern, plain, extra in (
-                ((kc, vc), ds.ring_attn_decode, ds.ring_attn_decode_plain,
-                 ()),
+        for caches, kern, plain in (
+                ((kc, vc), ds.ring_attn_decode, ds.ring_attn_decode_plain),
                 ((k8, v8, ks, vs), ds.ring_attn_int8,
-                 ds.ring_attn_int8_plain, (qkv32,))):
-            shown, dropped = chip_smoke.split_fault_caches(qkv, caches, *cut,
-                                                           A, H)
-            refused(kern(qkv, *dropped, geom, H, *extra),
-                    plain(qkv, *shown, geom, H, *extra))
+                 ds.ring_attn_int8_plain)):
+            shown, dropped = chip_smoke.split_fault_caches(qkv32, caches,
+                                                           *cut, A, H)
+            refused(kern(qkv, *dropped, geom, H, qkv32),
+                    plain(qkv, *shown, geom, H, qkv32))
     A, H = 1200, 8
     for E in (512, 500):
-        q = rnd(B, A)
+        q = rnd(B, A, dtype=torch.float32)
         for int8 in (False, True):
             caches = ((*int8_rows(B, E, A), *int8_rows(B, E, A)) if int8
                       else (rnd(B, E, A), rnd(B, E, A)))
