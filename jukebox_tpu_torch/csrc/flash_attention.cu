@@ -62,18 +62,17 @@
 //
 // dq and dk/dv run on the same machinery (warpgroup products, swizzled
 // tiles, cp.async copies, host schedule):
-//   dq: two warpgroups per 128 q rows (64 each), Q and G resident in shared
-//     memory, K and V tiles of 64 rows in one stage (193 KB at hd 256; two
-//     stages would need 256 KB, over the 227 KB a block may have). On the
-//     H100 (scripts/chip_flash_bwd_probe.py) this beat 32-row tiles in a
-//     two- or three-stage cp.async ring by ~9%: the copies then overlap
-//     the products, but m64n32 products read their shared-memory A
-//     operand twice as often per flop. S = Q.K^T and dP = G.V^T by wgmma
-//     from shared memory; p = exp(s - lse) needs no running max; dS =
-//     p (dp - dd), scaled and rounded to bf16 in registers, is the register
-//     A operand of dQ += dS.K, K read MN-major as V is in P.V. The dQ
-//     accumulator [64 x hd] of a warpgroup (128 fp32 a thread at hd 256)
-//     stays in its registers.
+//   dq: one warpgroup (128 threads) per 64 q rows, Q and G resident in
+//     shared memory, K and V tiles of 64 rows in a two-stage cp.async ring
+//     (193 KB at hd 256). S = Q.K^T and dP = G.V^T by wgmma from shared
+//     memory; p = exp(s - lse) needs no running max; dS = p (dp - dd),
+//     scaled and rounded to bf16 in registers, is the register A operand
+//     of dQ += dS.K, K read MN-major as V is in P.V. The dQ accumulator
+//     [64 x hd] (128 fp32 a thread at hd 256) stays in registers. On the
+//     H100 (scripts/chip_flash_bwd_probe.py) this beat two warpgroups per
+//     128 rows sharing each K/V tile, whose Q and G leave room for one
+//     64-row stage only (~10% slower) or for a ring of 32-row tiles (m64n32
+//     products, ~20% slower).
 //   dk/dv: one block per 64 kv rows, K and V resident, Q, G (and their lse,
 //     dd) in tiles of 64 q rows through a two-stage ring (210 KB at hd
 //     256). The two fp32 accumulators of 64 rows would take 256 registers a
@@ -81,7 +80,9 @@
 //     S^T = K.Q^T and owns dV += P^T.G, warpgroup 1 computes dP^T = V.G^T
 //     and owns dK += dS^T.Q (G and Q read MN-major); warpgroup 0 hands p to
 //     warpgroup 1 through shared memory behind a named barrier, its sign
-//     carrying the keep mask.
+//     carrying the keep mask. On the H100 the probe's other layout, hd as
+//     the M side (each warpgroup 128 hd rows of both accumulators, P and dS
+//     through shared memory as bf16 B operands), was ~14% slower.
 //   Both take work items from the host (ops/flash_attention.py
 //     dq_schedule, dkv_schedule), longest first; a range longer than the
 //     cut is split in two halves, and the block that finishes second adds
@@ -206,21 +207,6 @@ __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// d[64 x 32] (+)= A . B, as wgmma_ss with an N of 32
-__device__ __forceinline__ void wgmma_ss32(float* d, uint64_t da, uint64_t db,
-                                           int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
                                          uint64_t db) {
   asm volatile(
@@ -278,11 +264,11 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
 
 // rows [r0, r0 + ROWS) of a row-major [L, hd] matrix into a swizzled tile
 // of HDP / 64 atoms [ROWS][64], zero-filling rows >= L and columns >= hd
-// (all 256 threads of the block issue the copies)
-template <int HDP, int ROWS>
+// (all NT threads of the block issue the copies)
+template <int HDP, int ROWS, int NT = 256>
 __device__ __forceinline__ void load_sw_tile(bf16* dst, const bf16* src,
                                              int r0, int L, int hd) {
-  constexpr int CH = HDP / 8, RS = 256 / CH;  // 16-byte chunks a row
+  constexpr int CH = HDP / 8, RS = NT / CH;  // 16-byte chunks a row
   static_assert(ROWS % RS == 0, "whole passes of the block's threads");
   const int c = threadIdx.x % CH, r = threadIdx.x / CH;
   const bf16* s = src + (size_t)(r0 + r) * hd + c * 8;
@@ -530,20 +516,21 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
 }
 
 // A work item split in two halves (pair >= 0): publish this half's fp32
-// accumulators (NA x 32 a thread, in their fragment layout) to ws; the
-// block that arrives second adds the other half's to its own and returns
-// true, the first returns false. Every launch leaves the counters zero.
-template <int NA>
+// accumulators (NA x 32 a thread of the block's NT, in their fragment
+// layout) to ws; the block that arrives second adds the other half's to
+// its own and returns true, the first returns false. Every launch leaves
+// the counters zero.
+template <int NA, int NT = 256>
 __device__ __forceinline__ bool merge_halves(float (&acc)[NA][32], float* ws,
                                              int* counters, int pair,
                                              int half, int* is_last) {
-  constexpr int PART = NA * 32 * 256;
+  constexpr int PART = NA * 32 * NT;
   const int tid = threadIdx.x;
   float* mine = ws + ((size_t)pair * 2 + half) * PART;
 #pragma unroll
   for (int a = 0; a < NA; ++a)
 #pragma unroll
-    for (int e = 0; e < 32; ++e) mine[(a * 32 + e) * 256 + tid] = acc[a][e];
+    for (int e = 0; e < 32; ++e) mine[(a * 32 + e) * NT + tid] = acc[a][e];
   __threadfence();
   __syncthreads();
   if (tid == 0) *is_last = atomicAdd(&counters[pair], 1) == 1;
@@ -555,7 +542,7 @@ __device__ __forceinline__ bool merge_halves(float (&acc)[NA][32], float* ws,
   for (int a = 0; a < NA; ++a)
 #pragma unroll
     for (int e = 0; e < 32; ++e)
-      acc[a][e] += __ldcg(other + (a * 32 + e) * 256 + tid);
+      acc[a][e] += __ldcg(other + (a * 32 + e) * NT + tid);
   if (tid == 0) counters[pair] = 0;
   return true;
 }
@@ -583,29 +570,21 @@ __device__ __forceinline__ void store_acc(bf16* dst, const float (&acc)[NA][32],
 }
 
 // ---------------------------------------------------------------------------
-// dq: one block of two warpgroups per work item, a q tile of 128 rows of
-// one head row and a range of its K/V tiles (64 rows).
+// dq: one block of one warpgroup per work item, a q tile of 64 rows of one
+// head row and a range of its K/V tiles (64 rows), which stream through a
+// two-stage cp.async ring.
 // ---------------------------------------------------------------------------
 
-// K/V tile rows (32: wgmma n32, or 64: n64) and ring stages; compile-time
-// alternatives that scripts/chip_flash_bwd_probe.py measures
-#ifndef JK_DQ_KV_ROWS
-#define JK_DQ_KV_ROWS 64
-#endif
-#ifndef JK_DQ_STAGES
-#define JK_DQ_STAGES 1
-#endif
-constexpr int kDqQ = 128, kDqKV = JK_DQ_KV_ROWS, kDqStages = JK_DQ_STAGES;
-static_assert(kDqKV == 32 || kDqKV == 64, "wgmma n32 or n64");
+constexpr int kDqQ = 64, kDqKV = 64, kDqThreads = 128;
 
-// Q and G (two warpgroups' rows) and the K and V ring, plus the slack that
-// aligns them to the 1024-byte period of the swizzle
+// Q and G and the two-stage K and V ring, plus the slack that aligns them
+// to the 1024-byte period of the swizzle
 __host__ __device__ constexpr int dq_smem_bytes(int hdp) {
-  return (4 * 64 + 2 * kDqStages * kDqKV) * hdp * 2 + 1024;
+  return (2 * kDqQ + 4 * kDqKV) * hdp * 2 + 1024;
 }
 
 template <int HDP>
-__global__ void __launch_bounds__(256, 1)
+__global__ void __launch_bounds__(kDqThreads, 1)
     flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ go,
                     const float* __restrict__ lse,
@@ -613,40 +592,32 @@ __global__ void __launch_bounds__(256, 1)
                     const int* __restrict__ items, float* __restrict__ ws,
                     int* __restrict__ counters, int L, int hd, float scale,
                     Dropout drop) {
-  constexpr int BQ = kDqQ, BK = kDqKV, NS = kDqStages, NA = HDP / 64;
-  constexpr int QT = 64 * HDP, KT = BK * HDP;  // elements of a tile
+  constexpr int BQ = kDqQ, BK = kDqKV, NT = kDqThreads, NA = HDP / 64;
+  constexpr int T = 64 * HDP;  // elements of a tile
   __shared__ int is_last;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(
       smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
-  bf16* Gs = Qs + 2 * QT;
-  bf16* Ks = Gs + 2 * QT;   // [NS][KT]
-  bf16* Vs = Ks + NS * KT;  // [NS][KT]
+  bf16* Gs = Qs + T;
+  bf16* Ks = Gs + T;      // [2][T]
+  bf16* Vs = Ks + 2 * T;  // [2][T]
 
   // the work item: the q tile of a head row, its K/V tiles [kv_lo, kv_hi),
   // and the pair it shares the tile with (-1: none)
   const int* it = items + 5 * blockIdx.x;
   const int bh = it[0], q0 = it[1] * BQ, kv_lo = it[2], kv_hi = it[3];
   const int pair = it[4];
-  const int tid = threadIdx.x, warp = (tid >> 5) & 3, lane = tid & 31;
-  const int wg = tid >> 7, g = lane >> 2, t4 = lane & 3;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
   const size_t base = (size_t)bh * L * hd;
   q += base; k += base; v += base; go += base; dq += base;
-  const int wrow = q0 + wg * 64 + warp * 16, row0 = wrow + g;
-  const int wg_last = (q0 + wg * 64 + 63) / BK;  // its last K/V tile
+  const int wrow = q0 + warp * 16, row0 = wrow + g;
 
-  load_sw_tile<HDP, 64>(Qs, q, q0, L, hd);
-  load_sw_tile<HDP, 64>(Qs + QT, q, q0 + 64, L, hd);
-  load_sw_tile<HDP, 64>(Gs, go, q0, L, hd);
-  load_sw_tile<HDP, 64>(Gs + QT, go, q0 + 64, L, hd);
-#pragma unroll
-  for (int s = 0; s < NS - 1; ++s) {
-    if (kv_lo + s < kv_hi) {
-      load_sw_tile<HDP, BK>(Ks + s * KT, k, (kv_lo + s) * BK, L, hd);
-      load_sw_tile<HDP, BK>(Vs + s * KT, v, (kv_lo + s) * BK, L, hd);
-    }
-    cp_async_commit();
-  }
+  load_sw_tile<HDP, 64, NT>(Qs, q, q0, L, hd);
+  load_sw_tile<HDP, 64, NT>(Gs, go, q0, L, hd);
+  load_sw_tile<HDP, BK, NT>(Ks, k, kv_lo * BK, L, hd);
+  load_sw_tile<HDP, BK, NT>(Vs, v, kv_lo * BK, L, hd);
+  cp_async_commit();
   float lse2[2], dd_r[2];  // lse in log2 units
 #pragma unroll
   for (int rh = 0; rh < 2; ++rh) {
@@ -660,77 +631,71 @@ __global__ void __launch_bounds__(256, 1)
 #pragma unroll
     for (int e = 0; e < 32; ++e) acc[a][e] = 0.0f;
   const float sl2 = scale * kLog2e;
-  const uint64_t qd = sw128_desc(Qs + wg * QT, 16, 1024);
-  const uint64_t gd = sw128_desc(Gs + wg * QT, 16, 1024);
+  const uint64_t qd = sw128_desc(Qs, 16, 1024);
+  const uint64_t gd = sw128_desc(Gs, 16, 1024);
 
   for (int j = kv_lo; j < kv_hi; ++j) {
-    const int kv0 = j * BK, st = (j - kv_lo) % NS;
-    if (j + NS - 1 < kv_hi) {  // a later tile's copies overlap this one
-      const int sn = (j + NS - 1 - kv_lo) % NS;
-      load_sw_tile<HDP, BK>(Ks + sn * KT, k, (j + NS - 1) * BK, L, hd);
-      load_sw_tile<HDP, BK>(Vs + sn * KT, v, (j + NS - 1) * BK, L, hd);
+    const int kv0 = j * BK, st = (j - kv_lo) & 1;  // the ring's stage
+    const bf16* Kt = Ks + st * T;
+    const bf16* Vt = Vs + st * T;
+    if (j + 1 < kv_hi) {  // the next tile's copies overlap this tile's work
+      // the next stage as (j + 1 - kv_lo) % 2: written as st ^ 1, nvcc
+      // 12.8 schedules this loop so that the kernel runs ~5% slower
+      const int sn = (j + 1 - kv_lo) % 2;
+      load_sw_tile<HDP, BK, NT>(Ks + sn * T, k, kv0 + BK, L, hd);
+      load_sw_tile<HDP, BK, NT>(Vs + sn * T, v, kv0 + BK, L, hd);
     }
     cp_async_commit();
-    cp_async_wait<NS - 1>();  // K_j, V_j, Q and G
+    cp_async_wait<1>();  // K_j, V_j (and Q and G)
     fence_async_shared();
     __syncthreads();
-    if (j <= wg_last) {  // warpgroup-uniform: the first one ends early
-      const bf16* Kt = Ks + st * KT;
-      const bf16* Vt = Vs + st * KT;
-      float s[BK / 2], dp[BK / 2];
-      const uint64_t kd = sw128_desc(Kt, 16, 1024);
-      const uint64_t vd = sw128_desc(Vt, 16, 1024);
-      wgmma_fence();
+    float s[32], dp[32];
+    const uint64_t kd = sw128_desc(Kt, 16, 1024);
+    const uint64_t vd = sw128_desc(Vt, 16, 1024);
+    wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < HDP / 16; ++kk) {
-        // k step kk: atom kk / 4, 32 bytes per step inside it
-        const uint64_t oa = ((kk >> 2) * 64 * 128 + (kk & 3) * 32) >> 4;
-        const uint64_t ob = ((kk >> 2) * BK * 128 + (kk & 3) * 32) >> 4;
-        if constexpr (BK == 32) {
-          wgmma_ss32(s, qd + oa, kd + ob, kk > 0);
-          wgmma_ss32(dp, gd + oa, vd + ob, kk > 0);
-        } else {
-          wgmma_ss(s, qd + oa, kd + ob, kk > 0);
-          wgmma_ss(dp, gd + oa, vd + ob, kk > 0);
-        }
-      }
-      wgmma_commit();
-      wgmma_wait0();
-
-      const bool diag = kv0 + BK - 1 > wrow;
-      uint32_t pa[BK / 16][4];
-#pragma unroll
-      for (int i = 0; i < BK / 8; ++i) {
-        float d[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int rh = e >> 1, row = row0 + 8 * rh;
-          const int col = kv0 + i * 8 + 2 * t4 + (e & 1);
-          float p = ex2(fmaf(s[4 * i + e], sl2, -lse2[rh]));
-          if (diag && row < col) p = 0.0f;
-          float dpv = dp[4 * i + e];
-          if (drop.on)
-            dpv = kept(drop, bh, row, col) ? dpv * drop.inv_keep : 0.0f;
-          d[e] = scale * (p * (dpv - dd_r[rh]));
-        }
-        pa[i >> 1][(i & 1) * 2] = pack_bf16(d[0], d[1]);
-        pa[i >> 1][(i & 1) * 2 + 1] = pack_bf16(d[2], d[3]);
-      }
-      // dQ += dS.K: kv step kb (16 rows, 2048 bytes), head-dim atom a
-      const uint64_t kmn = sw128_desc(Kt, BK * 128, 1024);
-      wgmma_fence();
-#pragma unroll
-      for (int kb = 0; kb < BK / 16; ++kb)
-#pragma unroll
-        for (int a = 0; a < NA; ++a)
-          wgmma_rs(acc[a], pa[kb], kmn + ((a * BK * 128 + kb * 2048) >> 4));
-      wgmma_commit();
-      wgmma_wait0();
+    for (int kk = 0; kk < HDP / 16; ++kk) {
+      // k step kk: atom kk / 4, 32 bytes per step inside it
+      const uint64_t off = ((kk >> 2) * 64 * 128 + (kk & 3) * 32) >> 4;
+      wgmma_ss(s, qd + off, kd + off, kk > 0);
+      wgmma_ss(dp, gd + off, vd + off, kk > 0);
     }
+    wgmma_commit();
+    wgmma_wait0();
+
+    const bool diag = kv0 + BK - 1 > wrow;
+    uint32_t pa[BK / 16][4];
+#pragma unroll
+    for (int i = 0; i < BK / 8; ++i) {
+      float d[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int rh = e >> 1, row = row0 + 8 * rh;
+        const int col = kv0 + i * 8 + 2 * t4 + (e & 1);
+        float p = ex2(fmaf(s[4 * i + e], sl2, -lse2[rh]));
+        if (diag && row < col) p = 0.0f;
+        float dpv = dp[4 * i + e];
+        if (drop.on)
+          dpv = kept(drop, bh, row, col) ? dpv * drop.inv_keep : 0.0f;
+        d[e] = scale * (p * (dpv - dd_r[rh]));
+      }
+      pa[i >> 1][(i & 1) * 2] = pack_bf16(d[0], d[1]);
+      pa[i >> 1][(i & 1) * 2 + 1] = pack_bf16(d[2], d[3]);
+    }
+    // dQ += dS.K: kv step kb (16 rows, 2048 bytes), head-dim atom a
+    const uint64_t kmn = sw128_desc(Kt, BK * 128, 1024);
+    wgmma_fence();
+#pragma unroll
+    for (int kb = 0; kb < BK / 16; ++kb)
+#pragma unroll
+      for (int a = 0; a < NA; ++a)
+        wgmma_rs(acc[a], pa[kb], kmn + ((a * BK * 128 + kb * 2048) >> 4));
+    wgmma_commit();
+    wgmma_wait0();
     __syncthreads();  // every warp is done with this stage before its refill
   }
-  if (pair >= 0 && !merge_halves<NA>(acc, ws, counters, pair,
-                                     kv_lo == 0 ? 0 : 1, &is_last))
+  if (pair >= 0 && !merge_halves<NA, NT>(acc, ws, counters, pair,
+                                         kv_lo == 0 ? 0 : 1, &is_last))
     return;
   store_acc<NA>(dq, acc, row0, L, hd, t4);
 }
@@ -912,12 +877,13 @@ cudaError_t set_smem(Kernel kernel, int bytes) {
                               bytes);
 }
 
-// one block of 256 threads per work item
+// one block of `threads` per work item
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, int n_items, int smem, void* stream, Args... args) {
+int launch(Kernel kernel, int threads, int n_items, int smem, void* stream,
+           Args... args) {
   const cudaError_t e = set_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<n_items, 256, smem, (cudaStream_t)stream>>>(args...);
+  kernel<<<n_items, threads, smem, (cudaStream_t)stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
@@ -954,7 +920,7 @@ int jk_flash_fwd(const void* q, const void* k, const void* v, void* out,
   if (bad_shape(BH, L, hd) || n_items < 1) return (int)cudaErrorInvalidValue;
   const Dropout drop = make_dropout(dropout, seed, thresh, inv_keep);
 #define JK_FWD(HDP)                                                          \
-  launch(flash_fwd_kernel<HDP>, n_items, fwd_smem_bytes(HDP), stream,       \
+  launch(flash_fwd_kernel<HDP>, 256, n_items, fwd_smem_bytes(HDP), stream,  \
          (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out,        \
          (float*)lse, (const int*)items, (float*)ws, (int*)counters, L, hd, \
          scale, drop)
@@ -967,6 +933,8 @@ int jk_flash_fwd_pair_floats(int hd) {
   return 2 * (fwd_hdp(hd) / 64 * 32 + 4) * 256;
 }
 
+// the same for dq and dk/dv: dk/dv's, the larger (a dq block has 128
+// threads, a dk/dv block 256, with as many floats a thread)
 int jk_flash_bwd_pair_floats(int hd) {
   return 2 * (fwd_hdp(hd) / 64 * 32) * 256;
 }
@@ -979,10 +947,10 @@ int jk_flash_dq(const void* q, const void* k, const void* v, const void* g,
   if (bad_shape(BH, L, hd) || n_items < 1) return (int)cudaErrorInvalidValue;
   const Dropout drop = make_dropout(dropout, seed, thresh, inv_keep);
 #define JK_DQ(HDP)                                                           \
-  launch(flash_dq_kernel<HDP>, n_items, dq_smem_bytes(HDP), stream,         \
-         (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)g,    \
-         (const float*)lse, (const float*)dd, (bf16*)dq, (const int*)items, \
-         (float*)ws, (int*)counters, L, hd, scale, drop)
+  launch(flash_dq_kernel<HDP>, kDqThreads, n_items, dq_smem_bytes(HDP),    \
+         stream, (const bf16*)q, (const bf16*)k, (const bf16*)v,            \
+         (const bf16*)g, (const float*)lse, (const float*)dd, (bf16*)dq,    \
+         (const int*)items, (float*)ws, (int*)counters, L, hd, scale, drop)
   JK_HDP(JK_DQ)
 #undef JK_DQ
 }
@@ -996,7 +964,7 @@ int jk_flash_dkv(const void* q, const void* k, const void* v, const void* g,
   if (bad_shape(BH, L, hd) || n_items < 1) return (int)cudaErrorInvalidValue;
   const Dropout drop = make_dropout(dropout, seed, thresh, inv_keep);
 #define JK_DKV(HDP)                                                          \
-  launch(flash_dkv_kernel<HDP>, n_items, dkv_smem_bytes(HDP), stream,       \
+  launch(flash_dkv_kernel<HDP>, 256, n_items, dkv_smem_bytes(HDP), stream,  \
          (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)g,    \
          (const float*)lse, (const float*)dd, (bf16*)dk, (bf16*)dv,         \
          (const int*)items, (float*)ws, (int*)counters, L, hd, scale, drop)

@@ -200,7 +200,7 @@ def _dropout_args(rate, seed):
 
 # rows of the tiles: forward (q, K/V), dq (q, K/V), dk/dv (K/V, q)
 FWD_Q, FWD_KV = 128, 64
-DQ_Q, DQ_KV = 128, 64  # DQ_KV: flash_attention.cu JK_DQ_KV_ROWS
+DQ_Q, DQ_KV = 64, 64  # flash_attention.cu kDqQ, kDqKV
 DKV_KV, DKV_Q = 64, 64
 
 

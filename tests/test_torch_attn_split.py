@@ -12,6 +12,7 @@ SM unless a chunk bound forces more, the slot row falls in exactly one
 split, and the workspace holds every split's (max, sum, partial output)
 row. Pure arithmetic: runs anywhere."""
 
+import numpy as np
 import pytest
 
 from jukebox_tpu_torch.hparams import setup_hparams
@@ -146,25 +147,29 @@ def test_flash_forward_schedule(BH, L):
         assert pairs == 0
 
 
-def causal_ranges(kind, L):
-    """The tiles each tile of a flash kernel reads under the causal mask,
-    recomputed from the tile sizes: (first, end) per tile."""
+def causal_tiles(kind, L):
+    """The tiles each tile of a flash kernel must read, from the causal
+    mask itself: for each tile of the kernel's own side, the set of tiles
+    of the other side that hold at least one (q_pos, kv_pos) pair with
+    kv_pos <= q_pos, both < L."""
     from jukebox_tpu_torch.ops import flash_attention as fa
-    if kind == "flash_dkv":
-        nq = -(-L // fa.DKV_Q)
-        return [(t * fa.DKV_KV // fa.DKV_Q, nq)
-                for t in range(-(-L // fa.DKV_KV))]
-    bq, bkv = ((fa.FWD_Q, fa.FWD_KV) if kind == "flash_fwd"
-               else (fa.DQ_Q, fa.DQ_KV))
-    return [(0, min(t * bq + bq - 1, L - 1) // bkv + 1)
-            for t in range(-(-L // bq))]
+    own, other = ((fa.DKV_KV, fa.DKV_Q) if kind == "flash_dkv"
+                  else (fa.DQ_Q, fa.DQ_KV))
+    n_own, n_other = -(-L // own), -(-L // other)
+    pos = np.arange(L)
+    qp, kp = (pos[:, None], pos[None, :]) if kind == "flash_dq" else \
+        (pos[None, :], pos[:, None])
+    live = np.zeros((n_own * own, n_other * other), dtype=bool)
+    live[:L, :L] = kp <= qp  # rows: the kernel's own side
+    live = live.reshape(n_own, own, n_other, other).any(axis=(1, 3))
+    return [set(np.flatnonzero(row).tolist()) for row in live]
 
 
 @pytest.mark.parametrize("kind", ["flash_dq", "flash_dkv"])
 @pytest.mark.parametrize("BH,L", [(2, 6528), (1, 6528), (2, 2500), (3, 517),
                                   (1, 64), (1, 129), (3, 1000), (8, 8192)])
 def test_flash_backward_schedules(kind, BH, L):
-    """The work items of flash_dq (q tiles of 128 rows, K/V tiles of 64)
+    """The work items of flash_dq (q tiles of 64 rows, K/V tiles of 64)
     and flash_dkv (K/V tiles of 64 rows, q tiles of 64 on and below the
     diagonal): every (head row, tile) covers exactly its causal range,
     once; a split tile is two halves of one pair, each pair merged once
@@ -173,8 +178,8 @@ def test_flash_backward_schedules(kind, BH, L):
     SM (the cut reaches the longest tile)."""
     from jukebox_tpu_torch.ops import flash_attention as fa
     items, pairs = fa.SCHEDULES[kind](BH, L, SMS)
-    ranges = causal_ranges(kind, L)
-    lengths = [end - first for first, end in ranges]
+    needed = causal_tiles(kind, L)
+    lengths = [len(tiles) for tiles in needed]
     cut = max(-(-max(lengths) // 2), -(-BH * sum(lengths) // SMS))
     seen, by_pair = {}, {}
     for bh, t, lo, hi, pair in items:
@@ -183,29 +188,26 @@ def test_flash_backward_schedules(kind, BH, L):
         if pair >= 0:
             by_pair.setdefault(pair, []).append((bh, t, lo, hi))
     assert set(seen) == {(bh, t) for bh in range(BH)
-                         for t in range(len(ranges))}
+                         for t in range(len(needed))}
     for (bh, t), parts in seen.items():
-        parts.sort()
-        first, end = ranges[t]
-        assert parts[0][0] == first and parts[-1][1] == end
-        assert all(a[1] == b[0] for a, b in zip(parts, parts[1:]))
-        if end - first > cut:
+        covered = [j for lo, hi, _ in parts for j in range(lo, hi)]
+        assert sorted(covered) == sorted(needed[t])  # each tile once
+        if len(needed[t]) > cut:
             assert len(parts) == 2 and parts[0][2] == parts[1][2] >= 0
         else:
-            assert parts == [(first, end, -1)]
+            assert [p[2] for p in parts] == [-1]
     assert sorted(by_pair) == list(range(pairs))
     for halves in by_pair.values():
         (bh0, t0, lo0, hi0), (bh1, t1, lo1, hi1) = sorted(halves,
                                                           key=lambda h: h[2])
         assert (bh0, t0) == (bh1, t1) and hi0 == lo1
-        assert lo0 == ranges[t0][0]  # the kernels tell the halves apart so
+        assert lo0 == min(needed[t0])  # the kernels tell the halves apart so
     item_lengths = [hi - lo for _, _, lo, hi, _ in items]
     assert item_lengths == sorted(item_lengths, reverse=True)
     assert max(item_lengths) <= cut
     if BH * sum(lengths) >= SMS * max(lengths):
         assert pairs == 0
-    if (BH, L) == (2, 6528):  # the 1b top's f0 layer
-        assert (len(items), pairs, max(item_lengths)) == (
-            (154, 52, 51) if kind == "flash_dq" else (248, 44, 80))
+    if (BH, L) == (2, 6528):  # the 1b top's f0 layer: 102 tiles a head
+        assert (len(items), pairs, max(item_lengths)) == (248, 44, 80)
     if (BH, L) == (8, 8192):  # work enough for every SM: no split
         assert pairs == 0

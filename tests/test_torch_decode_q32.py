@@ -18,16 +18,16 @@ bf16 step apart, which c_proj spreads over a token's whole row.
 * the 5b_lyrics layout's f6 cross-attention (order 10 at depth 20, as
   tests/test_torch_5b_decode.py), every token of the context.
 
-The bound, MISMATCH_TOL: at most 10% of the output elements over all
-tokens differ from the megakernel's. Readings on the CPU, fraction
-differing (largest error relative to max(1, |ref|)), with the port's
-fp32 q and weights, and with q and the weights rounded to bf16 (the
-port's arithmetic before it followed the megakernel):
+Readings on the CPU, fraction of output elements over all tokens that
+differ from the megakernel's (largest error relative to max(1, |ref|)),
+with the port's fp32 q and weights, and with q and the weights rounded
+to bf16 (the port's arithmetic before it followed the megakernel):
   f0 stack  fp32 0.0381 (5.88e-03)   bf16 0.2803 (9.62e-03)
   f6 stack  fp32 0.0008 (6.65e-04)   bf16 0.6453 (2.13e-02)
-The bf16 arithmetic fails the bound in both; its largest errors stay
-inside the 0.04 of tests/test_torch_decode_stack.py, which is why that
-bound could not see it.
+Each case has its own bound on that fraction, from its own reading:
+F0_MISMATCH 10% and F6_MISMATCH 1%. The bf16 arithmetic fails both; its
+largest errors stay inside the 0.04 of tests/test_torch_decode_stack.py
+(WORST_TOL, held here too), which is why that bound could not see it.
 """
 
 import jax
@@ -42,7 +42,7 @@ from test_torch_5b_decode import (B, N_CTX, MegakernelStack, _inputs,
                                   _perturbed, pair)
 
 torch.set_num_threads(1)
-MISMATCH_TOL = 0.1
+F0_MISMATCH, F6_MISMATCH, WORST_TOL = 0.1, 0.01, 0.04
 EXACT = {"xla_allow_excess_precision": False}
 
 
@@ -96,7 +96,7 @@ def test_f0_stack_decode_matches_megakernel_exactly():
             refs.append(np.asarray(ref.astype(jnp.float32)))
             outs.append(out.float().numpy())
     frac, worst = mismatch(outs, refs)
-    assert frac <= MISMATCH_TOL, (frac, worst)
+    assert frac <= F0_MISMATCH and worst <= WORST_TOL, (frac, worst)
 
 
 def test_f6_stack_decode_matches_megakernel_exactly():
@@ -121,4 +121,4 @@ def test_f6_stack_decode_matches_megakernel_exactly():
                                        fp16=True, fp16_out=True
                                        ).float().numpy())
     frac, worst = mismatch(outs, refs)
-    assert frac <= MISMATCH_TOL, (frac, worst)
+    assert frac <= F6_MISMATCH and worst <= WORST_TOL, (frac, worst)
