@@ -29,9 +29,12 @@ Phases, each printing timestamped lines:
              launch beside the bound, the plain version and SDPA
   2c ln      the LayerNorm kernels (forward, backward) against their plain
              versions at the top's training rows [6528, 2048] bf16, at
-             [6528, 1920] fp32 and a ragged [1000, 1000] bf16, and a planted
-             fault (the last row skipped); times beside the bound, the plain
-             version and F.layer_norm (and its autograd backward)
+             [6528, 1920] fp32, a ragged [1000, 1000] bf16, the 5b width
+             [1024, 4800] bf16 and [1000, 1001] fp16 (the backward's
+             element path), and a planted fault (the last row skipped); the
+             backward gives the same bits on a second call; times beside
+             the bound, the plain version and F.layer_norm (and its
+             autograd backward)
   4 cascade  the 1b_lyrics ancestral cascade (labels -> top codes -> two
              upsamplers -> 44.1 kHz wav) from random weights drawn from
              --seed; checks codes, audio and that every decode step of every
@@ -41,12 +44,15 @@ Phases, each printing timestamped lines:
              cross_attn_decode (f6, bf16 and int8 encoder K/V) against their
              plain versions at the 5b_lyrics top's shapes (S 4800, A 1200,
              8 heads of 150, 512 encoder rows and a ragged 500), the
-             upsamplers' and the 1b top's; the res_scale epilogues; a
-             planted fault for each (a skipped column tile, a dropped head,
-             and wherever the rows split, one split left out of the
-             combine); quantize_dense on the
-             card bit for bit against the host; times beside the bound, the
-             plain version and one library call
+             upsamplers' and the 1b top's; gemv_int8 at batch 4, 1, 3 and
+             16, every epilogue, out32, and an N % 16 == 8 of each prior,
+             the same bits on a second call; the res_scale epilogues; a
+             planted fault for each (a skipped column tile and one K split
+             left out of the combine, a dropped head, and wherever the
+             rows split, one split left out of the combine); quantize_dense
+             on the card bit for bit against the host; times beside the
+             bound, the plain version and one library call (gemv_int8 at
+             all five 5b top products)
   7 5b       the 5b_lyrics cascade from --seed: one full-width top decode
              step (79 layers) kernel path against plain path in bf16 and
              in int8, one int8 upsampler step, then the ancestral cascade
@@ -126,6 +132,7 @@ STEP_TOL = 5e-2              # full-stack logits, relative to max(1, |plain|)
 # upsamplers run 8 of their 72 layers so the whole run stays near 10 minutes
 # (their decode loop is bound by the host's launch rate)
 N_SAMPLES, SAMPLE_LENGTH, UPS_DEPTH, TEMP = 4, 262144, 8, 0.99
+GEMV_BATCHES = (1, 3, 16)    # phase 2e: gemv_int8 also at these batches
 # flash kernels against their plain versions: fa.agreement, an elementwise
 # bound of two bf16 steps of |plain| plus AGREE_ATOL of the row's RMS; a
 # planted fault (skip_tile) must break it
@@ -469,11 +476,56 @@ def check_kernels(shapes, B, last_t, device, gen, time_it=True):
 # ---------------------------------------------------------------------------
 
 def skip_col_tile(w_q):
-    """A copy of w_q [K, N] with its last 32 columns zeroed: a GEMV that
-    skips its last column tile, the planted fault of gemv_int8."""
+    """A copy of w_q [K, N] with its last ds.GEMV_COLS columns zeroed: a
+    GEMV that skips its last column tile (and, where the last tile is
+    ragged, part of the one before), a planted fault of gemv_int8."""
     w_q = w_q.clone()
-    w_q[:, -32:] = 0
+    w_q[:, -ds.GEMV_COLS:] = 0
     return w_q
+
+
+def k_split_fault(x, N, device):
+    """The other planted fault of gemv_int8, as inputs: (x with the rows of
+    one K split of gemv_split_plan (a middle one) raised, so its share of
+    the product shows; the same x with those rows zeroed, of which a kernel
+    computes what a kernel that leaves the split out of the combine would
+    compute from the first; the split's rows), or None when K runs in one
+    split."""
+    B, K = x.shape
+    splits, chunk, _, _ = ds.gemv_split_plan(B, K, N, ds.sm_count(device))
+    if splits == 1:
+        return None
+    lo, hi = (splits // 2) * chunk, min((splits // 2 + 1) * chunk, K)
+    shown = x.clone()
+    shown[:, lo:hi] = (shown[:, lo:hi].float() * 8.0).to(x.dtype)
+    dropped = shown.clone()
+    dropped[:, lo:hi] = 0
+    return shown, dropped, (lo, hi)
+
+
+def check_gemv_int8(rep, what, x, wq, sc, b, epi, res, device):
+    """gemv_int8 against its plain version on one product: with the
+    epilogue given, with out32 (the fp32 row beside it), the same bits on
+    a second call, and both planted faults refused by the same check (the
+    last column tile skipped; one K split left out of the combine)."""
+    ref = ds.gemv_int8_plain(x, wq, sc, b, epi, res)
+    out = ds.gemv_int8(x, wq, sc, b, epi, res)
+    rep.check("gemv_int8", out, ref, what)
+    if not torch.equal(out, ds.gemv_int8(x, wq, sc, b, epi, res)):
+        raise AssertionError(f"gemv_int8 {what}: a second call gave other "
+                             f"bits")
+    y, y32 = ds.gemv_int8(x, wq, sc, b, epi, res, out32=True)
+    yp, y32p = ds.gemv_int8_plain(x, wq, sc, b, epi, res, out32=True)
+    rep.check("gemv_int8", y, yp, f"{what} out32")
+    rep.check("gemv_int8", y32, y32p, f"{what} out32's fp32 row")
+    refuse("gemv_int8", ds.gemv_int8(x, skip_col_tile(wq), sc, b, epi, res),
+           ref, f"{what} last column tile skipped")
+    cut = k_split_fault(x, wq.shape[1], device)
+    if cut is not None:
+        shown, dropped, (lo, hi) = cut
+        refuse("gemv_int8", ds.gemv_int8(dropped, wq, sc, b, epi, res),
+               ds.gemv_int8_plain(shown, wq, sc, b, epi, res),
+               f"{what} K split {lo}:{hi} left out")
 
 
 def skip_head(q, A, H):
@@ -539,36 +591,42 @@ def check_int8_kernels(shapes, B, last_t, device, gen, time_it=True):
         return [make() for _ in range(_copies(nbytes))] if time_it else []
 
     def time3(name, what, kernel, plain, library, sets, lib_sets, nbytes,
-              flops, representative):
-        if not (time_it and representative):
+              flops, representative, timed=None):
+        """Time when `timed` (default: representative); keep the row of
+        the representative shape."""
+        if not (time_it and (representative if timed is None else timed)):
             return
-        timings[name] = rep.timed(name, what, device_ms(kernel, sets),
-                                  device_ms(plain, sets),
-                                  device_ms(library, lib_sets), nbytes,
-                                  flops, "bf16")
+        row = rep.timed(name, what, device_ms(kernel, sets),
+                        device_ms(plain, sets), device_ms(library, lib_sets),
+                        nbytes, flops, "bf16")
+        if representative:
+            timings[name] = row
 
     for label, sh in shapes.items():
         S, A, H, Sm = sh["S"], sh["A"], sh["H"], sh["Sm"]
         main = label == next(iter(shapes))
         products = [("c_attn", S, 3 * A, None), ("c_proj", A, S, "residual"),
                     ("mlp.c_fc", S, Sm, "gelu"),
-                    ("mlp.c_proj", Sm, S, "residual")]
+                    ("mlp.c_proj", Sm, S, "residual"),
+                    # N % 16 == 8: W's rows read 8 bytes a lane
+                    ("c_attn, N % 16 = 8", S, 3 * A // 16 * 16 + 8, None)]
         if sh["enc"]:
             products.insert(1, ("f6 c_attn (q)", S, A, None))
-        # -- gemv_int8
+        # -- gemv_int8, at B and at other batch sizes, every epilogue
         for what, K, N, epi in products:
             w = rnd(K, N, dtype=torch.float32, scale=0.02)
             b = rnd(N, scale=0.02)
             qd = quantize_dense({"w": w, "b": b})
             wq, sc = qd["w_q"], qd["s"]
+            product = what
+            for Bx in [B] + [n for n in GEMV_BATCHES if n != B]:
+                res = rnd(Bx, N) if epi == "residual" else None
+                check_gemv_int8(rep, f"{label} {product} [{Bx},{K}]x[{K},{N}]"
+                                f"{f' {epi}' if epi else ''}", rnd(Bx, K), wq,
+                                sc, b, epi, res, device)
             x = rnd(B, K)
             res = rnd(B, N) if epi == "residual" else None
             what = f"{label} {what} [{B},{K}]x[{K},{N}]"
-            ref = ds.gemv_int8_plain(x, wq, sc, b, epi, res)
-            rep.check("gemv_int8", ds.gemv_int8(x, wq, sc, b, epi, res), ref,
-                      what)
-            refuse("gemv_int8", ds.gemv_int8(x, skip_col_tile(wq), sc, b,
-                                             epi, res), ref, what)
             if epi == "residual":
                 # the res_scale residual x + (a + m) * rs, and the kept a
                 a2, rs = rnd(B, N), 1.0 / 79
@@ -584,16 +642,19 @@ def check_int8_kernels(shapes, B, last_t, device, gen, time_it=True):
                     yp, ap = fp(x, *wts, b, "residual", res, keep=True)
                     rep.check(name, yk, yp, f"{what} residual+kept")
                     rep.check(name, ak, ap, f"{what} kept product")
-            wdq = (wq.float() * sc).to(bf)
+            if not (time_it and main) or "%" in product:
+                continue
             sets = copies(lambda: (rnd(B, K), quantize_dense(
                 {"w": rnd(K, N, dtype=torch.float32, scale=0.02),
                  "b": b})["w_q"], sc, b, epi, res), K * N)
+            # the library call on the same inputs: each set's weight
+            # dequantised to bf16, so it too streams a weight per call
             time3("gemv_int8", what, ds.gemv_int8, ds.gemv_int8_plain,
                   lambda x_, w_, b_: torch.addmm(b_, x_, w_), sets,
-                  [(a[0], wdq, b) for a in sets],
+                  [(a[0], (a[1].float() * sc).to(bf), b) for a in sets],
                   K * N + N * 4 + B * K * 2 + N * 2
                   + B * N * 2 * (2 if res is not None else 1),
-                  2 * B * K * N, main and what.startswith(f"{label} c_attn"))
+                  2 * B * K * N, product == "c_attn", timed=True)
         # -- ring_attn_int8, every ring pattern of this prior
         for f in (f for f in sh["funcs"] if f != 6):
             shape = {0: (B, sh["n_ctx"], A), 1: (B, sh["bc"], A),
@@ -941,6 +1002,10 @@ def check_layer_norm(shapes, device, gen, time_it=True):
                   torch.cat([bad[i], torch.zeros_like(ref[i][-1:])]))
         out = ln.layer_norm_bwd(x, g, mu, rstd, dy)
         ref = ln.layer_norm_bwd_plain(x, g, mu, rstd, dy)
+        again = ln.layer_norm_bwd(x, g, mu, rstd, dy)
+        if not all(torch.equal(a, b) for a, b in zip(out, again)):
+            raise AssertionError(f"layer_norm_bwd {what}: a second call gave "
+                                 f"other bits")
         bad = ln.layer_norm_bwd(x[:-1], g, mu[:-1], rstd[:-1], dy[:-1])
         check("layer_norm_bwd", "dx " + what, out[0], ref[0],
               torch.cat([bad[0], torch.zeros_like(ref[0][-1:])]))
@@ -1864,10 +1929,12 @@ def run_5b_lyrics(seed, device, gen):
 
 
 # LayerNorm shapes of phase 2c: the top prior's training rows (n_ctx 6144
-# + 384 lyric tokens) in the training dtype, the upsamplers' width, and a
-# ragged shape
+# + 384 lyric tokens) in the training dtype, the upsamplers' width, a
+# ragged shape, the 5b priors' width, and a width whose rows the backward
+# reads element by element (1001 fp16: 2002 bytes)
 LN_SHAPES = [(6528, 2048, torch.bfloat16), (6528, 1920, torch.float32),
-             (1000, 1000, torch.bfloat16)]
+             (1000, 1000, torch.bfloat16), (1024, 4800, torch.bfloat16),
+             (1000, 1001, torch.float16)]
 SOURCES = {"decode_stack": ds, "flash_attention": fa, "layer_norm": ln,
            "adam": ad}
 REPLACES = dict(

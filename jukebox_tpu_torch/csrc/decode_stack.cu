@@ -39,11 +39,17 @@
 // What bounds them on an H100: a decode step at batch <= 16 does ~2 flops
 // per weight byte (~4 in int8), far below the ~295 flop/byte ridge, so the
 // GEMVs are bound by streaming W from HBM (one read of every weight per
-// token step; int8 halves the bytes). Their design: each block owns a slice
-// of N (16 columns in bf16, 32 in int8, so a row of the slice is one
-// 32-byte sector), every thread streams 8 weights per load, x stays in
-// shared memory as bf16, and the K split inside the block is reduced with
-// warp shuffles and one shared-memory pass. The attention kernels are bound
+// token step; int8 halves the bytes). gemv_bf16: each block owns 16
+// columns of N (a row of the slice is one 32-byte sector), every thread
+// streams 8 weights per load, x stays in shared memory as bf16, and the K
+// split inside the block is reduced with warp shuffles and one
+// shared-memory pass. gemv_int8 also splits K over blocks (the host's
+// ops/decode_stack.py gemv_split_plan: about four blocks per SM at every
+// product shape), reads 16 weights a lane per load with eight loads in
+// flight, turns them into bf16 with byte permutes and masks (no
+// conversion instruction per weight), multiplies on the tensor cores
+// (mma.sync), and the last block of each column tile sums the splits in
+// the same launch. The attention kernels are bound
 // by the cache rows they read (the f0 dense layer reads t+1 rows, f6 the
 // 512 encoder rows: 19.9 MB at the 1b top's last f0 position, 5.95 us at
 // 3.35 TB/s). With one block per (batch row, head) that is 8 blocks on 132
@@ -153,57 +159,56 @@ ln_rows_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ g,
 }
 
 // ---------------------------------------------------------------------------
-// gemv: block = 256 threads over a slice of 8 * TPR columns of N. Thread
-// (tx = tid % TPR, ky = tid / TPR) accumulates columns n0 + tx*8 .. +7 over
-// the rows k = ky, ky + 256 / TPR, ... of W, 8 weights per load (16 bytes of
-// bf16, TPR = 2; 8 bytes of int8, TPR = 4). BT is the batch bucket (>= B).
-// y32, when given, receives the fp32 product (scaled, plus bias) before the
-// epilogue: the int8 cache mode quantises the new k, v rows from it.
-// EPI: 0 none, 1 quick_gelu, 2 residual (out = res + bf16(y); aux, when
-// given, also receives bf16(y)), 3 res_scale (out = res + bf16(bf16(res2 +
-// bf16(y)) * bf16(rs)), the bf16 roundings of x + (a + m) * res_scale).
+// The GEMV epilogue of one output element at = b * N + n, from s, the fp32
+// product (scaled) plus bias. y32, when given, receives s itself: the
+// attention reads q from it, and the int8 cache mode quantises the new k, v
+// rows from it. EPI: 0 none, 1 quick_gelu, 2 residual (out = res + bf16(y);
+// aux, when given, also receives bf16(y)), 3 res_scale (out = res +
+// bf16(bf16(res2 + bf16(y)) * bf16(rs)), the bf16 roundings of x + (a + m)
+// * res_scale).
 // ---------------------------------------------------------------------------
-template <typename WT>
-struct WLoad;
-
-template <>
-struct WLoad<__nv_bfloat16> {
-  static constexpr int kTPR = 2;
-  static __device__ __forceinline__ void load8(const __nv_bfloat16* p,
-                                               float* wf) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* w2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(w2[j]);
-      wf[2 * j] = f.x;
-      wf[2 * j + 1] = f.y;
-    }
+template <int EPI>
+__device__ __forceinline__ void gemv_store(
+    float s, size_t at, const __nv_bfloat16* __restrict__ res,
+    const __nv_bfloat16* __restrict__ res2, __nv_bfloat16* __restrict__ aux,
+    float* __restrict__ y32, __nv_bfloat16* __restrict__ y, float rs) {
+  if (y32 != nullptr) y32[at] = s;
+  float out;
+  if (EPI == 1) {
+    out = s / (1.0f + expf(-1.702f * s));
+  } else if (EPI == 2) {
+    if (aux != nullptr) aux[at] = __float2bfloat16(s);
+    out = __bfloat162float(res[at]) + bf16_round(s);
+  } else if (EPI == 3) {
+    const float am = bf16_round(__bfloat162float(res2[at]) + bf16_round(s));
+    out = __bfloat162float(res[at]) + bf16_round(am * bf16_round(rs));
+  } else {
+    out = s;
   }
-};
+  y[at] = __float2bfloat16(out);
+}
 
-template <>
-struct WLoad<int8_t> {
-  static constexpr int kTPR = 4;
-  static __device__ __forceinline__ void load8(const int8_t* p, float* wf) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const int8_t* w1 = reinterpret_cast<const int8_t*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) wf[j] = static_cast<float>(w1[j]);
-  }
-};
+// ---------------------------------------------------------------------------
+// gemv_bf16: block = 256 threads over a slice of kBf16Cols = 16 columns of
+// N. Thread (tx = tid % 2, ky = tid / 2) accumulates columns n0 + tx*8 ..
+// +7 over the rows k = ky, ky + 128, ... of W, 8 weights (16 bytes) per
+// load. BT is the batch bucket (>= B).
+// ---------------------------------------------------------------------------
+constexpr int kBf16TPR = 2;
+constexpr int kBf16Cols = 8 * kBf16TPR;
 
-template <typename WT, int BT, int EPI>
+template <int BT, int EPI>
 __global__ void __launch_bounds__(kThreads)
-gemv_kernel(const __nv_bfloat16* __restrict__ x, const WT* __restrict__ W,
-            const float* __restrict__ scale,
-            const __nv_bfloat16* __restrict__ bias,
-            const __nv_bfloat16* __restrict__ res,
-            const __nv_bfloat16* __restrict__ res2,
-            __nv_bfloat16* __restrict__ aux, float* __restrict__ y32,
-            __nv_bfloat16* __restrict__ y, int B, int K, int N, float rs) {
-  constexpr int TPR = WLoad<WT>::kTPR;
-  constexpr int COLS = 8 * TPR;
+gemv_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                 const __nv_bfloat16* __restrict__ W,
+                 const __nv_bfloat16* __restrict__ bias,
+                 const __nv_bfloat16* __restrict__ res,
+                 const __nv_bfloat16* __restrict__ res2,
+                 __nv_bfloat16* __restrict__ aux, float* __restrict__ y32,
+                 __nv_bfloat16* __restrict__ y, int B, int K, int N,
+                 float rs) {
+  constexpr int TPR = kBf16TPR;
+  constexpr int COLS = kBf16Cols;
   constexpr int ROWS = kThreads / TPR;
   extern __shared__ __nv_bfloat16 xs[];  // [B][K]
   __shared__ float red[kWarps][BT][COLS];
@@ -224,7 +229,14 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x, const WT* __restrict__ W,
 #pragma unroll 4
     for (int k = ky; k < K; k += ROWS) {
       float wf[8];
-      WLoad<WT>::load8(W + (size_t)k * N + n0, wf);
+      const uint4 raw = *reinterpret_cast<const uint4*>(W + (size_t)k * N + n0);
+      const __nv_bfloat162* w2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 f = __bfloat1622float2(w2[j]);
+        wf[2 * j] = f.x;
+        wf[2 * j + 1] = f.y;
+      }
 #pragma unroll
       for (int bb = 0; bb < BT; ++bb) {
         if (bb < B) {
@@ -262,24 +274,268 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x, const WT* __restrict__ W,
     float s = 0.0f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) s += red[w][bb][c];
-    if constexpr (std::is_same<WT, int8_t>::value) s *= scale[n];
     s += __bfloat162float(bias[n]);
-    const size_t at = (size_t)bb * N + n;
-    if (y32 != nullptr) y32[at] = s;
-    float out;
-    if (EPI == 1) {
-      out = s / (1.0f + expf(-1.702f * s));
-    } else if (EPI == 2) {
-      if (aux != nullptr) aux[at] = __float2bfloat16(s);
-      out = __bfloat162float(res[at]) + bf16_round(s);
-    } else if (EPI == 3) {
-      const float am = bf16_round(__bfloat162float(res2[at]) + bf16_round(s));
-      out = __bfloat162float(res[at]) + bf16_round(am * bf16_round(rs));
-    } else {
-      out = s;
-    }
-    y[at] = __float2bfloat16(out);
+    gemv_store<EPI>(s, (size_t)bb * N + n, res, res2, aux, y32, y, rs);
   }
+}
+
+// ---------------------------------------------------------------------------
+// gemv_int8: W int8 [K, N] with fp32 column scales s; grid (N / 128 column
+// tiles, splits of K), 4 warps a block. Split z of a tile owns the rows
+// z * chunk .. + chunk - 1 (the last ragged; chunk a multiple of 16), and
+// warp w of its block the 16-row steps w, w + 4, ... of them, two steps
+// (B > 8: one) loaded before either is multiplied, so every lane keeps 8
+// loads of 16 bytes in flight (16 when N % 16 != 0: W's rows are then
+// 8-byte aligned only, and each 16-byte piece is two 8-byte loads).
+//
+// Each step is one mma.sync m16n8k16 (bf16 in, fp32 accumulate) per pair
+// of columns with W^T as the A operand and x^T as B: lane (g = lane / 4,
+// q = lane % 4) loads its 16 columns col .. col + 15 (col = tile * 128 +
+// 16 g) of the rows k + 4q .. k + 4q + 3 and x[g][k + 4q .. + 3] (8 bytes).
+// The mma's k index 2q, 2q + 1, 2q + 8, 2q + 9 stands for row k + 4q +
+// 0..3 in both operands (a sum over k does not depend on its order), and
+// its m index g (g + 8) for column col + 2j (+ 1) of the j-th mma, so every
+// register holds whole loads and no value crosses lanes. The batch rows
+// are the mma's n side (8, or two mmas for B > 8); lane (g, q) ends with
+// columns col + 0..15 of batch rows 2q, 2q + 1.
+//
+// No conversion instruction per weight (i8_pair): a byte permute puts two
+// int8 bytes v into two bf16 words 0x43vv, and the two masks 0x4300 |
+// (v & 0x7f) = 128 + (v & 127) and 0x4300 | (v & 0x80) = 128 or 256 differ
+// by v exactly (int8 values are exact in bf16): four instructions for two
+// weights.
+//
+// The 4 warps' sums meet in shared memory; with splits > 1 each block
+// writes its [B, 128] fp32 partial to ws [splits, B, N], and the last block
+// of the tile to arrive (atomicAdd on counters[tile] after __threadfence)
+// sums the splits in order z = 0, 1, ... (16 bytes a thread, 16 splits in
+// flight), applies s, bias and the epilogue, and resets the counter: no
+// fp32 atomics, so two launches on the same inputs give the same bits.
+// ---------------------------------------------------------------------------
+constexpr int kI8Cols = 128;
+constexpr int kI8Warps = 4;
+constexpr int kI8Threads = 32 * kI8Warps;
+constexpr int kI8Step = 16;
+constexpr int kI8RedPitch = kI8Cols + 4;
+
+// The bf16 pair {v(a, sa), v(b, sb)} of int8 byte sa of a and byte sb of b
+template <int SA, int SB>
+__device__ __forceinline__ uint32_t i8_pair(uint32_t a, uint32_t b) {
+  const uint32_t p = __byte_perm(a, b, SA | ((4 + SB) << 8));
+  const uint32_t lo = (p & 0x007f007fu) | 0x43004300u;
+  const uint32_t hi = (p & 0x00800080u) | 0x43004300u;
+  const __nv_bfloat162 d =
+      __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&lo),
+              *reinterpret_cast<const __nv_bfloat162*>(&hi));
+  return *reinterpret_cast<const uint32_t*>(&d);
+}
+
+__device__ __forceinline__ void mma_bf16_16816(float (&c)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The j-th mma of a step: columns 2j, 2j + 1 of the lane's 16 (word J / 2
+// of its rows' 16-byte loads w[r])
+template <int J, int NB>
+__device__ __forceinline__ void i8_mma(float (&acc)[NB][8][4],
+                                       const uint32_t (&w)[4][4],
+                                       const uint32_t (&xb)[NB][2]) {
+  constexpr int WD = J >> 1, S = 2 * (J & 1);
+  const uint32_t a[4] = {i8_pair<S, S>(w[0][WD], w[1][WD]),
+                         i8_pair<S + 1, S + 1>(w[0][WD], w[1][WD]),
+                         i8_pair<S, S>(w[2][WD], w[3][WD]),
+                         i8_pair<S + 1, S + 1>(w[2][WD], w[3][WD])};
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+    mma_bf16_16816(acc[nb][J], a, xb[nb][0], xb[nb][1]);
+}
+
+template <int BT, int EPI, bool V16>
+__global__ void __launch_bounds__(kI8Threads, 4)
+gemv_int8_kernel(const __nv_bfloat16* __restrict__ x,
+                 const int8_t* __restrict__ W,
+                 const float* __restrict__ scale,
+                 const __nv_bfloat16* __restrict__ bias,
+                 const __nv_bfloat16* __restrict__ res,
+                 const __nv_bfloat16* __restrict__ res2,
+                 __nv_bfloat16* __restrict__ aux, float* __restrict__ y32,
+                 __nv_bfloat16* __restrict__ y, float* __restrict__ ws,
+                 int* __restrict__ counters, int B, int K, int N, int chunk,
+                 float rs) {
+  constexpr int NB = BT / 8;          // mmas per column pair (8 batch rows)
+  constexpr int U = NB == 1 ? 2 : 1;  // steps in flight per warp
+  constexpr int STRIDE = kI8Warps * kI8Step;
+  __shared__ __align__(16) float red[kI8Warps * BT * kI8RedPitch];
+  __shared__ int is_last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int tile = blockIdx.x, splits = gridDim.y;
+  const int c0 = tile * kI8Cols, col = c0 + 16 * g;
+  const int k_lo = blockIdx.y * chunk, k_hi = min(K, k_lo + chunk);
+  const bool col_ok = col < N, hi_ok = V16 || col + 8 < N;
+  const bool x_vec = (K & 3) == 0;  // x[b][k + 4q ..] 8-byte aligned
+
+  float acc[NB][8][4];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nb][j][e] = 0.0f;
+
+  for (int k0 = k_lo + kI8Step * warp; k0 < k_hi; k0 += U * STRIDE) {
+    uint32_t w[U][4][4];    // [step][row k + 4q + r][4 bytes]
+    uint32_t xb[U][NB][2];  // x[b][k + 4q .. + 3] as two bf16 pairs
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int k = k0 + u * STRIDE + 4 * q;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (col_ok && k + r < k_hi) {
+          const int8_t* p = W + (size_t)(k + r) * N + col;
+          if (V16) {
+            v = __ldg(reinterpret_cast<const uint4*>(p));
+          } else {
+            const uint2 lo = __ldg(reinterpret_cast<const uint2*>(p));
+            v.x = lo.x;
+            v.y = lo.y;
+            if (hi_ok) {
+              const uint2 hi = __ldg(reinterpret_cast<const uint2*>(p + 8));
+              v.z = hi.x;
+              v.w = hi.y;
+            }
+          }
+        }
+        w[u][r][0] = v.x;
+        w[u][r][1] = v.y;
+        w[u][r][2] = v.z;
+        w[u][r][3] = v.w;
+      }
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        const int b = g + 8 * nb;
+        xb[u][nb][0] = xb[u][nb][1] = 0u;
+        if (b < B && k < k_hi) {
+          const __nv_bfloat16* px = x + (size_t)b * K + k;
+          if (x_vec) {
+            const uint2 xv = __ldg(reinterpret_cast<const uint2*>(px));
+            xb[u][nb][0] = xv.x;
+            xb[u][nb][1] = xv.y;
+          } else {
+            uint16_t h[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              h[e] = k + e < k_hi ? __bfloat16_as_ushort(px[e]) : 0;
+            xb[u][nb][0] = h[0] | ((uint32_t)h[1] << 16);
+            xb[u][nb][1] = h[2] | ((uint32_t)h[3] << 16);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      i8_mma<0>(acc, w[u], xb[u]);
+      i8_mma<1>(acc, w[u], xb[u]);
+      i8_mma<2>(acc, w[u], xb[u]);
+      i8_mma<3>(acc, w[u], xb[u]);
+      i8_mma<4>(acc, w[u], xb[u]);
+      i8_mma<5>(acc, w[u], xb[u]);
+      i8_mma<6>(acc, w[u], xb[u]);
+      i8_mma<7>(acc, w[u], xb[u]);
+    }
+  }
+
+  // acc[nb][j][e]: column 16 g + 2j + (e >> 1), batch row 8 nb + 2q + (e & 1)
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int b = 8 * nb + 2 * q + h;
+      if (b < B) {
+        float* row = red + (warp * B + b) * kI8RedPitch + 16 * g;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<float2*>(row + 2 * j) =
+              make_float2(acc[nb][j][h], acc[nb][j][2 + h]);
+      }
+    }
+  __syncthreads();
+
+  // 4 columns a thread from here on: cols is a multiple of 8
+  const int cols = min(kI8Cols, N - c0);
+  const int quads = B * (kI8Cols / 4);
+  // the output columns n .. n + 3 of batch row b from their sums v
+  auto finish = [&](const float (&v)[4], int b, int n) {
+    const float4 sc = __ldg(reinterpret_cast<const float4*>(scale + n));
+    const uint2 bi = __ldg(reinterpret_cast<const uint2*>(bias + n));
+    const float svec[4] = {sc.x, sc.y, sc.z, sc.w};
+    const __nv_bfloat16* bv = reinterpret_cast<const __nv_bfloat16*>(&bi);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      gemv_store<EPI>(v[e] * svec[e] + __bfloat162float(bv[e]),
+                      (size_t)b * N + n + e, res, res2, aux, y32, y, rs);
+  };
+  for (int i = threadIdx.x; i < quads; i += kI8Threads) {
+    const int b = i / (kI8Cols / 4), c = (i % (kI8Cols / 4)) * 4;
+    if (c >= cols) continue;
+    float4 s = *reinterpret_cast<const float4*>(red + b * kI8RedPitch + c);
+#pragma unroll
+    for (int ww = 1; ww < kI8Warps; ++ww) {
+      const float4 t = *reinterpret_cast<const float4*>(
+          red + (ww * B + b) * kI8RedPitch + c);
+      s.x += t.x;
+      s.y += t.y;
+      s.z += t.z;
+      s.w += t.w;
+    }
+    const int n = c0 + c;
+    if (splits == 1) {
+      finish({s.x, s.y, s.z, s.w}, b, n);
+    } else {
+      *reinterpret_cast<float4*>(ws + ((size_t)blockIdx.y * B + b) * N + n) =
+          s;
+    }
+  }
+  if (splits == 1) return;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    is_last = atomicAdd(&counters[tile], 1) == splits - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+
+  const size_t zstride = (size_t)B * N;
+  for (int i = threadIdx.x; i < quads; i += kI8Threads) {
+    const int b = i / (kI8Cols / 4), c = (i % (kI8Cols / 4)) * 4;
+    if (c >= cols) continue;
+    const int n = c0 + c;
+    const float4* p = reinterpret_cast<const float4*>(ws + (size_t)b * N + n);
+    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int z0 = 0; z0 < splits; z0 += 16) {
+      float4 t[16];
+#pragma unroll
+      for (int z = 0; z < 16; ++z)
+        if (z0 + z < splits) t[z] = __ldcg(p + (z0 + z) * zstride / 4);
+#pragma unroll
+      for (int z = 0; z < 16; ++z)
+        if (z0 + z < splits) {
+          v[0] += t[z].x;
+          v[1] += t[z].y;
+          v[2] += t[z].z;
+          v[3] += t[z].w;
+        }
+    }
+    finish(v, b, n);
+  }
+  if (threadIdx.x == 0) counters[tile] = 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -647,11 +903,10 @@ cudaError_t allow_dyn_smem(K kernel, bool* configured) {
   return e;
 }
 
-// The pointers and sizes of one GEMV launch.
-template <typename WT>
+// The pointers and sizes of one GEMV launch (s, ws, counters: int8 only).
 struct GemvArgs {
   const __nv_bfloat16* x;
-  const WT* W;
+  const void* W;
   const float* s;
   const __nv_bfloat16* bias;
   const __nv_bfloat16* res;
@@ -659,55 +914,55 @@ struct GemvArgs {
   __nv_bfloat16* aux;
   float* y32;
   __nv_bfloat16* y;
-  int B, K, N;
+  float* ws;
+  int* counters;
+  int B, K, N, splits, chunk;
   float rs;
 };
 
-template <typename WT, int BT, int EPI>
-cudaError_t launch_gemv(const GemvArgs<WT>& a, cudaStream_t stream) {
+template <int BT, int EPI>
+cudaError_t launch_gemv_bf16(const GemvArgs& a, cudaStream_t stream) {
   static bool configured = false;
-  const cudaError_t e = allow_dyn_smem(gemv_kernel<WT, BT, EPI>, &configured);
+  const cudaError_t e =
+      allow_dyn_smem(gemv_bf16_kernel<BT, EPI>, &configured);
   if (e != cudaSuccess) return e;
-  constexpr int COLS = 8 * WLoad<WT>::kTPR;
   const size_t smem = (size_t)a.B * a.K * sizeof(__nv_bfloat16);
-  const int grid = (a.N + COLS - 1) / COLS;
-  gemv_kernel<WT, BT, EPI><<<grid, kThreads, smem, stream>>>(
-      a.x, a.W, a.s, a.bias, a.res, a.res2, a.aux, a.y32, a.y, a.B, a.K, a.N,
-      a.rs);
+  const int grid = (a.N + kBf16Cols - 1) / kBf16Cols;
+  gemv_bf16_kernel<BT, EPI><<<grid, kThreads, smem, stream>>>(
+      a.x, (const __nv_bfloat16*)a.W, a.bias, a.res, a.res2, a.aux, a.y32,
+      a.y, a.B, a.K, a.N, a.rs);
   return cudaGetLastError();
 }
 
-template <typename WT, int BT>
-cudaError_t launch_gemv_epi(int epi, const GemvArgs<WT>& a,
-                            cudaStream_t st) {
+template <int BT, int EPI, bool V16>
+cudaError_t launch_gemv_int8(const GemvArgs& a, cudaStream_t stream) {
+  const dim3 grid((a.N + kI8Cols - 1) / kI8Cols, a.splits);
+  gemv_int8_kernel<BT, EPI, V16><<<grid, kI8Threads, 0, stream>>>(
+      a.x, (const int8_t*)a.W, a.s, a.bias, a.res, a.res2, a.aux, a.y32, a.y,
+      a.ws, a.counters, a.B, a.K, a.N, a.chunk, a.rs);
+  return cudaGetLastError();
+}
+
+template <int BT>
+cudaError_t launch_bf16_epi(int epi, const GemvArgs& a, cudaStream_t st) {
   switch (epi) {
-    case 0: return launch_gemv<WT, BT, 0>(a, st);
-    case 1: return launch_gemv<WT, BT, 1>(a, st);
-    case 2: return launch_gemv<WT, BT, 2>(a, st);
-    case 3: return launch_gemv<WT, BT, 3>(a, st);
+    case 0: return launch_gemv_bf16<BT, 0>(a, st);
+    case 1: return launch_gemv_bf16<BT, 1>(a, st);
+    case 2: return launch_gemv_bf16<BT, 2>(a, st);
+    case 3: return launch_gemv_bf16<BT, 3>(a, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename WT>
-int gemv_entry(const void* x, const void* W, const void* s, const void* bias,
-               const void* res, const void* res2, void* aux, void* y32,
-               void* y, int B, int K, int N, int epi, float rs,
-               void* stream) {
-  const GemvArgs<WT> a{(const __nv_bfloat16*)x, (const WT*)W,
-                       (const float*)s, (const __nv_bfloat16*)bias,
-                       (const __nv_bfloat16*)res, (const __nv_bfloat16*)res2,
-                       (__nv_bfloat16*)aux, (float*)y32, (__nv_bfloat16*)y,
-                       B, K, N, rs};
-  const auto st = (cudaStream_t)stream;
-  cudaError_t e;
-  if (B <= 1) e = launch_gemv_epi<WT, 1>(epi, a, st);
-  else if (B <= 2) e = launch_gemv_epi<WT, 2>(epi, a, st);
-  else if (B <= 4) e = launch_gemv_epi<WT, 4>(epi, a, st);
-  else if (B <= 8) e = launch_gemv_epi<WT, 8>(epi, a, st);
-  else if (B <= 16) e = launch_gemv_epi<WT, 16>(epi, a, st);
-  else e = cudaErrorInvalidValue;
-  return (int)e;
+template <int BT, bool V16>
+cudaError_t launch_int8_epi(int epi, const GemvArgs& a, cudaStream_t st) {
+  switch (epi) {
+    case 0: return launch_gemv_int8<BT, 0, V16>(a, st);
+    case 1: return launch_gemv_int8<BT, 1, V16>(a, st);
+    case 2: return launch_gemv_int8<BT, 2, V16>(a, st);
+    case 3: return launch_gemv_int8<BT, 3, V16>(a, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // Dynamic shared memory of one attention block (bytes).
@@ -757,16 +1012,51 @@ int jk_gemv_bf16(const void* x, const void* W, const void* bias,
                  const void* res, const void* res2, void* aux, void* y32,
                  void* y, int B, int K, int N, int epi, float rs,
                  void* stream) {
-  return gemv_entry<__nv_bfloat16>(x, W, nullptr, bias, res, res2, aux, y32,
-                                   y, B, K, N, epi, rs, stream);
+  const GemvArgs a{(const __nv_bfloat16*)x, W, nullptr,
+                   (const __nv_bfloat16*)bias, (const __nv_bfloat16*)res,
+                   (const __nv_bfloat16*)res2, (__nv_bfloat16*)aux,
+                   (float*)y32, (__nv_bfloat16*)y, nullptr, nullptr,
+                   B, K, N, 1, K, rs};
+  const auto st = (cudaStream_t)stream;
+  cudaError_t e;
+  if (B <= 1) e = launch_bf16_epi<1>(epi, a, st);
+  else if (B <= 2) e = launch_bf16_epi<2>(epi, a, st);
+  else if (B <= 4) e = launch_bf16_epi<4>(epi, a, st);
+  else if (B <= 8) e = launch_bf16_epi<8>(epi, a, st);
+  else if (B <= 16) e = launch_bf16_epi<16>(epi, a, st);
+  else e = cudaErrorInvalidValue;
+  return (int)e;
 }
 
+// gemv_int8 over splits K slices of chunk rows (split z: rows z * chunk ..
+// + chunk - 1, the last ragged; chunk a multiple of 16). splits > 1 needs
+// ws (splits * B * N floats) and counters (one int per 128 columns, zero;
+// every launch leaves them zero). vec16: W's rows are read 16 bytes a lane
+// (N % 16 == 0 and W 16-byte aligned), else 8 bytes.
 int jk_gemv_int8(const void* x, const void* W, const void* s,
                  const void* bias, const void* res, const void* res2,
-                 void* aux, void* y32, void* y, int B, int K, int N, int epi,
-                 float rs, void* stream) {
-  return gemv_entry<int8_t>(x, W, s, bias, res, res2, aux, y32, y, B, K, N,
-                            epi, rs, stream);
+                 void* aux, void* y32, void* y, void* ws, void* counters,
+                 int B, int K, int N, int splits, int chunk, int epi,
+                 int vec16, float rs, void* stream) {
+  if (B < 1 || B > 16 || K < 1 || N < 8 || N % 8 || splits < 1 ||
+      chunk < kI8Step || chunk % kI8Step || (long)(splits - 1) * chunk >= K ||
+      (long)splits * chunk < K || (vec16 && N % 16) ||
+      (splits > 1 && (ws == nullptr || counters == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const GemvArgs a{(const __nv_bfloat16*)x, W, (const float*)s,
+                   (const __nv_bfloat16*)bias, (const __nv_bfloat16*)res,
+                   (const __nv_bfloat16*)res2, (__nv_bfloat16*)aux,
+                   (float*)y32, (__nv_bfloat16*)y, (float*)ws,
+                   (int*)counters, B, K, N, splits, chunk, rs};
+  const auto st = (cudaStream_t)stream;
+  cudaError_t e;
+  if (B <= 8)
+    e = vec16 ? launch_int8_epi<8, true>(epi, a, st)
+              : launch_int8_epi<8, false>(epi, a, st);
+  else
+    e = vec16 ? launch_int8_epi<16, true>(epi, a, st)
+              : launch_int8_epi<16, false>(epi, a, st);
+  return (int)e;
 }
 
 // The attention kernels, q the fp32 q rows (row b at b * qstride floats):

@@ -32,7 +32,7 @@ SIGNATURES = {
         "jk_max_dyn_smem": [],
         "jk_ln_rows": [_P, _P, _P, _P, _I, _I, _F, _P],
         "jk_gemv_bf16": [_P] * 8 + [_I] * 4 + [_F, _P],
-        "jk_gemv_int8": [_P] * 9 + [_I] * 4 + [_F, _P],
+        "jk_gemv_int8": [_P] * 11 + [_I] * 7 + [_F, _P],
         "jk_attn_decode": [_P, _I] + [_P] * 4 + [_I] + [_P] * 7 + [_I] * 9
         + [_F, _I, _P],
     },
@@ -49,7 +49,7 @@ SIGNATURES = {
     },
     "layer_norm": {
         "jk_layer_norm_fwd": [_P] * 6 + [_I, _I, _F, _I, _P],
-        "jk_layer_norm_bwd": [_P] * 8 + [_I] * 4 + [_P],
+        "jk_layer_norm_bwd": [_P] * 7 + [_I] * 5 + [_P],
     },
     "adam": {
         "jk_adam_fp32": [_P] * 7 + [_I, _I, _P] + [_F] * 7 + [_P],

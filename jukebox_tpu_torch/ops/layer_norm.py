@@ -11,9 +11,10 @@ bf16 or fp16 with fp32 g, b [D]:
 
 with fp32 statistics (mean, then the variance of the centred row; eps
 1e-5), dx = (g dy - xhat c1 - c2) rstd for c1 = mean(xhat g dy) and
-c2 = mean(g dy), and dg, db summed over rows: the kernel writes one partial
-row per block of ROWS_PER_BLOCK rows and the wrapper sums the partials with
-torch.sum, as the JAX wrapper sums its kernel's partials.
+c2 = mean(g dy), and dg, db summed over rows: each of the backward's
+bwd_blocks(N) blocks writes one partial row of each over its share of the
+rows and the wrapper sums the partials with torch.sum, as the JAX wrapper
+sums its kernel's partials.
 
 Each wrapper takes the plain PyTorch version for tensors on the CPU (what
 the CPU tests run) and, for CUDA tensors, checks them, launches its kernel
@@ -26,15 +27,19 @@ device: the reference a kernel run is held against.
 import torch
 
 from jukebox_tpu_torch.ops import _build
-from jukebox_tpu_torch.ops.decode_stack import _check, _require, _stream
+from jukebox_tpu_torch.ops.decode_stack import (H100_SMS, _check, _require,
+                                                _stream, sm_count)
 
 LAUNCHES = {"layer_norm_fwd": 0, "layer_norm_bwd": 0}
 # per LayerNorm of a transformer block and train step under
 # checkpoint_res=1: the forward runs again in the backward's recompute
 LAUNCHES_PER_STEP = {"layer_norm_fwd": 2, "layer_norm_bwd": 1}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-ROWS_PER_BLOCK = 32
-MAX_WIDTH = 12288  # the backward keeps 4 rows of fp32 in shared memory
+# The backward's grid: BWD_BLOCKS_PER_SM blocks per SM (each 256 threads
+# at the training widths), each taking an even share of the rows
+# (scripts/chip_gemv_ln_probe.py times 1-4 blocks per SM).
+BWD_BLOCKS_PER_SM = 2
+MAX_WIDTH = 12288  # the backward's widest row: 768 threads of 16 elements
 EPS = 1e-5
 # A kernel's output x agrees with its plain version r when every element
 # has |x - r| <= AGREE_ULPS eps(dtype) |r| + AGREE_ATOL rms(r): both round
@@ -86,9 +91,17 @@ def layer_norm_bwd_plain(x, g, mu, rstd, dy):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
+def bwd_blocks(N, sms=H100_SMS):
+    """Blocks of a layer_norm_bwd launch over N rows: block b takes the
+    rows N b // blocks .. N (b + 1) // blocks - 1 in order and writes one
+    partial row of dg and one of db."""
+    return min(N, BWD_BLOCKS_PER_SM * sms)
+
+
 def _require_rows(x, name, dtype=None, shape=None):
-    """x [N, D] contiguous on the card in a kernel dtype (element loads:
-    no alignment beyond the element's). Returns (N, D)."""
+    """x [N, D] contiguous on the card in a kernel dtype (any alignment:
+    the backward reads 16 bytes a lane where the width and pointers allow,
+    else elements; the forward reads elements). Returns (N, D)."""
     if not x.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor like the others")
     if x.dim() != 2 or x.dtype not in DTYPES or (dtype and x.dtype != dtype):
@@ -134,16 +147,18 @@ def layer_norm_bwd(x, g, mu, rstd, dy):
     _require(g, "g", torch.float32, (D,))
     _require(mu, "mu", torch.float32, (N,))
     _require(rstd, "rstd", torch.float32, (N,))
-    blocks = -(-N // ROWS_PER_BLOCK)
+    blocks = bwd_blocks(N, sm_count(x.device))
     dx = torch.empty_like(x)
-    dg_part = torch.empty((blocks, D), dtype=torch.float32, device=x.device)
-    db_part = torch.empty_like(dg_part)
+    part = torch.empty((blocks, 2, D), dtype=torch.float32, device=x.device)
+    vec = (D * x.element_size() % 16 == 0
+           and all(t.data_ptr() % 16 == 0 for t in (x, dy, dx)))
     _check(_build.lib("layer_norm").jk_layer_norm_bwd(
         x.data_ptr(), g.data_ptr(), mu.data_ptr(), rstd.data_ptr(),
-        dy.data_ptr(), dx.data_ptr(), dg_part.data_ptr(), db_part.data_ptr(),
-        N, D, ROWS_PER_BLOCK, DTYPES[x.dtype], _stream()), "layer_norm_bwd")
+        dy.data_ptr(), dx.data_ptr(), part.data_ptr(), N, D, blocks,
+        int(vec), DTYPES[x.dtype], _stream()), "layer_norm_bwd")
     LAUNCHES["layer_norm_bwd"] += 1
-    return dx, dg_part.sum(dim=0), db_part.sum(dim=0)
+    dgb = part.sum(dim=0)
+    return dx, dgb[0], dgb[1]
 
 
 # ---------------------------------------------------------------------------

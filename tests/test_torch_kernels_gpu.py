@@ -30,11 +30,18 @@ versions keep fp32; lse 1e-5 relative), and each kernel fed a planted fault
 bits on a second call, and are refused with one split pair of their work
 items left out of the merge.
 
+gemv_int8 alone at batch 1, 3, 4 and 16 at the 5b top's products and an
+N % 16 == 8 (chip_smoke.check_gemv_int8): its epilogues, out32, the same
+bits on a second call, and both planted faults (a skipped column tile,
+one K split left out of the combine) refused.
+
 LayerNorm kernels (ops/layer_norm.py) through chip_smoke.check_layer_norm
-at ragged and wide shapes in fp32, bf16 and fp16: y, mu, rstd, dx, dg, db
-held to ops/layer_norm.py `agreement` (elementwise: two steps of the
-output dtype of |plain| plus 1e-4 of the tensor's RMS), and a planted
-fault (the last row skipped) refused by the same check.
+at ragged and wide shapes in fp32, bf16 and fp16 (D 7 and 12288 among
+them): y, mu, rstd, dx, dg, db held to ops/layer_norm.py `agreement`
+(elementwise: two steps of the output dtype of |plain| plus 1e-4 of the
+tensor's RMS), the backward's same bits on a second call, and a planted
+fault (the last row skipped) refused by the same check; the backward also
+on rows at a storage offset (its element path).
 
 The Adam kernel (ops/adam.py) through chip_smoke.check_adam on a few
 tensors of mixed sizes (one with a None gradient), both moment forms,
@@ -57,6 +64,7 @@ import torch
 from jukebox_tpu_torch.ops import decode_stack as ds
 from jukebox_tpu_torch.ops import flash_attention as fa
 from jukebox_tpu_torch.ops import layer_norm as ln
+from jukebox_tpu_torch.ops.core import quantize_dense
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
@@ -218,16 +226,79 @@ def test_flash_kernels_match_plain(hd):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 3, 4, 16])
+def test_gemv_int8_matches_plain(B):
+    """gemv_int8 through chip_smoke.check_gemv_int8 at the 5b_lyrics top's
+    five products and at N 3608 (N % 16 == 8: W's rows read 8 bytes a
+    lane), with their epilogues and out32: 1e-2 x max(1, |plain|), the
+    same bits on a second call (the K splits summed in a fixed order), and
+    both planted faults (the last column tile skipped, one K split left out
+    of the combine) refused; and the res_scale epilogue."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def rnd(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    rep = chip_smoke.KernelReport()
+    for K, N, epi in ((4800, 3600, None), (4800, 1200, None),
+                      (1200, 4800, "residual"), (4800, 4800, "gelu"),
+                      (4800, 4800, "residual"), (4800, 3608, None)):
+        b = rnd(N, scale=0.02)
+        qd = quantize_dense({"w": rnd(K, N, dtype=torch.float32,
+                                      scale=0.02), "b": b})
+        x, res = rnd(B, K), rnd(B, N) if epi == "residual" else None
+        chip_smoke.check_gemv_int8(rep, f"[{B},{K}]x[{K},{N}] {epi}", x,
+                                   qd["w_q"], qd["s"], b, epi, res, "cuda")
+        if epi == "residual":
+            args = (x, qd["w_q"], qd["s"], b, "res_scale", res, rnd(B, N),
+                    1.0 / 79)
+            assert _rel_err(ds.gemv_int8(*args).float().cpu(),
+                            ds.gemv_int8_plain(*args).float().cpu()) <= 1e-2
+    assert rep.rows["gemv_int8"]["max_abs_err"] >= 0.0
+
+
+@pytest.mark.gpu
 def test_layer_norm_kernels_match_plain():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     rows = chip_smoke.check_layer_norm(
         [(1000, 1000, torch.bfloat16), (517, 1920, torch.float32),
          (64, 2048, torch.float16), (3, 12288, torch.bfloat16),
-         (2, 7, torch.float32)],
+         (2, 12288, torch.float32), (64, 4800, torch.bfloat16),
+         (2, 7, torch.float32), (3, 7, torch.bfloat16),
+         (3, 7, torch.float16)],
         "cuda", torch.Generator(device="cuda").manual_seed(2),
         time_it=False)
     assert set(rows) == set(ln.LAUNCHES)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_layer_norm_bwd_at_a_storage_offset(dtype):
+    """layer_norm_bwd on contiguous rows whose data starts one element past
+    a 16-byte boundary (the backward then reads elements, not 16 bytes a
+    lane), at D 2048 and D 4800: dx, dg, db within ops/layer_norm.py
+    `agreement` of the plain version and the same bits on a second
+    call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for N, D in ((300, 2048), (40, 4800)):
+        x, dy = ((torch.randn(N * D + 1, generator=gen, device="cuda")
+                  * 2.0 + 0.5).to(dtype)[1:].view(N, D) for _ in range(2))
+        assert x.is_contiguous() and x.data_ptr() % 16
+        g = 1.0 + 0.1 * torch.randn(D, generator=gen, device="cuda")
+        b = 0.1 * torch.randn(D, generator=gen, device="cuda")
+        _, mu, rstd = ln.layer_norm_fwd(x, g, b)
+        out = ln.layer_norm_bwd(x, g, mu, rstd, dy)
+        ref = ln.layer_norm_bwd_plain(x, g, mu, rstd, dy)
+        assert all(ln.agreement(o, r) <= 1.0 for o, r in zip(out, ref))
+        again = ln.layer_norm_bwd(x, g, mu, rstd, dy)
+        assert all(torch.equal(a, o) for a, o in zip(again, out))
 
 
 @pytest.mark.gpu
