@@ -9,7 +9,11 @@ Phases, each printing timestamped lines:
   2 kernels  every bf16 decode kernel against its plain PyTorch version at
              the shapes of the 1b_lyrics priors (top: S 2048, A 512, 2
              heads; upsamplers: S 1920, A 480, 1 head) and of the 5b_lyrics
-             top (S 4800, A 1200, 8 heads), every attention pattern at
+             top (S 4800, A 1200, 8 heads): gemv_bf16 at every product of
+             a layer, an N % 16 == 8 and a K % 16 == 10 one, at batch 4, 1,
+             3 and 16, every epilogue, out32 and keep, the same bits on a
+             second call, and two planted faults (a skipped column tile,
+             one K split left out of the combine); every attention pattern at
              positions that cross block and prime boundaries, f0 also at
              129 rows and at n_ctx (its rows split over blocks, the slot
              row in the last, ragged split), and at every split position
@@ -30,8 +34,8 @@ Phases, each printing timestamped lines:
   2c ln      the LayerNorm kernels (forward, backward) against their plain
              versions at the top's training rows [6528, 2048] bf16, at
              [6528, 1920] fp32, a ragged [1000, 1000] bf16, the 5b width
-             [1024, 4800] bf16 and [1000, 1001] fp16 (the backward's
-             element path), and a planted fault (the last row skipped); the
+             [1024, 4800] bf16, [1000, 1001] fp16 (the element path) and
+             [2, 12288] fp32, and a planted fault (the last row skipped); the
              backward gives the same bits on a second call; times beside
              the bound, the plain version and F.layer_norm (and its
              autograd backward)
@@ -44,11 +48,9 @@ Phases, each printing timestamped lines:
              cross_attn_decode (f6, bf16 and int8 encoder K/V) against their
              plain versions at the 5b_lyrics top's shapes (S 4800, A 1200,
              8 heads of 150, 512 encoder rows and a ragged 500), the
-             upsamplers' and the 1b top's; gemv_int8 at batch 4, 1, 3 and
-             16, every epilogue, out32, and an N % 16 == 8 of each prior,
-             the same bits on a second call; the res_scale epilogues; a
-             planted fault for each (a skipped column tile and one K split
-             left out of the combine, a dropped head, and wherever the
+             upsamplers' and the 1b top's; gemv_int8 as gemv_bf16 in
+             phase 2; a planted fault for each (a skipped column tile and
+             one K split left out of the combine, a dropped head, and wherever the
              rows split, one split left out of the combine); quantize_dense
              on the card bit for bit against the host; times beside the
              bound, the plain version and one library call (gemv_int8 at
@@ -132,7 +134,7 @@ STEP_TOL = 5e-2              # full-stack logits, relative to max(1, |plain|)
 # upsamplers run 8 of their 72 layers so the whole run stays near 10 minutes
 # (their decode loop is bound by the host's launch rate)
 N_SAMPLES, SAMPLE_LENGTH, UPS_DEPTH, TEMP = 4, 262144, 8, 0.99
-GEMV_BATCHES = (1, 3, 16)    # phase 2e: gemv_int8 also at these batches
+GEMV_BATCHES = (1, 3, 16)    # phases 2, 2e: the GEMVs also at these batches
 # flash kernels against their plain versions: fa.agreement, an elementwise
 # bound of two bf16 steps of |plain| plus AGREE_ATOL of the row's RMS; a
 # planted fault (skip_tile) must break it
@@ -360,11 +362,13 @@ def split_fault_caches(q, caches, lo, hi, A, H):
 
 def check_kernels(shapes, B, last_t, device, gen, time_it=True):
     """Hold every kernel against its plain version at each prior shape in
-    `shapes` ({label: prior_shapes(...)}), the attention at every pattern
-    and at positions crossing block and prime boundaries; time every shape
-    (attention at last_t[label]). Returns KernelReport.rows: the worst
-    error of each kernel and the times of its representative shape (the
-    first label's LayerNorm, qkv GEMV and f0 attention)."""
+    `shapes` ({label: prior_shapes(...)}): gemv_bf16 through check_gemv at
+    every product of gemv_products and at batch B and GEMV_BATCHES, the
+    attention at every pattern and at positions crossing block and prime
+    boundaries; time every shape at batch B (attention at last_t[label]).
+    Returns KernelReport.rows: the worst error of each kernel and the
+    times of its representative shape (the first label's LayerNorm, qkv
+    GEMV and f0 attention)."""
     rep = KernelReport()
     bf = torch.bfloat16
 
@@ -400,24 +404,26 @@ def check_kernels(shapes, B, last_t, device, gen, time_it=True):
               lambda x_: F.layer_norm(x_, (S,), gb, bb, 1e-5),
               sets, [(x_,) for x_, _, _ in sets], 2 * B * S * 2 + 2 * S * 4,
               8 * B * S, "fp32", main)
-        # -- gemv_bf16, the four products of a layer
-        for what, K, N, epi in (("c_attn", S, 3 * A, None),
-                                ("c_proj", A, S, "residual"),
-                                ("mlp.c_fc", S, Sm, "gelu"),
-                                ("mlp.c_proj", Sm, S, "residual")):
-            x, w, b = rnd(B, K), rnd(K, N, scale=0.02), rnd(N, scale=0.02)
+        # -- gemv_bf16, every product of a layer at B and GEMV_BATCHES
+        for what, K, N, epi in gemv_products(sh):
+            w, b = rnd(K, N, scale=0.02), rnd(N, scale=0.02)
+            for Bx in [B] + [n for n in GEMV_BATCHES if n != B]:
+                res = rnd(Bx, N) if epi == "residual" else None
+                check_gemv(rep, "gemv_bf16", f"{label} {what} [{Bx},{K}]x"
+                           f"[{K},{N}]{f' {epi}' if epi else ''}",
+                           rnd(Bx, K), (w,), b, epi, res, device)
+            if "," in what:  # the layout cases are checked, not timed
+                continue
             res = rnd(B, N) if epi == "residual" else None
-            what = f"{label} {what} [{B},{K}]x[{K},{N}]"
-            rep.check("gemv_bf16", ds.gemv_bf16(x, w, b, epi, res),
-                      ds.gemv_bf16_plain(x, w, b, epi, res), what)
             sets = copies(lambda: (rnd(B, K), rnd(K, N, scale=0.02), b, epi,
                                    res), K * N * 2)
             # the library call: the product and bias in one cuBLAS call
-            time3("gemv_bf16", what, ds.gemv_bf16, ds.gemv_bf16_plain,
+            time3("gemv_bf16", f"{label} {what} [{B},{K}]x[{K},{N}]",
+                  ds.gemv_bf16, ds.gemv_bf16_plain,
                   lambda x_, w_, b_: torch.addmm(b_, x_, w_), sets,
                   [a[:3] for a in sets],
                   K * N * 2 + B * K * 2 + N * 2 + B * N * 2 * (2 if res is not None else 1),
-                  2 * B * K * N, "bf16", main and epi is None)
+                  2 * B * K * N, "bf16", main and what == "c_attn")
         # -- ring_attn_decode, every ring pattern of this prior (f6: phase 2e)
         for f in (f for f in sh["funcs"] if f != 6):
             shape = {0: (B, sh["n_ctx"], A), 1: (B, sh["bc"], A),
@@ -478,21 +484,21 @@ def check_kernels(shapes, B, last_t, device, gen, time_it=True):
 def skip_col_tile(w_q):
     """A copy of w_q [K, N] with its last ds.GEMV_COLS columns zeroed: a
     GEMV that skips its last column tile (and, where the last tile is
-    ragged, part of the one before), a planted fault of gemv_int8."""
+    ragged, part of the one before), a planted fault of the GEMVs."""
     w_q = w_q.clone()
     w_q[:, -ds.GEMV_COLS:] = 0
     return w_q
 
 
 def k_split_fault(x, N, device):
-    """The other planted fault of gemv_int8, as inputs: (x with the rows of
+    """The other planted fault of the GEMVs, as inputs: (x with the rows of
     one K split of gemv_split_plan (a middle one) raised, so its share of
     the product shows; the same x with those rows zeroed, of which a kernel
     computes what a kernel that leaves the split out of the combine would
     compute from the first; the split's rows), or None when K runs in one
     split."""
     B, K = x.shape
-    splits, chunk, _, _ = ds.gemv_split_plan(B, K, N, ds.sm_count(device))
+    splits, chunk, _ = ds.gemv_split_plan(K, N, ds.sm_count(device))
     if splits == 1:
         return None
     lo, hi = (splits // 2) * chunk, min((splits // 2 + 1) * chunk, K)
@@ -503,28 +509,56 @@ def k_split_fault(x, N, device):
     return shown, dropped, (lo, hi)
 
 
-def check_gemv_int8(rep, what, x, wq, sc, b, epi, res, device):
-    """gemv_int8 against its plain version on one product: with the
-    epilogue given, with out32 (the fp32 row beside it), the same bits on
-    a second call, and both planted faults refused by the same check (the
-    last column tile skipped; one K split left out of the combine)."""
-    ref = ds.gemv_int8_plain(x, wq, sc, b, epi, res)
-    out = ds.gemv_int8(x, wq, sc, b, epi, res)
-    rep.check("gemv_int8", out, ref, what)
-    if not torch.equal(out, ds.gemv_int8(x, wq, sc, b, epi, res)):
-        raise AssertionError(f"gemv_int8 {what}: a second call gave other "
-                             f"bits")
-    y, y32 = ds.gemv_int8(x, wq, sc, b, epi, res, out32=True)
-    yp, y32p = ds.gemv_int8_plain(x, wq, sc, b, epi, res, out32=True)
-    rep.check("gemv_int8", y, yp, f"{what} out32")
-    rep.check("gemv_int8", y32, y32p, f"{what} out32's fp32 row")
-    refuse("gemv_int8", ds.gemv_int8(x, skip_col_tile(wq), sc, b, epi, res),
-           ref, f"{what} last column tile skipped")
-    cut = k_split_fault(x, wq.shape[1], device)
+def gemv_products(sh):
+    """(what, K, N, epilogue) of every GEMV of a decode layer of a prior
+    (prior_shapes), then two layout cases of its c_attn: N % 16 == 8 (a
+    lane's last 8 columns past N; int8 rows 8-byte aligned) and a K that
+    is neither a multiple of 16 nor of 4 (x read element by element)."""
+    S, A, Sm = sh["S"], sh["A"], sh["Sm"]
+    out = [("c_attn", S, 3 * A, None), ("c_proj", A, S, "residual"),
+           ("mlp.c_fc", S, Sm, "gelu"), ("mlp.c_proj", Sm, S, "residual"),
+           ("c_attn, N % 16 = 8", S, 3 * A // 16 * 16 + 8, None),
+           ("c_attn, K % 16 = 10", S // 16 * 16 - 6, 3 * A, None)]
+    if sh["enc"]:
+        out.insert(1, ("f6 c_attn (q)", S, A, None))
+    return out
+
+
+def check_gemv(rep, name, what, x, wts, b, epi, res, device):
+    """A GEMV (name "gemv_bf16" with wts (w,), "gemv_int8" with (w_q, s))
+    against its plain version on one product: with the epilogue given, the
+    same bits on a second call, out32 (the fp32 row beside it); after a
+    residual product also keep (the product kept beside the sum) and the
+    res_scale residual; and both planted faults refused by the same check
+    (the last column tile skipped; one K split left out of the
+    combine)."""
+    fn, plain = getattr(ds, name), getattr(ds, f"{name}_plain")
+    ref = plain(x, *wts, b, epi, res)
+    out = fn(x, *wts, b, epi, res)
+    rep.check(name, out, ref, what)
+    if not torch.equal(out, fn(x, *wts, b, epi, res)):
+        raise AssertionError(f"{name} {what}: a second call gave other bits")
+    y, y32 = fn(x, *wts, b, epi, res, out32=True)
+    yp, y32p = plain(x, *wts, b, epi, res, out32=True)
+    rep.check(name, y, yp, f"{what} out32")
+    rep.check(name, y32, y32p, f"{what} out32's fp32 row")
+    if epi == "residual":
+        # x + (a + m) * rs with res = x, res2 = a; and the kept product
+        res2, rs = res.roll(1, dims=1), 1.0 / 79
+        rep.check(name, fn(x, *wts, b, "res_scale", res, res2, rs),
+                  plain(x, *wts, b, "res_scale", res, res2, rs),
+                  f"{what} res_scale")
+        yk, ak = fn(x, *wts, b, "residual", res, keep=True)
+        yp, ap = plain(x, *wts, b, "residual", res, keep=True)
+        rep.check(name, yk, yp, f"{what} residual+kept")
+        rep.check(name, ak, ap, f"{what} kept product")
+    refuse(name, fn(x, skip_col_tile(wts[0]), *wts[1:], b, epi, res), ref,
+           f"{what} last column tile skipped")
+    cut = k_split_fault(x, wts[0].shape[1], device)
     if cut is not None:
         shown, dropped, (lo, hi) = cut
-        refuse("gemv_int8", ds.gemv_int8(dropped, wq, sc, b, epi, res),
-               ds.gemv_int8_plain(shown, wq, sc, b, epi, res),
+        refuse(name, fn(dropped, *wts, b, epi, res),
+               plain(shown, *wts, b, epi, res),
                f"{what} K split {lo}:{hi} left out")
 
 
@@ -565,9 +599,10 @@ def check_int8_kernels(shapes, B, last_t, device, gen, time_it=True):
     encoder K/V) against their plain versions at each prior shape in
     `shapes` (the first label's shapes are the representative ones), every
     ring pattern at positions crossing block boundaries, with the slot
-    rows and scales each writes equal; the res_scale epilogues of both
-    GEMVs; a planted fault for each kernel (a skipped column tile, a
-    dropped head) that the same check must refuse; quantize_dense on the
+    rows and scales each writes equal; gemv_int8 through check_gemv at
+    every product of gemv_products and batch; a planted fault for each
+    kernel (a skipped column tile and a K split left out, a dropped head)
+    that the same check must refuse; quantize_dense on the
     card bit-exact against the host. Times beside the bound, the plain
     version and one library call (addmm on the dequantised weight; SDPA
     on the dequantised rows or the encoder rows). Returns {name: row}."""
@@ -605,56 +640,32 @@ def check_int8_kernels(shapes, B, last_t, device, gen, time_it=True):
     for label, sh in shapes.items():
         S, A, H, Sm = sh["S"], sh["A"], sh["H"], sh["Sm"]
         main = label == next(iter(shapes))
-        products = [("c_attn", S, 3 * A, None), ("c_proj", A, S, "residual"),
-                    ("mlp.c_fc", S, Sm, "gelu"),
-                    ("mlp.c_proj", Sm, S, "residual"),
-                    # N % 16 == 8: W's rows read 8 bytes a lane
-                    ("c_attn, N % 16 = 8", S, 3 * A // 16 * 16 + 8, None)]
-        if sh["enc"]:
-            products.insert(1, ("f6 c_attn (q)", S, A, None))
         # -- gemv_int8, at B and at other batch sizes, every epilogue
-        for what, K, N, epi in products:
+        for what, K, N, epi in gemv_products(sh):
             w = rnd(K, N, dtype=torch.float32, scale=0.02)
             b = rnd(N, scale=0.02)
             qd = quantize_dense({"w": w, "b": b})
             wq, sc = qd["w_q"], qd["s"]
-            product = what
             for Bx in [B] + [n for n in GEMV_BATCHES if n != B]:
                 res = rnd(Bx, N) if epi == "residual" else None
-                check_gemv_int8(rep, f"{label} {product} [{Bx},{K}]x[{K},{N}]"
-                                f"{f' {epi}' if epi else ''}", rnd(Bx, K), wq,
-                                sc, b, epi, res, device)
-            x = rnd(B, K)
-            res = rnd(B, N) if epi == "residual" else None
-            what = f"{label} {what} [{B},{K}]x[{K},{N}]"
-            if epi == "residual":
-                # the res_scale residual x + (a + m) * rs, and the kept a
-                a2, rs = rnd(B, N), 1.0 / 79
-                for name, fn, fp, wts in (
-                        ("gemv_int8", ds.gemv_int8, ds.gemv_int8_plain,
-                         (wq, sc)),
-                        ("gemv_bf16", ds.gemv_bf16, ds.gemv_bf16_plain,
-                         (w.to(bf),))):
-                    rep.check(name, fn(x, *wts, b, "res_scale", res, a2, rs),
-                              fp(x, *wts, b, "res_scale", res, a2, rs),
-                              f"{what} res_scale")
-                    yk, ak = fn(x, *wts, b, "residual", res, keep=True)
-                    yp, ap = fp(x, *wts, b, "residual", res, keep=True)
-                    rep.check(name, yk, yp, f"{what} residual+kept")
-                    rep.check(name, ak, ap, f"{what} kept product")
-            if not (time_it and main) or "%" in product:
+                check_gemv(rep, "gemv_int8", f"{label} {what} [{Bx},{K}]x"
+                           f"[{K},{N}]{f' {epi}' if epi else ''}", rnd(Bx, K),
+                           (wq, sc), b, epi, res, device)
+            if not (time_it and main) or "," in what:
                 continue
+            res = rnd(B, N) if epi == "residual" else None
             sets = copies(lambda: (rnd(B, K), quantize_dense(
                 {"w": rnd(K, N, dtype=torch.float32, scale=0.02),
                  "b": b})["w_q"], sc, b, epi, res), K * N)
             # the library call on the same inputs: each set's weight
             # dequantised to bf16, so it too streams a weight per call
-            time3("gemv_int8", what, ds.gemv_int8, ds.gemv_int8_plain,
+            time3("gemv_int8", f"{label} {what} [{B},{K}]x[{K},{N}]",
+                  ds.gemv_int8, ds.gemv_int8_plain,
                   lambda x_, w_, b_: torch.addmm(b_, x_, w_), sets,
                   [(a[0], (a[1].float() * sc).to(bf), b) for a in sets],
                   K * N + N * 4 + B * K * 2 + N * 2
                   + B * N * 2 * (2 if res is not None else 1),
-                  2 * B * K * N, product == "c_attn", timed=True)
+                  2 * B * K * N, what == "c_attn", timed=True)
         # -- ring_attn_int8, every ring pattern of this prior
         for f in (f for f in sh["funcs"] if f != 6):
             shape = {0: (B, sh["n_ctx"], A), 1: (B, sh["bc"], A),
@@ -1930,11 +1941,12 @@ def run_5b_lyrics(seed, device, gen):
 
 # LayerNorm shapes of phase 2c: the top prior's training rows (n_ctx 6144
 # + 384 lyric tokens) in the training dtype, the upsamplers' width, a
-# ragged shape, the 5b priors' width, and a width whose rows the backward
-# reads element by element (1001 fp16: 2002 bytes)
+# ragged shape, the 5b priors' width, a width whose rows the kernels read
+# element by element (1001 fp16: 2002 bytes), and the widest row in fp32
+# (four 16-byte vectors a thread)
 LN_SHAPES = [(6528, 2048, torch.bfloat16), (6528, 1920, torch.float32),
              (1000, 1000, torch.bfloat16), (1024, 4800, torch.bfloat16),
-             (1000, 1001, torch.float16)]
+             (1000, 1001, torch.float16), (2, 12288, torch.float32)]
 SOURCES = {"decode_stack": ds, "flash_attention": fa, "layer_norm": ln,
            "adam": ad}
 REPLACES = dict(

@@ -39,17 +39,16 @@
 // What bounds them on an H100: a decode step at batch <= 16 does ~2 flops
 // per weight byte (~4 in int8), far below the ~295 flop/byte ridge, so the
 // GEMVs are bound by streaming W from HBM (one read of every weight per
-// token step; int8 halves the bytes). gemv_bf16: each block owns 16
-// columns of N (a row of the slice is one 32-byte sector), every thread
-// streams 8 weights per load, x stays in shared memory as bf16, and the K
-// split inside the block is reduced with warp shuffles and one
-// shared-memory pass. gemv_int8 also splits K over blocks (the host's
-// ops/decode_stack.py gemv_split_plan: about four blocks per SM at every
-// product shape), reads 16 weights a lane per load with eight loads in
-// flight, turns them into bf16 with byte permutes and masks (no
-// conversion instruction per weight), multiplies on the tensor cores
-// (mma.sync), and the last block of each column tile sums the splits in
-// the same launch. The attention kernels are bound
+// token step; int8 halves the bytes). Both GEMVs are one kernel template
+// (gemv_kernel), its weight loader the parameter: K is split over the
+// blocks of a thread block cluster (the host's ops/decode_stack.py
+// gemv_split_plan: one wave, at most 8 splits), every lane keeps eight
+// loads of 16 bytes of W in flight and reads x from L2 (no staging copy),
+// the weights become bf16 mma fragments by byte permutes (int8: and masks;
+// no conversion instruction per weight), the tensor cores multiply
+// (mma.sync), and the splits' partials are summed through the cluster's
+// distributed shared memory in the same launch. The attention kernels are
+// bound
 // by the cache rows they read (the f0 dense layer reads t+1 rows, f6 the
 // 512 encoder rows: 19.9 MB at the 1b top's last f0 position, 5.95 us at
 // 3.35 TB/s). With one block per (batch row, head) that is 8 blocks on 132
@@ -72,6 +71,7 @@
 // (jukebox_tpu_torch/ops/decode_stack.py) check shapes, types and layout,
 // allocate outputs, and raise on a non-zero return.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -159,164 +159,96 @@ ln_rows_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ g,
 }
 
 // ---------------------------------------------------------------------------
-// The GEMV epilogue of one output element at = b * N + n, from s, the fp32
-// product (scaled) plus bias. y32, when given, receives s itself: the
+// The GEMV epilogue of the four outputs at .. at + 3 (at = b * N + n, n a
+// multiple of 4), from s, the fp32 products (scaled) plus bias, and r, r2
+// the bf16 residuals there. y32, when given, receives s itself: the
 // attention reads q from it, and the int8 cache mode quantises the new k, v
-// rows from it. EPI: 0 none, 1 quick_gelu, 2 residual (out = res + bf16(y);
-// aux, when given, also receives bf16(y)), 3 res_scale (out = res +
-// bf16(bf16(res2 + bf16(y)) * bf16(rs)), the bf16 roundings of x + (a + m)
+// rows from it. EPI: 0 none, 1 quick_gelu, 2 residual (out = r + bf16(s);
+// aux, when given, also receives bf16(s)), 3 res_scale (out = r +
+// bf16(bf16(r2 + bf16(s)) * bf16(rs)), the bf16 roundings of x + (a + m)
 // * res_scale).
 // ---------------------------------------------------------------------------
 template <int EPI>
-__device__ __forceinline__ void gemv_store(
-    float s, size_t at, const __nv_bfloat16* __restrict__ res,
-    const __nv_bfloat16* __restrict__ res2, __nv_bfloat16* __restrict__ aux,
-    float* __restrict__ y32, __nv_bfloat16* __restrict__ y, float rs) {
-  if (y32 != nullptr) y32[at] = s;
-  float out;
-  if (EPI == 1) {
-    out = s / (1.0f + expf(-1.702f * s));
-  } else if (EPI == 2) {
-    if (aux != nullptr) aux[at] = __float2bfloat16(s);
-    out = __bfloat162float(res[at]) + bf16_round(s);
-  } else if (EPI == 3) {
-    const float am = bf16_round(__bfloat162float(res2[at]) + bf16_round(s));
-    out = __bfloat162float(res[at]) + bf16_round(am * bf16_round(rs));
-  } else {
-    out = s;
+__device__ __forceinline__ void gemv_store4(const float (&s)[4], size_t at,
+                                            uint2 r, uint2 r2,
+                                            __nv_bfloat16* __restrict__ aux,
+                                            float* __restrict__ y32,
+                                            __nv_bfloat16* __restrict__ y,
+                                            float rs) {
+  if (y32 != nullptr)
+    *reinterpret_cast<float4*>(y32 + at) = make_float4(s[0], s[1], s[2], s[3]);
+  const __nv_bfloat16* rv = reinterpret_cast<const __nv_bfloat16*>(&r);
+  const __nv_bfloat16* r2v = reinterpret_cast<const __nv_bfloat16*>(&r2);
+  __align__(8) __nv_bfloat16 out[4], kept[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    float o = s[e];
+    if (EPI == 1) {
+      o = s[e] / (1.0f + expf(-1.702f * s[e]));
+    } else if (EPI == 2) {
+      kept[e] = __float2bfloat16(s[e]);
+      o = __bfloat162float(rv[e]) + bf16_round(s[e]);
+    } else if (EPI == 3) {
+      const float am = bf16_round(__bfloat162float(r2v[e]) + bf16_round(s[e]));
+      o = __bfloat162float(rv[e]) + bf16_round(am * bf16_round(rs));
+    }
+    out[e] = __float2bfloat16(o);
   }
-  y[at] = __float2bfloat16(out);
+  if (EPI == 2 && aux != nullptr)
+    *reinterpret_cast<uint2*>(aux + at) = *reinterpret_cast<const uint2*>(kept);
+  *reinterpret_cast<uint2*>(y + at) = *reinterpret_cast<const uint2*>(out);
 }
 
 // ---------------------------------------------------------------------------
-// gemv_bf16: block = 256 threads over a slice of kBf16Cols = 16 columns of
-// N. Thread (tx = tid % 2, ky = tid / 2) accumulates columns n0 + tx*8 ..
-// +7 over the rows k = ky, ky + 128, ... of W, 8 weights (16 bytes) per
-// load. BT is the batch bucket (>= B).
-// ---------------------------------------------------------------------------
-constexpr int kBf16TPR = 2;
-constexpr int kBf16Cols = 8 * kBf16TPR;
-
-template <int BT, int EPI>
-__global__ void __launch_bounds__(kThreads)
-gemv_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                 const __nv_bfloat16* __restrict__ W,
-                 const __nv_bfloat16* __restrict__ bias,
-                 const __nv_bfloat16* __restrict__ res,
-                 const __nv_bfloat16* __restrict__ res2,
-                 __nv_bfloat16* __restrict__ aux, float* __restrict__ y32,
-                 __nv_bfloat16* __restrict__ y, int B, int K, int N,
-                 float rs) {
-  constexpr int TPR = kBf16TPR;
-  constexpr int COLS = kBf16Cols;
-  constexpr int ROWS = kThreads / TPR;
-  extern __shared__ __nv_bfloat16 xs[];  // [B][K]
-  __shared__ float red[kWarps][BT][COLS];
-  for (int i = threadIdx.x; i < B * K; i += kThreads) xs[i] = x[i];
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int tx = threadIdx.x % TPR, ky = threadIdx.x / TPR;
-  const int n0 = blockIdx.x * COLS + tx * 8;
-
-  float acc[BT][8];
-#pragma unroll
-  for (int bb = 0; bb < BT; ++bb)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[bb][j] = 0.0f;
-
-  if (n0 < N) {
-#pragma unroll 4
-    for (int k = ky; k < K; k += ROWS) {
-      float wf[8];
-      const uint4 raw = *reinterpret_cast<const uint4*>(W + (size_t)k * N + n0);
-      const __nv_bfloat162* w2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 f = __bfloat1622float2(w2[j]);
-        wf[2 * j] = f.x;
-        wf[2 * j + 1] = f.y;
-      }
-#pragma unroll
-      for (int bb = 0; bb < BT; ++bb) {
-        if (bb < B) {
-          const float xv = __bfloat162float(xs[bb * K + k]);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[bb][j] = fmaf(xv, wf[j], acc[bb][j]);
-        }
-      }
-    }
-  }
-
-  // sum the row groups of each warp that share tx (lane bits above TPR)
-#pragma unroll
-  for (int bb = 0; bb < BT; ++bb)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float v = acc[bb][j];
-#pragma unroll
-      for (int o = TPR; o < 32; o <<= 1)
-        v += __shfl_xor_sync(0xffffffffu, v, o);
-      acc[bb][j] = v;
-    }
-  if (lane < TPR) {
-#pragma unroll
-    for (int bb = 0; bb < BT; ++bb)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) red[warp][bb][lane * 8 + j] = acc[bb][j];
-  }
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < B * COLS; i += kThreads) {
-    const int bb = i / COLS, c = i % COLS;
-    const int n = blockIdx.x * COLS + c;
-    if (n >= N) continue;
-    float s = 0.0f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += red[w][bb][c];
-    s += __bfloat162float(bias[n]);
-    gemv_store<EPI>(s, (size_t)bb * N + n, res, res2, aux, y32, y, rs);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// gemv_int8: W int8 [K, N] with fp32 column scales s; grid (N / 128 column
-// tiles, splits of K), 4 warps a block. Split z of a tile owns the rows
-// z * chunk .. + chunk - 1 (the last ragged; chunk a multiple of 16), and
-// warp w of its block the 16-row steps w, w + 4, ... of them, two steps
-// (B > 8: one) loaded before either is multiplied, so every lane keeps 8
-// loads of 16 bytes in flight (16 when N % 16 != 0: W's rows are then
-// 8-byte aligned only, and each 16-byte piece is two 8-byte loads).
+// The GEMV, one kernel template for both weight types: WL is the weight
+// loader (I8Weights: int8 W with fp32 column scales s, applied after the
+// accumulation; Bf16Weights: bf16 W), which loads a lane's weights and
+// turns them into mma fragments; the split plan, the products, the
+// combine and the epilogue are shared. Grid (N / 128 column tiles, splits
+// of K), 8 warps a block, and the splits of a tile are one thread block
+// cluster (at most 16 blocks). Split z of a tile owns the rows z * chunk
+// .. + chunk - 1 (the last ragged; chunk a multiple of 16), and warp w of
+// its block the 16-row steps w, w + 8, ... of them, U steps loaded before
+// any is multiplied: one (a lane's 4 rows of 16 columns: 128 bytes of bf16
+// in two 16-byte loads a row, 64 of int8), or two where nearly every warp
+// has two (B <= 8), so all of a small product's loads are in flight at
+// once. The
+// host's plan (ops/decode_stack.py gemv_split_plan) keeps the grid in one
+// wave and every tile's cluster at most 8 blocks.
 //
 // Each step is one mma.sync m16n8k16 (bf16 in, fp32 accumulate) per pair
 // of columns with W^T as the A operand and x^T as B: lane (g = lane / 4,
 // q = lane % 4) loads its 16 columns col .. col + 15 (col = tile * 128 +
-// 16 g) of the rows k + 4q .. k + 4q + 3 and x[g][k + 4q .. + 3] (8 bytes).
-// The mma's k index 2q, 2q + 1, 2q + 8, 2q + 9 stands for row k + 4q +
-// 0..3 in both operands (a sum over k does not depend on its order), and
-// its m index g (g + 8) for column col + 2j (+ 1) of the j-th mma, so every
-// register holds whole loads and no value crosses lanes. The batch rows
-// are the mma's n side (8, or two mmas for B > 8); lane (g, q) ends with
-// columns col + 0..15 of batch rows 2q, 2q + 1.
+// 16 g) of the rows k + 4q .. k + 4q + 3 and x[g][k + 4q .. + 3] (8 bytes,
+// from L2: no staging copy; a LayerNorm prologue would normalise these
+// pieces of x as they are loaded). The mma's k index 2q, 2q + 1, 2q + 8,
+// 2q + 9 stands for row k + 4q + 0..3 in both operands (a sum over k does
+// not depend on its order), and its m index g (g + 8) for column col + 2j
+// (+ 1) of the j-th mma, so every register holds whole loads and no value
+// crosses lanes. The batch rows are the mma's n side (8, or two mmas for
+// B > 8); lane (g, q) ends with columns col + 0..15 of batch rows 2q,
+// 2q + 1.
 //
-// No conversion instruction per weight (i8_pair): a byte permute puts two
-// int8 bytes v into two bf16 words 0x43vv, and the two masks 0x4300 |
-// (v & 0x7f) = 128 + (v & 127) and 0x4300 | (v & 0x80) = 128 or 256 differ
-// by v exactly (int8 values are exact in bf16): four instructions for two
-// weights.
-//
-// The 4 warps' sums meet in shared memory; with splits > 1 each block
-// writes its [B, 128] fp32 partial to ws [splits, B, N], and the last block
-// of the tile to arrive (atomicAdd on counters[tile] after __threadfence)
-// sums the splits in order z = 0, 1, ... (16 bytes a thread, 16 splits in
-// flight), applies s, bias and the epilogue, and resets the counter: no
-// fp32 atomics, so two launches on the same inputs give the same bits.
+// The combine never leaves the SMs: the 8 warps' sums meet in shared
+// memory, each block sums them (warps in order) into its partial of every
+// 4-column quad of [B, 128] and writes it straight into the shared memory
+// of the quad's owner (rank quad % splits) through distributed shared
+// memory; one cluster barrier later, each owner sums the splits' partials
+// in rank order and applies s, bias and the epilogue (their operands
+// loaded before the products). No workspace, fence,
+// counter or fp32 atomic: two launches on the same inputs give the same
+// bits. (The earlier combine through a global workspace and the tile's
+// last block, and reading the partials after the barrier, which needs a
+// second one, are in scripts/chip_gemv_variants.cu with their times.)
 // ---------------------------------------------------------------------------
-constexpr int kI8Cols = 128;
-constexpr int kI8Warps = 4;
-constexpr int kI8Threads = 32 * kI8Warps;
-constexpr int kI8Step = 16;
-constexpr int kI8RedPitch = kI8Cols + 4;
+constexpr int kGemvCols = 128;
+constexpr int kGemvWarps = 8;
+constexpr int kGemvThreads = 32 * kGemvWarps;
+constexpr int kGemvStep = 16;
+constexpr int kGemvRedPitch = kGemvCols + 4;
+constexpr int kGemvMaxSplits = 16;  // a cluster's blocks (above 8: opt-in)
+// recv's float4s: splits * ceil(quads / splits) for quads <= 16 * 32
+constexpr int kGemvRecv = 16 * (kGemvCols / 4) + kGemvMaxSplits;
 
 // The bf16 pair {v(a, sa), v(b, sb)} of int8 byte sa of a and byte sb of b
 template <int SA, int SB>
@@ -330,6 +262,89 @@ __device__ __forceinline__ uint32_t i8_pair(uint32_t a, uint32_t b) {
   return *reinterpret_cast<const uint32_t*>(&d);
 }
 
+// int8 W: a lane's 16 columns of a row are 16 bytes, one load (V16), else
+// two of 8 bytes (N % 16 != 0: W's rows are 8-byte aligned only). No
+// conversion instruction per weight (i8_pair): a byte permute puts two int8
+// bytes v into two bf16 words 0x43vv, and the two masks 0x4300 | (v & 0x7f)
+// = 128 + (v & 127) and 0x4300 | (v & 0x80) = 128 or 256 differ by v
+// exactly (int8 values are exact in bf16): four instructions for two
+// weights.
+struct I8Weights {
+  using T = int8_t;
+  static constexpr bool kScaled = true;
+  static constexpr int kWords = 4;  // 32-bit words of a row's 16 columns
+
+  template <bool V16>
+  static __device__ __forceinline__ void load(const int8_t* p, bool hi_ok,
+                                              uint32_t (&w)[kWords]) {
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (V16) {
+      v = __ldg(reinterpret_cast<const uint4*>(p));
+    } else {
+      const uint2 lo = __ldg(reinterpret_cast<const uint2*>(p));
+      v.x = lo.x;
+      v.y = lo.y;
+      if (hi_ok) {
+        const uint2 hi = __ldg(reinterpret_cast<const uint2*>(p + 8));
+        v.z = hi.x;
+        v.w = hi.y;
+      }
+    }
+    w[0] = v.x;
+    w[1] = v.y;
+    w[2] = v.z;
+    w[3] = v.w;
+  }
+
+  // The A fragment of columns 2j, 2j + 1 of the lane's 16 from the words
+  // w[r] of its rows k + 4q + r
+  template <int J>
+  static __device__ __forceinline__ void frag(const uint32_t (&w)[4][kWords],
+                                              uint32_t (&a)[4]) {
+    constexpr int WD = J >> 1, S = 2 * (J & 1);
+    a[0] = i8_pair<S, S>(w[0][WD], w[1][WD]);
+    a[1] = i8_pair<S + 1, S + 1>(w[0][WD], w[1][WD]);
+    a[2] = i8_pair<S, S>(w[2][WD], w[3][WD]);
+    a[3] = i8_pair<S + 1, S + 1>(w[2][WD], w[3][WD]);
+  }
+};
+
+// bf16 W: a lane's 16 columns of a row are two loads of 16 bytes (the
+// second left out where col + 8 >= N, N % 16 == 8); one byte permute
+// pairs two rows' bf16 values of a column, one instruction for two weights.
+struct Bf16Weights {
+  using T = __nv_bfloat16;
+  static constexpr bool kScaled = false;
+  static constexpr int kWords = 8;
+
+  template <bool V16>
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              bool hi_ok,
+                                              uint32_t (&w)[kWords]) {
+    const uint4 lo = __ldg(reinterpret_cast<const uint4*>(p));
+    const uint4 hi = V16 || hi_ok
+                         ? __ldg(reinterpret_cast<const uint4*>(p + 8))
+                         : make_uint4(0u, 0u, 0u, 0u);
+    w[0] = lo.x;
+    w[1] = lo.y;
+    w[2] = lo.z;
+    w[3] = lo.w;
+    w[4] = hi.x;
+    w[5] = hi.y;
+    w[6] = hi.z;
+    w[7] = hi.w;
+  }
+
+  template <int J>
+  static __device__ __forceinline__ void frag(const uint32_t (&w)[4][kWords],
+                                              uint32_t (&a)[4]) {
+    a[0] = __byte_perm(w[0][J], w[1][J], 0x5410);
+    a[1] = __byte_perm(w[0][J], w[1][J], 0x7632);
+    a[2] = __byte_perm(w[2][J], w[3][J], 0x5410);
+    a[3] = __byte_perm(w[2][J], w[3][J], 0x7632);
+  }
+};
+
 __device__ __forceinline__ void mma_bf16_16816(float (&c)[4],
                                                const uint32_t (&a)[4],
                                                uint32_t b0, uint32_t b1) {
@@ -340,46 +355,70 @@ __device__ __forceinline__ void mma_bf16_16816(float (&c)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The j-th mma of a step: columns 2j, 2j + 1 of the lane's 16 (word J / 2
-// of its rows' 16-byte loads w[r])
-template <int J, int NB>
-__device__ __forceinline__ void i8_mma(float (&acc)[NB][8][4],
-                                       const uint32_t (&w)[4][4],
-                                       const uint32_t (&xb)[NB][2]) {
-  constexpr int WD = J >> 1, S = 2 * (J & 1);
-  const uint32_t a[4] = {i8_pair<S, S>(w[0][WD], w[1][WD]),
-                         i8_pair<S + 1, S + 1>(w[0][WD], w[1][WD]),
-                         i8_pair<S, S>(w[2][WD], w[3][WD]),
-                         i8_pair<S + 1, S + 1>(w[2][WD], w[3][WD])};
+// The j-th mma of a step: columns 2j, 2j + 1 of the lane's 16
+template <class WL, int J, int NB>
+__device__ __forceinline__ void gemv_mma(float (&acc)[NB][8][4],
+                                         const uint32_t (&w)[4][WL::kWords],
+                                         const uint32_t (&xb)[NB][2]) {
+  uint32_t a[4];
+  WL::template frag<J>(w, a);
 #pragma unroll
   for (int nb = 0; nb < NB; ++nb)
     mma_bf16_16816(acc[nb][J], a, xb[nb][0], xb[nb][1]);
 }
 
-template <int BT, int EPI, bool V16>
-__global__ void __launch_bounds__(kI8Threads, 4)
-gemv_int8_kernel(const __nv_bfloat16* __restrict__ x,
-                 const int8_t* __restrict__ W,
-                 const float* __restrict__ scale,
-                 const __nv_bfloat16* __restrict__ bias,
-                 const __nv_bfloat16* __restrict__ res,
-                 const __nv_bfloat16* __restrict__ res2,
-                 __nv_bfloat16* __restrict__ aux, float* __restrict__ y32,
-                 __nv_bfloat16* __restrict__ y, float* __restrict__ ws,
-                 int* __restrict__ counters, int B, int K, int N, int chunk,
-                 float rs) {
-  constexpr int NB = BT / 8;          // mmas per column pair (8 batch rows)
-  constexpr int U = NB == 1 ? 2 : 1;  // steps in flight per warp
-  constexpr int STRIDE = kI8Warps * kI8Step;
-  __shared__ __align__(16) float red[kI8Warps * BT * kI8RedPitch];
-  __shared__ int is_last;
+template <class WL, int BT, int EPI, bool V16, int U>
+__global__ void __launch_bounds__(kGemvThreads, 2)
+gemv_kernel(const __nv_bfloat16* __restrict__ x,
+            const typename WL::T* __restrict__ W,
+            const float* __restrict__ scale,
+            const __nv_bfloat16* __restrict__ bias,
+            const __nv_bfloat16* __restrict__ res,
+            const __nv_bfloat16* __restrict__ res2,
+            __nv_bfloat16* __restrict__ aux, float* __restrict__ y32,
+            __nv_bfloat16* __restrict__ y, int B, int K, int N, int chunk,
+            float rs) {
+  namespace cg = cooperative_groups;
+  constexpr int NB = BT / 8;  // mmas per column pair (8 batch rows)
+  constexpr int STRIDE = kGemvWarps * kGemvStep;
+  extern __shared__ __align__(16) float red[];  // [warp][b][kGemvRedPitch]
+  __shared__ float4 recv[kGemvRecv];  // [sender rank][quad / splits]
+  // the first barrier phase, awaited before any block writes into
+  // another's shared memory: every block of the cluster has started
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), splits = gridDim.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, q = lane & 3;
-  const int tile = blockIdx.x, splits = gridDim.y;
-  const int c0 = tile * kI8Cols, col = c0 + 16 * g;
-  const int k_lo = blockIdx.y * chunk, k_hi = min(K, k_lo + chunk);
+  const int c0 = blockIdx.x * kGemvCols, col = c0 + 16 * g;
+  const int k_lo = rank * chunk, k_hi = min(K, k_lo + chunk);
   const bool col_ok = col < N, hi_ok = V16 || col + 8 < N;
   const bool x_vec = (K & 3) == 0;  // x[b][k + 4q ..] 8-byte aligned
+  // 4 columns a quad, quad i = b * 32 + c / 4: owned by rank i % splits,
+  // whose thread j = i / splits sums it (m of them a rank)
+  const int cols = min(kGemvCols, N - c0);
+  const int quads = B * (kGemvCols / 4);
+  const int m = (quads + splits - 1) / splits;
+  // the bias, int8 scales and residuals of this thread's first owned quad,
+  // loaded before the products so the epilogue does not wait for them
+  const int own = rank + splits * threadIdx.x;
+  uint2 own_b, own_r, own_r2;
+  float4 own_s;
+  auto quad_in = [&](int i, uint2& bi, float4& sc, uint2& r, uint2& r2) {
+    const int n = c0 + (i % (kGemvCols / 4)) * 4;
+    const size_t at = (size_t)(i / (kGemvCols / 4)) * N + n;
+    bi = r = r2 = make_uint2(0u, 0u);
+    sc = make_float4(1.0f, 1.0f, 1.0f, 1.0f);
+    if (i >= quads || n >= N) return;
+    bi = __ldg(reinterpret_cast<const uint2*>(bias + n));
+    if constexpr (WL::kScaled)
+      sc = __ldg(reinterpret_cast<const float4*>(scale + n));
+    if constexpr (EPI == 2 || EPI == 3)
+      r = __ldg(reinterpret_cast<const uint2*>(res + at));
+    if constexpr (EPI == 3)
+      r2 = __ldg(reinterpret_cast<const uint2*>(res2 + at));
+  };
+  quad_in(own, own_b, own_s, own_r, own_r2);
 
   float acc[NB][8][4];
 #pragma unroll
@@ -389,34 +428,21 @@ gemv_int8_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[nb][j][e] = 0.0f;
 
-  for (int k0 = k_lo + kI8Step * warp; k0 < k_hi; k0 += U * STRIDE) {
-    uint32_t w[U][4][4];    // [step][row k + 4q + r][4 bytes]
-    uint32_t xb[U][NB][2];  // x[b][k + 4q .. + 3] as two bf16 pairs
+  for (int k0 = k_lo + kGemvStep * warp; k0 < k_hi; k0 += U * STRIDE) {
+    uint32_t w[U][4][WL::kWords];  // [step][row k + 4q + r][word]
+    uint32_t xb[U][NB][2];         // x[b][k + 4q .. + 3] as two bf16 pairs
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int k = k0 + u * STRIDE + 4 * q;
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
         if (col_ok && k + r < k_hi) {
-          const int8_t* p = W + (size_t)(k + r) * N + col;
-          if (V16) {
-            v = __ldg(reinterpret_cast<const uint4*>(p));
-          } else {
-            const uint2 lo = __ldg(reinterpret_cast<const uint2*>(p));
-            v.x = lo.x;
-            v.y = lo.y;
-            if (hi_ok) {
-              const uint2 hi = __ldg(reinterpret_cast<const uint2*>(p + 8));
-              v.z = hi.x;
-              v.w = hi.y;
-            }
-          }
+          WL::template load<V16>(W + (size_t)(k + r) * N + col, hi_ok,
+                                 w[u][r]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < WL::kWords; ++i) w[u][r][i] = 0u;
         }
-        w[u][r][0] = v.x;
-        w[u][r][1] = v.y;
-        w[u][r][2] = v.z;
-        w[u][r][3] = v.w;
       }
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb) {
@@ -441,14 +467,14 @@ gemv_int8_kernel(const __nv_bfloat16* __restrict__ x,
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      i8_mma<0>(acc, w[u], xb[u]);
-      i8_mma<1>(acc, w[u], xb[u]);
-      i8_mma<2>(acc, w[u], xb[u]);
-      i8_mma<3>(acc, w[u], xb[u]);
-      i8_mma<4>(acc, w[u], xb[u]);
-      i8_mma<5>(acc, w[u], xb[u]);
-      i8_mma<6>(acc, w[u], xb[u]);
-      i8_mma<7>(acc, w[u], xb[u]);
+      gemv_mma<WL, 0>(acc, w[u], xb[u]);
+      gemv_mma<WL, 1>(acc, w[u], xb[u]);
+      gemv_mma<WL, 2>(acc, w[u], xb[u]);
+      gemv_mma<WL, 3>(acc, w[u], xb[u]);
+      gemv_mma<WL, 4>(acc, w[u], xb[u]);
+      gemv_mma<WL, 5>(acc, w[u], xb[u]);
+      gemv_mma<WL, 6>(acc, w[u], xb[u]);
+      gemv_mma<WL, 7>(acc, w[u], xb[u]);
     }
   }
 
@@ -459,7 +485,7 @@ gemv_int8_kernel(const __nv_bfloat16* __restrict__ x,
     for (int h = 0; h < 2; ++h) {
       const int b = 8 * nb + 2 * q + h;
       if (b < B) {
-        float* row = red + (warp * B + b) * kI8RedPitch + 16 * g;
+        float* row = red + (warp * B + b) * kGemvRedPitch + 16 * g;
 #pragma unroll
         for (int j = 0; j < 8; ++j)
           *reinterpret_cast<float2*>(row + 2 * j) =
@@ -467,75 +493,49 @@ gemv_int8_kernel(const __nv_bfloat16* __restrict__ x,
       }
     }
   __syncthreads();
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 
-  // 4 columns a thread from here on: cols is a multiple of 8
-  const int cols = min(kI8Cols, N - c0);
-  const int quads = B * (kI8Cols / 4);
-  // the output columns n .. n + 3 of batch row b from their sums v
-  auto finish = [&](const float (&v)[4], int b, int n) {
-    const float4 sc = __ldg(reinterpret_cast<const float4*>(scale + n));
-    const uint2 bi = __ldg(reinterpret_cast<const uint2*>(bias + n));
-    const float svec[4] = {sc.x, sc.y, sc.z, sc.w};
-    const __nv_bfloat16* bv = reinterpret_cast<const __nv_bfloat16*>(&bi);
+  // the block's partial of each quad (its warps in order), pushed into the
+  // owner's recv
+  for (int i = threadIdx.x; i < quads; i += kGemvThreads) {
+    const int b = i / (kGemvCols / 4), c = (i % (kGemvCols / 4)) * 4;
+    float4 s = *reinterpret_cast<const float4*>(red + b * kGemvRedPitch + c);
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      gemv_store<EPI>(v[e] * svec[e] + __bfloat162float(bv[e]),
-                      (size_t)b * N + n + e, res, res2, aux, y32, y, rs);
-  };
-  for (int i = threadIdx.x; i < quads; i += kI8Threads) {
-    const int b = i / (kI8Cols / 4), c = (i % (kI8Cols / 4)) * 4;
-    if (c >= cols) continue;
-    float4 s = *reinterpret_cast<const float4*>(red + b * kI8RedPitch + c);
-#pragma unroll
-    for (int ww = 1; ww < kI8Warps; ++ww) {
+    for (int ww = 1; ww < kGemvWarps; ++ww) {
       const float4 t = *reinterpret_cast<const float4*>(
-          red + (ww * B + b) * kI8RedPitch + c);
+          red + (ww * B + b) * kGemvRedPitch + c);
       s.x += t.x;
       s.y += t.y;
       s.z += t.z;
       s.w += t.w;
     }
-    const int n = c0 + c;
-    if (splits == 1) {
-      finish({s.x, s.y, s.z, s.w}, b, n);
-    } else {
-      *reinterpret_cast<float4*>(ws + ((size_t)blockIdx.y * B + b) * N + n) =
-          s;
-    }
+    *cluster.map_shared_rank(&recv[rank * m + i / splits], i % splits) = s;
   }
-  if (splits == 1) return;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0)
-    is_last = atomicAdd(&counters[tile], 1) == splits - 1;
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
+  cluster.sync();  // every partial has landed; nothing remote after this
 
-  const size_t zstride = (size_t)B * N;
-  for (int i = threadIdx.x; i < quads; i += kI8Threads) {
-    const int b = i / (kI8Cols / 4), c = (i % (kI8Cols / 4)) * 4;
-    if (c >= cols) continue;
-    const int n = c0 + c;
-    const float4* p = reinterpret_cast<const float4*>(ws + (size_t)b * N + n);
+  // the owned quads: the splits' partials in rank order, then the epilogue
+  for (int j = threadIdx.x; j < m; j += kGemvThreads) {
+    const int i = rank + splits * j;
+    const int b = i / (kGemvCols / 4), c = (i % (kGemvCols / 4)) * 4;
+    if (i >= quads || c >= cols) continue;
     float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int z0 = 0; z0 < splits; z0 += 16) {
-      float4 t[16];
-#pragma unroll
-      for (int z = 0; z < 16; ++z)
-        if (z0 + z < splits) t[z] = __ldcg(p + (z0 + z) * zstride / 4);
-#pragma unroll
-      for (int z = 0; z < 16; ++z)
-        if (z0 + z < splits) {
-          v[0] += t[z].x;
-          v[1] += t[z].y;
-          v[2] += t[z].z;
-          v[3] += t[z].w;
-        }
+    for (int z = 0; z < splits; ++z) {
+      const float4 t = recv[z * m + j];
+      v[0] += t.x;
+      v[1] += t.y;
+      v[2] += t.z;
+      v[3] += t.w;
     }
-    finish(v, b, n);
+    uint2 bi = own_b, r = own_r, r2 = own_r2;
+    float4 sc = own_s;
+    if (j != threadIdx.x) quad_in(i, bi, sc, r, r2);
+    const __nv_bfloat16* bv = reinterpret_cast<const __nv_bfloat16*>(&bi);
+    const float sv[4] = {sc.x, sc.y, sc.z, sc.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      v[e] = (WL::kScaled ? v[e] * sv[e] : v[e]) + __bfloat162float(bv[e]);
+    gemv_store4<EPI>(v, (size_t)b * N + c0 + c, r, r2, aux, y32, y, rs);
   }
-  if (threadIdx.x == 0) counters[tile] = 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -903,7 +903,7 @@ cudaError_t allow_dyn_smem(K kernel, bool* configured) {
   return e;
 }
 
-// The pointers and sizes of one GEMV launch (s, ws, counters: int8 only).
+// The pointers and sizes of one GEMV launch (s: int8 only).
 struct GemvArgs {
   const __nv_bfloat16* x;
   const void* W;
@@ -914,55 +914,95 @@ struct GemvArgs {
   __nv_bfloat16* aux;
   float* y32;
   __nv_bfloat16* y;
-  float* ws;
-  int* counters;
   int B, K, N, splits, chunk;
   float rs;
 };
 
-template <int BT, int EPI>
-cudaError_t launch_gemv_bf16(const GemvArgs& a, cudaStream_t stream) {
+// Dynamic shared memory of one GEMV block: its warps' sums (bytes)
+size_t gemv_smem(int B) {
+  return (size_t)kGemvWarps * B * kGemvRedPitch * sizeof(float);
+}
+
+// One launch: grid (column tiles, splits), the splits of a tile one
+// cluster
+template <class WL, int BT, int EPI, bool V16, int U>
+cudaError_t launch_gemv(const GemvArgs& a, cudaStream_t stream) {
+  auto kernel = gemv_kernel<WL, BT, EPI, V16, U>;
   static bool configured = false;
-  const cudaError_t e =
-      allow_dyn_smem(gemv_bf16_kernel<BT, EPI>, &configured);
-  if (e != cudaSuccess) return e;
-  const size_t smem = (size_t)a.B * a.K * sizeof(__nv_bfloat16);
-  const int grid = (a.N + kBf16Cols - 1) / kBf16Cols;
-  gemv_bf16_kernel<BT, EPI><<<grid, kThreads, smem, stream>>>(
-      a.x, (const __nv_bfloat16*)a.W, a.bias, a.res, a.res2, a.aux, a.y32,
-      a.y, a.B, a.K, a.N, a.rs);
-  return cudaGetLastError();
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)gemv_smem(BT));
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((a.N + kGemvCols - 1) / kGemvCols, a.splits);
+  config.blockDim = dim3(kGemvThreads);
+  config.dynamicSmemBytes = gemv_smem(a.B);
+  config.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = a.splits;
+  cluster[0].val.clusterDim.z = 1;
+  config.attrs = cluster;
+  config.numAttrs = 1;
+  return cudaLaunchKernelEx(&config, kernel, a.x,
+                            (const typename WL::T*)a.W, a.s, a.bias, a.res,
+                            a.res2, a.aux, a.y32, a.y, a.B, a.K, a.N,
+                            a.chunk, a.rs);
 }
 
-template <int BT, int EPI, bool V16>
-cudaError_t launch_gemv_int8(const GemvArgs& a, cudaStream_t stream) {
-  const dim3 grid((a.N + kI8Cols - 1) / kI8Cols, a.splits);
-  gemv_int8_kernel<BT, EPI, V16><<<grid, kI8Threads, 0, stream>>>(
-      a.x, (const int8_t*)a.W, a.s, a.bias, a.res, a.res2, a.aux, a.y32, a.y,
-      a.ws, a.counters, a.B, a.K, a.N, a.chunk, a.rs);
-  return cudaGetLastError();
-}
-
-template <int BT>
-cudaError_t launch_bf16_epi(int epi, const GemvArgs& a, cudaStream_t st) {
+// U: the steps a lane keeps in flight: two where a split has 15 or 16
+// steps (B <= 8: every warp but at most one has two), so all of a small
+// product's loads are issued at once; else one (fewer second steps gain
+// nothing: scripts/chip_gemv_ln_probe.py)
+template <class WL, int BT, bool V16, int U>
+cudaError_t launch_gemv_epi(int epi, const GemvArgs& a, cudaStream_t st) {
   switch (epi) {
-    case 0: return launch_gemv_bf16<BT, 0>(a, st);
-    case 1: return launch_gemv_bf16<BT, 1>(a, st);
-    case 2: return launch_gemv_bf16<BT, 2>(a, st);
-    case 3: return launch_gemv_bf16<BT, 3>(a, st);
+    case 0: return launch_gemv<WL, BT, 0, V16, U>(a, st);
+    case 1: return launch_gemv<WL, BT, 1, V16, U>(a, st);
+    case 2: return launch_gemv<WL, BT, 2, V16, U>(a, st);
+    case 3: return launch_gemv<WL, BT, 3, V16, U>(a, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <int BT, bool V16>
-cudaError_t launch_int8_epi(int epi, const GemvArgs& a, cudaStream_t st) {
-  switch (epi) {
-    case 0: return launch_gemv_int8<BT, 0, V16>(a, st);
-    case 1: return launch_gemv_int8<BT, 1, V16>(a, st);
-    case 2: return launch_gemv_int8<BT, 2, V16>(a, st);
-    case 3: return launch_gemv_int8<BT, 3, V16>(a, st);
-    default: return cudaErrorInvalidValue;
-  }
+template <class WL, bool V16>
+cudaError_t launch_gemv_b(int epi, const GemvArgs& a, cudaStream_t st) {
+  const int steps = (a.chunk + kGemvStep - 1) / kGemvStep;
+  if (a.B > 8) return launch_gemv_epi<WL, 16, V16, 1>(epi, a, st);
+  if (steps >= 2 * kGemvWarps - 1 && steps <= 2 * kGemvWarps)
+    return launch_gemv_epi<WL, 8, V16, 2>(epi, a, st);
+  return launch_gemv_epi<WL, 8, V16, 1>(epi, a, st);
+}
+
+// A GEMV over splits K slices of chunk rows (split z: rows z * chunk ..
+// + chunk - 1, the last ragged; chunk a multiple of 16; 1 <= splits <=
+// 16). vec16: N % 16 == 0 (int8: W's rows are read 16 bytes a lane, else
+// 8; bf16: every lane's 16 columns lie in N).
+template <class WL>
+int gemv_entry(const void* x, const void* W, const void* s, const void* bias,
+               const void* res, const void* res2, void* aux, void* y32,
+               void* y, int B, int K, int N, int splits, int chunk, int epi,
+               int vec16, float rs, void* stream) {
+  if (B < 1 || B > 16 || K < 1 || N < 8 || N % 8 || splits < 1 ||
+      splits > kGemvMaxSplits || chunk < kGemvStep || chunk % kGemvStep ||
+      (long)(splits - 1) * chunk >= K || (long)splits * chunk < K ||
+      (vec16 && N % 16) || (WL::kScaled != (s != nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const GemvArgs a{(const __nv_bfloat16*)x, W, (const float*)s,
+                   (const __nv_bfloat16*)bias, (const __nv_bfloat16*)res,
+                   (const __nv_bfloat16*)res2, (__nv_bfloat16*)aux,
+                   (float*)y32, (__nv_bfloat16*)y, B, K, N, splits, chunk,
+                   rs};
+  const auto st = (cudaStream_t)stream;
+  return (int)(vec16 ? launch_gemv_b<WL, true>(epi, a, st)
+                     : launch_gemv_b<WL, false>(epi, a, st));
 }
 
 // Dynamic shared memory of one attention block (bytes).
@@ -1008,55 +1048,24 @@ int jk_ln_rows(const void* x, const void* g, const void* b, void* y, int rows,
   return (int)cudaGetLastError();
 }
 
-int jk_gemv_bf16(const void* x, const void* W, const void* bias,
-                 const void* res, const void* res2, void* aux, void* y32,
-                 void* y, int B, int K, int N, int epi, float rs,
+// The GEMVs (gemv_entry): W bf16 with s null, or int8 with its fp32
+// column scales s.
+int jk_gemv_bf16(const void* x, const void* W, const void* s,
+                 const void* bias, const void* res, const void* res2,
+                 void* aux, void* y32, void* y, int B, int K, int N,
+                 int splits, int chunk, int epi, int vec16, float rs,
                  void* stream) {
-  const GemvArgs a{(const __nv_bfloat16*)x, W, nullptr,
-                   (const __nv_bfloat16*)bias, (const __nv_bfloat16*)res,
-                   (const __nv_bfloat16*)res2, (__nv_bfloat16*)aux,
-                   (float*)y32, (__nv_bfloat16*)y, nullptr, nullptr,
-                   B, K, N, 1, K, rs};
-  const auto st = (cudaStream_t)stream;
-  cudaError_t e;
-  if (B <= 1) e = launch_bf16_epi<1>(epi, a, st);
-  else if (B <= 2) e = launch_bf16_epi<2>(epi, a, st);
-  else if (B <= 4) e = launch_bf16_epi<4>(epi, a, st);
-  else if (B <= 8) e = launch_bf16_epi<8>(epi, a, st);
-  else if (B <= 16) e = launch_bf16_epi<16>(epi, a, st);
-  else e = cudaErrorInvalidValue;
-  return (int)e;
+  return gemv_entry<Bf16Weights>(x, W, s, bias, res, res2, aux, y32, y, B, K,
+                                 N, splits, chunk, epi, vec16, rs, stream);
 }
 
-// gemv_int8 over splits K slices of chunk rows (split z: rows z * chunk ..
-// + chunk - 1, the last ragged; chunk a multiple of 16). splits > 1 needs
-// ws (splits * B * N floats) and counters (one int per 128 columns, zero;
-// every launch leaves them zero). vec16: W's rows are read 16 bytes a lane
-// (N % 16 == 0 and W 16-byte aligned), else 8 bytes.
 int jk_gemv_int8(const void* x, const void* W, const void* s,
                  const void* bias, const void* res, const void* res2,
-                 void* aux, void* y32, void* y, void* ws, void* counters,
-                 int B, int K, int N, int splits, int chunk, int epi,
-                 int vec16, float rs, void* stream) {
-  if (B < 1 || B > 16 || K < 1 || N < 8 || N % 8 || splits < 1 ||
-      chunk < kI8Step || chunk % kI8Step || (long)(splits - 1) * chunk >= K ||
-      (long)splits * chunk < K || (vec16 && N % 16) ||
-      (splits > 1 && (ws == nullptr || counters == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  const GemvArgs a{(const __nv_bfloat16*)x, W, (const float*)s,
-                   (const __nv_bfloat16*)bias, (const __nv_bfloat16*)res,
-                   (const __nv_bfloat16*)res2, (__nv_bfloat16*)aux,
-                   (float*)y32, (__nv_bfloat16*)y, (float*)ws,
-                   (int*)counters, B, K, N, splits, chunk, rs};
-  const auto st = (cudaStream_t)stream;
-  cudaError_t e;
-  if (B <= 8)
-    e = vec16 ? launch_int8_epi<8, true>(epi, a, st)
-              : launch_int8_epi<8, false>(epi, a, st);
-  else
-    e = vec16 ? launch_int8_epi<16, true>(epi, a, st)
-              : launch_int8_epi<16, false>(epi, a, st);
-  return (int)e;
+                 void* aux, void* y32, void* y, int B, int K, int N,
+                 int splits, int chunk, int epi, int vec16, float rs,
+                 void* stream) {
+  return gemv_entry<I8Weights>(x, W, s, bias, res, res2, aux, y32, y, B, K,
+                               N, splits, chunk, epi, vec16, rs, stream);
 }
 
 // The attention kernels, q the fp32 q rows (row b at b * qstride floats):

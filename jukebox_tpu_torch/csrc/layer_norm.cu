@@ -13,16 +13,20 @@
 // What bounds it: both passes are element-wise with two row reductions, so
 // they are bound by HBM bytes (forward: read x, write y; backward: read x
 // and dy, write dx), a few flops per byte. Each input byte is read from HBM
-// once. The forward holds the row as fp32 in shared memory for its two
-// statistics passes (mean, then the centred variance) and the output pass,
-// one block per row. The backward fills the SMs with a grid of two blocks
-// per SM, each walking over its share of the rows with the row in
-// registers, read 16 bytes a lane, several rows in flight, and c1 =
-// mean(xhat g dy), c2 = mean(g dy) reduced with warp shuffles and one
-// barrier per group of rows; each thread keeps the same columns in every
-// row, so dg / db for the block's rows add up in its registers. The TPU
-// kernel's row tiles (256 rows resident in VMEM per grid step) carried
-// nothing between grid steps either: here blocks run in parallel.
+// once. The forward runs a block per group of rows (1632 blocks at the
+// training rows: the SMs take them as they free up), the backward a grid
+// of two blocks per SM, each walking over its share of the rows; both hold
+// the rows in registers, read and written 16 bytes a lane (an element path
+// where the width or a pointer forbids it), several rows in flight, and
+// reduce the row sums with warp shuffles and one barrier per group of rows: the forward's mean, then the mean of
+// the centred square (the two-pass statistics of the TPU kernel, not
+// E[x^2] - E[x]^2); the backward's c1 = mean(xhat g dy), c2 = mean(g dy).
+// Each thread keeps the same columns in every row, so g and b stay in its
+// registers (forward) and dg / db for the block's rows add up there
+// (backward). The TPU kernel's row tiles (256 rows resident in VMEM per
+// grid step) carried nothing between grid steps either: here blocks run in
+// parallel. The row layout (vectors a thread, CV) is the host's
+// (ops/layer_norm.py row_layout).
 //
 // Entry points return the cudaError_t of the launch (0 on success).
 
@@ -35,10 +39,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kDefaultSmem = 48 * 1024;
-constexpr int kStaticSmem = 32 * sizeof(float);  // block_sum's buffer
-constexpr int kMaxWidth = 12288;  // 768 threads x 16 elements (backward)
+constexpr int kMaxWidth = 12288;  // 768 threads x 16 elements
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
@@ -58,68 +59,23 @@ template <> __device__ __forceinline__ __half from_f<__half>(float v) {
   return __float2half_rn(v);
 }
 
-// Sum of v over the block; every thread gets the total. red: 32 floats.
-__device__ __forceinline__ float block_sum(float v, float* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  __syncthreads();  // the previous call's readers are done with red
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  v = lane < (int)(blockDim.x >> 5) ? red[lane] : 0.f;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// One block per row. Shared memory: the row as fp32, D floats.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-layer_norm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ g,
-                      const float* __restrict__ b, T* __restrict__ y,
-                      float* __restrict__ mu_out, float* __restrict__ rstd_out,
-                      int D, float eps) {
-  extern __shared__ float row[];
-  __shared__ float red[32];
-  const int64_t base = (int64_t)blockIdx.x * D;
-  const float inv_d = 1.f / (float)D;
-  float s = 0.f;
-  for (int j = threadIdx.x; j < D; j += blockDim.x) {
-    const float v = to_f<T>(x[base + j]);
-    row[j] = v;
-    s += v;
-  }
-  const float mean = block_sum(s, red) * inv_d;
-  float q = 0.f;
-  for (int j = threadIdx.x; j < D; j += blockDim.x) {
-    const float c = row[j] - mean;
-    q += c * c;
-  }
-  const float rstd = rsqrtf(block_sum(q, red) * inv_d + eps);
-  for (int j = threadIdx.x; j < D; j += blockDim.x)
-    y[base + j] = from_f<T>((row[j] - mean) * rstd * g[j] + b[j]);
-  if (threadIdx.x == 0) {
-    mu_out[blockIdx.x] = mean;
-    rstd_out[blockIdx.x] = rstd;
-  }
-}
-
-// The backward holds rows in registers. Block b takes rows N b / blocks ..
-// N (b + 1) / blocks - 1; its threads span a row: thread t owns the
+// Both kernels hold rows in registers. Block b takes rows N b / blocks ..
+// N (b + 1) / blocks - 1 (the forward: one group of them); its threads
+// span a row: thread t owns the
 // vectors t, t + blockDim.x, ... (CV of them) of VEC elements each (16
 // bytes, 8 bf16 / fp16 or 4 fp32, on the vector path; one element on the
 // scalar path, which runs where the width or a pointer forbids 16-byte
-// loads), the same columns in every row, so its dg / db sums stay in
-// registers (CV * VEC <= 16 of each). At the training widths (one vector a
-// thread, two blocks an SM) R = 4 rows are loaded before any is reduced
-// (wider rows go one at a time, CV vectors a thread in flight; the probe
-// scripts/chip_gemv_ln_probe.py times these choices against 2 rows with
-// the next group's loads issued early, and 8 rows). Each thread sums
-// xhat g dy and g dy over its columns, each warp with shuffles, and the
-// warps' sums meet in shared memory behind one barrier per R rows
-// (double-buffered). Then dx, and at the end the block's dg / db row of
-// part [blocks, 2, D], in row order: the partials do not depend on timing.
-constexpr int kBwdMaxThreads = 768;
+// loads), the same columns in every row. At the training widths (one
+// vector a thread) R = 4 rows are loaded before any is reduced (wider rows
+// go one at a time, CV vectors a thread in flight; the probe
+// scripts/chip_gemv_ln_probe.py times these choices against other rows a
+// group, blocks per SM and a warp per row). Each thread sums its columns,
+// each warp with shuffles, and the warps' sums meet in shared memory,
+// where every thread adds them in warp order: the backward's two sums a
+// row behind one barrier per R rows, the forward's mean and then its
+// centred square behind one each (double-buffered).
+constexpr int kMaxThreads = 768;
+constexpr int kRows = 4;  // R at one vector a thread
 
 // VEC elements of T as one load: 16 bytes, or one element
 template <typename T, int VEC>
@@ -162,17 +118,134 @@ __device__ __forceinline__ void store_f32(float* p, const float (&v)[VEC]) {
   }
 }
 
+// The forward: each row's sum, then its centred square sum (one
+// reduction each, red[0] and red[1]: a thread writes red[0] of the next
+// group only after every thread has passed the barrier behind red[1], so
+// two buffers make the two barriers a group safe); g and b stay in
+// registers across the rows; y written 16 bytes a lane, mu and rstd by
+// thread 0.
 template <typename T, int VEC, int CV>
-__global__ void __launch_bounds__(CV == 1 && VEC > 1 ? 256 : kBwdMaxThreads,
+__global__ void __launch_bounds__(CV == 1 && VEC > 1 ? 256 : kMaxThreads,
+                                  CV == 1 && VEC > 1 ? 4 : 1)
+layer_norm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ g,
+                      const float* __restrict__ b, T* __restrict__ y,
+                      float* __restrict__ mu_out,
+                      float* __restrict__ rstd_out, int N, int D,
+                      float eps) {
+  constexpr int R = CV == 1 && VEC > 1 ? kRows : 1;
+  using Raw = RawOf<T, VEC>;
+  __shared__ float red[2][kMaxThreads / 32][R];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const int64_t r_begin = (int64_t)N * blockIdx.x / gridDim.x;
+  const int64_t r_end = (int64_t)N * (blockIdx.x + 1) / gridDim.x;
+  const float inv_d = 1.f / (float)D;
+  int cols[CV];
+  float gv[CV][VEC], bv[CV][VEC];
+#pragma unroll
+  for (int i = 0; i < CV; ++i) {
+    cols[i] = (threadIdx.x + i * blockDim.x) * VEC;
+    if (cols[i] < D) {
+      load_f32<VEC>(g + cols[i], gv[i]);
+      load_f32<VEC>(b + cols[i], bv[i]);
+    }
+  }
+
+  // the block's sums of s[rr] over the rows' columns, into s (every thread)
+  auto row_sums = [&](float (&s)[R], float (&buf)[kMaxThreads / 32][R]) {
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        s[rr] += __shfl_xor_sync(0xffffffffu, s[rr], o);
+      if (lane == 0) buf[warp][rr] = s[rr];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr) {
+      float v = 0.f;
+      for (int ww = 0; ww < nw; ++ww) v += buf[ww][rr];
+      s[rr] = v;
+    }
+  };
+
+  for (int64_t r0 = r_begin; r0 < r_end; r0 += R) {
+    Raw xv[R][CV];
+    float mean[R], rstd[R], s[R];
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr) {
+      const int64_t row = r0 + rr;
+#pragma unroll
+      for (int i = 0; i < CV; ++i)
+        if (row < r_end && cols[i] < D)
+          xv[rr][i] = *reinterpret_cast<const Raw*>(x + row * D + cols[i]);
+    }
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr) {
+      s[rr] = 0.f;
+#pragma unroll
+      for (int i = 0; i < CV; ++i) {
+        if (r0 + rr >= r_end || cols[i] >= D) continue;
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) s[rr] += elem<T, VEC>(xv[rr][i], j);
+      }
+    }
+    row_sums(s, red[0]);
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr) {
+      mean[rr] = s[rr] * inv_d;
+      s[rr] = 0.f;
+#pragma unroll
+      for (int i = 0; i < CV; ++i) {
+        if (r0 + rr >= r_end || cols[i] >= D) continue;
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const float c = elem<T, VEC>(xv[rr][i], j) - mean[rr];
+          s[rr] += c * c;
+        }
+      }
+    }
+    row_sums(s, red[1]);
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr) {
+      const int64_t row = r0 + rr;
+      if (row >= r_end) continue;
+      rstd[rr] = rsqrtf(s[rr] * inv_d + eps);
+#pragma unroll
+      for (int i = 0; i < CV; ++i) {
+        if (cols[i] >= D) continue;
+        Raw out;
+        T* oe = reinterpret_cast<T*>(&out);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j)
+          oe[j] = from_f<T>((elem<T, VEC>(xv[rr][i], j) - mean[rr]) *
+                                rstd[rr] * gv[i][j] +
+                            bv[i][j]);
+        *reinterpret_cast<Raw*>(y + row * D + cols[i]) = out;
+      }
+      if (threadIdx.x == 0) {
+        mu_out[row] = mean[rr];
+        rstd_out[row] = rstd[rr];
+      }
+    }
+  }
+}
+
+// The backward: each thread sums xhat g dy and g dy over its columns, its
+// dg / db sums stay in registers (CV * VEC <= 16 of each); then dx, and at
+// the end the block's dg / db row of part [blocks, 2, D], in row order: the
+// partials do not depend on timing.
+template <typename T, int VEC, int CV>
+__global__ void __launch_bounds__(CV == 1 && VEC > 1 ? 256 : kMaxThreads,
                                   CV == 1 && VEC > 1 ? 2 : 1)
 layer_norm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ g,
                       const float* __restrict__ mu,
                       const float* __restrict__ rstd,
                       const T* __restrict__ dy, T* __restrict__ dx,
                       float* __restrict__ part, int N, int D) {
-  constexpr int R = CV == 1 && VEC > 1 ? 4 : 1;
+  constexpr int R = CV == 1 && VEC > 1 ? kRows : 1;
   using Raw = RawOf<T, VEC>;
-  __shared__ float red[2][kBwdMaxThreads / 32][2 * R];
+  __shared__ float red[2][kMaxThreads / 32][2 * R];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
   const int64_t r_begin = (int64_t)N * blockIdx.x / gridDim.x;
@@ -274,96 +347,89 @@ layer_norm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ g,
   }
 }
 
-// Opt in to more than the default 48 KB of shared memory when the dynamic
-// part and the kernel's static reduction buffer need it.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel k, size_t bytes) {
-  if (bytes + kStaticSmem <= (size_t)kDefaultSmem) return cudaSuccess;
-  return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
-
-template <typename T>
-cudaError_t launch_fwd(const void* x, const float* g, const float* b, void* y,
-                       float* mu, float* rstd, int N, int D, float eps,
-                       cudaStream_t stream) {
-  const size_t smem = (size_t)D * sizeof(float);
-  cudaError_t err = allow_smem(layer_norm_fwd_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  layer_norm_fwd_kernel<T><<<N, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), g, b, static_cast<T*>(y), mu, rstd, D, eps);
-  return cudaGetLastError();
+// One launch of a row kernel (the forward's or the backward's) for the
+// host's row layout: VEC elements a vector (16 bytes, or 1 where vec is
+// 0), cv vectors a thread, a block of ceil(D / VEC / cv) threads rounded
+// up to whole warps.
+template <typename T, template <typename, int, int> class Launch,
+          typename... Args>
+cudaError_t launch_rows(int D, int blocks, int vec, int cv,
+                        cudaStream_t stream, Args... args) {
+  constexpr int V = 16 / sizeof(T);
+  const int VEC = vec ? V : 1;
+  const int per_row = (D / VEC + cv - 1) / cv;
+  const int threads = (per_row + 31) / 32 * 32;
+  if (threads > kMaxThreads || (vec && D % V)) return cudaErrorInvalidValue;
+  if (!vec && cv == 16)
+    return Launch<T, 1, 16>::run(blocks, threads, stream, args...);
+  if (vec && cv == 1) return Launch<T, V, 1>::run(blocks, threads, stream, args...);
+  if (vec && cv == 2) return Launch<T, V, 2>::run(blocks, threads, stream, args...);
+  if constexpr (V == 4) {
+    if (vec && cv == 4) return Launch<T, V, 4>::run(blocks, threads, stream, args...);
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <typename T, int VEC, int CV>
-cudaError_t launch_bwd(const void* x, const float* g, const float* mu,
-                       const float* rstd, const void* dy, void* dx,
-                       float* part, int N, int D, int blocks,
-                       cudaStream_t stream) {
-  const int per_row = (D / VEC + CV - 1) / CV;  // threads a row needs
-  layer_norm_bwd_kernel<T, VEC, CV><<<blocks, (per_row + 31) / 32 * 32, 0,
-                                      stream>>>(
-      static_cast<const T*>(x), g, mu, rstd, static_cast<const T*>(dy),
-      static_cast<T*>(dx), part, N, D);
-  return cudaGetLastError();
-}
-
-// The fewest vectors a thread (CV) for which a row takes at most 256
-// threads, within 16 elements a thread; else the most (up to 768 threads).
-template <typename T>
-cudaError_t launch_bwd_path(const void* x, const float* g, const float* mu,
-                            const float* rstd, const void* dy, void* dx,
-                            float* part, int N, int D, int blocks, int vec,
-                            cudaStream_t stream) {
-  constexpr int V = 16 / sizeof(T);
-  if (!vec)
-    return launch_bwd<T, 1, 16>(x, g, mu, rstd, dy, dx, part, N, D, blocks,
-                                stream);
-  const int nvec = D / V;
-  if (nvec <= 256)
-    return launch_bwd<T, V, 1>(x, g, mu, rstd, dy, dx, part, N, D, blocks,
-                               stream);
-  if constexpr (V == 4) {
-    if (nvec > 512)
-      return launch_bwd<T, V, 4>(x, g, mu, rstd, dy, dx, part, N, D, blocks,
-                                 stream);
+struct FwdLaunch {
+  static cudaError_t run(int blocks, int threads, cudaStream_t stream,
+                         const void* x, const float* g, const float* b,
+                         void* y, float* mu, float* rstd, int N, int D,
+                         float eps) {
+    layer_norm_fwd_kernel<T, VEC, CV><<<blocks, threads, 0, stream>>>(
+        static_cast<const T*>(x), g, b, static_cast<T*>(y), mu, rstd, N, D,
+        eps);
+    return cudaGetLastError();
   }
-  return launch_bwd<T, V, 2>(x, g, mu, rstd, dy, dx, part, N, D, blocks,
-                             stream);
-}
+};
+
+template <typename T, int VEC, int CV>
+struct BwdLaunch {
+  static cudaError_t run(int blocks, int threads, cudaStream_t stream,
+                         const void* x, const float* g, const float* mu,
+                         const float* rstd, const void* dy, void* dx,
+                         float* part, int N, int D) {
+    layer_norm_bwd_kernel<T, VEC, CV><<<blocks, threads, 0, stream>>>(
+        static_cast<const T*>(x), g, mu, rstd, static_cast<const T*>(dy),
+        static_cast<T*>(dx), part, N, D);
+    return cudaGetLastError();
+  }
+};
 
 }  // namespace
 
 extern "C" {
 
+// Rows x [N, D] over `blocks` blocks (block b: rows N b / blocks .. N (b +
+// 1) / blocks - 1) in the host's row layout: vec 1 reads and writes 16
+// bytes a lane (D * itemsize % 16 == 0 and 16-byte aligned pointers), else
+// one element at a time; cv vectors a thread (vec: 1, 2, or 4 in fp32;
+// else 16).
 int jk_layer_norm_fwd(const void* x, const float* g, const float* b, void* y,
                       float* mu, float* rstd, int N, int D, float eps,
-                      int dtype, cudaStream_t stream) {
-  if (N <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
+                      int blocks, int vec, int cv, int dtype,
+                      cudaStream_t stream) {
+  if (N <= 0 || D <= 0 || D > kMaxWidth || blocks <= 0 || blocks > N)
+    return (int)cudaErrorInvalidValue;
   switch (dtype) {
-    case 0: return (int)launch_fwd<float>(x, g, b, y, mu, rstd, N, D, eps, stream);
-    case 1: return (int)launch_fwd<__nv_bfloat16>(x, g, b, y, mu, rstd, N, D, eps, stream);
-    case 2: return (int)launch_fwd<__half>(x, g, b, y, mu, rstd, N, D, eps, stream);
+    case 0: return (int)launch_rows<float, FwdLaunch>(D, blocks, vec, cv, stream, x, g, b, y, mu, rstd, N, D, eps);
+    case 1: return (int)launch_rows<__nv_bfloat16, FwdLaunch>(D, blocks, vec, cv, stream, x, g, b, y, mu, rstd, N, D, eps);
+    case 2: return (int)launch_rows<__half, FwdLaunch>(D, blocks, vec, cv, stream, x, g, b, y, mu, rstd, N, D, eps);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// part: [blocks, 2, D] fp32, block b's dg and db sums over its rows
-// N b / blocks .. N (b + 1) / blocks - 1. vec: x, dy, dx are read and
-// written 16 bytes a lane (D * itemsize % 16 == 0 and 16-byte aligned
-// pointers), else one element at a time.
+// part: [blocks, 2, D] fp32, block b's dg and db sums over its rows.
 int jk_layer_norm_bwd(const void* x, const float* g, const float* mu,
                       const float* rstd, const void* dy, void* dx,
-                      float* part, int N, int D, int blocks, int vec,
+                      float* part, int N, int D, int blocks, int vec, int cv,
                       int dtype, cudaStream_t stream) {
-  const int size = dtype == 0 ? 4 : 2;
-  if (N <= 0 || D <= 0 || D > kMaxWidth || blocks <= 0 || blocks > N ||
-      (vec && D * size % 16))
+  if (N <= 0 || D <= 0 || D > kMaxWidth || blocks <= 0 || blocks > N)
     return (int)cudaErrorInvalidValue;
   switch (dtype) {
-    case 0: return (int)launch_bwd_path<float>(x, g, mu, rstd, dy, dx, part, N, D, blocks, vec, stream);
-    case 1: return (int)launch_bwd_path<__nv_bfloat16>(x, g, mu, rstd, dy, dx, part, N, D, blocks, vec, stream);
-    case 2: return (int)launch_bwd_path<__half>(x, g, mu, rstd, dy, dx, part, N, D, blocks, vec, stream);
+    case 0: return (int)launch_rows<float, BwdLaunch>(D, blocks, vec, cv, stream, x, g, mu, rstd, dy, dx, part, N, D);
+    case 1: return (int)launch_rows<__nv_bfloat16, BwdLaunch>(D, blocks, vec, cv, stream, x, g, mu, rstd, dy, dx, part, N, D);
+    case 2: return (int)launch_rows<__half, BwdLaunch>(D, blocks, vec, cv, stream, x, g, mu, rstd, dy, dx, part, N, D);
     default: return (int)cudaErrorInvalidValue;
   }
 }

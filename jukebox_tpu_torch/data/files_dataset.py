@@ -3,7 +3,10 @@ jukebox_tpu/data/files_dataset.py): item i maps to window
 [i * sample_length, (i + 1) * sample_length) of the concatenated wav files,
 with an optional +-sample_length / 2 aug_shift drawn per (seed, epoch, item)
 and song-boundary clamping (files_dataset.py:49-65), so the port reads the
-same chunks as the JAX package. Only .wav files are read.
+same chunks as the JAX package. It finds the audio files the JAX package's
+dataset finds (AUDIO_EXTS), but reads only .wav: a directory holding any
+other audio file is refused with a ValueError naming those files, rather
+than trained on without them.
 """
 
 import math
@@ -15,11 +18,17 @@ from jukebox_tpu_torch.data.labels import Labeller
 from jukebox_tpu_torch.utils.audio_utils import get_duration_sec, load_audio
 
 
-def find_files(root):
+# the audio files the JAX package's dataset reads (a copy of its
+# AUDIO_EXTS), and those the port reads so far
+AUDIO_EXTS = (".mp3", ".opus", ".m4a", ".aac", ".wav", ".ogg", ".flac")
+READ_EXTS = (".wav",)
+
+
+def find_files(root, exts=AUDIO_EXTS):
     out = []
     for dirpath, _, filenames in os.walk(root, followlinks=True):
         for name in filenames:
-            if name.lower().endswith(".wav"):
+            if name.lower().endswith(exts):
                 out.append(os.path.join(dirpath, name))
     return sorted(out)
 
@@ -56,6 +65,14 @@ class FilesAudioDataset:
 
     def init_dataset(self, hps):
         files = find_files(hps.audio_files_dir)
+        unread = [f for f in files if not f.lower().endswith(READ_EXTS)]
+        if unread:
+            more = (f" and {len(unread) - 20} more" if len(unread) > 20
+                    else "")
+            raise ValueError(
+                f"{len(unread)} of {len(files)} audio files are not .wav, "
+                f"which the port reads only once jukebox_tpu/utils/io.py's "
+                f"decoders are ported: {', '.join(unread[:20])}{more}")
         print(f"Found {len(files)} files. Getting durations")
         durations = np.array([get_duration_sec(f) * self.sr for f in files])
         self.filter(files, durations)

@@ -31,8 +31,8 @@ SIGNATURES = {
     "decode_stack": {
         "jk_max_dyn_smem": [],
         "jk_ln_rows": [_P, _P, _P, _P, _I, _I, _F, _P],
-        "jk_gemv_bf16": [_P] * 8 + [_I] * 4 + [_F, _P],
-        "jk_gemv_int8": [_P] * 11 + [_I] * 7 + [_F, _P],
+        "jk_gemv_bf16": [_P] * 9 + [_I] * 7 + [_F, _P],
+        "jk_gemv_int8": [_P] * 9 + [_I] * 7 + [_F, _P],
         "jk_attn_decode": [_P, _I] + [_P] * 4 + [_I] + [_P] * 7 + [_I] * 9
         + [_F, _I, _P],
     },
@@ -48,8 +48,8 @@ SIGNATURES = {
         + [_F, _I, _U, _U, _F, _P],
     },
     "layer_norm": {
-        "jk_layer_norm_fwd": [_P] * 6 + [_I, _I, _F, _I, _P],
-        "jk_layer_norm_bwd": [_P] * 7 + [_I] * 5 + [_P],
+        "jk_layer_norm_fwd": [_P] * 6 + [_I, _I, _F] + [_I] * 4 + [_P],
+        "jk_layer_norm_bwd": [_P] * 7 + [_I] * 6 + [_P],
     },
     "adam": {
         "jk_adam_fp32": [_P] * 7 + [_I, _I, _P] + [_F] * 7 + [_P],
@@ -127,16 +127,42 @@ def lib(stem="decode_stack"):
     return _LIBS[stem]
 
 
+def _template_args(s):
+    """The template arguments in a mangled name's argument list s, as
+    text: type names and integer values."""
+    out = []
+    while s:
+        m = re.match(r"L[a-z](-?\d+)E", s)
+        if m:
+            out.append(m.group(1))
+            s = s[m.end():]
+            continue
+        m = re.match(r"\d+", s)
+        if m:
+            n, j = int(m.group(0)), m.end()
+            if s[j:j + n] != "_GLOBAL__N_1":
+                out.append(s[j:j + n])
+            s = s[j + n:]
+            continue
+        s = s[1:]  # N, S_, E: nesting and substitution marks
+    return out
+
+
 def ptxas_summary(text):
-    """Per-kernel 'registers / shared memory / spill' lines of nvcc -Xptxas -v."""
+    """Per-kernel 'registers / shared memory / spill' lines of nvcc -Xptxas
+    -v, each kernel named with its template arguments."""
     out, kernel, spill = [], None, ""
     for line in text.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
-            m = re.search(r"\d+([a-z_0-9]+_kernel)(?:ILi(\d+)ELi(\d+)E)?",
-                          mangled)
-            kernel = (mangled if m is None else m.group(1) if not m.group(2)
-                      else f"{m.group(1)}<{m.group(2)},{m.group(3)}>")
+            m = re.search(r"\d+([a-z_0-9]+_kernel)", mangled)
+            kernel = mangled
+            if m is not None:
+                kernel = m.group(1)
+                rest = mangled[m.end():]
+                if rest.startswith("I") and "EEv" in rest:
+                    args = _template_args(rest[1:rest.index("EEv") + 1])
+                    kernel += f"<{','.join(args)}>"
             spill = ""
         elif "spill stores" in line:
             spill = line.strip()

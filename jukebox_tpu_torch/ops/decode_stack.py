@@ -11,10 +11,11 @@ lane-padded caches): here the CUDA kernels of csrc/decode_stack.cu run per
 layer against the standard cache layout [B, slots, A] of
 models/attention.py. An int8 cache is {"k", "v"} int8 [B, ..., A] with
 {"ks", "vs"} bf16 [B, ...]: one scale per (batch row, slot). The
-attention kernels split a head's live rows over blocks (attn_split_plan),
-gemv_int8 its K rows (gemv_split_plan), and each combines the splits in
-the same launch, through an fp32 workspace and counters kept per device
-(workspace).
+attention kernels split a head's live rows over blocks (attn_split_plan)
+and combine the splits in the same launch, through an fp32 workspace and
+counters kept per device (workspace); the GEMVs split their K rows over
+the blocks of a thread block cluster (gemv_split_plan) and combine them
+in the cluster's shared memory.
 
 Each wrapper takes the plain PyTorch version for tensors on the CPU (that is
 what the CPU tests run) and, for CUDA tensors, checks device, dtype, shape
@@ -160,14 +161,10 @@ def _check_epilogue(epilogue, res, res2, keep, out32=False):
 def _gemv_launch(name, x, w, s, b, epilogue, res, res2, rs, keep, out32):
     B, K = x.shape
     N = w.shape[1]
-    lib = _build.lib()
+    if not 1 <= B <= MAX_BATCH or N % 8:
+        raise ValueError(f"{name} takes 1..{MAX_BATCH} rows and N % 8 == 0 "
+                         f"(got B={B}, K={K}, N={N})")
     int8 = s is not None
-    if not 1 <= B <= MAX_BATCH or N % 8 or (
-            not int8 and B * K * 2 > lib.jk_max_dyn_smem()):
-        limit = "" if int8 else \
-            f" of at most {lib.jk_max_dyn_smem() // (2 * B)} inputs"
-        raise ValueError(f"{name} takes 1..{MAX_BATCH} rows{limit} and "
-                         f"N % 8 == 0 (got B={B}, K={K}, N={N})")
     _require(x, "x", BF16)
     _require(w, "w", torch.int8 if int8 else BF16, (K, N))
     _require(b, "b", BF16, (N,))
@@ -180,22 +177,11 @@ def _gemv_launch(name, x, w, s, b, epilogue, res, res2, rs, keep, out32):
     aux = torch.empty_like(y) if keep else None
     y32 = (torch.empty((B, N), dtype=torch.float32, device=x.device)
            if out32 else None)
-    ptrs = (x.data_ptr(), w.data_ptr())
-    outs = (b.data_ptr(), _ptr(res), _ptr(res2), _ptr(aux), _ptr(y32),
-            y.data_ptr())
-    if int8:
-        splits, chunk, floats, tiles = gemv_split_plan(B, K, N,
-                                                       sm_count(x.device))
-        ws, cnt = (workspace("gemv", x.device, floats, tiles)
-                   if splits > 1 else (None, None))
-        vec16 = N % 16 == 0 and w.data_ptr() % 16 == 0
-        err = lib.jk_gemv_int8(*ptrs, s.data_ptr(), *outs, _ptr(ws),
-                               _ptr(cnt), B, K, N, splits, chunk,
-                               EPILOGUES[epilogue], int(vec16), float(rs),
-                               _stream())
-    else:
-        err = lib.jk_gemv_bf16(*ptrs, *outs, B, K, N, EPILOGUES[epilogue],
-                               float(rs), _stream())
+    splits, chunk, _ = gemv_split_plan(K, N, sm_count(x.device))
+    err = getattr(_build.lib(), f"jk_{name}")(
+        x.data_ptr(), w.data_ptr(), _ptr(s), b.data_ptr(), _ptr(res),
+        _ptr(res2), _ptr(aux), _ptr(y32), y.data_ptr(), B, K, N, splits,
+        chunk, EPILOGUES[epilogue], int(N % 16 == 0), float(rs), _stream())
     _check(err, name)
     LAUNCHES[name] += 1
     return (y, aux) if keep else (y, y32) if out32 else y
@@ -316,27 +302,28 @@ def attn_split_plan(n, B, H, hd, sms=H100_SMS):
     return splits, chunk, B * H * splits * (2 + hd)
 
 
-# The split plan of gemv_int8: a block owns GEMV_COLS columns and one
-# slice of K, a multiple of GEMV_STEP rows (one mma step); K is cut into as
-# many slices as keep tiles x splits at or under GEMV_WAVES blocks per SM
-# (the blocks of 4 warps that fit on an SM at once, so every block runs in
-# the first wave), and each split's fp32 partial [B, N] goes to the
-# workspace for the tile's last block to sum.
-GEMV_COLS, GEMV_STEP, GEMV_WAVES = 128, 16, 4
+# The split plan of the GEMVs (gemv_bf16 and gemv_int8, one kernel
+# template): a block of 8 warps owns GEMV_COLS columns and one slice of K,
+# a multiple of GEMV_STEP rows (one mma step), and the slices of a column
+# tile are one thread block cluster, which sums their partials in shared
+# memory. K is cut into as many slices as keep tiles x splits within one
+# wave of GEMV_BLOCKS_PER_SM blocks per SM (the blocks of 8 warps that fit
+# on an SM at once: every block starts at once, so a small product's loads
+# are all in flight together), and at most GEMV_MAX_SPLITS, a portable
+# cluster (scripts/chip_gemv_ln_probe.py times 4-16).
+GEMV_COLS, GEMV_STEP, GEMV_BLOCKS_PER_SM, GEMV_MAX_SPLITS = 128, 16, 2, 8
 
 
-def gemv_split_plan(B, K, N, sms=H100_SMS):
-    """(splits, chunk, workspace floats, tiles) of a gemv_int8 launch over
-    x [B, K] and W [K, N]: ceil(N / GEMV_COLS) column tiles; split z of a
-    tile sums the rows z * chunk .. min((z + 1) * chunk, K) - 1 (the last
-    split ragged) into ws[z, :B, tile's columns], splits * B * N fp32
-    floats in all (0 for one split); one counter per tile."""
+def gemv_split_plan(K, N, sms=H100_SMS):
+    """(splits, chunk, tiles) of a GEMV launch over x [B, K] and W [K, N]:
+    ceil(N / GEMV_COLS) column tiles, each a cluster of `splits` blocks;
+    split z of a tile sums the rows z * chunk .. min((z + 1) * chunk, K) - 1
+    (the last split ragged)."""
     tiles = -(-N // GEMV_COLS)
-    want = max(GEMV_WAVES * sms // tiles, 1)
+    want = max(1, min(GEMV_BLOCKS_PER_SM * sms // tiles, GEMV_MAX_SPLITS))
     chunk = -(-K // want)
     chunk = -(-chunk // GEMV_STEP) * GEMV_STEP
-    splits = -(-K // chunk)
-    return splits, chunk, (splits * B * N if splits > 1 else 0), tiles
+    return -(-K // chunk), chunk, tiles
 
 
 def _attn_plain(q32, k3, v3, r0, n, n_head, dtype):

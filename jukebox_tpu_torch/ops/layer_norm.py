@@ -35,11 +35,15 @@ LAUNCHES = {"layer_norm_fwd": 0, "layer_norm_bwd": 0}
 # checkpoint_res=1: the forward runs again in the backward's recompute
 LAUNCHES_PER_STEP = {"layer_norm_fwd": 2, "layer_norm_bwd": 1}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# The backward's grid: BWD_BLOCKS_PER_SM blocks per SM (each 256 threads
-# at the training widths), each taking an even share of the rows
-# (scripts/chip_gemv_ln_probe.py times 1-4 blocks per SM).
+# The kernels' grids (each block 256 threads at the training widths): the
+# forward a block per group of rows it loads at once, the backward
+# BWD_BLOCKS_PER_SM blocks per SM, each taking an even share of the rows
+# and writing one partial row of dg and db (scripts/chip_gemv_ln_probe.py
+# times the forward at 1-8 blocks per SM and a block per 2, 4 or 8 rows,
+# the backward at 1-4 blocks per SM).
 BWD_BLOCKS_PER_SM = 2
-MAX_WIDTH = 12288  # the backward's widest row: 768 threads of 16 elements
+GROUP_ROWS = 4  # rows a block loads before reducing any, at CV 1 vectors
+MAX_WIDTH = 12288  # the widest row: 768 threads of 16 elements
 EPS = 1e-5
 # A kernel's output x agrees with its plain version r when every element
 # has |x - r| <= AGREE_ULPS eps(dtype) |r| + AGREE_ATOL rms(r): both round
@@ -91,17 +95,51 @@ def layer_norm_bwd_plain(x, g, mu, rstd, dy):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
+def fwd_blocks(N, rows):
+    """Blocks of a layer_norm_fwd launch over N rows, `rows` a group
+    (row_layout): block b takes the rows N b // blocks .. N (b + 1) //
+    blocks - 1, at most one group."""
+    return -(-N // rows)
+
+
 def bwd_blocks(N, sms=H100_SMS):
-    """Blocks of a layer_norm_bwd launch over N rows: block b takes the
-    rows N b // blocks .. N (b + 1) // blocks - 1 in order and writes one
-    partial row of dg and one of db."""
+    """Blocks of a layer_norm_bwd launch over N rows, each taking its rows
+    as fwd_blocks's do, in groups, and writing one partial row of dg and
+    one of db."""
     return min(N, BWD_BLOCKS_PER_SM * sms)
+
+
+def row_layout(D, itemsize, vec):
+    """(VEC, CV, threads, rows) of both kernels over rows of D elements:
+    thread t of a block owns the vectors t, t + threads, ... (CV of them) of
+    VEC elements each, and a block loads `rows` rows before reducing any
+    (GROUP_ROWS at one vector a thread, else 1). vec: 16-byte vectors
+    (VEC = 16 // itemsize) at the fewest CV for which a row takes at most
+    256 threads, else the most (2; fp32 4 past 512 vectors); else single
+    elements, 16 a thread. threads is the row's share rounded up to whole
+    warps."""
+    if vec:
+        VEC = 16 // itemsize
+        nvec = D // VEC
+        CV = 1 if nvec <= 256 else 4 if VEC == 4 and nvec > 512 else 2
+    else:
+        VEC, CV = 1, 16
+    per_row = -(-(D // VEC) // CV)
+    rows = GROUP_ROWS if CV == 1 and VEC > 1 else 1
+    return VEC, CV, -(-per_row // 32) * 32, rows
+
+
+def _vec(D, x, *others):
+    """Whether rows of x (and the others, same layout) take 16-byte
+    vectors: D * itemsize % 16 == 0 and every pointer 16-byte aligned."""
+    return (D * x.element_size() % 16 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (x, *others)))
 
 
 def _require_rows(x, name, dtype=None, shape=None):
     """x [N, D] contiguous on the card in a kernel dtype (any alignment:
-    the backward reads 16 bytes a lane where the width and pointers allow,
-    else elements; the forward reads elements). Returns (N, D)."""
+    the kernels read 16 bytes a lane where the width and pointers allow,
+    else elements). Returns (N, D)."""
     if not x.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor like the others")
     if x.dim() != 2 or x.dtype not in DTYPES or (dtype and x.dtype != dtype):
@@ -130,10 +168,12 @@ def layer_norm_fwd(x, g, b, eps=EPS):
     y = torch.empty_like(x)
     mu = torch.empty((N,), dtype=torch.float32, device=x.device)
     rstd = torch.empty_like(mu)
+    vec = _vec(D, x, y)
+    _, cv, _, rows = row_layout(D, x.element_size(), vec)
     _check(_build.lib("layer_norm").jk_layer_norm_fwd(
         x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(), mu.data_ptr(),
-        rstd.data_ptr(), N, D, eps, DTYPES[x.dtype], _stream()),
-        "layer_norm_fwd")
+        rstd.data_ptr(), N, D, eps, fwd_blocks(N, rows), int(vec), cv,
+        DTYPES[x.dtype], _stream()), "layer_norm_fwd")
     LAUNCHES["layer_norm_fwd"] += 1
     return y, mu, rstd
 
@@ -150,12 +190,12 @@ def layer_norm_bwd(x, g, mu, rstd, dy):
     blocks = bwd_blocks(N, sm_count(x.device))
     dx = torch.empty_like(x)
     part = torch.empty((blocks, 2, D), dtype=torch.float32, device=x.device)
-    vec = (D * x.element_size() % 16 == 0
-           and all(t.data_ptr() % 16 == 0 for t in (x, dy, dx)))
+    vec = _vec(D, x, dy, dx)
+    cv = row_layout(D, x.element_size(), vec)[1]
     _check(_build.lib("layer_norm").jk_layer_norm_bwd(
         x.data_ptr(), g.data_ptr(), mu.data_ptr(), rstd.data_ptr(),
         dy.data_ptr(), dx.data_ptr(), part.data_ptr(), N, D, blocks,
-        int(vec), DTYPES[x.dtype], _stream()), "layer_norm_bwd")
+        int(vec), cv, DTYPES[x.dtype], _stream()), "layer_norm_bwd")
     LAUNCHES["layer_norm_bwd"] += 1
     dgb = part.sum(dim=0)
     return dx, dgb[0], dgb[1]

@@ -1,33 +1,42 @@
-"""The design choices of gemv_int8 and layer_norm_bwd on one NVIDIA GPU,
-each timed beside the shipped kernel: grids and load widths through the
-package's own entry points, other designs from two files of alternatives
+"""The design choices of the GEMVs (gemv_bf16 and gemv_int8, one kernel
+template) and of the LayerNorm kernels on one NVIDIA GPU, each timed
+beside the shipped kernel: grids and load widths through the package's
+own entry points, other designs from two files of alternatives
 (scripts/chip_gemv_variants.cu, scripts/chip_ln_variants.cu) that the
 probe builds and nothing in the package does:
 
     python3 scripts/chip_gemv_ln_probe.py [--reps 200] [--rounds 2]
+        [--only gemv_bf16,ln_fwd,gemv_int8,ln_bwd]
 
-gemv_int8 at the 5b_lyrics top's five products, batch 4, with K cut into
-half the splits of the shipped gemv_split_plan, the shipped plan, and
-twice its splits; and the shipped plan with W read 8 bytes a lane
-instead of 16. Beside them addmm on the dequantised bf16 weight. At
-every product, without its epilogue, also scripts/chip_gemv_variants.cu
-(each variants file is one nvcc run, both started together): the other
-design the redesign measured (each block's slice streamed through a
-cp.async ring of stages in shared memory), the shipped kernel with 3 or 4
-steps in flight a warp at 3 blocks an SM, and two cuts of the shipped
-kernel that say where its time goes: its loads alone and its grid with no
-work; and a product of c_attn's bytes whose K (384) takes one split a
-tile, so the shipped plan has no combine and half its splits the same.
+gemv_bf16 at batch 4 at the 1b_lyrics top's c_attn and c_proj, the
+upsamplers' c_attn and the 5b_lyrics top's c_attn and c_proj, and
+gemv_int8 at the 5b_lyrics top's five products: the shipped plan (a
+cluster of K splits a column tile) and 2-16 splits through the package's
+entry point; and, without the epilogue, from chip_gemv_variants.cu: the
+design before the template (bf16), the shipped kernel with one and with
+two steps in flight a lane whatever the split, the combine before the cluster (4-warp blocks,
+the splits' partials through a global workspace summed by each tile's last
+block: gemv_int8 as it shipped before) at two and three steps in flight,
+the cluster with its partials read after the barrier, and cuts of the
+shipped loop that say where its time goes (its products alone, products
+and barrier, loads alone, an empty grid). Beside them addmm (gemv_int8:
+on the dequantised bf16 weight).
+layer_norm_fwd at [6528, 2048] bf16 with a block per 2, 4 (shipped) or 8
+rows and with 1, 2, 3, 4, 6 and 8 blocks per SM each walking its share,
+the shipped grid on the element path, the shipped loop at 2 and 8 rows a
+group, a warp per row (4 and 8 blocks of 8 warps per SM), the design it
+replaced (a block per row, the row staged in shared memory) and
+F.layer_norm.
 layer_norm_bwd at [6528, 2048] bf16 with 1, 2 (shipped), 3 and 4 blocks
 per SM, the shipped grid on the element path, the kernel without the
 wrapper's sum of its partials and that sum alone, the alternatives of
 scripts/chip_ln_variants.cu (rows a group, prefetch, g in registers; at 2
 and 3 blocks per SM, without the sum), and F.layer_norm's autograd
-backward. Every variant is held
-to its plain version first (chip_smoke's tolerances); times are CUDA-event
-means over --reps launches on inputs rotated past the L2, in turns (a, b,
-..., b, a) repeated --rounds times. Prints the card's name and power
-limit; exits non-zero if a variant disagrees.
+backward. Every variant is held to its plain version first (chip_smoke's
+tolerances); times are CUDA-event means over --reps launches on inputs
+rotated past the L2, in turns (a, b, ..., b, a) repeated --rounds times.
+Prints the card's name and power limit; exits non-zero if a variant
+disagrees.
 """
 
 import argparse
@@ -49,36 +58,45 @@ from jukebox_tpu_torch.ops.core import quantize_dense  # noqa: E402
 
 VARIANTS = {}  # "gemv", "ln" -> the probe's variant library
 B = 4
+# gemv_int8's products: the 5b_lyrics top's five
 PRODUCTS = {"c_attn": (4800, 3600, None), "f6 q": (4800, 1200, None),
             "c_proj": (1200, 4800, "residual"),
             "mlp.c_fc": (4800, 4800, "gelu"),
-            "mlp.c_proj": (4800, 4800, "residual"),
-            # c_attn's bytes in one split a tile: no combine (its 2x splits
-            # variant: two splits, the smallest combine)
-            "c_attn's bytes, K 384": (384, 45056, None)}
+            "mlp.c_proj": (4800, 4800, "residual")}
+# gemv_bf16's products: the 1b_lyrics top's c_attn and c_proj, the
+# upsamplers' c_attn, the 5b_lyrics top's c_attn and c_proj
+BF16_PRODUCTS = {"1b top c_attn": (2048, 1536, None),
+                 "1b top c_proj": (512, 2048, "residual"),
+                 "upsampler c_attn": (1920, 1440, None),
+                 "5b top c_attn": (4800, 3600, None),
+                 "5b top c_proj": (1200, 4800, "residual")}
 LN_SHAPE = (6528, 2048, torch.bfloat16)
 
 
-def gemv_variants(K, N):
-    """name -> (splits, chunk, vec16) of each launch plan tried."""
-    splits, chunk, _, tiles = ds.gemv_split_plan(B, K, N, ds.sm_count("cuda"))
+def plan_of(K, splits):
+    """(splits, chunk, vec16) of K cut into about `splits` slices of a
+    multiple of GEMV_STEP rows."""
+    c = -(-K // splits)
+    c = -(-c // ds.GEMV_STEP) * ds.GEMV_STEP
+    return -(-K // c), c, 1
 
-    def cut(n):
-        c = -(-K // n)
-        c = -(-c // ds.GEMV_STEP) * ds.GEMV_STEP
-        return -(-K // c), c
-    half, double = cut(max(1, splits // 2)), cut(2 * splits)
-    return {f"half the splits ({tiles * half[0]} blocks)": (*half, 1),
-            f"shipped ({tiles * splits} blocks)": (splits, chunk, 1),
-            f"2x splits ({tiles * double[0]} blocks)": (*double, 1),
-            "shipped, 8-byte loads": (splits, chunk, 0)}
+
+def old_plan(K, N, sms):
+    """(splits, chunk, vec16) of the GEMV plan before the cluster: about
+    four blocks of 4 warps per SM, the splits summed through a global
+    workspace (the global-combine variants)."""
+    tiles = -(-N // ds.GEMV_COLS)
+    return plan_of(K, max(4 * sms // tiles, 1))
 
 
 def build_variants():
     """The variants' libraries (each with the package's kernels of its
     source), by nvcc, both started together: {stem: ctypes library}."""
-    todo = {"gemv": ("jk_probe_gemv", ("decode_stack", "jk_gemv_int8")),
-            "ln": ("jk_probe_ln_bwd", ("layer_norm", "jk_layer_norm_bwd"))}
+    P, I = ctypes.c_void_p, ctypes.c_int
+    sig = _build.SIGNATURES["layer_norm"]
+    todo = {"gemv": {"jk_probe_gemv": [I, I] + [P] * 7 + [I] * 5 + [P]},
+            "ln": {"jk_probe_ln_bwd": [I] + sig["jk_layer_norm_bwd"],
+                   "jk_probe_ln_fwd": [I] + sig["jk_layer_norm_fwd"]}}
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {k: subprocess.Popen(
         [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o",
@@ -92,33 +110,39 @@ def build_variants():
             raise SystemExit(f"nvcc failed on chip_{k}_variants.cu:\n"
                              f"{err[-4000:]}")
         for line in _build.ptxas_summary(err):
-            if "regs" in line or "stream" in line or "variant" in line:
+            if not line.startswith(("gemv_kernel", "attn_kernel", "ln_rows",
+                                    "layer_norm_")):
                 print("ptxas", line, flush=True)
         lib = ctypes.CDLL(str(_build.BUILD_DIR / f"{k}_variants.so"))
-        name, (stem, entry) = todo[k]
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_int] + _build.SIGNATURES[stem][entry]
-        fn.restype = ctypes.c_int
+        for name, argtypes in todo[k].items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         libs[k] = lib
     return libs
 
 
-def gemv_call(plan, x, wq, s, b, epi, res, variant=None):
-    """gemv_int8 with a given plan through the package's entry point, or
-    (variant: 0 registers, 1 prologue only, 2 empty) the probe's."""
+def gemv_call(name, plan, x, w, s, b, epi, res, variant=None):
+    """name ("gemv_int8" or "gemv_bf16") with a given plan through the
+    package's entry point, or the probe's variant (chip_gemv_variants.cu;
+    no epilogue)."""
     splits, chunk, vec16 = plan
     Bx, K = x.shape
-    N = wq.shape[1]
+    N = w.shape[1]
     y = torch.empty((Bx, N), dtype=torch.bfloat16, device=x.device)
-    ws, cnt = ds.workspace("gemv", x.device, splits * Bx * N,
-                           -(-N // ds.GEMV_COLS))
-    args = (x.data_ptr(), wq.data_ptr(), s.data_ptr(), b.data_ptr(),
-            ds._ptr(res), None, None, None, y.data_ptr(), ws.data_ptr(),
-            cnt.data_ptr(), Bx, K, N, splits, chunk, ds.EPILOGUES[epi],
-            vec16, 1.0, ds._stream())
-    err = (_build.lib().jk_gemv_int8(*args) if variant is None
-           else VARIANTS["gemv"].jk_probe_gemv(variant, *args))
-    ds._check(err, "gemv_int8 (probe)")
+    if variant is None:
+        err = getattr(_build.lib(), f"jk_{name}")(
+            x.data_ptr(), w.data_ptr(), ds._ptr(s), b.data_ptr(),
+            ds._ptr(res), None, None, None, y.data_ptr(), Bx, K, N, splits,
+            chunk, ds.EPILOGUES[epi], vec16, 1.0, ds._stream())
+    else:
+        ws, cnt = ds.workspace("gemv probe", x.device, splits * Bx * N,
+                               -(-N // ds.GEMV_COLS))
+        err = VARIANTS["gemv"].jk_probe_gemv(
+            variant, int(s is not None), x.data_ptr(), w.data_ptr(),
+            ds._ptr(s), b.data_ptr(), y.data_ptr(), ws.data_ptr(),
+            cnt.data_ptr(), Bx, K, N, splits, chunk, ds._stream())
+    ds._check(err, f"{name} (probe)")
     return y
 
 
@@ -128,9 +152,10 @@ def ln_call(blocks, vec, x, g, mu, rstd, dy, summed=True, variant=None):
     N, D = x.shape
     dx = torch.empty_like(x)
     part = torch.empty((blocks, 2, D), dtype=torch.float32, device=x.device)
+    cv = ln.row_layout(D, x.element_size(), vec)[1]
     args = (x.data_ptr(), g.data_ptr(), mu.data_ptr(), rstd.data_ptr(),
             dy.data_ptr(), dx.data_ptr(), part.data_ptr(), N, D, blocks, vec,
-            ln.DTYPES[x.dtype], ds._stream())
+            cv, ln.DTYPES[x.dtype], ds._stream())
     ds._check(_build.lib("layer_norm").jk_layer_norm_bwd(*args)
               if variant is None
               else VARIANTS["ln"].jk_probe_ln_bwd(variant, *args),
@@ -139,6 +164,24 @@ def ln_call(blocks, vec, x, g, mu, rstd, dy, summed=True, variant=None):
         return dx, part
     dgb = part.sum(dim=0)
     return dx, dgb[0], dgb[1]
+
+
+def ln_fwd_call(blocks, vec, x, g, b, variant=None):
+    """layer_norm_fwd on a given grid through the package's entry point, or
+    the probe's variant kernel (see chip_ln_variants.cu)."""
+    N, D = x.shape
+    y = torch.empty_like(x)
+    mu = torch.empty((N,), dtype=torch.float32, device=x.device)
+    rstd = torch.empty_like(mu)
+    cv = ln.row_layout(D, x.element_size(), vec)[1]
+    args = (x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(),
+            mu.data_ptr(), rstd.data_ptr(), N, D, ln.EPS, blocks, vec, cv,
+            ln.DTYPES[x.dtype], ds._stream())
+    ds._check(_build.lib("layer_norm").jk_layer_norm_fwd(*args)
+              if variant is None
+              else VARIANTS["ln"].jk_probe_ln_fwd(variant, *args),
+              "layer_norm_fwd (probe)")
+    return y, mu, rstd
 
 
 def in_turns(fns, reps, rounds):
@@ -153,81 +196,138 @@ def in_turns(fns, reps, rounds):
     return out
 
 
-def main():
-    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--reps", type=int, default=200)
-    p.add_argument("--rounds", type=int, default=2)
-    args = p.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("needs a CUDA device")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip(), flush=True)
-    for stem, info in _build.build_all().items():
-        for line in _build.ptxas_summary(info["ptxas"]):
-            if "gemv_int8" in line or "layer_norm_bwd" in line:
-                print("ptxas", line, flush=True)
-    VARIANTS.update(build_variants())
-    gen = torch.Generator(device="cuda").manual_seed(0)
+def probe_gemv(name, products, args, rnd):
+    """Time `name`'s shipped plan and its alternatives at `products`."""
     bf = torch.bfloat16
-
-    def rnd(*shape, dtype=bf, scale=1.0):
-        return (torch.randn(shape, generator=gen, device="cuda")
-                * scale).to(dtype)
-
-    for label, (K, N, epi) in PRODUCTS.items():
+    sms = ds.sm_count("cuda")
+    for label, (K, N, epi) in products.items():
         b = rnd(N, scale=0.02)
 
         def make():
-            qd = quantize_dense({"w": rnd(K, N, dtype=torch.float32,
-                                          scale=0.02), "b": b})
-            return (rnd(B, K), qd["w_q"], qd["s"], b, epi,
-                    rnd(B, N) if epi == "residual" else None)
-        sets = [make() for _ in range(chip_smoke._copies(K * N))]
-        ref = ds.gemv_int8_plain(*sets[0])
+            x, res = rnd(B, K), rnd(B, N) if epi == "residual" else None
+            if name == "gemv_int8":
+                qd = quantize_dense({"w": rnd(K, N, dtype=torch.float32,
+                                              scale=0.02), "b": b})
+                return x, qd["w_q"], qd["s"], b, epi, res
+            return x, rnd(K, N, scale=0.02), None, b, epi, res
+        sets = [make() for _ in range(chip_smoke._copies(
+            K * N * (1 if name == "gemv_int8" else 2)))]
+        plain = getattr(ds, f"{name}_plain")
+
+        def reference(a):
+            x, w, s_, b_, e_, r_ = a
+            return plain(x, w, s_, b_, e_, r_) if s_ is not None else \
+                plain(x, w, b_, e_, r_)
+        tiles = -(-N // ds.GEMV_COLS)
+        shipped = ds.gemv_split_plan(K, N, sms)
+        plan = shipped[:2] + (1,)
         fns = {}
-        for name, plan in gemv_variants(K, N).items():
-            out = gemv_call(plan, *sets[0])
+        # through the package's entry point, with the epilogue
+        ref = reference(sets[0])
+        for n in sorted({2, 4, 8, 12, 16, shipped[0]}):
+            pl = plan_of(K, n)
+            if pl[0] > 16:
+                continue
+            what = (f"{'shipped' if pl[:2] == shipped[:2] else 'plan'}: "
+                    f"{pl[0]} splits ({tiles * pl[0]} blocks)")
+            out = gemv_call(name, pl, *sets[0])
             e, rel = chip_smoke._err(out, ref)
             if not rel <= chip_smoke.KERNEL_TOL:
-                raise SystemExit(f"gemv_int8 {label} {name}: rel {rel:.3e}")
-            fns[name] = (lambda *a, plan=plan: gemv_call(plan, *a), sets)
-        plan = ds.gemv_split_plan(B, K, N, ds.sm_count("cuda"))[:2] + (1,)
-        # the probe's kernels take no epilogue: they run the product alone
-        # (timed on the same sets; the epilogue is a few stores a column)
+                raise SystemExit(f"{name} {label} {what}: rel {rel:.3e}")
+            fns[what] = (lambda *a, pl=pl: gemv_call(name, pl, *a), sets)
+        # the variants take no epilogue: the product alone
         bare = [a[:4] + (None, None) for a in sets]
-        bare_ref = ds.gemv_int8_plain(*bare[0])
-        # 3 or 4 steps in flight a warp at 3 blocks an SM, on the plan for
-        # 3 blocks an SM
-        plan3 = ds.gemv_split_plan(B, K, N, ds.sm_count("cuda") * 3
-                                   // ds.GEMV_WAVES)[:2] + (1,)
-        for v, name, pl in (
-                (None, "shipped, no epilogue", plan),
-                (0, "cp.async ring in shared memory", plan),
-                (1, "shipped loads alone", plan),
-                (2, "shipped grid, empty", plan),
-                (3, "4 steps in flight, 3 blocks an SM "
-                    f"({-(-N // ds.GEMV_COLS) * plan3[0]} blocks)", plan3),
-                (4, "3 steps in flight, 3 blocks an SM "
-                    f"({-(-N // ds.GEMV_COLS) * plan3[0]} blocks)", plan3)):
-            if v == 0 and pl[1] > 768:  # the ring's x rows must fit
-                continue
-            if v in (0, 3, 4):
-                out = gemv_call(pl, *bare[0], variant=v)
+        bare_ref = reference(bare[0])
+        old = old_plan(K, N, sms)
+        tried = [(None, "shipped, no epilogue", plan),
+                 (3, "two steps in flight a lane", plan),
+                 (9, "one step in flight a lane", plan),
+                 (4, f"the global combine, {tiles * old[0]} blocks of 4 "
+                     "warps" + (" (as shipped before)" if name == "gemv_int8"
+                                else ""), old),
+                 (5, "the global combine, 3 steps in flight, 3 blocks an "
+                     "SM", plan_of(K, max(3 * sms // tiles, 1))),
+                 (6, "the cluster, partials read after the barrier", plan),
+                 (7, "shipped loop, products alone (no exchange)", plan),
+                 (8, "shipped loop, products and the barrier", plan),
+                 (1, "shipped loop, loads alone", plan),
+                 (2, "shipped grid, empty", plan)]
+        if name == "gemv_bf16":
+            tried.insert(1, (0, "the design before the template", plan))
+        for v, what, pl in tried:
+            if v not in (1, 2, 7, 8):
+                out = gemv_call(name, pl, *bare[0], variant=v)
                 e, rel = chip_smoke._err(out, bare_ref)
                 if not rel <= chip_smoke.KERNEL_TOL:
-                    raise SystemExit(f"gemv_int8 {label} {name}: {rel:.3e}")
-            fns[name] = (lambda *a, v=v, pl=pl: gemv_call(pl, *a, variant=v),
-                         bare)
-        fns["addmm (dequantised bf16 W)"] = (
-            lambda x_, w_, b_: torch.addmm(b_, x_, w_),
-            [(a[0], (a[1].float() * a[2]).to(bf), a[3]) for a in sets])
-        for name, ts in in_turns(fns, args.reps, args.rounds).items():
-            print(f"gemv_int8 {label} [{B},{K}]x[{K},{N}] {name}: "
+                    raise SystemExit(f"{name} {label} {what}: {rel:.3e}")
+            fns[what] = (lambda *a, v=v, pl=pl: gemv_call(
+                name, pl, *a, variant=v), bare)
+        if name == "gemv_int8":  # addmm streams a dequantised weight too
+            lib_sets = [(a[0], (a[1].float() * a[2]).to(bf), a[3])
+                        for a in sets]
+        else:
+            lib_sets = [(a[0], a[1], a[3]) for a in sets]
+        fns["addmm"] = (lambda x_, w_, b_: torch.addmm(b_, x_, w_), lib_sets)
+        for what, ts in in_turns(fns, args.reps, args.rounds).items():
+            print(f"{name} {label} [{B},{K}]x[{K},{N}] {what}: "
                   + " ".join(f"{t:.2f}" for t in ts) + " us", flush=True)
-        del sets
+        del sets, bare, lib_sets
         torch.cuda.empty_cache()
 
+
+def probe_ln_fwd(args, rnd, gen):
+    N, D, dtype = LN_SHAPE
+    item = torch.tensor([], dtype=dtype).element_size()
+    sets = []
+    for _ in range(chip_smoke._copies(2 * N * D * item)):
+        x = (torch.randn((N, D), generator=gen, device="cuda") * 2.0
+             + 0.5).to(dtype)
+        g = 1.0 + 0.1 * torch.randn((D,), generator=gen, device="cuda")
+        sets.append((x, g, 0.1 * torch.randn((D,), generator=gen,
+                                             device="cuda")))
+    ref = ln.layer_norm_fwd_plain(*sets[0])
+    sms = ds.sm_count("cuda")
+    rows = ln.row_layout(D, item, True)[3]
+    shipped = ln.fwd_blocks(N, rows)
+    fns = {}
+
+    def add(name, fn):
+        out = fn(*sets[0])
+        worst = max(ln.agreement(o, r) for o, r in zip(out, ref))
+        if not worst <= 1.0:
+            raise SystemExit(f"layer_norm_fwd {name}: {worst:.3f} of bound")
+        fns[name] = (fn, sets)
+    for r in (2, rows, 8):
+        add(f"one block per {r} rows ({-(-N // r)} blocks)"
+            + (" (shipped)" if r == rows else ""),
+            lambda *a, bl=-(-N // r): ln_fwd_call(bl, 1, *a))
+    for n in (1, 2, 3, 4, 6, 8):
+        add(f"{n} block{'s' * (n > 1)} per SM",
+            lambda *a, bl=n * sms: ln_fwd_call(bl, 1, *a))
+    add("shipped grid, element loads",
+        lambda *a: ln_fwd_call(shipped, 0, *a))
+    for v, what, bl in ((0, "4 rows a group (the shipped loop's copy), "
+                            "4 blocks per SM", 4 * sms),
+                        (1, "2 rows a group, 4 blocks per SM", 4 * sms),
+                        (2, "8 rows a group, 4 blocks per SM", 4 * sms),
+                        (1, "2 rows a group, a block per group", -(-N // 2)),
+                        (2, "8 rows a group, a block per group", -(-N // 8)),
+                        (3, "a warp per row, 4 blocks of 8 warps per SM",
+                         4 * sms),
+                        (3, "a warp per row, 8 blocks of 8 warps per SM",
+                         8 * sms),
+                        (4, "the design before (a block per row)", N)):
+        add(f"variant {what}",
+            lambda *a, v=v, bl=bl: ln_fwd_call(bl, 1, *a, variant=v))
+    fns["F.layer_norm"] = (
+        lambda x, g, b: F.layer_norm(x, (D,), g, b, ln.EPS),
+        [(x, g.to(dtype), b.to(dtype)) for x, g, b in sets])
+    for name, ts in in_turns(fns, args.reps // 4, args.rounds).items():
+        print(f"layer_norm_fwd [{N},{D}] bf16 {name}: "
+              + " ".join(f"{t:.2f}" for t in ts) + " us", flush=True)
+
+
+def probe_ln_bwd(args, rnd, gen):
     N, D, dtype = LN_SHAPE
     item = torch.tensor([], dtype=dtype).element_size()
     sets = []
@@ -280,6 +380,44 @@ def main():
     for name, ts in in_turns(fns, args.reps // 4, args.rounds).items():
         print(f"layer_norm_bwd [{N},{D}] bf16 {name}: "
               + " ".join(f"{t:.2f}" for t in ts) + " us", flush=True)
+
+
+PARTS = {"gemv_bf16": lambda args, rnd, gen: probe_gemv(
+             "gemv_bf16", BF16_PRODUCTS, args, rnd),
+         "ln_fwd": probe_ln_fwd,
+         "gemv_int8": lambda args, rnd, gen: probe_gemv(
+             "gemv_int8", PRODUCTS, args, rnd),
+         "ln_bwd": probe_ln_bwd}
+
+
+def main():
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--reps", type=int, default=200)
+    p.add_argument("--rounds", type=int, default=2)
+    p.add_argument("--only", default=",".join(PARTS),
+                   help="comma-separated parts to run, of " + ", ".join(PARTS))
+    args = p.parse_args()
+    parts = args.only.split(",")
+    if set(parts) - set(PARTS):
+        raise SystemExit(f"unknown parts {set(parts) - set(PARTS)}")
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    for stem, info in _build.build_all().items():
+        for line in _build.ptxas_summary(info["ptxas"]):
+            if "gemv" in line or "layer_norm" in line:
+                print("ptxas", line, flush=True)
+    VARIANTS.update(build_variants())
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rnd(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    for part in parts:
+        PARTS[part](args, rnd, gen)
 
 
 if __name__ == "__main__":

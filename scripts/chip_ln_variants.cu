@@ -1,6 +1,13 @@
-// Design alternatives of layer_norm_bwd, for scripts/chip_gemv_ln_probe.py
-// only: nothing in the package builds this file. It includes the package's
-// LayerNorm kernels and adds ln_bwd_variant_kernel, the shipped backward
+// Design alternatives of the LayerNorm kernels, for
+// scripts/chip_gemv_ln_probe.py only: nothing in the package builds this
+// file. It includes the package's LayerNorm kernels and adds, for the
+// forward (entry jk_probe_ln_fwd, at the end): ln_fwd_rows_kernel, the
+// shipped forward at one 16-byte vector a thread (bf16, D % 8 == 0,
+// D <= 2048) with R rows a group a template parameter (shipped: 4);
+// ln_fwd_warp_kernel, a warp per row (lane l holds the vectors l, l + 32,
+// ... of its row, no barrier; g and b read at each use); and
+// ln_fwd_old_kernel, the forward this design replaced. For the backward,
+// ln_bwd_variant_kernel, the shipped backward
 // at one 16-byte vector a thread (the training widths, bf16) with its
 // choices made template parameters: R rows a group, PF whether the next
 // group's loads are issued before the current group is reduced (the
@@ -13,6 +20,208 @@
 #include "../jukebox_tpu_torch/csrc/layer_norm.cu"
 
 namespace {
+
+constexpr int kThreads = 256;  // the old forward's block
+
+// Sum of v over the block; every thread gets the total. red: 32 floats.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __syncthreads();  // the previous call's readers are done with red
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  v = lane < (int)(blockDim.x >> 5) ? red[lane] : 0.f;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The forward as it shipped before, verbatim but for its name: one block
+// of 256 threads per row, the row staged in shared memory as fp32, read
+// element by element. Shared memory: the row as fp32, D floats.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ln_fwd_old_kernel(const T* __restrict__ x, const float* __restrict__ g,
+                      const float* __restrict__ b, T* __restrict__ y,
+                      float* __restrict__ mu_out, float* __restrict__ rstd_out,
+                      int D, float eps) {
+  extern __shared__ float row[];
+  __shared__ float red[32];
+  const int64_t base = (int64_t)blockIdx.x * D;
+  const float inv_d = 1.f / (float)D;
+  float s = 0.f;
+  for (int j = threadIdx.x; j < D; j += blockDim.x) {
+    const float v = to_f<T>(x[base + j]);
+    row[j] = v;
+    s += v;
+  }
+  const float mean = block_sum(s, red) * inv_d;
+  float q = 0.f;
+  for (int j = threadIdx.x; j < D; j += blockDim.x) {
+    const float c = row[j] - mean;
+    q += c * c;
+  }
+  const float rstd = rsqrtf(block_sum(q, red) * inv_d + eps);
+  for (int j = threadIdx.x; j < D; j += blockDim.x)
+    y[base + j] = from_f<T>((row[j] - mean) * rstd * g[j] + b[j]);
+  if (threadIdx.x == 0) {
+    mu_out[blockIdx.x] = mean;
+    rstd_out[blockIdx.x] = rstd;
+  }
+}
+
+
+// The shipped forward at one 16-byte bf16 vector a thread with R rows a
+// group (the shipped kernel's loop, R its template parameter)
+template <int R>
+__global__ void __launch_bounds__(256, 4)
+ln_fwd_rows_kernel(const __nv_bfloat16* __restrict__ x,
+                   const float* __restrict__ g, const float* __restrict__ b,
+                   __nv_bfloat16* __restrict__ y, float* __restrict__ mu_out,
+                   float* __restrict__ rstd_out, int N, int D, float eps) {
+  using T = __nv_bfloat16;
+  constexpr int VEC = 8;
+  using Raw = RawOf<T, VEC>;
+  __shared__ float red[2][8][R];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const int64_t r_begin = (int64_t)N * blockIdx.x / gridDim.x;
+  const int64_t r_end = (int64_t)N * (blockIdx.x + 1) / gridDim.x;
+  const float inv_d = 1.f / (float)D;
+  const int col = threadIdx.x * VEC;
+  float gv[VEC], bv[VEC];
+  if (col < D) {
+    load_f32<VEC>(g + col, gv);
+    load_f32<VEC>(b + col, bv);
+  }
+  auto row_sums = [&](float (&s)[R], float (&buf)[8][R]) {
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        s[rr] += __shfl_xor_sync(0xffffffffu, s[rr], o);
+      if (lane == 0) buf[warp][rr] = s[rr];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr) {
+      float v = 0.f;
+      for (int ww = 0; ww < nw; ++ww) v += buf[ww][rr];
+      s[rr] = v;
+    }
+  };
+  for (int64_t r0 = r_begin; r0 < r_end; r0 += R) {
+    Raw xv[R];
+    float mean[R], s[R];
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr)
+      if (r0 + rr < r_end && col < D)
+        xv[rr] = *reinterpret_cast<const Raw*>(x + (r0 + rr) * D + col);
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr) {
+      s[rr] = 0.f;
+      if (r0 + rr < r_end && col < D)
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) s[rr] += elem<T, VEC>(xv[rr], j);
+    }
+    row_sums(s, red[0]);
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr) {
+      mean[rr] = s[rr] * inv_d;
+      s[rr] = 0.f;
+      if (r0 + rr < r_end && col < D)
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const float c = elem<T, VEC>(xv[rr], j) - mean[rr];
+          s[rr] += c * c;
+        }
+    }
+    row_sums(s, red[1]);
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr) {
+      const int64_t row = r0 + rr;
+      if (row >= r_end) continue;
+      const float rstd = rsqrtf(s[rr] * inv_d + eps);
+      if (col < D) {
+        Raw out;
+        T* oe = reinterpret_cast<T*>(&out);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j)
+          oe[j] = from_f<T>((elem<T, VEC>(xv[rr], j) - mean[rr]) * rstd *
+                                gv[j] + bv[j]);
+        *reinterpret_cast<Raw*>(y + row * D + col) = out;
+      }
+      if (threadIdx.x == 0) {
+        mu_out[row] = mean[rr];
+        rstd_out[row] = rstd;
+      }
+    }
+  }
+}
+
+// A warp per row: the block's warps take contiguous shares of the rows;
+// lane l holds the bf16 vectors l, l + 32, ... (CW of them) of its row;
+// the two sums by shuffles alone; g and b read at each use (from L1)
+template <int CW>
+__global__ void __launch_bounds__(256)
+ln_fwd_warp_kernel(const __nv_bfloat16* __restrict__ x,
+                   const float* __restrict__ g, const float* __restrict__ b,
+                   __nv_bfloat16* __restrict__ y, float* __restrict__ mu_out,
+                   float* __restrict__ rstd_out, int N, int D, float eps) {
+  using T = __nv_bfloat16;
+  constexpr int VEC = 8;
+  using Raw = RawOf<T, VEC>;
+  const int lane = threadIdx.x & 31;
+  const int64_t warps = (int64_t)gridDim.x * (blockDim.x >> 5);
+  const int64_t gw = (int64_t)blockIdx.x * (blockDim.x >> 5) +
+                     (threadIdx.x >> 5);
+  const float inv_d = 1.f / (float)D;
+  for (int64_t row = N * gw / warps; row < N * (gw + 1) / warps; ++row) {
+    Raw xv[CW];
+#pragma unroll
+    for (int i = 0; i < CW; ++i)
+      xv[i] = *reinterpret_cast<const Raw*>(x + row * D +
+                                            (lane + 32 * i) * VEC);
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < CW; ++i)
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) s += elem<T, VEC>(xv[i], j);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    const float mean = s * inv_d;
+    float q = 0.f;
+#pragma unroll
+    for (int i = 0; i < CW; ++i)
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const float c = elem<T, VEC>(xv[i], j) - mean;
+        q += c * c;
+      }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) q += __shfl_xor_sync(0xffffffffu, q, o);
+    const float rstd = rsqrtf(q * inv_d + eps);
+#pragma unroll
+    for (int i = 0; i < CW; ++i) {
+      const int col = (lane + 32 * i) * VEC;
+      float gv[VEC], bv[VEC];
+      load_f32<VEC>(g + col, gv);
+      load_f32<VEC>(b + col, bv);
+      Raw out;
+      T* oe = reinterpret_cast<T*>(&out);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j)
+        oe[j] = from_f<T>((elem<T, VEC>(xv[i], j) - mean) * rstd * gv[j] +
+                          bv[j]);
+      *reinterpret_cast<Raw*>(y + row * D + col) = out;
+    }
+    if (lane == 0) {
+      mu_out[row] = mean;
+      rstd_out[row] = rstd;
+    }
+  }
+}
 
 // R rows of a thread's columns as loaded, with their statistics
 template <typename T, int VEC, int CV, int R>
@@ -164,8 +373,8 @@ int launch_variant(const void* x, const float* g, const float* mu,
 extern "C" int jk_probe_ln_bwd(int variant, const void* x, const float* g,
                                const float* mu, const float* rstd,
                                const void* dy, void* dx, float* part, int N,
-                               int D, int blocks, int vec, int dtype,
-                               cudaStream_t st) {
+                               int D, int blocks, int vec, int cv,
+                               int dtype, cudaStream_t st) {
   if (dtype != 1 || !vec || D % 8 || D > 2048 || blocks > N)
     return (int)cudaErrorInvalidValue;
   switch (variant) {
@@ -176,4 +385,33 @@ extern "C" int jk_probe_ln_bwd(int variant, const void* x, const float* g,
     case 4: return launch_variant<4, false, true>(x, g, mu, rstd, dy, dx, part, N, D, blocks, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The forward's alternatives on bf16 rows with D % 8 == 0 and D <= 2048
+// (variant 3: D == 2048) over `blocks` blocks: 0, 1, 2 the shipped loop
+// at R 4, 2, 8 rows a group; 3 a warp per row (8 warps a block); 4 the
+// old design (one block per row, blocks unused).
+extern "C" int jk_probe_ln_fwd(int variant, const void* x, const float* g,
+                               const float* b, void* y, float* mu,
+                               float* rstd, int N, int D, float eps,
+                               int blocks, int vec, int cv, int dtype,
+                               cudaStream_t st) {
+  if (dtype != 1 || !vec || D % 8 || D > 2048 || blocks > N ||
+      (variant == 3 && D != 2048))
+    return (int)cudaErrorInvalidValue;
+  const auto* xb = (const __nv_bfloat16*)x;
+  auto* yb = (__nv_bfloat16*)y;
+  const int threads = (D / 8 + 31) / 32 * 32;
+  switch (variant) {
+    case 0: ln_fwd_rows_kernel<4><<<blocks, threads, 0, st>>>(xb, g, b, yb, mu, rstd, N, D, eps); break;
+    case 1: ln_fwd_rows_kernel<2><<<blocks, threads, 0, st>>>(xb, g, b, yb, mu, rstd, N, D, eps); break;
+    case 2: ln_fwd_rows_kernel<8><<<blocks, threads, 0, st>>>(xb, g, b, yb, mu, rstd, N, D, eps); break;
+    case 3: ln_fwd_warp_kernel<8><<<blocks, 256, 0, st>>>(xb, g, b, yb, mu, rstd, N, D, eps); break;
+    case 4:
+      ln_fwd_old_kernel<__nv_bfloat16><<<N, kThreads, D * sizeof(float), st>>>(
+          xb, g, b, yb, mu, rstd, D, eps);
+      break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }

@@ -1,6 +1,8 @@
 """The port's wav dataset, loader and audio helpers
 (jukebox_tpu_torch/data, utils/audio_utils.py) against jukebox_tpu's on the
-same wav files written to tmp_path. Host-side integer and numpy float64
+same wav files written to tmp_path. The port finds the files JAX's
+dataset finds and refuses a directory holding audio other than wav, which
+it cannot read yet. Host-side integer and numpy float64
 arithmetic on both sides: item windows, chunks, labels, loader batches and
 the bandwidth statistics must be equal (bandwidth to 1e-12 relative: the
 same float64 sums). aug_shift draws from the same (seed, epoch, item)
@@ -69,6 +71,29 @@ def test_dataset_windows_chunks_labels(wav_dir):
             assert tx.dtype == np.float32 and tx.shape == (1024, 2)
             np.testing.assert_array_equal(tx, jx)
             np.testing.assert_array_equal(ty, jy)
+
+
+def test_refuses_audio_it_cannot_read(tmp_path):
+    """JAX's dataset lists a flac beside a wav; the port's, which reads wav
+    alone, refuses the directory and names the flac."""
+    _write_wavs(tmp_path, seconds=(2.0,))
+    flac = tmp_path / "sub" / "song.FLAC"
+    flac.parent.mkdir()
+    flac.write_bytes(b"fLaC")
+    assert jfd.find_files(str(tmp_path)) == [str(tmp_path / "f0.wav"),
+                                             str(flac)]
+    assert tfd.find_files(str(tmp_path)) == jfd.find_files(str(tmp_path))
+    with pytest.raises(ValueError, match=r"1 of 2 .*sub/song\.FLAC"):
+        tfd.FilesAudioDataset(Hyperparams(**dict(
+            HPS, audio_files_dir=str(tmp_path), labels=False)))
+
+
+def test_wav_only_directory_matches_jax(wav_dir):
+    kw = dict(HPS, audio_files_dir=str(wav_dir), labels=False)
+    jd = jfd.FilesAudioDataset(JHyperparams(**kw))
+    td = tfd.FilesAudioDataset(Hyperparams(**kw))
+    assert td.files == jd.files == jfd.find_files(str(wav_dir))
+    assert len(td.files) == 3 and len(td) == len(jd)
 
 
 def test_unlabelled_base_fails_on_labels(wav_dir):

@@ -30,18 +30,19 @@ versions keep fp32; lse 1e-5 relative), and each kernel fed a planted fault
 bits on a second call, and are refused with one split pair of their work
 items left out of the merge.
 
-gemv_int8 alone at batch 1, 3, 4 and 16 at the 5b top's products and an
-N % 16 == 8 (chip_smoke.check_gemv_int8): its epilogues, out32, the same
-bits on a second call, and both planted faults (a skipped column tile,
-one K split left out of the combine) refused.
+gemv_int8 and gemv_bf16 (one kernel template) alone at batch 1, 3, 4 and
+16 at the 5b top's products, an N % 16 == 8, a K % 16 == 10 and the 1b
+top's c_attn (chip_smoke.check_gemv): their epilogues, out32, keep and
+res_scale, the same bits on a second call, and both planted faults (a
+skipped column tile, one K split left out of the combine) refused.
 
 LayerNorm kernels (ops/layer_norm.py) through chip_smoke.check_layer_norm
 at ragged and wide shapes in fp32, bf16 and fp16 (D 7 and 12288 among
 them): y, mu, rstd, dx, dg, db held to ops/layer_norm.py `agreement`
 (elementwise: two steps of the output dtype of |plain| plus 1e-4 of the
 tensor's RMS), the backward's same bits on a second call, and a planted
-fault (the last row skipped) refused by the same check; the backward also
-on rows at a storage offset (its element path).
+fault (the last row skipped) refused by the same check; both kernels also
+on rows at a storage offset (their element path).
 
 The Adam kernel (ops/adam.py) through chip_smoke.check_adam on a few
 tensors of mixed sizes (one with a None gradient), both moment forms,
@@ -225,15 +226,16 @@ def test_flash_kernels_match_plain(hd):
     assert set(rows) == set(fa.LAUNCHES)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("B", [1, 3, 4, 16])
-def test_gemv_int8_matches_plain(B):
-    """gemv_int8 through chip_smoke.check_gemv_int8 at the 5b_lyrics top's
-    five products and at N 3608 (N % 16 == 8: W's rows read 8 bytes a
-    lane), with their epilogues and out32: 1e-2 x max(1, |plain|), the
-    same bits on a second call (the K splits summed in a fixed order), and
-    both planted faults (the last column tile skipped, one K split left out
-    of the combine) refused; and the res_scale epilogue."""
+# the 5b_lyrics top's five products, an N % 16 == 8 and a K % 16 == 10
+# (x read element by element), and the 1b_lyrics top's c_attn
+GEMV_PRODUCTS = ((4800, 3600, None), (4800, 1200, None),
+                 (1200, 4800, "residual"), (4800, 4800, "gelu"),
+                 (4800, 4800, "residual"), (4800, 3608, None),
+                 (4794, 3600, None), (2048, 1536, None))
+
+
+def _check_gemvs(name, B):
+    """name through chip_smoke.check_gemv at GEMV_PRODUCTS and batch B."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -243,21 +245,38 @@ def test_gemv_int8_matches_plain(B):
                 * scale).to(dtype)
 
     rep = chip_smoke.KernelReport()
-    for K, N, epi in ((4800, 3600, None), (4800, 1200, None),
-                      (1200, 4800, "residual"), (4800, 4800, "gelu"),
-                      (4800, 4800, "residual"), (4800, 3608, None)):
+    for K, N, epi in GEMV_PRODUCTS:
         b = rnd(N, scale=0.02)
-        qd = quantize_dense({"w": rnd(K, N, dtype=torch.float32,
-                                      scale=0.02), "b": b})
+        w = rnd(K, N, dtype=torch.float32, scale=0.02)
+        if name == "gemv_int8":
+            qd = quantize_dense({"w": w, "b": b})
+            wts = (qd["w_q"], qd["s"])
+        else:
+            wts = (w.to(torch.bfloat16),)
         x, res = rnd(B, K), rnd(B, N) if epi == "residual" else None
-        chip_smoke.check_gemv_int8(rep, f"[{B},{K}]x[{K},{N}] {epi}", x,
-                                   qd["w_q"], qd["s"], b, epi, res, "cuda")
-        if epi == "residual":
-            args = (x, qd["w_q"], qd["s"], b, "res_scale", res, rnd(B, N),
-                    1.0 / 79)
-            assert _rel_err(ds.gemv_int8(*args).float().cpu(),
-                            ds.gemv_int8_plain(*args).float().cpu()) <= 1e-2
-    assert rep.rows["gemv_int8"]["max_abs_err"] >= 0.0
+        chip_smoke.check_gemv(rep, name, f"[{B},{K}]x[{K},{N}] {epi}", x,
+                              wts, b, epi, res, "cuda")
+    assert rep.rows[name]["max_abs_err"] >= 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 3, 4, 16])
+def test_gemv_int8_matches_plain(B):
+    """gemv_int8 through chip_smoke.check_gemv at GEMV_PRODUCTS (an
+    N % 16 == 8 reads W's rows 8 bytes a lane), with their epilogues,
+    out32, keep and res_scale: 1e-2 x max(1, |plain|), the same bits on a
+    second call (the K splits summed in a fixed order), and both planted
+    faults (the last column tile skipped, one K split left out of the
+    combine) refused."""
+    _check_gemvs("gemv_int8", B)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 3, 4, 16])
+def test_gemv_bf16_matches_plain(B):
+    """gemv_bf16, the same kernel template with bf16 weights, through the
+    same checks at the same products."""
+    _check_gemvs("gemv_bf16", B)
 
 
 @pytest.mark.gpu
@@ -299,6 +318,30 @@ def test_layer_norm_bwd_at_a_storage_offset(dtype):
         assert all(ln.agreement(o, r) <= 1.0 for o, r in zip(out, ref))
         again = ln.layer_norm_bwd(x, g, mu, rstd, dy)
         assert all(torch.equal(a, o) for a, o in zip(again, out))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_layer_norm_fwd_at_a_storage_offset(dtype):
+    """layer_norm_fwd on rows whose data starts one element past a 16-byte
+    boundary (its element path) at D 2048 and 4800: y, mu, rstd within
+    ops/layer_norm.py `agreement` of the plain version and of the
+    kernel's 16-byte path on an aligned copy of the rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for N, D in ((300, 2048), (40, 4800)):
+        x = (torch.randn(N * D + 1, generator=gen, device="cuda") * 2.0
+             + 0.5).to(dtype)[1:].view(N, D)
+        assert x.is_contiguous() and x.data_ptr() % 16
+        g = 1.0 + 0.1 * torch.randn(D, generator=gen, device="cuda")
+        b = 0.1 * torch.randn(D, generator=gen, device="cuda")
+        out = ln.layer_norm_fwd(x, g, b)
+        ref = ln.layer_norm_fwd_plain(x, g, b)
+        assert all(ln.agreement(o, r) <= 1.0 for o, r in zip(out, ref))
+        assert all(ln.agreement(o, r) <= 1.0
+                   for o, r in zip(out, ln.layer_norm_fwd(x.clone(), g, b)))
 
 
 @pytest.mark.gpu
