@@ -9,11 +9,15 @@ Phases, each printing timestamped lines:
   2 kernels  every bf16 decode kernel against its plain PyTorch version at
              the shapes of the 1b_lyrics priors (top: S 2048, A 512, 2
              heads; upsamplers: S 1920, A 480, 1 head) and of the 5b_lyrics
-             top (S 4800, A 1200, 8 heads): gemv_bf16 at every product of
+             top (S 4800, A 1200, 8 heads): the GEMV at every product of
              a layer, an N % 16 == 8 and a K % 16 == 10 one, at batch 4, 1,
-             3 and 16, every epilogue, out32 and keep, the same bits on a
-             second call, and two planted faults (a skipped column tile,
-             one K split left out of the combine); every attention pattern at
+             3 and 16: c_attn, f6 q and mlp c_fc with the LayerNorm
+             prologue (ln_gemv_bf16: the same bits twice, out32, and two
+             planted faults, one split left out of the row statistics and a
+             skipped column tile), the residual products (gemv_bf16) with
+             out32, keep and res_scale, the same bits on a second call, and
+             two planted faults (a skipped column tile, one K split left
+             out of the combine); every attention pattern at
              positions that cross block and prime boundaries, f0 also at
              129 rows and at n_ctx (its rows split over blocks, the slot
              row in the last, ragged split), and at every split position
@@ -21,7 +25,7 @@ Phases, each printing timestamped lines:
              check must refuse; the attention reads q in fp32 (the c_attn
              product's fp32 row, its bf16 rounding feeding the new k, v);
              times per launch beside the bound, the plain version and one
-             library call
+             library call (the LN-GEMV: F.layer_norm, then addmm)
   3 step     one full-width decode step per prior, kernel path against the
              plain path on the same caches after a one-block prefill
   2b flash   the flash-attention kernels (forward, dq, dk/dv) against their
@@ -46,15 +50,16 @@ Phases, each printing timestamped lines:
              prefill and the conditioners (launch counts)
   2e int8    gemv_int8, ring_attn_int8 (every ring pattern) and
              cross_attn_decode (f6, bf16 and int8 encoder K/V) against their
-             plain versions at the 5b_lyrics top's shapes (S 4800, A 1200,
-             8 heads of 150, 512 encoder rows and a ragged 500), the
-             upsamplers' and the 1b top's; gemv_int8 as gemv_bf16 in
-             phase 2; a planted fault for each (a skipped column tile and
-             one K split left out of the combine, a dropped head, and wherever the
-             rows split, one split left out of the combine); quantize_dense
-             on the card bit for bit against the host; times beside the
-             bound, the plain version and one library call (gemv_int8 at
-             all five 5b top products)
+             plain versions at the 5b_lyrics top's shapes (S 4800, A 1200, 8
+             heads of 150, 512 encoder rows and a ragged 500), the upsamplers'
+             and the 1b top's; ln_gemv_int8 and gemv_int8 as ln_gemv_bf16 and
+             gemv_bf16 in phase 2; a planted fault for each (a skipped column
+             tile, one K split left out of the combine or of the row
+             statistics, a dropped head, and wherever the rows
+             split, one split left out of the combine); quantize_dense on the
+             card bit for bit against the host; times beside the bound, the
+             plain version and one library call (the GEMVs at all five 5b
+             top products)
   7 5b       the 5b_lyrics cascade from --seed: one full-width top decode
              step (79 layers) kernel path against plain path in bf16 and
              in int8, one int8 upsampler step, then the ancestral cascade
@@ -65,8 +70,10 @@ Phases, each printing timestamped lines:
              full width, one decode step kernel path against plain path
   2d adam    the Adam kernel against its plain loop on the top prior's
              871 parameter tensors, fp32 and fp16 moments, three updates,
-             and a planted fault (the last chunk of the largest tensor left
-             out); the update's time beside the bound and the plain loop
+             run twice with equal bits, and planted faults (an update item
+             and, with fp16 moments, an amax item of the largest tensor
+             left out of the walk); the update's time (one launch) beside
+             the bound and the plain loop
   5 train    one full-width train step of the 1b_lyrics top prior (72
              layers, all_fp16): loss and gradients through the flash and
              LayerNorm kernels against the plain path on one batch, against
@@ -91,6 +98,7 @@ It runs on the GPU only; without one it exits with an error.
 import argparse
 import contextlib
 import faulthandler
+import functools
 import json
 import math
 import multiprocessing
@@ -362,8 +370,9 @@ def split_fault_caches(q, caches, lo, hi, A, H):
 
 def check_kernels(shapes, B, last_t, device, gen, time_it=True):
     """Hold every kernel against its plain version at each prior shape in
-    `shapes` ({label: prior_shapes(...)}): gemv_bf16 through check_gemv at
-    every product of gemv_products and at batch B and GEMV_BATCHES, the
+    `shapes` ({label: prior_shapes(...)}): the bf16 GEMV at every product
+    of gemv_products and at batch B and GEMV_BATCHES (check_gemv_ln with
+    the LayerNorm prologue, check_gemv at the residual products), the
     attention at every pattern and at positions crossing block and prime
     boundaries; time every shape at batch B (attention at last_t[label]).
     Returns KernelReport.rows: the worst error of each kernel and the
@@ -394,36 +403,49 @@ def check_kernels(shapes, B, last_t, device, gen, time_it=True):
     for label, sh in shapes.items():
         S, A, H, Sm = sh["S"], sh["A"], sh["H"], sh["Sm"]
         main = label == next(iter(shapes))
-        # -- ln_rows
-        x, g, b = rnd(B, S), rnd(S, dtype=torch.float32), rnd(S, dtype=torch.float32)
-        rep.check("ln_rows", ds.ln_rows(x, g, b), ds.ln_rows_plain(x, g, b),
-                  f"{label} [{B},{S}]")
-        gb, bb = g.to(bf), b.to(bf)
-        sets = copies(lambda: (rnd(B, S), g, b), B * S * 4)
-        time3("ln_rows", f"{label} [{B},{S}]", ds.ln_rows, ds.ln_rows_plain,
-              lambda x_: F.layer_norm(x_, (S,), gb, bb, 1e-5),
-              sets, [(x_,) for x_, _, _ in sets], 2 * B * S * 2 + 2 * S * 4,
-              8 * B * S, "fp32", main)
-        # -- gemv_bf16, every product of a layer at B and GEMV_BATCHES
+        # -- every product of a layer at B and GEMV_BATCHES: the LayerNorm
+        # products with the prologue (ln_gemv_bf16), the residual products
+        # (gemv_bf16)
         for what, K, N, epi in gemv_products(sh):
             w, b = rnd(K, N, scale=0.02), rnd(N, scale=0.02)
+            g_ln, b_ln = ln_params(K, gen, device)
             for Bx in [B] + [n for n in GEMV_BATCHES if n != B]:
-                res = rnd(Bx, N) if epi == "residual" else None
-                check_gemv(rep, "gemv_bf16", f"{label} {what} [{Bx},{K}]x"
-                           f"[{K},{N}]{f' {epi}' if epi else ''}",
-                           rnd(Bx, K), (w,), b, epi, res, device)
+                shape = (f"{label} {what} [{Bx},{K}]x[{K},{N}]"
+                         f"{f' {epi}' if epi else ''}")
+                if epi in ds.LN_EPILOGUES:
+                    check_gemv_ln(rep, "gemv_bf16", shape, ln_rows_in(
+                        Bx, K, gen, device), (w,), b, epi, (g_ln, b_ln),
+                        device)
+                else:
+                    check_gemv(rep, "gemv_bf16", shape, rnd(Bx, K), (w,), b,
+                               epi, rnd(Bx, N), device)
             if "," in what:  # the layout cases are checked, not timed
                 continue
-            res = rnd(B, N) if epi == "residual" else None
-            sets = copies(lambda: (rnd(B, K), rnd(K, N, scale=0.02), b, epi,
-                                   res), K * N * 2)
-            # the library call: the product and bias in one cuBLAS call
-            time3("gemv_bf16", f"{label} {what} [{B},{K}]x[{K},{N}]",
-                  ds.gemv_bf16, ds.gemv_bf16_plain,
-                  lambda x_, w_, b_: torch.addmm(b_, x_, w_), sets,
-                  [a[:3] for a in sets],
-                  K * N * 2 + B * K * 2 + N * 2 + B * N * 2 * (2 if res is not None else 1),
-                  2 * B * K * N, "bf16", main and what == "c_attn")
+            if epi not in ds.LN_EPILOGUES:
+                res = rnd(B, N)
+                sets = copies(lambda: (rnd(B, K), rnd(K, N, scale=0.02), b,
+                                       epi, res), K * N * 2)
+                # the library call: the product and bias in one cuBLAS call
+                time3("gemv_bf16", f"{label} {what} [{B},{K}]x[{K},{N}]",
+                      ds.gemv_bf16, ds.gemv_bf16_plain,
+                      lambda x_, w_, b_: torch.addmm(b_, x_, w_), sets,
+                      [a[:3] for a in sets],
+                      K * N * 2 + B * K * 2 + N * 2 + B * N * 2 * 2,
+                      2 * B * K * N, "bf16", main and what == "mlp.c_proj")
+                continue
+            # the library pair: F.layer_norm, then addmm
+            ln_ = (g_ln, b_ln)
+            sets = copies(lambda: (ln_rows_in(B, K, gen, device),
+                                   rnd(K, N, scale=0.02), b, epi), K * N * 2)
+            time3("ln_gemv_bf16", f"{label} {what} [{B},{K}]x[{K},{N}]",
+                  functools.partial(ds.gemv_bf16, ln=ln_),
+                  lambda x_, w_, b_, e_: ds.ln_gemv_bf16_plain(x_, w_, b_,
+                                                               ln_, e_),
+                  lambda x_, w_, b_: torch.addmm(b_, F.layer_norm(
+                      x_, (K,), g_ln.to(bf), b_ln.to(bf), ds.LN_EPS), w_),
+                  sets,
+                  [a[:3] for a in sets], ln_gemv_bytes(B, K, N, 2),
+                  2 * B * K * N + 8 * B * K, "bf16", main and what == "c_attn")
         # -- ring_attn_decode, every ring pattern of this prior (f6: phase 2e)
         for f in (f for f in sh["funcs"] if f != 6):
             shape = {0: (B, sh["n_ctx"], A), 1: (B, sh["bc"], A),
@@ -511,9 +533,10 @@ def k_split_fault(x, N, device):
 
 def gemv_products(sh):
     """(what, K, N, epilogue) of every GEMV of a decode layer of a prior
-    (prior_shapes), then two layout cases of its c_attn: N % 16 == 8 (a
-    lane's last 8 columns past N; int8 rows 8-byte aligned) and a K that
-    is neither a multiple of 16 nor of 4 (x read element by element)."""
+    (prior_shapes; the epilogues None and "gelu" take the LayerNorm
+    prologue), then two layout cases of its c_attn: N % 16 == 8 (a lane's
+    last 8 columns past N; int8 rows 8-byte aligned) and a K that is
+    neither a multiple of 16 nor of 4 (x read element by element)."""
     S, A, Sm = sh["S"], sh["A"], sh["Sm"]
     out = [("c_attn", S, 3 * A, None), ("c_proj", A, S, "residual"),
            ("mlp.c_fc", S, Sm, "gelu"), ("mlp.c_proj", Sm, S, "residual"),
@@ -525,13 +548,12 @@ def gemv_products(sh):
 
 
 def check_gemv(rep, name, what, x, wts, b, epi, res, device):
-    """A GEMV (name "gemv_bf16" with wts (w,), "gemv_int8" with (w_q, s))
-    against its plain version on one product: with the epilogue given, the
-    same bits on a second call, out32 (the fp32 row beside it); after a
-    residual product also keep (the product kept beside the sum) and the
-    res_scale residual; and both planted faults refused by the same check
-    (the last column tile skipped; one K split left out of the
-    combine)."""
+    """A residual GEMV (name "gemv_bf16" with wts (w,), "gemv_int8" with
+    (w_q, s); epi "residual") against its plain version on one product:
+    the same bits on a second call, out32 (the fp32 row beside it), keep
+    (the product kept beside the sum) and the res_scale residual; and both
+    planted faults refused by the same check (the last column tile
+    skipped; one K split left out of the combine)."""
     fn, plain = getattr(ds, name), getattr(ds, f"{name}_plain")
     ref = plain(x, *wts, b, epi, res)
     out = fn(x, *wts, b, epi, res)
@@ -542,16 +564,15 @@ def check_gemv(rep, name, what, x, wts, b, epi, res, device):
     yp, y32p = plain(x, *wts, b, epi, res, out32=True)
     rep.check(name, y, yp, f"{what} out32")
     rep.check(name, y32, y32p, f"{what} out32's fp32 row")
-    if epi == "residual":
-        # x + (a + m) * rs with res = x, res2 = a; and the kept product
-        res2, rs = res.roll(1, dims=1), 1.0 / 79
-        rep.check(name, fn(x, *wts, b, "res_scale", res, res2, rs),
-                  plain(x, *wts, b, "res_scale", res, res2, rs),
-                  f"{what} res_scale")
-        yk, ak = fn(x, *wts, b, "residual", res, keep=True)
-        yp, ap = plain(x, *wts, b, "residual", res, keep=True)
-        rep.check(name, yk, yp, f"{what} residual+kept")
-        rep.check(name, ak, ap, f"{what} kept product")
+    # x + (a + m) * rs with res = x, res2 = a; and the kept product
+    res2, rs = res.roll(1, dims=1), 1.0 / 79
+    rep.check(name, fn(x, *wts, b, "res_scale", res, res2, rs),
+              plain(x, *wts, b, "res_scale", res, res2, rs),
+              f"{what} res_scale")
+    yk, ak = fn(x, *wts, b, "residual", res, keep=True)
+    yp, ap = plain(x, *wts, b, "residual", res, keep=True)
+    rep.check(name, yk, yp, f"{what} residual+kept")
+    rep.check(name, ak, ap, f"{what} kept product")
     refuse(name, fn(x, skip_col_tile(wts[0]), *wts[1:], b, epi, res), ref,
            f"{what} last column tile skipped")
     cut = k_split_fault(x, wts[0].shape[1], device)
@@ -560,6 +581,79 @@ def check_gemv(rep, name, what, x, wts, b, epi, res, device):
         refuse(name, fn(dropped, *wts, b, epi, res),
                plain(shown, *wts, b, epi, res),
                f"{what} K split {lo}:{hi} left out")
+
+
+def ln_params(K, gen, device):
+    """A LayerNorm's fp32 gain and bias [K], drawn from gen."""
+    g = 1.0 + 0.1 * torch.randn(K, generator=gen, device=device)
+    return g, 0.1 * torch.randn(K, generator=gen, device=device)
+
+
+def ln_rows_in(B, K, gen, device):
+    """Residual-stream rows [B, K] bf16: an offset and a spread, as the
+    LayerNorm meets them."""
+    return (2.0 * torch.randn((B, K), generator=gen, device=device)
+            + 0.5).to(torch.bfloat16)
+
+
+def ln_gemv_bytes(B, K, N, w_bytes):
+    """Bytes of one LN-GEMV launch: x, g and b, W, the bias and y."""
+    return B * K * 2 + 2 * K * 4 + K * N * w_bytes + N * 2 + B * N * 2
+
+
+def stats_fault_ln(x, ln, N, device):
+    """The planted fault of the LayerNorm prologue, as inputs: a kernel
+    that leaves one split's partial (a middle one, its columns raised so it
+    shows) out of the row statistics normalises x [1, K] with mean' and
+    rstd' over the other splits' columns; from (g', b') = (g rstd' / rstd,
+    b + (mean - mean') rstd' g) the sound kernel computes that same row.
+    Returns (x with the split raised, (g', b'), the split's columns), or
+    None when K runs in one split."""
+    K = x.shape[1]
+    splits, chunk, _ = ds.gemv_split_plan(K, N, ds.sm_count(device))
+    if splits == 1:
+        return None
+    lo, hi = (splits // 2) * chunk, min((splits // 2 + 1) * chunk, K)
+    shown = x.clone()
+    shown[:, lo:hi] = (shown[:, lo:hi].float() + 4.0).to(x.dtype)
+    xf = shown.float()[0]
+    keep = torch.ones(K, dtype=torch.bool, device=x.device)
+    keep[lo:hi] = False
+    mean = xf.mean()
+    rstd = torch.rsqrt((xf - mean).square().mean() + ds.LN_EPS)
+    mean_f = xf[keep].sum() / K
+    rstd_f = torch.rsqrt((xf[keep] - mean_f).square().sum() / K + ds.LN_EPS)
+    g, b = ln
+    return shown, (g * (rstd_f / rstd), b + (mean - mean_f) * rstd_f * g), \
+        (lo, hi)
+
+
+def check_gemv_ln(rep, name, what, x, wts, b, epi, ln, device):
+    """A GEMV with the LayerNorm prologue ("gemv_bf16" or "gemv_int8" with
+    ln=(g, b), epi None or "gelu"; counted as ln_<name>) against
+    gemv_plain(ln_rows_plain(x)) on one product: the same bits on a second
+    call, out32 (the fp32 row beside it), and two planted faults refused by
+    the same check (one split's partial left out of the row statistics,
+    stats_fault_ln, at batch 1; the last column tile skipped)."""
+    key = "ln_" + name
+    fn, plain = getattr(ds, name), getattr(ds, f"{key}_plain")
+    ref = plain(x, *wts, b, ln, epi)
+    out = fn(x, *wts, b, epi, ln=ln)
+    rep.check(key, out, ref, f"{what} ln")
+    if not torch.equal(out, fn(x, *wts, b, epi, ln=ln)):
+        raise AssertionError(f"{key} {what}: a second call gave other bits")
+    y, y32 = fn(x, *wts, b, epi, out32=True, ln=ln)
+    yp, y32p = plain(x, *wts, b, ln, epi, out32=True)
+    rep.check(key, y, yp, f"{what} ln out32")
+    rep.check(key, y32, y32p, f"{what} ln out32's fp32 row")
+    refuse(key, fn(x, skip_col_tile(wts[0]), *wts[1:], b, epi, ln=ln), ref,
+           f"{what} ln, last column tile skipped")
+    cut = stats_fault_ln(x[:1], ln, wts[0].shape[1], device)
+    if cut is not None:
+        shown, faulty, (lo, hi) = cut
+        refuse(key, fn(shown, *wts, b, epi, ln=faulty),
+               plain(shown, *wts, b, ln, epi),
+               f"{what} ln, split {lo}:{hi} left out of the statistics")
 
 
 def skip_head(q, A, H):
@@ -599,10 +693,11 @@ def check_int8_kernels(shapes, B, last_t, device, gen, time_it=True):
     encoder K/V) against their plain versions at each prior shape in
     `shapes` (the first label's shapes are the representative ones), every
     ring pattern at positions crossing block boundaries, with the slot
-    rows and scales each writes equal; gemv_int8 through check_gemv at
-    every product of gemv_products and batch; a planted fault for each
-    kernel (a skipped column tile and a K split left out, a dropped head)
-    that the same check must refuse; quantize_dense on the
+    rows and scales each writes equal; the int8 GEMV through check_gemv_ln
+    and check_gemv at every product of gemv_products and batch; a planted
+    fault for each kernel (a skipped column tile, a K split left out of the
+    combine or of the row statistics, a dropped head) that the same check
+    must refuse; quantize_dense on the
     card bit-exact against the host. Times beside the bound, the plain
     version and one library call (addmm on the dequantised weight; SDPA
     on the dequantised rows or the encoder rows). Returns {name: row}."""
@@ -640,32 +735,56 @@ def check_int8_kernels(shapes, B, last_t, device, gen, time_it=True):
     for label, sh in shapes.items():
         S, A, H, Sm = sh["S"], sh["A"], sh["H"], sh["Sm"]
         main = label == next(iter(shapes))
-        # -- gemv_int8, at B and at other batch sizes, every epilogue
+        # -- every product at B and at other batch sizes: the LayerNorm
+        # products with the prologue (ln_gemv_int8), the residual products
+        # (gemv_int8)
         for what, K, N, epi in gemv_products(sh):
             w = rnd(K, N, dtype=torch.float32, scale=0.02)
             b = rnd(N, scale=0.02)
             qd = quantize_dense({"w": w, "b": b})
             wq, sc = qd["w_q"], qd["s"]
+            g_ln, b_ln = ln_params(K, gen, device)
             for Bx in [B] + [n for n in GEMV_BATCHES if n != B]:
-                res = rnd(Bx, N) if epi == "residual" else None
-                check_gemv(rep, "gemv_int8", f"{label} {what} [{Bx},{K}]x"
-                           f"[{K},{N}]{f' {epi}' if epi else ''}", rnd(Bx, K),
-                           (wq, sc), b, epi, res, device)
+                shape = (f"{label} {what} [{Bx},{K}]x[{K},{N}]"
+                         f"{f' {epi}' if epi else ''}")
+                if epi in ds.LN_EPILOGUES:
+                    check_gemv_ln(rep, "gemv_int8", shape, ln_rows_in(
+                        Bx, K, gen, device), (wq, sc), b, epi, (g_ln, b_ln),
+                        device)
+                else:
+                    check_gemv(rep, "gemv_int8", shape, rnd(Bx, K), (wq, sc),
+                               b, epi, rnd(Bx, N), device)
             if not (time_it and main) or "," in what:
                 continue
-            res = rnd(B, N) if epi == "residual" else None
-            sets = copies(lambda: (rnd(B, K), quantize_dense(
+            ln_ = (g_ln, b_ln)
+            res = None if epi in ds.LN_EPILOGUES else rnd(B, N)
+            x_of = ((lambda: ln_rows_in(B, K, gen, device)) if res is None
+                    else (lambda: rnd(B, K)))
+            sets = copies(lambda: (x_of(), quantize_dense(
                 {"w": rnd(K, N, dtype=torch.float32, scale=0.02),
                  "b": b})["w_q"], sc, b, epi, res), K * N)
             # the library call on the same inputs: each set's weight
             # dequantised to bf16, so it too streams a weight per call
-            time3("gemv_int8", f"{label} {what} [{B},{K}]x[{K},{N}]",
-                  ds.gemv_int8, ds.gemv_int8_plain,
-                  lambda x_, w_, b_: torch.addmm(b_, x_, w_), sets,
-                  [(a[0], (a[1].float() * sc).to(bf), b) for a in sets],
-                  K * N + N * 4 + B * K * 2 + N * 2
-                  + B * N * 2 * (2 if res is not None else 1),
-                  2 * B * K * N, what == "c_attn", timed=True)
+            lib_sets = [(a[0], (a[1].float() * sc).to(bf), b) for a in sets]
+            if res is not None:
+                time3("gemv_int8", f"{label} {what} [{B},{K}]x[{K},{N}]",
+                      ds.gemv_int8, ds.gemv_int8_plain,
+                      lambda x_, w_, b_: torch.addmm(b_, x_, w_), sets,
+                      lib_sets, K * N + N * 4 + B * K * 2 + N * 2
+                      + B * N * 2 * 2, 2 * B * K * N, what == "mlp.c_proj",
+                      timed=True)
+                del sets, lib_sets
+                continue
+            sets = [a[:5] for a in sets]
+            time3("ln_gemv_int8", f"{label} {what} [{B},{K}]x[{K},{N}]",
+                  functools.partial(ds.gemv_int8, ln=ln_),
+                  lambda x_, w_, s_, b_, e_: ds.ln_gemv_int8_plain(
+                      x_, w_, s_, b_, ln_, e_),
+                  lambda x_, w_, b_: torch.addmm(b_, F.layer_norm(
+                      x_, (K,), g_ln.to(bf), b_ln.to(bf), ds.LN_EPS), w_),
+                  sets, lib_sets, ln_gemv_bytes(B, K, N, 1) + N * 4,
+                  2 * B * K * N + 8 * B * K, what == "c_attn", timed=True)
+            del sets, lib_sets
         # -- ring_attn_int8, every ring pattern of this prior
         for f in (f for f in sh["funcs"] if f != 6):
             shape = {0: (B, sh["n_ctx"], A), 1: (B, sh["bc"], A),
@@ -783,7 +902,8 @@ def check_int8_kernels(shapes, B, last_t, device, gen, time_it=True):
     for name, row in rep.rows.items():
         row.update(timings.get(name, {}))
     return {k: v for k, v in rep.rows.items()
-            if k in ("gemv_int8", "ring_attn_int8", "cross_attn_decode")}
+            if k in ("ln_gemv_int8", "gemv_int8", "ring_attn_int8",
+                     "cross_attn_decode")}
 
 
 # ---------------------------------------------------------------------------
@@ -1133,12 +1253,13 @@ def check_adam(start, fp16, device, seed=7, time_it=True):
     """Phase 2d: ADAM_STEPS updates of the tensors `start` ({name: fp32
     parameter}, left unchanged) through the Adam kernel against the plain
     version from one state, with gradients of ~1e3 drawn per step (one
-    tensor's gradient None) and a loss scale x clip divisor on the card;
-    then the same with a planted fault, the last chunk of the largest
-    tensor left out of the launch, which the check must refuse. Times one
-    update beside the bound and the plain version (no single PyTorch call
-    computes this update: torch's fused AdamW places eps and the weight
-    decay elsewhere). Returns the kernel's row."""
+    tensor's gradient None) and a loss scale x clip divisor on the card,
+    twice, the two runs equal bit for bit; then the same with planted
+    faults, an update item (and in the fp16 form an amax item) of the
+    largest tensor left out of the walk, which the check must refuse.
+    Times one update beside the bound and the plain version (no single
+    PyTorch call computes this update: torch's fused AdamW places eps and
+    the weight decay elsewhere). Returns the kernel's row."""
     shapes = {n: p.shape for n, p in start.items()}
     none_at = min(shapes, key=lambda n: start[n].numel())
     scale = torch.tensor(2.0 ** 16 * 1.7, device=device)
@@ -1165,6 +1286,18 @@ def check_adam(start, fp16, device, seed=7, time_it=True):
     else:
         kernel = ad.adam_update
     run(kernel, params, opt)
+    if cuda:  # a second walk from the same state gives the same bits
+        again, again_opt = clone()
+        table = ad.AdamTable(again, again_opt)
+        run(kernel, again, again_opt)
+        same = all(torch.equal(params[n], again[n])
+                   and all(torch.equal(opt[k][n], again_opt[k][n])
+                           for k in ("m", "v", "m_scale", "v_scale")
+                           if k in opt) for n in start)
+        if not same:
+            raise AssertionError(f"adam_update ({what}): a second run gave "
+                                 f"other bits")
+        del again, again_opt, table
     worst = _adam_gaps(params, opt, ref_params, ref_opt, start)
     log(f"phase 2d adam {what}, {len(start)} tensors, "
         f"{sum(p.numel() for p in start.values()) / 1e6:.1f} M params, "
@@ -1179,22 +1312,33 @@ def check_adam(start, fp16, device, seed=7, time_it=True):
                               for n in start)}
     del params, opt
     if cuda:
-        # the planted fault: the last chunk of the largest tensor left out
-        params, opt = clone()
+        # the planted faults, each an item of the largest tensor left out of
+        # the walk: the update item of its last chunk; in the fp16 form
+        # also the amax item of the chunk that holds the first step's
+        # largest |m| and |v| (the largest |gradient|), whose loss shrinks
+        # the tensor's new scales
         sizes = [p.numel() for p in start.values()]
         big = max(range(len(sizes)), key=sizes.__getitem__)
-        chunks = ad.AdamTable(params, opt).chunks
-        last = max(i for i, c in enumerate(chunks) if c[0] == big)
-        faulty = ad.AdamTable(params, opt, chunks[:last] + chunks[last + 1:])
-        run(lambda p, g, o, **kw: ad.adam_update_kernel(faulty, g, o, **kw),
-            params, opt)
-        bad = _adam_gaps(params, opt, ref_params, ref_opt, start)
-        log(f"  planted fault (chunk {chunks[last]} left out): " + ", ".join(
-            f"{k} {v:.3e} ({n})" for k, (v, n) in bad.items()))
-        if _adam_ok(bad, fp16):
-            raise AssertionError("the Adam check passes a kernel that skips "
-                                 "a chunk")
-        del params, opt, faulty
+        items = ad.item_order(sizes, fp16)
+        g0 = _adam_grads(shapes, 0, device, seed, none_at)[list(start)[big]]
+        peak = int(g0.abs().argmax()) // ad.CHUNK * ad.CHUNK
+        faults = [("update", max(i for i, it in enumerate(items)
+                                 if it[0] == big and it[2] == ad.UPDATE))]
+        if fp16:
+            faults.append(("amax", items.index((big, peak, ad.AMAX))))
+        for kind, drop in faults:
+            params, opt = clone()
+            faulty = ad.AdamTable(params, opt, items[:drop] + items[drop + 1:])
+            run(lambda p, g, o, **kw: ad.adam_update_kernel(faulty, g, o,
+                                                            **kw),
+                params, opt)
+            bad = _adam_gaps(params, opt, ref_params, ref_opt, start)
+            log(f"  planted fault ({kind} item {items[drop]} left out): "
+                + ", ".join(f"{k} {v:.3e} ({n})" for k, (v, n) in bad.items()))
+            if _adam_ok(bad, fp16):
+                raise AssertionError(f"the Adam check passes a kernel that "
+                                     f"skips an {kind} item")
+            del params, opt, faulty
     del ref_params, ref_opt
     log(f"  largest normwise param gap {err:.3e}")
     if not (time_it and cuda):
@@ -1322,8 +1466,9 @@ def cascade_layer_norms(priors, hps, sampling_kwargs):
     """LayerNorm kernel launches of the cascade: per window and batch, the
     conditioner's LayerNorm (upsamplers), two per layer for each whole
     prefill chunk of the 1b top's lyric prefix (chunk_size rounded to
-    blocks; the decode steps, the prefix's tail included, run ln_rows
-    instead), and the 5b_lyrics top's lyric encoder forward."""
+    blocks; the decode steps, the prefix's tail included, normalise in
+    their GEMVs' prologue instead), and the 5b_lyrics top's lyric encoder
+    forward."""
     n = 0
     for level, prior in enumerate(priors):
         total = hps.sample_length // prior.raw_to_tokens

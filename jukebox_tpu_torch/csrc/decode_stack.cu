@@ -11,10 +11,13 @@
 // one launch; here the same per-layer arithmetic runs as kernels launched
 // per layer:
 //
-//   ln_rows      LayerNorm of [B, S], fp32 statistics, eps given, fp32
-//                gain/bias, bf16 out. One block per row.
 //   gemv         y[B, N] = epilogue(x[B, K] @ W[K, N] (* s[N]) + b), W in
-//                the JAX (in, out) layout, fp32 accumulation: gemv_bf16
+//                the JAX (in, out) layout, fp32 accumulation, optionally
+//                with a LayerNorm prologue (x the raw residual stream,
+//                fp32 statistics, eps given, fp32 gain/bias, the
+//                normalised row rounded to bf16 before the product, as
+//                the megakernel's u / um at decode_stack.py:625-636 and
+//                999-1008): gemv_bf16
 //                (W bf16) and gemv_int8 (W int8 with one fp32 scale per
 //                output column, applied after the accumulation, as the
 //                megakernel's piece_mm does). Serves c_attn (qkv, or q
@@ -63,8 +66,11 @@
 // the fp32 row of the c_attn product plus bias (the GEMV's out32 row),
 // not its bf16 rounding; the new token's k and v are the bf16 rows (int8:
 // quantised from the fp32 rows); the fp32 softmax weights multiply V and
-// only the head output is rounded to bf16. Fusing LN into the GEMV, a
-// persistent whole-stack kernel, CUDA graphs and wgmma/TMA are later work.
+// only the head output is rounded to bf16. Each LayerNorm is the prologue
+// of the GEMV that reads it (c_attn or f6's q, and mlp c_fc), so a decode
+// layer launches 5 kernels: 2 LN-GEMVs, the attention, 2 residual GEMVs.
+// A persistent whole-stack kernel, CUDA graphs and wgmma/TMA are later
+// work.
 //
 // Every entry point is a plain C function that launches on the given stream
 // and returns cudaGetLastError(); the Python wrappers
@@ -133,32 +139,6 @@ __device__ __forceinline__ float bf16_round(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// ln_rows: one block per row of x [rows, S].
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-ln_rows_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ g,
-               const float* __restrict__ b, __nv_bfloat16* __restrict__ y,
-               int S, float eps) {
-  __shared__ float scratch[kWarps];
-  const __nv_bfloat16* xr = x + (size_t)blockIdx.x * S;
-  __nv_bfloat16* yr = y + (size_t)blockIdx.x * S;
-  float s = 0.0f;
-  for (int i = threadIdx.x; i < S; i += kThreads) s += __bfloat162float(xr[i]);
-  const float mean = block_sum(s, scratch) / S;
-  float v = 0.0f;
-  for (int i = threadIdx.x; i < S; i += kThreads) {
-    const float d = __bfloat162float(xr[i]) - mean;
-    v += d * d;
-  }
-  const float var = block_sum(v, scratch) / S;
-  const float rstd = rsqrtf(var + eps);
-  for (int i = threadIdx.x; i < S; i += kThreads) {
-    const float d = __bfloat162float(xr[i]) - mean;
-    yr[i] = __float2bfloat16(d * rstd * g[i] + b[i]);
-  }
-}
-
-// ---------------------------------------------------------------------------
 // The GEMV epilogue of the four outputs at .. at + 3 (at = b * N + n, n a
 // multiple of 4), from s, the fp32 products (scaled) plus bias, and r, r2
 // the bf16 residuals there. y32, when given, receives s itself: the
@@ -220,8 +200,8 @@ __device__ __forceinline__ void gemv_store4(const float (&s)[4], size_t at,
 // of columns with W^T as the A operand and x^T as B: lane (g = lane / 4,
 // q = lane % 4) loads its 16 columns col .. col + 15 (col = tile * 128 +
 // 16 g) of the rows k + 4q .. k + 4q + 3 and x[g][k + 4q .. + 3] (8 bytes,
-// from L2: no staging copy; a LayerNorm prologue would normalise these
-// pieces of x as they are loaded). The mma's k index 2q, 2q + 1, 2q + 8,
+// from L2, or from the block's normalised rows u under the LayerNorm
+// prologue). The mma's k index 2q, 2q + 1, 2q + 8,
 // 2q + 9 stands for row k + 4q + 0..3 in both operands (a sum over k does
 // not depend on its order), and its m index g (g + 8) for column col + 2j
 // (+ 1) of the j-th mma, so every register holds whole loads and no value
@@ -240,6 +220,41 @@ __device__ __forceinline__ void gemv_store4(const float (&s)[4], size_t at,
 // bits. (The earlier combine through a global workspace and the tile's
 // last block, and reading the partials after the barrier, which needs a
 // second one, are in scripts/chip_gemv_variants.cu with their times.)
+//
+// The LayerNorm prologue (the epilogues none and quick_gelu, EPI 0 and 1:
+// c_attn, f6's q, mlp c_fc; every product that reads a LayerNorm): x
+// is the raw residual stream and the product reads u = bf16((x - mean)
+// rstd g + b) in its place. Each block needs its rows' statistics over all
+// of K but holds only its split's columns, and the cluster spans every
+// split of a column tile, so the splits' partials meet in distributed
+// shared memory, as the products' do: the block copies its columns of x,
+// g and b into shared memory (every load in flight at once); warp w takes
+// rows w, w + 8: its lanes sum the row's columns (then the xor butterfly),
+// and, about that split mean m_z, their centred squares q_z (two passes
+// over shared memory), and write (sum, q_z) into every block of the
+// cluster. After one cluster barrier each block forms, in rank order, the
+// mean m (the splits' sums over K) and the centred sum of squares about it
+// by the exact identity sum_z [q_z + n_z (m_z - m)^2] (a two-pass variance
+// met in one exchange; never E[x^2] - E[x]^2), rstd = rsqrt(var + eps),
+// and normalises its columns into u [B][pitch] bf16 (pitch = chunk
+// rounded to 16 mod 64 elements, so the loop's 8-byte reads of 8 rows
+// meet no bank twice). Every block sums the same partials in the same
+// order, so all splits use the same statistics and two launches give the
+// same bits. The block loads x, g and b first; then every lane issues its
+// first U steps' weight loads (at the 1b top's c_attn a lane's only
+// steps), which stream while the statistics meet, and the first
+// iteration multiplies them; every later iteration (and every iteration of
+// the residual products, EPI 2 and 3, which have no prologue) loads its
+// own steps' weights and x before its products (issuing each iteration's
+// next weights after its products read 0.1-0.5 us slower at the residual
+// products and 0.6 at the 5b mlp c_fc's LN-GEMV). The alternatives are in
+// scripts/chip_gemv_variants.cu with their times: the mean and the
+// centred squares met in two exchanges (two cluster barriers), every
+// block reading its B rows from L2, the weight loads before x's or after
+// the prologue, the prologue alone, the unfused pair (the replaced
+// one-block-per-row ln_rows kernel, then the GEMV), the LN-GEMV issuing
+// each iteration's next weights after its products, and the products
+// without the prologue in either loop order.
 // ---------------------------------------------------------------------------
 constexpr int kGemvCols = 128;
 constexpr int kGemvWarps = 8;
@@ -262,6 +277,31 @@ __device__ __forceinline__ uint32_t i8_pair(uint32_t a, uint32_t b) {
   return *reinterpret_cast<const uint32_t*>(&d);
 }
 
+// 16 / 8 bytes of read-only global memory (ld.global.nc). ORDERED: as an
+// asm volatile statement, which the compiler keeps in its place before the
+// LayerNorm prologue's barriers (an __ldg load may be moved past them, to
+// its first use, and then waits out the prologue instead of streaming
+// beside it).
+template <bool ORDERED>
+__device__ __forceinline__ uint4 ldg16(const void* p) {
+  if constexpr (!ORDERED) return __ldg(reinterpret_cast<const uint4*>(p));
+  uint4 v;
+  asm volatile("ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+template <bool ORDERED>
+__device__ __forceinline__ uint2 ldg8(const void* p) {
+  if constexpr (!ORDERED) return __ldg(reinterpret_cast<const uint2*>(p));
+  uint2 v;
+  asm volatile("ld.global.nc.v2.u32 {%0, %1}, [%2];\n"
+               : "=r"(v.x), "=r"(v.y)
+               : "l"(p));
+  return v;
+}
+
 // int8 W: a lane's 16 columns of a row are 16 bytes, one load (V16), else
 // two of 8 bytes (N % 16 != 0: W's rows are 8-byte aligned only). No
 // conversion instruction per weight (i8_pair): a byte permute puts two int8
@@ -274,18 +314,18 @@ struct I8Weights {
   static constexpr bool kScaled = true;
   static constexpr int kWords = 4;  // 32-bit words of a row's 16 columns
 
-  template <bool V16>
+  template <bool V16, bool ORDERED = false>
   static __device__ __forceinline__ void load(const int8_t* p, bool hi_ok,
                                               uint32_t (&w)[kWords]) {
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
     if (V16) {
-      v = __ldg(reinterpret_cast<const uint4*>(p));
+      v = ldg16<ORDERED>(p);
     } else {
-      const uint2 lo = __ldg(reinterpret_cast<const uint2*>(p));
+      const uint2 lo = ldg8<ORDERED>(p);
       v.x = lo.x;
       v.y = lo.y;
       if (hi_ok) {
-        const uint2 hi = __ldg(reinterpret_cast<const uint2*>(p + 8));
+        const uint2 hi = ldg8<ORDERED>(p + 8);
         v.z = hi.x;
         v.w = hi.y;
       }
@@ -317,14 +357,13 @@ struct Bf16Weights {
   static constexpr bool kScaled = false;
   static constexpr int kWords = 8;
 
-  template <bool V16>
+  template <bool V16, bool ORDERED = false>
   static __device__ __forceinline__ void load(const __nv_bfloat16* p,
                                               bool hi_ok,
                                               uint32_t (&w)[kWords]) {
-    const uint4 lo = __ldg(reinterpret_cast<const uint4*>(p));
-    const uint4 hi = V16 || hi_ok
-                         ? __ldg(reinterpret_cast<const uint4*>(p + 8))
-                         : make_uint4(0u, 0u, 0u, 0u);
+    const uint4 lo = ldg16<ORDERED>(p);
+    const uint4 hi = V16 || hi_ok ? ldg16<ORDERED>(p + 8)
+                                  : make_uint4(0u, 0u, 0u, 0u);
     w[0] = lo.x;
     w[1] = lo.y;
     w[2] = lo.z;
@@ -367,6 +406,191 @@ __device__ __forceinline__ void gemv_mma(float (&acc)[NB][8][4],
     mma_bf16_16816(acc[nb][J], a, xb[nb][0], xb[nb][1]);
 }
 
+// The products of U loaded steps: eight mmas a step
+template <class WL, int NB, int U>
+__device__ __forceinline__ void gemv_products(
+    float (&acc)[NB][8][4], const uint32_t (&w)[U][4][WL::kWords],
+    const uint32_t (&xb)[U][NB][2]) {
+#pragma unroll
+  for (int s = 0; s < U; ++s) {
+    gemv_mma<WL, 0>(acc, w[s], xb[s]);
+    gemv_mma<WL, 1>(acc, w[s], xb[s]);
+    gemv_mma<WL, 2>(acc, w[s], xb[s]);
+    gemv_mma<WL, 3>(acc, w[s], xb[s]);
+    gemv_mma<WL, 4>(acc, w[s], xb[s]);
+    gemv_mma<WL, 5>(acc, w[s], xb[s]);
+    gemv_mma<WL, 6>(acc, w[s], xb[s]);
+    gemv_mma<WL, 7>(acc, w[s], xb[s]);
+  }
+}
+
+// A lane's weights of U steps from row k0 (the rows at or past k_hi, and
+// every row of a lane past N, read as zeros); ORDERED: see ldg16
+template <class WL, bool V16, int U, bool ORDERED = false>
+__device__ __forceinline__ void gemv_load_w(
+    const typename WL::T* __restrict__ W, int k0, int k_hi, int N, int col,
+    bool col_ok, bool hi_ok, int q, uint32_t (&w)[U][4][WL::kWords]) {
+  constexpr int STRIDE = kGemvWarps * kGemvStep;
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int k = k0 + u * STRIDE + 4 * q;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      if (col_ok && k + r < k_hi) {
+        WL::template load<V16, ORDERED>(W + (size_t)(k + r) * N + col,
+                                        hi_ok, w[u][r]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < WL::kWords; ++i) w[u][r][i] = 0u;
+      }
+    }
+  }
+}
+
+// x[b][k + 4q .. + 3] of U steps from row k0 as bf16 pairs, for the batch
+// rows b = g + 8 nb: from x [B, K] in L2 (8-byte loads when K % 4 == 0,
+// else element by element), or, with LN (the prologue), from the block's
+// normalised rows
+// u [B][pitch] (columns from k_lo; zero-filled past k_hi to a multiple of
+// 16, so a piece that starts before k_hi is read whole)
+template <bool LN, int NB, int U>
+__device__ __forceinline__ void gemv_load_x(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* u, int pitch,
+    int k0, int k_lo, int k_hi, int B, int K, int g, int q,
+    uint32_t (&xb)[U][NB][2]) {
+  constexpr int STRIDE = kGemvWarps * kGemvStep;
+#pragma unroll
+  for (int s = 0; s < U; ++s) {
+    const int k = k0 + s * STRIDE + 4 * q;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      const int b = g + 8 * nb;
+      xb[s][nb][0] = xb[s][nb][1] = 0u;
+      if (b >= B || k >= k_hi) continue;
+      if constexpr (LN) {
+        const uint2 xv =
+            *reinterpret_cast<const uint2*>(u + b * pitch + (k - k_lo));
+        xb[s][nb][0] = xv.x;
+        xb[s][nb][1] = xv.y;
+      } else {
+        const __nv_bfloat16* px = x + (size_t)b * K + k;
+        if ((K & 3) == 0) {
+          const uint2 xv = __ldg(reinterpret_cast<const uint2*>(px));
+          xb[s][nb][0] = xv.x;
+          xb[s][nb][1] = xv.y;
+        } else {
+          uint16_t h[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            h[e] = k + e < k_hi ? __bfloat16_as_ushort(px[e]) : 0;
+          xb[s][nb][0] = h[0] | ((uint32_t)h[1] << 16);
+          xb[s][nb][1] = h[2] | ((uint32_t)h[3] << 16);
+        }
+      }
+    }
+  }
+}
+
+// The LayerNorm prologue (see above), in two parts. gemv_ln_load: the
+// block's columns k_lo .. k_hi - 1 of the B rows of x into u [B][pitch],
+// and of g and b into gb [2][pitch] fp32, every load in flight at once;
+// ends with a block barrier.
+__device__ __forceinline__ void gemv_ln_load(
+    const __nv_bfloat16* __restrict__ x, const float* __restrict__ lng,
+    const float* __restrict__ lnb, __nv_bfloat16* u, float* gb, int pitch,
+    int B, int K, int k_lo, int k_hi) {
+  const int len = k_hi - k_lo;
+  if ((K & 3) == 0) {  // x 8 bytes a thread-step: its rows 8-byte aligned
+    const int n4 = len >> 2;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < B * n4; i += kGemvThreads) {
+      const int b = i / n4, c = (i - b * n4) * 4;
+      *reinterpret_cast<uint2*>(u + b * pitch + c) = __ldg(
+          reinterpret_cast<const uint2*>(x + (size_t)b * K + k_lo + c));
+    }
+  } else {
+    for (int i = threadIdx.x; i < B * len; i += kGemvThreads) {
+      const int b = i / len, c = i - b * len;
+      u[b * pitch + c] = x[(size_t)b * K + k_lo + c];
+    }
+  }
+  for (int c = threadIdx.x; c < len; c += kGemvThreads) {
+    gb[c] = __ldg(lng + k_lo + c);
+    gb[pitch + c] = __ldg(lnb + k_lo + c);
+  }
+  __syncthreads();
+}
+
+// gemv_ln_stats: the row statistics of all K columns met across the
+// cluster's splits, and u normalised in place. Opens with the wait of the
+// cluster's first barrier phase (every block has started) and ends after
+// one more cluster barrier and a block barrier: u is complete.
+__device__ __forceinline__ void gemv_ln_stats(__nv_bfloat16* u,
+                                              const float* gb, int pitch,
+                                              int B, int K, int k_lo,
+                                              int k_hi, int chunk,
+                                              float eps) {
+  namespace cg = cooperative_groups;
+  // [sender][row]: the sender's sum and its centred sum of squares about
+  // its own mean
+  __shared__ float2 part[kGemvMaxSplits][16];
+  __shared__ float mean[16], rstd[16];
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), splits = (int)cluster.num_blocks();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int len = k_hi - k_lo, padded = (len + kGemvStep - 1) & ~(kGemvStep - 1);
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  // each row's sum over the split's columns and, about the split's own
+  // mean, its centred sum of squares: into every block of the cluster
+  for (int b = warp; b < B; b += kGemvWarps) {
+    const __nv_bfloat16* ub = u + b * pitch;
+    float s = 0.0f;
+    for (int c = lane; c < len; c += 32) s += __bfloat162float(ub[c]);
+    s = warp_sum(s);
+    const float m = s / (float)len;
+    float q = 0.0f;
+    for (int c = lane; c < len; c += 32) {
+      const float d = __bfloat162float(ub[c]) - m;
+      q += d * d;
+    }
+    q = warp_sum(q);
+    if (lane < splits)
+      *cluster.map_shared_rank(&part[rank][b], lane) = make_float2(s, q);
+  }
+  cluster.sync();  // every split's sums have landed
+  // the mean from the splits' sums in rank order; the centred sum of
+  // squares about it by the exact identity sum_z [q_z + n_z (m_z - m)^2],
+  // in rank order (never E[x^2] - E[x]^2)
+  for (int b = warp; b < B; b += kGemvWarps) {
+    if (lane != 0) continue;
+    float t = 0.0f;
+    for (int z = 0; z < splits; ++z) t = __fadd_rn(t, part[z][b].x);
+    const float m = __fdiv_rn(t, (float)K);
+    float m2 = 0.0f;
+    for (int z = 0; z < splits; ++z) {
+      const float n = (float)(z < splits - 1 ? chunk : K - z * chunk);
+      const float d = __fsub_rn(__fdiv_rn(part[z][b].x, n), m);
+      m2 = __fadd_rn(m2, __fadd_rn(part[z][b].y,
+                                   __fmul_rn(n, __fmul_rn(d, d))));
+    }
+    mean[b] = m;
+    rstd[b] = rsqrtf(__fadd_rn(__fdiv_rn(m2, (float)K), eps));
+  }
+  __syncthreads();
+  // normalise in place, rounding as the plain version's separate ops; zero
+  // the columns past k_hi up to the last piece the loop reads
+  for (int i = threadIdx.x; i < B * padded; i += kGemvThreads) {
+    const int b = i / padded, c = i - b * padded;
+    float v = 0.0f;
+    if (c < len) {
+      const float d = __fsub_rn(__bfloat162float(u[b * pitch + c]), mean[b]);
+      v = __fadd_rn(__fmul_rn(__fmul_rn(d, rstd[b]), gb[c]), gb[pitch + c]);
+    }
+    u[b * pitch + c] = __float2bfloat16(v);
+  }
+  __syncthreads();
+}
+
 template <class WL, int BT, int EPI, bool V16, int U>
 __global__ void __launch_bounds__(kGemvThreads, 2)
 gemv_kernel(const __nv_bfloat16* __restrict__ x,
@@ -376,12 +600,16 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x,
             const __nv_bfloat16* __restrict__ res,
             const __nv_bfloat16* __restrict__ res2,
             __nv_bfloat16* __restrict__ aux, float* __restrict__ y32,
-            __nv_bfloat16* __restrict__ y, int B, int K, int N, int chunk,
-            float rs) {
+            __nv_bfloat16* __restrict__ y, const float* __restrict__ lng,
+            const float* __restrict__ lnb, int B, int K, int N, int chunk,
+            int pitch, float rs, float eps) {
   namespace cg = cooperative_groups;
   constexpr int NB = BT / 8;  // mmas per column pair (8 batch rows)
   constexpr int STRIDE = kGemvWarps * kGemvStep;
-  extern __shared__ __align__(16) float red[];  // [warp][b][kGemvRedPitch]
+  constexpr bool LN = EPI == 0 || EPI == 1;  // the LayerNorm prologue
+  // [warp][b][kGemvRedPitch] fp32, then (LN) u [B][pitch] bf16 and g, b
+  // [2][pitch] fp32
+  extern __shared__ __align__(16) float red[];
   __shared__ float4 recv[kGemvRecv];  // [sender rank][quad / splits]
   // the first barrier phase, awaited before any block writes into
   // another's shared memory: every block of the cluster has started
@@ -393,7 +621,6 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x,
   const int c0 = blockIdx.x * kGemvCols, col = c0 + 16 * g;
   const int k_lo = rank * chunk, k_hi = min(K, k_lo + chunk);
   const bool col_ok = col < N, hi_ok = V16 || col + 8 < N;
-  const bool x_vec = (K & 3) == 0;  // x[b][k + 4q ..] 8-byte aligned
   // 4 columns a quad, quad i = b * 32 + c / 4: owned by rank i % splits,
   // whose thread j = i / splits sums it (m of them a rank)
   const int cols = min(kGemvCols, N - c0);
@@ -428,54 +655,30 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[nb][j][e] = 0.0f;
 
-  for (int k0 = k_lo + kGemvStep * warp; k0 < k_hi; k0 += U * STRIDE) {
-    uint32_t w[U][4][WL::kWords];  // [step][row k + 4q + r][word]
-    uint32_t xb[U][NB][2];         // x[b][k + 4q .. + 3] as two bf16 pairs
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int k = k0 + u * STRIDE + 4 * q;
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        if (col_ok && k + r < k_hi) {
-          WL::template load<V16>(W + (size_t)(k + r) * N + col, hi_ok,
-                                 w[u][r]);
-        } else {
-#pragma unroll
-          for (int i = 0; i < WL::kWords; ++i) w[u][r][i] = 0u;
-        }
-      }
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb) {
-        const int b = g + 8 * nb;
-        xb[u][nb][0] = xb[u][nb][1] = 0u;
-        if (b < B && k < k_hi) {
-          const __nv_bfloat16* px = x + (size_t)b * K + k;
-          if (x_vec) {
-            const uint2 xv = __ldg(reinterpret_cast<const uint2*>(px));
-            xb[u][nb][0] = xv.x;
-            xb[u][nb][1] = xv.y;
-          } else {
-            uint16_t h[4];
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              h[e] = k + e < k_hi ? __bfloat16_as_ushort(px[e]) : 0;
-            xb[u][nb][0] = h[0] | ((uint32_t)h[1] << 16);
-            xb[u][nb][1] = h[2] | ((uint32_t)h[3] << 16);
-          }
-        }
-      }
+  // LN: the prologue's loads first, then the first U steps' weights, in
+  // flight while the statistics meet (their loads kept in place: ORDERED),
+  // and the first iteration's products on them
+  __nv_bfloat16* u =
+      reinterpret_cast<__nv_bfloat16*>(red + kGemvWarps * B * kGemvRedPitch);
+  float* gb = reinterpret_cast<float*>(u + B * pitch);
+  int k0 = k_lo + kGemvStep * warp;
+  uint32_t w[U][4][WL::kWords];  // [step][row k + 4q + r][word]
+  uint32_t xb[U][NB][2];         // x[b][k + 4q .. + 3] as two bf16 pairs
+  if constexpr (LN) {
+    gemv_ln_load(x, lng, lnb, u, gb, pitch, B, K, k_lo, k_hi);
+    gemv_load_w<WL, V16, U, true>(W, k0, k_hi, N, col, col_ok, hi_ok, q, w);
+    gemv_ln_stats(u, gb, pitch, B, K, k_lo, k_hi, chunk, eps);
+    if (k0 < k_hi) {
+      gemv_load_x<true, NB, U>(x, u, pitch, k0, k_lo, k_hi, B, K, g, q, xb);
+      gemv_products<WL, NB, U>(acc, w, xb);
     }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      gemv_mma<WL, 0>(acc, w[u], xb[u]);
-      gemv_mma<WL, 1>(acc, w[u], xb[u]);
-      gemv_mma<WL, 2>(acc, w[u], xb[u]);
-      gemv_mma<WL, 3>(acc, w[u], xb[u]);
-      gemv_mma<WL, 4>(acc, w[u], xb[u]);
-      gemv_mma<WL, 5>(acc, w[u], xb[u]);
-      gemv_mma<WL, 6>(acc, w[u], xb[u]);
-      gemv_mma<WL, 7>(acc, w[u], xb[u]);
-    }
+    k0 += U * STRIDE;
+  }
+  // each iteration's weights, then its x, then its products
+  for (; k0 < k_hi; k0 += U * STRIDE) {
+    gemv_load_w<WL, V16, U>(W, k0, k_hi, N, col, col_ok, hi_ok, q, w);
+    gemv_load_x<LN, NB, U>(x, u, pitch, k0, k_lo, k_hi, B, K, g, q, xb);
+    gemv_products<WL, NB, U>(acc, w, xb);
   }
 
   // acc[nb][j][e]: column 16 g + 2j + (e >> 1), batch row 8 nb + 2q + (e & 1)
@@ -493,7 +696,8 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x,
       }
     }
   __syncthreads();
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if constexpr (!LN)  // the prologue has awaited it
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 
   // the block's partial of each quad (its warps in order), pushed into the
   // owner's recv
@@ -903,7 +1107,8 @@ cudaError_t allow_dyn_smem(K kernel, bool* configured) {
   return e;
 }
 
-// The pointers and sizes of one GEMV launch (s: int8 only).
+// The pointers and sizes of one GEMV launch (s: int8 only; lng, lnb and
+// pitch: the LayerNorm prologue only).
 struct GemvArgs {
   const __nv_bfloat16* x;
   const void* W;
@@ -914,25 +1119,32 @@ struct GemvArgs {
   __nv_bfloat16* aux;
   float* y32;
   __nv_bfloat16* y;
-  int B, K, N, splits, chunk;
-  float rs;
+  const float* lng;
+  const float* lnb;
+  int B, K, N, splits, chunk, pitch;
+  float rs, eps;
 };
 
-// Dynamic shared memory of one GEMV block: its warps' sums (bytes)
-size_t gemv_smem(int B) {
-  return (size_t)kGemvWarps * B * kGemvRedPitch * sizeof(float);
+// Dynamic shared memory of one GEMV block (bytes): its warps' sums, and
+// under the LayerNorm prologue (pitch > 0) its normalised rows and its
+// columns of g and b
+size_t gemv_smem(int B, int pitch) {
+  return (size_t)kGemvWarps * B * kGemvRedPitch * sizeof(float) +
+         (size_t)B * pitch * sizeof(__nv_bfloat16) +
+         (size_t)2 * pitch * sizeof(float);
 }
 
 // One launch: grid (column tiles, splits), the splits of a tile one
 // cluster
 template <class WL, int BT, int EPI, bool V16, int U>
 cudaError_t launch_gemv(const GemvArgs& a, cudaStream_t stream) {
+  constexpr bool LN = EPI == 0 || EPI == 1;
   auto kernel = gemv_kernel<WL, BT, EPI, V16, U>;
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)gemv_smem(BT));
+        LN ? kMaxDynSmem : (int)gemv_smem(BT, 0));
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -942,7 +1154,7 @@ cudaError_t launch_gemv(const GemvArgs& a, cudaStream_t stream) {
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3((a.N + kGemvCols - 1) / kGemvCols, a.splits);
   config.blockDim = dim3(kGemvThreads);
-  config.dynamicSmemBytes = gemv_smem(a.B);
+  config.dynamicSmemBytes = gemv_smem(a.B, LN ? a.pitch : 0);
   config.stream = stream;
   cudaLaunchAttribute cluster[1];
   cluster[0].id = cudaLaunchAttributeClusterDimension;
@@ -953,14 +1165,14 @@ cudaError_t launch_gemv(const GemvArgs& a, cudaStream_t stream) {
   config.numAttrs = 1;
   return cudaLaunchKernelEx(&config, kernel, a.x,
                             (const typename WL::T*)a.W, a.s, a.bias, a.res,
-                            a.res2, a.aux, a.y32, a.y, a.B, a.K, a.N,
-                            a.chunk, a.rs);
+                            a.res2, a.aux, a.y32, a.y, a.lng, a.lnb, a.B,
+                            a.K, a.N, a.chunk, a.pitch, a.rs, a.eps);
 }
 
 // U: the steps a lane keeps in flight: two where a split has 15 or 16
 // steps (B <= 8: every warp but at most one has two), so all of a small
 // product's loads are issued at once; else one (fewer second steps gain
-// nothing: scripts/chip_gemv_ln_probe.py)
+// nothing: scripts/chip_gemv_ln_probe.py).
 template <class WL, int BT, bool V16, int U>
 cudaError_t launch_gemv_epi(int epi, const GemvArgs& a, cudaStream_t st) {
   switch (epi) {
@@ -984,22 +1196,32 @@ cudaError_t launch_gemv_b(int epi, const GemvArgs& a, cudaStream_t st) {
 // A GEMV over splits K slices of chunk rows (split z: rows z * chunk ..
 // + chunk - 1, the last ragged; chunk a multiple of 16; 1 <= splits <=
 // 16). vec16: N % 16 == 0 (int8: W's rows are read 16 bytes a lane, else
-// 8; bf16: every lane's 16 columns lie in N).
+// 8; bf16: every lane's 16 columns lie in N). epi 0 and 1 take the
+// LayerNorm prologue and 2 and 3 none: lng, lnb, the prologue's fp32 gain
+// and bias [K] (given exactly for epi 0 and 1), with pitch (>= chunk, a
+// multiple of 4) the row pitch of its normalised rows in shared memory and
+// eps its epsilon.
 template <class WL>
 int gemv_entry(const void* x, const void* W, const void* s, const void* bias,
                const void* res, const void* res2, void* aux, void* y32,
-               void* y, int B, int K, int N, int splits, int chunk, int epi,
-               int vec16, float rs, void* stream) {
-  if (B < 1 || B > 16 || K < 1 || N < 8 || N % 8 || splits < 1 ||
+               void* y, const void* lng, const void* lnb, int B, int K,
+               int N, int splits, int chunk, int pitch, int epi, int vec16,
+               float rs, float eps, void* stream) {
+  const bool ln = epi == 0 || epi == 1;
+  if (epi < 0 || epi > 3 || B < 1 || B > 16 || K < 1 || N < 8 || N % 8 || splits < 1 ||
       splits > kGemvMaxSplits || chunk < kGemvStep || chunk % kGemvStep ||
       (long)(splits - 1) * chunk >= K || (long)splits * chunk < K ||
-      (vec16 && N % 16) || (WL::kScaled != (s != nullptr)))
+      (vec16 && N % 16) || (WL::kScaled != (s != nullptr)) ||
+      ln != (lng != nullptr) || ln != (lnb != nullptr) ||
+      (ln && (pitch < chunk || pitch % 4 ||
+              gemv_smem(B, pitch) > (size_t)kMaxDynSmem)))
     return (int)cudaErrorInvalidValue;
   const GemvArgs a{(const __nv_bfloat16*)x, W, (const float*)s,
                    (const __nv_bfloat16*)bias, (const __nv_bfloat16*)res,
                    (const __nv_bfloat16*)res2, (__nv_bfloat16*)aux,
-                   (float*)y32, (__nv_bfloat16*)y, B, K, N, splits, chunk,
-                   rs};
+                   (float*)y32, (__nv_bfloat16*)y, (const float*)lng,
+                   (const float*)lnb, B, K, N, splits, chunk,
+                   ln ? pitch : 0, rs, eps};
   const auto st = (cudaStream_t)stream;
   return (int)(vec16 ? launch_gemv_b<WL, true>(epi, a, st)
                      : launch_gemv_b<WL, false>(epi, a, st));
@@ -1040,32 +1262,29 @@ extern "C" {
 // Largest dynamic shared memory a launch may ask for (bytes).
 int jk_max_dyn_smem() { return kMaxDynSmem; }
 
-int jk_ln_rows(const void* x, const void* g, const void* b, void* y, int rows,
-               int S, float eps, void* stream) {
-  ln_rows_kernel<<<rows, kThreads, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)x, (const float*)g, (const float*)b,
-      (__nv_bfloat16*)y, S, eps);
-  return (int)cudaGetLastError();
-}
-
 // The GEMVs (gemv_entry): W bf16 with s null, or int8 with its fp32
-// column scales s.
+// column scales s; lng / lnb the LayerNorm prologue's (epi 0 and 1), else
+// null.
 int jk_gemv_bf16(const void* x, const void* W, const void* s,
                  const void* bias, const void* res, const void* res2,
-                 void* aux, void* y32, void* y, int B, int K, int N,
-                 int splits, int chunk, int epi, int vec16, float rs,
+                 void* aux, void* y32, void* y, const void* lng,
+                 const void* lnb, int B, int K, int N, int splits, int chunk,
+                 int pitch, int epi, int vec16, float rs, float eps,
                  void* stream) {
-  return gemv_entry<Bf16Weights>(x, W, s, bias, res, res2, aux, y32, y, B, K,
-                                 N, splits, chunk, epi, vec16, rs, stream);
+  return gemv_entry<Bf16Weights>(x, W, s, bias, res, res2, aux, y32, y, lng,
+                                 lnb, B, K, N, splits, chunk, pitch, epi,
+                                 vec16, rs, eps, stream);
 }
 
 int jk_gemv_int8(const void* x, const void* W, const void* s,
                  const void* bias, const void* res, const void* res2,
-                 void* aux, void* y32, void* y, int B, int K, int N,
-                 int splits, int chunk, int epi, int vec16, float rs,
+                 void* aux, void* y32, void* y, const void* lng,
+                 const void* lnb, int B, int K, int N, int splits, int chunk,
+                 int pitch, int epi, int vec16, float rs, float eps,
                  void* stream) {
-  return gemv_entry<I8Weights>(x, W, s, bias, res, res2, aux, y32, y, B, K,
-                               N, splits, chunk, epi, vec16, rs, stream);
+  return gemv_entry<I8Weights>(x, W, s, bias, res, res2, aux, y32, y, lng,
+                               lnb, B, K, N, splits, chunk, pitch, epi, vec16,
+                               rs, eps, stream);
 }
 
 // The attention kernels, q the fp32 q rows (row b at b * qstride floats):

@@ -30,9 +30,8 @@ _P, _I, _U, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
 SIGNATURES = {
     "decode_stack": {
         "jk_max_dyn_smem": [],
-        "jk_ln_rows": [_P, _P, _P, _P, _I, _I, _F, _P],
-        "jk_gemv_bf16": [_P] * 9 + [_I] * 7 + [_F, _P],
-        "jk_gemv_int8": [_P] * 9 + [_I] * 7 + [_F, _P],
+        "jk_gemv_bf16": [_P] * 11 + [_I] * 8 + [_F, _F, _P],
+        "jk_gemv_int8": [_P] * 11 + [_I] * 8 + [_F, _F, _P],
         "jk_attn_decode": [_P, _I] + [_P] * 4 + [_I] + [_P] * 7 + [_I] * 9
         + [_F, _I, _P],
     },
@@ -52,8 +51,9 @@ SIGNATURES = {
         "jk_layer_norm_bwd": [_P] * 7 + [_I] * 6 + [_P],
     },
     "adam": {
-        "jk_adam_fp32": [_P] * 7 + [_I, _I, _P] + [_F] * 7 + [_P],
-        "jk_adam_fp16": [_P] * 9 + [_I] * 3 + [_P, _P] + [_F] * 7 + [_P],
+        "jk_adam_blocks_per_sm": [],
+        "jk_adam": [_P] * 12 + [_I] * 3 + [_P] * 3 + [_I, _I, _P]
+        + [_F] * 7 + [_P],
     },
 }
 

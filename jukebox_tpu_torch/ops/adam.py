@@ -11,30 +11,32 @@ through csrc/adam.cu: the reference's step (fp16.py:12-29)
     p -= step_size (m / (sqrt(v) + eps) + wd p),
     step_size = lr sqrt(1 - b2^t) / (1 - b1^t)
 
-with fp32 moments (jk_adam_fp32), or fp16 moments stored as x / s with a
-per-tensor fp32 scale s = 1e-8 + max|x| / 65504 (jk_adam_fp16). The
+with fp32 moments, or fp16 moments stored as x / s with a per-tensor fp32
+scale s = 1e-8 + max|x| / 65504 (jk_adam, one entry for both). The
 parameters, moments and scales are updated in place.
 
-AdamTable holds the device table of the launch (pointers, sizes, chunk ->
-tensor and start), built once per optimizer state and kept in
+AdamTable holds the device table of the launch (pointers, sizes, the
+work items of item_order and their counts per tensor) and the kernel's
+state (per-tensor maxima and counts, the item ticket: zero, and left zero
+by every launch), built once per optimizer state and kept in
 opt_state[TABLE_KEY]; a step uploads only its gradient pointers (each
 backward makes new gradient tensors) and passes scalars. `adam_update`
 takes the plain version (a loop over the tensors) for parameters on the
 CPU and launches the kernel for parameters on the card, adding one to
-LAUNCHES["adam_update"] per update (one CUDA kernel in the fp32 form; in
-the fp16 form three: the amax pass, the update pass and the new scales);
-there is no fallback from CUDA tensors to the plain version.
+LAUNCHES["adam_update"] per update: one CUDA launch in either form, no
+memset; there is no fallback from CUDA tensors to the plain version.
 """
 
 import numpy as np
 import torch
 
 from jukebox_tpu_torch.ops import _build
-from jukebox_tpu_torch.ops.decode_stack import _check, _stream
+from jukebox_tpu_torch.ops.decode_stack import _check, _stream, sm_count
 
 LAUNCHES = {"adam_update": 0}
 FLOAT16_MAX = 65504.0  # reference FP16FusedAdam.FLOAT16_MAX (fp16.py:146)
-CHUNK = 32768          # elements per block of the launch
+CHUNK = 4096           # elements per work item (a multiple of 8)
+AMAX, UPDATE, BOTH = 0, 1, 2  # item kinds (csrc/adam.cu Kind)
 TABLE_KEY = "_adam_table"
 _F32 = np.float32
 
@@ -107,13 +109,37 @@ def _ptr_tensor(values, device, dtype=torch.int64):
     return torch.tensor(values, dtype=dtype).to(device)
 
 
+def item_order(sizes, fp16, chunk=None):
+    """The kernel's work items, in the order its blocks claim them: a list
+    of (tensor, start, kind) over chunks of `chunk` elements (default
+    CHUNK, the items AdamTable launches). fp32 moments:
+    every chunk an UPDATE item, tensors and chunks in order. fp16 moments:
+    for each tensor, its chunks as AMAX items in order, then as UPDATE
+    items in reverse (the bytes the amax pass read last are re-read first,
+    from L2); a tensor of one chunk is one BOTH item."""
+    chunk = CHUNK if chunk is None else chunk
+    items = []
+    for k, n in enumerate(sizes):
+        starts = list(range(0, n, chunk))
+        if not fp16:
+            items += [(k, s, UPDATE) for s in starts]
+        elif len(starts) == 1:
+            items.append((k, 0, BOTH))
+        else:
+            items += [(k, s, AMAX) for s in starts]
+            items += [(k, s, UPDATE) for s in reversed(starts)]
+    return items
+
+
 class AdamTable:
     """The launch's device table over the tensors of `params` and
-    `opt_state`: their pointers and sizes, and for each chunk of CHUNK
-    elements its tensor and start. `chunks` (a list of (tensor, start)) may
-    be given to launch over another cut, e.g. one that leaves a chunk out."""
+    `opt_state` (their pointers and sizes, the work items of item_order and
+    each tensor's count of amax and of update items) and the kernel's
+    state (zero; every launch leaves it zero). `items` (a list of (tensor,
+    start, kind) over chunks of CHUNK elements) may be given to launch
+    another walk, e.g. one that leaves an item out."""
 
-    def __init__(self, params, opt_state, chunks=None):
+    def __init__(self, params, opt_state, items=None):
         self.names = list(params)
         self.fp16 = "m_scale" in opt_state
         keys = ("m", "v", "m_scale", "v_scale") if self.fp16 else ("m", "v")
@@ -133,21 +159,30 @@ class AdamTable:
                     _require_flat(self.tensors[k][i], f"{k} of {n}",
                                   torch.float32, 1, device)
         self.device = device
+        self.chunk = CHUNK  # the items' length
         sizes = [p.numel() for p in self.tensors["p"]]
-        if chunks is None:
-            chunks = [(k, s) for k, n in enumerate(sizes)
-                      for s in range(0, n, CHUNK)]
-        self.chunks = list(chunks)
+        if items is None:
+            items = item_order(sizes, self.fp16)
+        self.items = list(items)
+        T = len(self.names)
+        n_amax, n_upd = [0] * T, [0] * T
+        for k, _, kind in self.items:
+            n_amax[k] += kind == AMAX
+            n_upd[k] += kind == UPDATE
         self.p_ptrs = [p.data_ptr() for p in self.tensors["p"]]
         self.dev = {k: _ptr_tensor([t.data_ptr() for t in ts], device)
                     for k, ts in self.tensors.items()}
         self.dev["size"] = _ptr_tensor(sizes, device)
-        self.dev["chunk_tensor"] = _ptr_tensor([c[0] for c in self.chunks],
-                                               device, torch.int32)
-        self.dev["chunk_start"] = _ptr_tensor([c[1] for c in self.chunks],
-                                              device)
-        self.amax = (torch.empty((2 * len(self.names),), dtype=torch.float32,
-                                 device=device) if self.fp16 else None)
+        for key, col, dtype in (("item_tensor", 0, torch.int32),
+                                ("item_start", 1, torch.int64),
+                                ("item_kind", 2, torch.int32)):
+            self.dev[key] = _ptr_tensor([it[col] for it in self.items],
+                                        device, dtype)
+        self.dev["n_amax"] = _ptr_tensor(n_amax, device, torch.int32)
+        self.dev["n_upd"] = _ptr_tensor(n_upd, device, torch.int32)
+        self.amax = torch.zeros((2 * T,), dtype=torch.float32, device=device)
+        self.done = torch.zeros((2 * T,), dtype=torch.int32, device=device)
+        self.ticket = torch.zeros((2,), dtype=torch.int32, device=device)
 
     def matches(self, params, opt_state):
         """Whether params and opt_state still hold the tensors of this
@@ -201,37 +236,45 @@ def table_for(params, opt_state):
     return table
 
 
-@torch.no_grad()
-def adam_update_kernel(table, grads, opt_state, lr, beta1, beta2, eps,
-                       weight_decay, scale=1.0):
-    """One update of the tensors of `table` through csrc/adam.cu, in place.
-    `scale` (a float or a 0-d tensor) is read by the kernel on the card."""
+def launch_args(table, grads, opt_state, lr, beta1, beta2, eps,
+                weight_decay, scale=1.0):
+    """The argument list of csrc/adam.cu's jk_adam for one update of
+    `table` (update number opt_state["step"] + 1) on a persistent grid of
+    the blocks an SM the kernel is built for (jk_adam_blocks_per_sm) on
+    every SM."""
     step = opt_state["step"] + 1
     step_size, b1, b2, c1, c2 = step_scalars(step, lr, beta1, beta2)
     scale_dev = torch.as_tensor(scale, dtype=torch.float32).to(
         table.device).reshape(())
     g = table.grad_ptrs(grads)
     d = table.dev
-    n_chunks = len(table.chunks)
-    hyper = (scale_dev.data_ptr(), step_size, b1, b2, c1, c2, float(eps),
-             float(weight_decay), _stream())
-    lib = _build.lib("adam")
-    if table.fp16:
-        err = lib.jk_adam_fp16(
-            d["p"].data_ptr(), g.data_ptr(), d["m"].data_ptr(),
-            d["v"].data_ptr(), d["m_scale"].data_ptr(),
-            d["v_scale"].data_ptr(), d["size"].data_ptr(),
-            d["chunk_tensor"].data_ptr(), d["chunk_start"].data_ptr(),
-            n_chunks, CHUNK, len(table.names), table.amax.data_ptr(), *hyper)
-    else:
-        err = lib.jk_adam_fp32(
-            d["p"].data_ptr(), g.data_ptr(), d["m"].data_ptr(),
-            d["v"].data_ptr(), d["size"].data_ptr(),
-            d["chunk_tensor"].data_ptr(), d["chunk_start"].data_ptr(),
-            n_chunks, CHUNK, *hyper)
-    _check(err, "adam_update")
+    blocks = _build.lib("adam").jk_adam_blocks_per_sm() \
+        * sm_count(table.device)
+    blocks = max(1, min(blocks, len(table.items)))
+    fp16 = table.fp16
+    return (d["p"].data_ptr(), g.data_ptr(), d["m"].data_ptr(),
+            d["v"].data_ptr(), d["m_scale"].data_ptr() if fp16 else None,
+            d["v_scale"].data_ptr() if fp16 else None, d["size"].data_ptr(),
+            d["item_tensor"].data_ptr(), d["item_start"].data_ptr(),
+            d["item_kind"].data_ptr(), d["n_amax"].data_ptr(),
+            d["n_upd"].data_ptr(), len(table.items), len(table.names),
+            table.chunk, table.amax.data_ptr(), table.done.data_ptr(),
+            table.ticket.data_ptr(), blocks, int(fp16), scale_dev.data_ptr(),
+            step_size, b1, b2, c1, c2, float(eps), float(weight_decay),
+            _stream())
+
+
+@torch.no_grad()
+def adam_update_kernel(table, grads, opt_state, lr, beta1, beta2, eps,
+                       weight_decay, scale=1.0):
+    """One update of the tensors of `table` through csrc/adam.cu, in place,
+    in one launch (launch_args). `scale` (a float or a 0-d tensor) is read
+    by the kernel on the card."""
+    args = launch_args(table, grads, opt_state, lr, beta1, beta2, eps,
+                       weight_decay, scale)
+    _check(_build.lib("adam").jk_adam(*args), "adam_update")
     LAUNCHES["adam_update"] += 1
-    opt_state["step"] = step
+    opt_state["step"] += 1
     return opt_state
 
 

@@ -4,18 +4,19 @@ Replaces jukebox_tpu/ops/pallas/decode_stack.py::build_stack_decode, the
 whole-stack Pallas megakernel that runs every sampled token of the priors.
 The port keeps what that kernel computes per layer (fp32-statistics
 LayerNorm -> qkv -> ring-cache attention -> proj + residual -> LayerNorm ->
-quick_gelu MLP + residual) in all its options (bf16 or int8 weights, bf16
-or int8 ring caches, f6 cross-attention, any head width, res_scale) and
+quick_gelu MLP + residual; each LayerNorm the prologue of the GEMV after it,
+so a layer launches 5 kernels) in all its options (bf16 or int8 weights,
+bf16 or int8 ring caches, f6 cross-attention, any head width, res_scale) and
 drops its TPU blocking (single launch, ping-pong VMEM canvas, slot-leading
 lane-padded caches): here the CUDA kernels of csrc/decode_stack.cu run per
 layer against the standard cache layout [B, slots, A] of
 models/attention.py. An int8 cache is {"k", "v"} int8 [B, ..., A] with
-{"ks", "vs"} bf16 [B, ...]: one scale per (batch row, slot). The
-attention kernels split a head's live rows over blocks (attn_split_plan)
-and combine the splits in the same launch, through an fp32 workspace and
-counters kept per device (workspace); the GEMVs split their K rows over
-the blocks of a thread block cluster (gemv_split_plan) and combine them
-in the cluster's shared memory.
+{"ks", "vs"} bf16 [B, ...]: one scale per (batch row, slot). The attention
+kernels split a head's live rows over blocks (attn_split_plan) and combine
+the splits in the same launch, through an fp32 workspace and counters kept
+per device (workspace); the GEMVs split their K rows over the blocks of a
+thread block cluster (gemv_split_plan) and combine them in the cluster's
+shared memory, and so do the LayerNorm prologue's row statistics.
 
 Each wrapper takes the plain PyTorch version for tensors on the CPU (that is
 what the CPU tests run) and, for CUDA tensors, checks device, dtype, shape
@@ -30,8 +31,8 @@ import torch
 
 from jukebox_tpu_torch.ops import _build
 
-LAUNCHES = {"ln_rows": 0, "gemv_bf16": 0, "gemv_int8": 0,
-            "ring_attn_decode": 0, "ring_attn_int8": 0,
+LAUNCHES = {"ln_gemv_bf16": 0, "ln_gemv_int8": 0, "gemv_bf16": 0,
+            "gemv_int8": 0, "ring_attn_decode": 0, "ring_attn_int8": 0,
             "cross_attn_decode": 0}
 EPILOGUES = {None: 0, "gelu": 1, "residual": 2, "res_scale": 3}
 MAX_BATCH = 16
@@ -47,8 +48,8 @@ def layer_launches(attn_func, quantized, cache_int8):
     """Kernel launches of one decode step of one layer (stack_layer_step)."""
     attn = ("cross_attn_decode" if attn_func == 6 else
             "ring_attn_int8" if cache_int8 else "ring_attn_decode")
-    return {"ln_rows": 2, "gemv_int8" if quantized else "gemv_bf16": 4,
-            attn: 1}
+    gemv = "gemv_int8" if quantized else "gemv_bf16"
+    return {"ln_" + gemv: 2, gemv: 2, attn: 1}
 
 
 def _stream():
@@ -80,7 +81,10 @@ def _ptr(t):
 
 
 # ---------------------------------------------------------------------------
-# ln_rows: LayerNorm of [B, S] bf16, fp32 statistics, fp32 g/b, bf16 out
+# The LayerNorm of the decode step: [B, S], fp32 statistics, fp32 g/b. It
+# has no kernel of its own: the GEMV that reads it normalises its rows in
+# a prologue (gemv(..., ln=(g, b))), and this is the prologue's plain
+# version.
 # ---------------------------------------------------------------------------
 
 # The plain versions compute in fp32 and round to the input's dtype where
@@ -92,21 +96,6 @@ def ln_rows_plain(x, g, b, eps=1e-5):
     mean = xf.mean(dim=-1, keepdim=True)
     var = (xf - mean).square().mean(dim=-1, keepdim=True)
     return ((xf - mean) * torch.rsqrt(var + eps) * g + b).to(x.dtype)
-
-
-def ln_rows(x, g, b, eps=1e-5):
-    if not x.is_cuda:
-        return ln_rows_plain(x, g, b, eps)
-    rows, S = x.shape
-    _require(x, "x", BF16)
-    _require(g, "g", torch.float32, (S,))
-    _require(b, "b", torch.float32, (S,))
-    y = torch.empty_like(x)
-    _check(_build.lib().jk_ln_rows(x.data_ptr(), g.data_ptr(), b.data_ptr(),
-                                   y.data_ptr(), rows, S, eps, _stream()),
-           "ln_rows")
-    LAUNCHES["ln_rows"] += 1
-    return y
 
 
 # ---------------------------------------------------------------------------
@@ -133,19 +122,42 @@ def _epilogue(y, x_dtype, epilogue, res, res2, rs, keep, out32=False):
     return (res.float() + (am.float() * rsb).to(x_dtype).float()).to(x_dtype)
 
 
+def _gemv_plain(x, w, s, b, epilogue, res, res2, rs, keep, out32, ln):
+    if ln is not None:
+        x = ln_rows_plain(x, *ln)
+    y = x.float() @ w.float()
+    if s is not None:
+        y = y * s.float()
+    y = y + b.float()
+    return _epilogue(y, x.dtype, epilogue, res, res2, rs, keep, out32)
+
+
 def gemv_bf16_plain(x, w, b, epilogue=None, res=None, res2=None, rs=1.0,
                     keep=False, out32=False):
-    y = x.float() @ w.float() + b.float()
-    return _epilogue(y, x.dtype, epilogue, res, res2, rs, keep, out32)
+    return _gemv_plain(x, w, None, b, epilogue, res, res2, rs, keep, out32,
+                       None)
 
 
 def gemv_int8_plain(x, w_q, s, b, epilogue=None, res=None, res2=None,
                     rs=1.0, keep=False, out32=False):
-    y = (x.float() @ w_q.float()) * s.float() + b.float()
-    return _epilogue(y, x.dtype, epilogue, res, res2, rs, keep, out32)
+    return _gemv_plain(x, w_q, s, b, epilogue, res, res2, rs, keep, out32,
+                       None)
 
 
-def _check_epilogue(epilogue, res, res2, keep, out32=False):
+def ln_gemv_bf16_plain(x, w, b, ln, epilogue=None, out32=False):
+    """gemv_bf16_plain of the LayerNorm ln_rows_plain(x, *ln): the plain
+    version of gemv_bf16(..., ln=ln)."""
+    return _gemv_plain(x, w, None, b, epilogue, None, None, 1.0, False,
+                       out32, ln)
+
+
+def ln_gemv_int8_plain(x, w_q, s, b, ln, epilogue=None, out32=False):
+    """gemv_int8_plain of the LayerNorm ln_rows_plain(x, *ln)."""
+    return _gemv_plain(x, w_q, s, b, epilogue, None, None, 1.0, False, out32,
+                       ln)
+
+
+def _check_epilogue(epilogue, res, res2, keep, out32=False, ln=None):
     if epilogue not in EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}")
     if (epilogue in ("residual", "res_scale")) != (res is not None):
@@ -156,9 +168,36 @@ def _check_epilogue(epilogue, res, res2, keep, out32=False):
         raise ValueError("keep returns the product beside a residual only")
     if out32 and keep:
         raise ValueError("out32 and keep do not combine")
+    if (ln is not None) != (epilogue in LN_EPILOGUES):
+        raise ValueError(f"ln (the LayerNorm prologue) is given exactly for "
+                         f"the epilogues {LN_EPILOGUES}, not {epilogue!r}")
 
 
-def _gemv_launch(name, x, w, s, b, epilogue, res, res2, rs, keep, out32):
+# The LayerNorm prologue keeps the block's normalised rows in shared memory
+# beside the warps' sums: [B][pitch] bf16, pitch = chunk rounded up to 16
+# mod 64 elements, and its columns of g and b (csrc/decode_stack.cu
+# gemv_ln_load, gemv_ln_stats)
+LN_EPILOGUES = (None, "gelu")
+LN_EPS = 1e-5
+
+
+def ln_pitch(chunk):
+    """Row pitch (elements) of the prologue's normalised rows: chunk
+    rounded up to 16 mod 64, so the loop's 8-byte reads of 8 rows fall on
+    distinct banks."""
+    return chunk + (16 - chunk) % 64
+
+
+def gemv_smem(B, pitch=0):
+    """Dynamic shared memory of one GEMV block (bytes): its 8 warps' fp32
+    sums [8][B][GEMV_COLS + 4], and under the LayerNorm prologue (pitch >
+    0) its normalised rows [B][pitch] bf16 and its columns of g and b
+    [2][pitch] fp32."""
+    return 8 * B * (GEMV_COLS + 4) * 4 + B * pitch * 2 + 2 * pitch * 4
+
+
+def _gemv_launch(name, x, w, s, b, epilogue, res, res2, rs, keep, out32,
+                 ln):
     B, K = x.shape
     N = w.shape[1]
     if not 1 <= B <= MAX_BATCH or N % 8:
@@ -173,56 +212,84 @@ def _gemv_launch(name, x, w, s, b, epilogue, res, res2, rs, keep, out32):
     for nm, t in (("res", res), ("res2", res2)):
         if t is not None:
             _require(t, nm, BF16, (B, N))
+    lib = _build.lib()
+    splits, chunk, _ = gemv_split_plan(K, N, sm_count(x.device))
+    key, pitch = name, 0  # key: the LAUNCHES count
+    if ln is not None:  # the epilogues None and "gelu"
+        _require(ln[0], "ln g", torch.float32, (K,))
+        _require(ln[1], "ln b", torch.float32, (K,))
+        pitch = ln_pitch(chunk)
+        if gemv_smem(B, pitch) > lib.jk_max_dyn_smem():
+            raise ValueError(f"ln_{name}: {B} rows of {chunk} columns a block "
+                             f"exceed the kernel's shared memory")
+        key = "ln_" + name
     y = torch.empty((B, N), dtype=BF16, device=x.device)
     aux = torch.empty_like(y) if keep else None
     y32 = (torch.empty((B, N), dtype=torch.float32, device=x.device)
            if out32 else None)
-    splits, chunk, _ = gemv_split_plan(K, N, sm_count(x.device))
-    err = getattr(_build.lib(), f"jk_{name}")(
+    g_ln, b_ln = (None, None) if ln is None else ln
+    err = getattr(lib, f"jk_{name}")(
         x.data_ptr(), w.data_ptr(), _ptr(s), b.data_ptr(), _ptr(res),
-        _ptr(res2), _ptr(aux), _ptr(y32), y.data_ptr(), B, K, N, splits,
-        chunk, EPILOGUES[epilogue], int(N % 16 == 0), float(rs), _stream())
-    _check(err, name)
-    LAUNCHES[name] += 1
+        _ptr(res2), _ptr(aux), _ptr(y32), y.data_ptr(), _ptr(g_ln),
+        _ptr(b_ln), B, K, N, splits, chunk, pitch, EPILOGUES[epilogue],
+        int(N % 16 == 0), float(rs), LN_EPS, _stream())
+    _check(err, key)
+    LAUNCHES[key] += 1
     return (y, aux) if keep else (y, y32) if out32 else y
 
 
 def gemv_bf16(x, w, b, epilogue=None, res=None, res2=None, rs=1.0,
-              keep=False, out32=False):
+              keep=False, out32=False, ln=None):
     """epilogue: None, "gelu" (quick_gelu), "residual" (res + bf16(y); with
     keep=True also returns bf16(y)) or "res_scale" (res + bf16(bf16(res2 +
     bf16(y)) * bf16(rs)): x + (a + m) * res_scale with res = x, res2 = a).
     out32=True also returns y in fp32 (the product plus bias, before the
-    epilogue), written by the same launch."""
-    _check_epilogue(epilogue, res, res2, keep, out32)
+    epilogue), written by the same launch. The epilogues None and "gelu"
+    take the LayerNorm prologue and need ln=(g, b) (fp32 [K]): x is the raw
+    residual stream and the product reads its LayerNorm,
+    ln_rows_plain(x, g, b), computed by the same launch (counted as
+    ln_gemv_bf16); the residual epilogues take none."""
+    _check_epilogue(epilogue, res, res2, keep, out32, ln)
     if not x.is_cuda:
+        if ln is not None:
+            return ln_gemv_bf16_plain(x, w, b, ln, epilogue, out32)
         return gemv_bf16_plain(x, w, b, epilogue, res, res2, rs, keep, out32)
     return _gemv_launch("gemv_bf16", x, w, None, b, epilogue, res, res2, rs,
-                        keep, out32)
+                        keep, out32, ln)
 
 
 def gemv_int8(x, w_q, s, b, epilogue=None, res=None, res2=None, rs=1.0,
-              keep=False, out32=False):
+              keep=False, out32=False, ln=None):
     """gemv_bf16 with int8 weights w_q (in, out) and fp32 column scales s:
     y = (x @ w_q) * s + b, accumulated in fp32, then the epilogue."""
-    _check_epilogue(epilogue, res, res2, keep, out32)
+    _check_epilogue(epilogue, res, res2, keep, out32, ln)
     if not x.is_cuda:
+        if ln is not None:
+            return ln_gemv_int8_plain(x, w_q, s, b, ln, epilogue, out32)
         return gemv_int8_plain(x, w_q, s, b, epilogue, res, res2, rs, keep,
                                out32)
     return _gemv_launch("gemv_int8", x, w_q, s, b, epilogue, res, res2, rs,
-                        keep, out32)
+                        keep, out32, ln)
 
 
 def gemv(x, p, epilogue=None, res=None, res2=None, rs=1.0, keep=False,
-         plain=False, out32=False):
+         plain=False, out32=False, ln=None):
     """The GEMV of a staged dense dict: {"w", "b"} -> gemv_bf16,
-    {"w_q", "s", "b"} -> gemv_int8 (plain=True: their plain versions)."""
-    if "w_q" in p:
-        fn = gemv_int8_plain if plain else gemv_int8
-        return fn(x, p["w_q"], p["s"], p["b"], epilogue, res, res2, rs, keep,
-                  out32)
-    fn = gemv_bf16_plain if plain else gemv_bf16
-    return fn(x, p["w"], p["b"], epilogue, res, res2, rs, keep, out32)
+    {"w_q", "s", "b"} -> gemv_int8 (plain=True: their plain versions);
+    ln=(g, b): the LayerNorm prologue, given exactly for the epilogues None
+    and "gelu"."""
+    int8 = "w_q" in p
+    wts = (p["w_q"], p["s"]) if int8 else (p["w"],)
+    if plain:
+        _check_epilogue(epilogue, res, res2, keep, out32, ln)
+    if plain and ln is not None:
+        fn = ln_gemv_int8_plain if int8 else ln_gemv_bf16_plain
+        return fn(x, *wts, p["b"], ln, epilogue, out32)
+    if plain:
+        fn = gemv_int8_plain if int8 else gemv_bf16_plain
+        return fn(x, *wts, p["b"], epilogue, res, res2, rs, keep, out32)
+    fn = gemv_int8 if int8 else gemv_bf16
+    return fn(x, *wts, p["b"], epilogue, res, res2, rs, keep, out32, ln)
 
 
 # ---------------------------------------------------------------------------
@@ -577,15 +644,15 @@ def stack_layer_step(p, cache, x, geom, n_head, plain=False, res_scale=1.0):
     the plain versions on any device: the reference a kernel run is held
     against."""
     if plain:
-        ln, ring, ring8, cross = (ln_rows_plain, ring_attn_decode_plain,
-                                  ring_attn_int8_plain,
-                                  cross_attn_decode_plain)
+        ring, ring8, cross = (ring_attn_decode_plain, ring_attn_int8_plain,
+                              cross_attn_decode_plain)
     else:
-        ln, ring, ring8, cross = (ln_rows, ring_attn_decode, ring_attn_int8,
-                                  cross_attn_decode)
-    u = ln(x, p["ln0_g"], p["ln0_b"])
-    # the attention reads q in fp32, as the megakernel's qkv pieces
-    qkv, qkv32 = gemv(u, p["qkv"], plain=plain, out32=True)
+        ring, ring8, cross = (ring_attn_decode, ring_attn_int8,
+                              cross_attn_decode)
+    # the attention reads q in fp32, as the megakernel's qkv pieces; each
+    # LayerNorm is the prologue of the GEMV that reads it
+    qkv, qkv32 = gemv(x, p["qkv"], plain=plain, out32=True,
+                      ln=(p["ln0_g"], p["ln0_b"]))
     if geom is None:  # f6
         o = cross(qkv32, cache["k"], cache["v"], n_head, cache.get("ks"),
                   cache.get("vs"), x.dtype)
@@ -598,8 +665,7 @@ def stack_layer_step(p, cache, x, geom, n_head, plain=False, res_scale=1.0):
         r = gemv(o, p["proj"], "residual", x, plain=plain)
     else:
         r, a = gemv(o, p["proj"], "residual", x, keep=True, plain=plain)
-    um = ln(r, p["ln1_g"], p["ln1_b"])
-    h = gemv(um, p["fc"], "gelu", plain=plain)
+    h = gemv(r, p["fc"], "gelu", plain=plain, ln=(p["ln1_g"], p["ln1_b"]))
     if res_scale == 1.0:
         return gemv(h, p["mlp"], "residual", r, plain=plain)
     return gemv(h, p["mlp"], "res_scale", x, a, res_scale, plain=plain)

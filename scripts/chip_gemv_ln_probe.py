@@ -6,13 +6,15 @@ own entry points, other designs from two files of alternatives
 probe builds and nothing in the package does:
 
     python3 scripts/chip_gemv_ln_probe.py [--reps 200] [--rounds 2]
-        [--only gemv_bf16,ln_fwd,gemv_int8,ln_bwd]
+        [--only gemv_bf16,ln_fwd,gemv_int8,ln_bwd,ln_gemv,gemv_order]
 
 gemv_bf16 at batch 4 at the 1b_lyrics top's c_attn and c_proj, the
 upsamplers' c_attn and the 5b_lyrics top's c_attn and c_proj, and
 gemv_int8 at the 5b_lyrics top's five products: the shipped plan (a
 cluster of K splits a column tile) and 2-16 splits through the package's
-entry point; and, without the epilogue, from chip_gemv_variants.cu: the
+entry point (the products that take the LayerNorm prologue there through
+chip_gemv_variants.cu's copy of the shipped products without it); and,
+without the epilogue, from chip_gemv_variants.cu: the
 design before the template (bf16), the shipped kernel with one and with
 two steps in flight a lane whatever the split, the combine before the cluster (4-warp blocks,
 the splits' partials through a global workspace summed by each tile's last
@@ -21,6 +23,32 @@ the cluster with its partials read after the barrier, and cuts of the
 shipped loop that say where its time goes (its products alone, products
 and barrier, loads alone, an empty grid). Beside them addmm (gemv_int8:
 on the dequantised bf16 weight).
+ln_gemv: the GEMVs with the LayerNorm prologue at batch 4 at the 1b_lyrics
+top's c_attn and mlp c_fc, the upsamplers' c_attn and the 5b_lyrics top's
+c_attn and mlp c_fc (bf16), and the 5b top's c_attn and f6 q (int8): the
+shipped LN-GEMV (the statistics met across the cluster in one exchange,
+the first steps' weights in flight before them), the unfused pair it
+replaced (the one-block-per-row ln_rows, then the GEMV), the statistics
+read from L2 by
+every block, the shipped prologue with the weight loads after it, the
+statistics met in two exchanges (the mean, then the centred squares), the
+weights issued before x or loaded by __ldg, every thread in the
+statistics' passes (in place of a warp a row), the loop the LN-GEMV first
+shipped with (each iteration's next weights issued after its products),
+cuts that say where the
+prologue's time goes (the prologue alone, its loads alone, the prologue
+without its cluster exchange), the plain GEMV of the same product (no
+LayerNorm: the shipped products without the prologue), an empty grid of
+its shape, and F.layer_norm then addmm.
+gemv_order: the loop order of the products without the prologue, at batch
+4: the residual products of the 1b_lyrics top (c_proj, mlp.c_proj) and
+the upsamplers (c_proj, mlp.c_proj) in bf16 and of the 5b_lyrics top in
+int8, and the 1b top's c_attn and mlp.c_fc without their LayerNorm: the
+shipped GEMV (residual products only), chip_gemv_variants.cu's copy with
+each iteration's weights and x loaded before its products (the shipped
+order, and gemv_bf16's before the prologue), and the copy in the
+LN-GEMV's first loop order (the first steps' weights before the loop,
+each iteration's next weights after its products).
 layer_norm_fwd at [6528, 2048] bf16 with a block per 2, 4 (shipped) or 8
 rows and with 1, 2, 3, 4, 6 and 8 blocks per SM each walking its share,
 the shipped grid on the element path, the shipped loop at 2 and 8 rows a
@@ -94,7 +122,9 @@ def build_variants():
     source), by nvcc, both started together: {stem: ctypes library}."""
     P, I = ctypes.c_void_p, ctypes.c_int
     sig = _build.SIGNATURES["layer_norm"]
-    todo = {"gemv": {"jk_probe_gemv": [I, I] + [P] * 7 + [I] * 5 + [P]},
+    todo = {"gemv": {"jk_probe_gemv": [I, I] + [P] * 7 + [I] * 5 + [P],
+                     "jk_probe_gemv_x": [I, I] + [P] * 6 + [I] * 6 + [P],
+                     "jk_probe_ln_gemv": [I, I] + [P] * 8 + [I] * 7 + [P]},
             "ln": {"jk_probe_ln_bwd": [I] + sig["jk_layer_norm_bwd"],
                    "jk_probe_ln_fwd": [I] + sig["jk_layer_norm_fwd"]}}
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -122,19 +152,39 @@ def build_variants():
     return libs
 
 
+def gemv_x_call(order, plan, x, w, s, b, epi, res):
+    """chip_gemv_variants.cu's copy of the shipped products without the
+    LayerNorm prologue (x read from L2) on a given plan: order 0 each
+    iteration's loads before its products, 1 the next weights after the
+    products (the LN-GEMV's first loop)."""
+    splits, chunk, _ = plan
+    Bx, K = x.shape
+    N = w.shape[1]
+    y = torch.empty((Bx, N), dtype=torch.bfloat16, device=x.device)
+    ds._check(VARIANTS["gemv"].jk_probe_gemv_x(
+        order, int(s is not None), x.data_ptr(), w.data_ptr(), ds._ptr(s),
+        b.data_ptr(), ds._ptr(res), y.data_ptr(), Bx, K, N, splits, chunk,
+        ds.EPILOGUES[epi], ds._stream()), "gemv_x (probe)")
+    return y
+
+
 def gemv_call(name, plan, x, w, s, b, epi, res, variant=None):
     """name ("gemv_int8" or "gemv_bf16") with a given plan through the
-    package's entry point, or the probe's variant (chip_gemv_variants.cu;
-    no epilogue)."""
+    package's entry point (the epilogues that take the LayerNorm prologue
+    there: through gemv_x_call, the same products without it), or the
+    probe's variant (chip_gemv_variants.cu; no epilogue)."""
     splits, chunk, vec16 = plan
     Bx, K = x.shape
     N = w.shape[1]
     y = torch.empty((Bx, N), dtype=torch.bfloat16, device=x.device)
+    if variant is None and epi not in ("residual", "res_scale"):
+        return gemv_x_call(0, plan, x, w, s, b, epi, res)
     if variant is None:
         err = getattr(_build.lib(), f"jk_{name}")(
             x.data_ptr(), w.data_ptr(), ds._ptr(s), b.data_ptr(),
-            ds._ptr(res), None, None, None, y.data_ptr(), Bx, K, N, splits,
-            chunk, ds.EPILOGUES[epi], vec16, 1.0, ds._stream())
+            ds._ptr(res), None, None, None, y.data_ptr(), None, None, Bx, K,
+            N, splits, chunk, 0, ds.EPILOGUES[epi], vec16, 1.0, ds.LN_EPS,
+            ds._stream())
     else:
         ws, cnt = ds.workspace("gemv probe", x.device, splits * Bx * N,
                                -(-N // ds.GEMV_COLS))
@@ -275,6 +325,158 @@ def probe_gemv(name, products, args, rnd):
         torch.cuda.empty_cache()
 
 
+# the LN-GEMV's products: (kind, K, N, epilogue)
+LN_PRODUCTS = {"1b top c_attn": ("bf16", 2048, 1536, None),
+               "1b top mlp.c_fc": ("bf16", 2048, 2048, "gelu"),
+               "upsampler c_attn": ("bf16", 1920, 1440, None),
+               "5b top c_attn": ("bf16", 4800, 3600, None),
+               "5b top mlp.c_fc": ("bf16", 4800, 4800, "gelu"),
+               "5b top c_attn int8": ("int8", 4800, 3600, None),
+               "5b top f6 q int8": ("int8", 4800, 1200, None)}
+
+
+def ln_variant_call(variant, x, w, s, b, epi, ln_):
+    """The probe's LN-GEMV variant (chip_gemv_variants.cu
+    jk_probe_ln_gemv) on the shipped plan."""
+    Bx, K = x.shape
+    N = w.shape[1]
+    splits, chunk, _ = ds.gemv_split_plan(K, N, ds.sm_count(x.device))
+    y = torch.empty((Bx, N), dtype=torch.bfloat16, device=x.device)
+    u = (torch.empty_like(x) if variant == 0 else None)
+    ds._check(VARIANTS["gemv"].jk_probe_ln_gemv(
+        variant, int(s is not None), x.data_ptr(), w.data_ptr(), ds._ptr(s),
+        b.data_ptr(), y.data_ptr(), ln_[0].data_ptr(), ln_[1].data_ptr(),
+        ds._ptr(u), Bx, K, N, splits, chunk, ds.ln_pitch(chunk),
+        ds.EPILOGUES[epi], ds._stream()), "ln_gemv (probe)")
+    return y
+
+
+def probe_ln_gemv(args, rnd, gen):
+    bf = torch.bfloat16
+    for label, (kind, K, N, epi) in LN_PRODUCTS.items():
+        ln_ = chip_smoke.ln_params(K, gen, "cuda")
+        b = rnd(N, scale=0.02)
+
+        def make():
+            x = chip_smoke.ln_rows_in(B, K, gen, "cuda")
+            if kind == "int8":
+                qd = quantize_dense({"w": rnd(K, N, dtype=torch.float32,
+                                              scale=0.02), "b": b})
+                return x, qd["w_q"], qd["s"], b, epi
+            return x, rnd(K, N, scale=0.02), None, b, epi
+        sets = [make() for _ in range(chip_smoke._copies(
+            K * N * (1 if kind == "int8" else 2)))]
+        plain = getattr(ds, f"ln_gemv_{kind}_plain")
+        fn = getattr(ds, f"gemv_{kind}")
+
+        def shipped(x, w, s_, b_, e_):
+            return (fn(x, w, s_, b_, e_, ln=ln_) if s_ is not None
+                    else fn(x, w, b_, e_, ln=ln_))
+
+        plan = ds.gemv_split_plan(K, N, ds.sm_count("cuda"))[:2] + (1,)
+
+        def bare(x, w, s_, b_, e_):
+            return gemv_x_call(0, plan, x, w, s_, b_, e_, None)
+        x0, w0, s0, b0, _ = sets[0]
+        ref = (plain(x0, w0, s0, b0, ln_, epi) if s0 is not None
+               else plain(x0, w0, b0, ln_, epi))
+        fns = {"shipped LN-GEMV": (shipped, sets)}
+        for v, what in ((0, "the unfused pair (ln_rows, then the GEMV)"),
+                        (1, "statistics from the L2 rows in every block"),
+                        (2, "shipped prologue, weight loads after it"),
+                        (3, "the statistics in two exchanges, g and b read "
+                            "when normalising"),
+                        (4, "the weights issued before x, g and b"),
+                        (5, "the weights loaded by __ldg (free to move "
+                            "past the statistics)"),
+                        (9, "every thread in the statistics' passes"),
+                        (10, "the first loop (next weights after the "
+                             "products)")):
+            fns[what] = (lambda *a, v=v: ln_variant_call(v, *a[:4], a[4],
+                                                         ln_), sets)
+        for what, (f, _) in fns.items():
+            e, rel = chip_smoke._err(f(*sets[0]), ref)
+            if not rel <= chip_smoke.KERNEL_TOL:
+                raise SystemExit(f"ln_gemv {label} {what}: rel {rel:.3e}")
+        fns["the GEMV alone (no LayerNorm)"] = (bare, sets)
+        for v, what in ((6, "the prologue alone (no weights, no products)"),
+                        (7, "its loads of x, g and b alone"),
+                        (8, "the prologue without its cluster exchange")):
+            fns[what] = (lambda *a, v=v: ln_variant_call(v, *a[:4], a[4],
+                                                         ln_), sets)
+        fns["an empty grid of its shape"] = (
+            lambda x_, w_, s_, b_, e_: gemv_call(
+                f"gemv_{kind}", plan, x_, w_, s_, b_, None, None, variant=2),
+            sets)
+        if kind == "int8":
+            lib_sets = [(a[0], (a[1].float() * a[2]).to(bf), a[3])
+                        for a in sets]
+        else:
+            lib_sets = [(a[0], a[1], a[3]) for a in sets]
+        fns["F.layer_norm, then addmm"] = (
+            lambda x_, w_, b_: torch.addmm(b_, F.layer_norm(
+                x_, (K,), ln_[0].to(bf), ln_[1].to(bf), ds.LN_EPS), w_),
+            lib_sets)
+        for what, ts in in_turns(fns, args.reps, args.rounds).items():
+            print(f"ln_gemv {label} [{B},{K}]x[{K},{N}] {what}: "
+                  + " ".join(f"{t:.2f}" for t in ts) + " us", flush=True)
+        del sets, lib_sets
+        torch.cuda.empty_cache()
+
+
+# the loop orders' products: (kind, K, N, epilogue)
+ORDER_PRODUCTS = {"1b top c_proj": ("bf16", 512, 2048, "residual"),
+                  "1b top mlp.c_proj": ("bf16", 2048, 2048, "residual"),
+                  "upsampler c_proj": ("bf16", 480, 1920, "residual"),
+                  "upsampler mlp.c_proj": ("bf16", 1920, 1920, "residual"),
+                  "5b top c_proj int8": ("int8", 1200, 4800, "residual"),
+                  "5b top mlp.c_proj int8": ("int8", 4800, 4800,
+                                             "residual"),
+                  "1b top c_attn, no LayerNorm": ("bf16", 2048, 1536, None),
+                  "1b top mlp.c_fc, no LayerNorm": ("bf16", 2048, 2048,
+                                                    "gelu")}
+
+
+def probe_gemv_order(args, rnd, gen):
+    """The loop order of the products without the prologue (see the
+    module docstring), each held to the plain version first."""
+    sms = ds.sm_count("cuda")
+    for label, (kind, K, N, epi) in ORDER_PRODUCTS.items():
+        b = rnd(N, scale=0.02)
+
+        def make():
+            x, res = rnd(B, K), rnd(B, N) if epi == "residual" else None
+            if kind == "int8":
+                qd = quantize_dense({"w": rnd(K, N, dtype=torch.float32,
+                                              scale=0.02), "b": b})
+                return x, qd["w_q"], qd["s"], b, epi, res
+            return x, rnd(K, N, scale=0.02), None, b, epi, res
+        sets = [make() for _ in range(chip_smoke._copies(
+            K * N * (1 if kind == "int8" else 2)))]
+        plan = ds.gemv_split_plan(K, N, sms)[:2] + (1,)
+        x0, w0, s0, b0, _, r0 = sets[0]
+        ref = (ds.gemv_int8_plain(x0, w0, s0, b0, epi, r0) if kind == "int8"
+               else ds.gemv_bf16_plain(x0, w0, b0, epi, r0))
+        fns = {}
+        if epi == "residual":
+            fns["shipped"] = (lambda *a: gemv_call(f"gemv_{kind}", plan, *a),
+                              sets)
+        for order, what in ((0, "copy, each iteration's loads before its "
+                                "products"),
+                            (1, "copy, next weights after the products "
+                                "(the LN-GEMV's first loop)")):
+            fns[what] = (lambda *a, o=order: gemv_x_call(o, plan, *a), sets)
+        for what, (f, _) in fns.items():
+            e, rel = chip_smoke._err(f(*sets[0]), ref)
+            if not rel <= chip_smoke.KERNEL_TOL:
+                raise SystemExit(f"gemv_order {label} {what}: rel {rel:.3e}")
+        for what, ts in in_turns(fns, args.reps, args.rounds).items():
+            print(f"gemv_order {label} [{B},{K}]x[{K},{N}] {what}: "
+                  + " ".join(f"{t:.2f}" for t in ts) + " us", flush=True)
+        del sets
+        torch.cuda.empty_cache()
+
+
 def probe_ln_fwd(args, rnd, gen):
     N, D, dtype = LN_SHAPE
     item = torch.tensor([], dtype=dtype).element_size()
@@ -387,7 +589,9 @@ PARTS = {"gemv_bf16": lambda args, rnd, gen: probe_gemv(
          "ln_fwd": probe_ln_fwd,
          "gemv_int8": lambda args, rnd, gen: probe_gemv(
              "gemv_int8", PRODUCTS, args, rnd),
-         "ln_bwd": probe_ln_bwd}
+         "ln_bwd": probe_ln_bwd,
+         "ln_gemv": probe_ln_gemv,
+         "gemv_order": probe_gemv_order}
 
 
 def main():

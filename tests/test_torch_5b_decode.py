@@ -258,11 +258,16 @@ def test_fp32_f6_stack_matches_xla_decode():
 
 
 def test_layer_launches_and_cpu_counts():
-    """The launch table of a layer, and no launch counted on the CPU."""
+    """The launch table of a layer (5 launches: the two LayerNorms are the
+    prologues of the GEMVs that read them), and no launch counted on the
+    CPU."""
     assert ds.layer_launches(6, True, True) == {
-        "ln_rows": 2, "gemv_int8": 4, "cross_attn_decode": 1}
+        "ln_gemv_int8": 2, "gemv_int8": 2, "cross_attn_decode": 1}
     assert ds.layer_launches(2, False, True) == {
-        "ln_rows": 2, "gemv_bf16": 4, "ring_attn_int8": 1}
+        "ln_gemv_bf16": 2, "gemv_bf16": 2, "ring_attn_int8": 1}
+    assert all(sum(ds.layer_launches(f, q, c).values()) == 5
+               for f in (0, 1, 2, 3, 6, 7) for q in (False, True)
+               for c in (False, True))
     _, _, tt = pair(10, 20, seed=11)
     enc, _, xs = _inputs(12)
     ds.reset_launches()

@@ -120,9 +120,11 @@ def test_5b_int8_cascade_launch_accounting(priors5, tmp_path, monkeypatch):
     # 32 top steps x (19 ring + 1 cross); 192 upsampler steps x 3 layers
     assert rep["expected"]["cross_attn_decode"] == 32
     assert rep["expected"]["ring_attn_int8"] == 32 * 19 + 192 * 3
-    assert rep["expected"]["gemv_int8"] == 4 * (32 * 20 + 192 * 3)
+    # two GEMVs a layer with the LayerNorm prologue, two without
+    assert rep["expected"]["gemv_int8"] == rep["expected"][
+        "ln_gemv_int8"] == 2 * (32 * 20 + 192 * 3)
     assert rep["expected"]["gemv_bf16"] == rep["expected"][
-        "ring_attn_decode"] == 0
+        "ln_gemv_bf16"] == rep["expected"]["ring_attn_decode"] == 0
     assert calls == rep["expected"]
     # conditioners: 2 + 1 windows; the lyric encoder: 2 x 2 layers + 1
     assert rep["ln_expected"]["layer_norm_fwd"] == 3 + 5

@@ -135,5 +135,5 @@ def test_launch_counts_stay_zero_on_cpu(order12):
     caches = tt.init_cache(B, torch.bfloat16, "cpu")
     tt.decode_step(staged, caches, torch.from_numpy(xs[0]), 0, fp16=True)
     assert ds.LAUNCHES == dict.fromkeys(
-        ("ln_rows", "gemv_bf16", "gemv_int8", "ring_attn_decode",
-         "ring_attn_int8", "cross_attn_decode"), 0)
+        ("ln_gemv_bf16", "ln_gemv_int8", "gemv_bf16", "gemv_int8",
+         "ring_attn_decode", "ring_attn_int8", "cross_attn_decode"), 0)

@@ -32,9 +32,11 @@ items left out of the merge.
 
 gemv_int8 and gemv_bf16 (one kernel template) alone at batch 1, 3, 4 and
 16 at the 5b top's products, an N % 16 == 8, a K % 16 == 10 and the 1b
-top's c_attn (chip_smoke.check_gemv): their epilogues, out32, keep and
-res_scale, the same bits on a second call, and both planted faults (a
-skipped column tile, one K split left out of the combine) refused.
+top's c_attn: the residual products through chip_smoke.check_gemv (out32,
+keep and res_scale), the others with the LayerNorm prologue through
+chip_smoke.check_gemv_ln; the same bits on a second call, and the planted
+faults (a skipped column tile; one K split left out of the combine, or of
+the row statistics) refused.
 
 LayerNorm kernels (ops/layer_norm.py) through chip_smoke.check_layer_norm
 at ragged and wide shapes in fp32, bf16 and fp16 (D 7 and 12288 among
@@ -47,8 +49,15 @@ on rows at a storage offset (their element path).
 The Adam kernel (ops/adam.py) through chip_smoke.check_adam on a few
 tensors of mixed sizes (one with a None gradient), both moment forms,
 three updates: params normwise within 1e-6 of how far they moved, moments
-within one fp16 step (or 1e-6 normwise in fp32), and a planted fault (the
-last chunk of the largest tensor left out) refused.
+within one fp16 step (or 1e-6 normwise in fp32), the same bits twice, and
+planted faults (an update item, and in the fp16 form an amax item, of the
+largest tensor left out of the walk) refused; and its walk over tensors
+at a storage offset that breaks 16-byte alignment (the element path) and
+over short items (many amax and update items a tensor), bit for bit
+against the plain version.
+
+The GEMVs with the LayerNorm prologue through chip_smoke.check_gemv_ln
+at batch 1, 3, 4 and 16, both weight kinds.
 
 Needs a CUDA device and skips itself without one. This file imports no JAX,
 so it runs on a GPU machine that has only the port's dependencies:
@@ -95,14 +104,18 @@ def test_cuda_kernels_match_plain(S, A, H, bc, blocks, n_ctx, prime):
         assert _rel_err(out.float().cpu(), ref.float().cpu()) <= 1e-2
 
     B = 4
-    x, g, b = rnd(B, S), rnd(S, dtype=torch.float32), rnd(S, dtype=torch.float32)
-    close(ds.ln_rows(x, g, b), ds.ln_rows_plain(x, g, b))
     for K, N, epi in ((S, 3 * A, None), (A, S, "residual"), (S, S, "gelu"),
                       (S, S, "residual")):
-        x, w, b = rnd(B, K), rnd(K, N, scale=0.02), rnd(N, scale=0.02)
-        res = rnd(B, N) if epi == "residual" else None
-        close(ds.gemv_bf16(x, w, b, epi, res),
-              ds.gemv_bf16_plain(x, w, b, epi, res))
+        w, b = rnd(K, N, scale=0.02), rnd(N, scale=0.02)
+        if epi == "residual":
+            x, res = rnd(B, K), rnd(B, N)
+            close(ds.gemv_bf16(x, w, b, epi, res),
+                  ds.gemv_bf16_plain(x, w, b, epi, res))
+        else:  # the LayerNorm prologue's epilogues
+            x = chip_smoke.ln_rows_in(B, K, gen, "cuda")
+            ln_ = chip_smoke.ln_params(K, gen, "cuda")
+            close(ds.gemv_bf16(x, w, b, epi, ln=ln_),
+                  ds.ln_gemv_bf16_plain(x, w, b, ln_, epi))
     shapes = {0: (B, n_ctx, A), 1: (B, bc, A), 2: (B, bc, blocks, A),
               3: (B, 2 * bc, A), 7: (B, prime or 0, A)}
     for f in ((0, 1, 2, 3, 7) if prime else (1, 2, 3)):
@@ -115,6 +128,42 @@ def test_cuda_kernels_match_plain(S, A, H, bc, blocks, n_ctx, prime):
             close(ds.ring_attn_decode(qkv, k1, v1, geom, H, qkv32),
                   ds.ring_attn_decode_plain(qkv, k2, v2, geom, H, qkv32))
             assert torch.equal(k1, k2) and torch.equal(v1, v2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("B", [1, 3, 4, 16])
+def test_ln_gemv_matches_plain(B, kind):
+    """The GEMVs with the LayerNorm prologue (ln=(g, b)) at the 1b top's
+    c_attn and mlp c_fc and the 5b top's c_attn, f6 q and mlp c_fc,
+    through chip_smoke.check_gemv_ln: against gemv_plain(ln_rows_plain(x))
+    within 1e-2 x max(1, |plain|), the same bits on a second call, out32,
+    and both planted faults (one split left out of the row statistics, the
+    last column tile skipped) refused; one launch counted as
+    ln_gemv_<kind> per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rep = chip_smoke.KernelReport()
+    name = f"gemv_{kind}"
+    for K, N, epi in ((2048, 1536, None), (2048, 2048, "gelu"),
+                      (4800, 3600, None), (4800, 1200, None),
+                      (4800, 4800, "gelu")):
+        w = 0.02 * torch.randn((K, N), generator=gen, device="cuda")
+        b = (0.02 * torch.randn(N, generator=gen, device="cuda")).bfloat16()
+        if kind == "int8":
+            qd = quantize_dense({"w": w, "b": b})
+            wts = (qd["w_q"], qd["s"])
+        else:
+            wts = (w.bfloat16(),)
+        ln_ = chip_smoke.ln_params(K, gen, "cuda")
+        x = chip_smoke.ln_rows_in(B, K, gen, "cuda")
+        ds.reset_launches()
+        chip_smoke.check_gemv_ln(rep, name, f"[{B},{K}]x[{K},{N}]", x, wts, b,
+                                 epi, ln_, "cuda")
+        # the check, its second call, out32 and the two planted faults
+        assert ds.LAUNCHES["ln_" + name] == 5
+    assert set(rep.rows) == {"ln_" + name}
 
 
 @pytest.mark.gpu
@@ -253,21 +302,28 @@ def _check_gemvs(name, B):
             wts = (qd["w_q"], qd["s"])
         else:
             wts = (w.to(torch.bfloat16),)
-        x, res = rnd(B, K), rnd(B, N) if epi == "residual" else None
-        chip_smoke.check_gemv(rep, name, f"[{B},{K}]x[{K},{N}] {epi}", x,
-                              wts, b, epi, res, "cuda")
+        what = f"[{B},{K}]x[{K},{N}] {epi}"
+        if epi == "residual":
+            chip_smoke.check_gemv(rep, name, what, rnd(B, K), wts, b, epi,
+                                  rnd(B, N), "cuda")
+        else:  # the LayerNorm prologue's epilogues
+            chip_smoke.check_gemv_ln(
+                rep, name, what, chip_smoke.ln_rows_in(B, K, gen, "cuda"),
+                wts, b, epi, chip_smoke.ln_params(K, gen, "cuda"), "cuda")
     assert rep.rows[name]["max_abs_err"] >= 0.0
+    assert rep.rows["ln_" + name]["max_abs_err"] >= 0.0
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B", [1, 3, 4, 16])
 def test_gemv_int8_matches_plain(B):
-    """gemv_int8 through chip_smoke.check_gemv at GEMV_PRODUCTS (an
-    N % 16 == 8 reads W's rows 8 bytes a lane), with their epilogues,
-    out32, keep and res_scale: 1e-2 x max(1, |plain|), the same bits on a
-    second call (the K splits summed in a fixed order), and both planted
-    faults (the last column tile skipped, one K split left out of the
-    combine) refused."""
+    """gemv_int8 through chip_smoke.check_gemv at GEMV_PRODUCTS' residual
+    products (out32, keep and res_scale) and check_gemv_ln at the others
+    (the LayerNorm prologue; an N % 16 == 8 reads W's rows 8 bytes a
+    lane): 1e-2 x max(1, |plain|), the same bits on a second call (the K
+    splits summed in a fixed order), and the planted faults (the last
+    column tile skipped, one K split left out of the combine or of the row
+    statistics) refused."""
     _check_gemvs("gemv_int8", B)
 
 
@@ -355,3 +411,58 @@ def test_adam_kernel_matches_plain(fp16):
              for i, shape in enumerate(shapes)}
     row = chip_smoke.check_adam(start, fp16, "cuda", time_it=False)
     assert row["max_abs_err"] >= 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fp16", [False, True])
+def test_adam_item_order_at_a_storage_offset(fp16, monkeypatch):
+    """The Adam walk over tensors whose storage starts one element past a
+    16-byte boundary (every item on the element path) beside aligned ones,
+    in items of 1000 elements (the fp16 form: many amax items, then update
+    items in reverse, a tensor), one launch an update: params, moments and
+    scales bit for bit equal to the plain version after three updates."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from jukebox_tpu_torch.ops import adam as ad
+    from jukebox_tpu_torch.utils import train_utils as ttu
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    sizes = {"odd": 70001, "aligned": 5003, "small": 700}
+
+    def tensors():
+        out = {}
+        for n, size in sizes.items():
+            base = torch.randn(size + 1, generator=gen, device="cuda") * 0.1
+            out[n] = base[1:] if n == "odd" else base[:size].clone()
+        return out
+    start = tensors()
+    assert start["odd"].data_ptr() % 16 and start["odd"].is_contiguous()
+    states = []
+    for _ in range(2):
+        params = {n: t.clone() if n != "odd" else
+                  torch.empty(t.numel() + 1, device="cuda")[1:].copy_(t)
+                  for n, t in start.items()}
+        opt = ttu.adam_init(params, fp16_state=fp16)
+        for k in ("m", "v"):  # the moments at the same offset
+            opt[k]["odd"] = torch.zeros(70002, device="cuda", dtype=opt[k][
+                "odd"].dtype)[1:]
+        states.append((params, opt))
+    monkeypatch.setattr(ad, "CHUNK", 1000)
+    table = ad.AdamTable(*states[0])
+    assert sum(kind == ad.AMAX for *_, kind in table.items) == (
+        71 + 6 if fp16 else 0)
+    ad.reset_launches()
+    for step in range(3):
+        grads = {n: torch.randn(s, generator=gen, device="cuda") * 10.0
+                 for n, s in sizes.items()}
+        ad.adam_update_kernel(table, grads, states[0][1], lr=1e-3,
+                              beta1=0.9, beta2=0.99, eps=1e-8,
+                              weight_decay=0.01, scale=2.0)
+        ad.adam_update_plain(states[1][0], grads, states[1][1], lr=1e-3,
+                             beta1=0.9, beta2=0.99, eps=1e-8,
+                             weight_decay=0.01, scale=2.0)
+    assert ad.LAUNCHES["adam_update"] == 3
+    for n in sizes:
+        assert torch.equal(states[0][0][n], states[1][0][n]), n
+        for k in ("m", "v", "m_scale", "v_scale") if fp16 else ("m", "v"):
+            assert torch.equal(states[0][1][k][n], states[1][1][k][n]), (k, n)
+    assert not (table.amax.any() or table.done.any() or table.ticket.any())
