@@ -44,10 +44,22 @@ Phases, each printing timestamped lines:
              the bound, the plain version and F.layer_norm (and its
              autograd backward)
   4 cascade  the 1b_lyrics ancestral cascade (labels -> top codes -> two
-             upsamplers -> 44.1 kHz wav) from random weights drawn from
-             --seed; checks codes, audio and that every decode step of every
-             prior went through the kernels, and every LayerNorm of the
-             prefill and the conditioners (launch counts)
+             upsamplers -> 44.1 kHz wav, each level's html with the top's
+             lyric alignment) from random weights drawn from --seed, at the
+             sample CLI's hop fractions 0.5, 0.5, 0.125 (level 0: 7
+             windows, 6 after 4096 context tokens); checks codes, audio,
+             every level's wav, html and alignment PNG / JSON, and that
+             every decode step of every prior went through the kernels, and
+             every LayerNorm of the prefill (lyrics and context), the
+             conditioners and the alignment forward, and its flash_fwd
+             (launch counts); the alignment recomputed: shape, range, rows
+             summing to at most 1, against the plain path (flash and
+             LayerNorm plain) within ALIGN_TOL, and a planted fault (the
+             next head) refused
+  4b primed  primed_sample from ~3 s of phase 4's first wav (load_prompts)
+             at the same length: every level's first window carries the
+             prompt's codes as context; the prompt's codes kept at every
+             level, and phase 4's checks
   2e int8    gemv_int8, ring_attn_int8 (every ring pattern) and
              cross_attn_decode (f6, bf16 and int8 encoder K/V) against their
              plain versions at the 5b_lyrics top's shapes (S 4800, A 1200, 8
@@ -64,10 +76,12 @@ Phases, each printing timestamped lines:
              step (79 layers) kernel path against plain path in bf16 and
              in int8, one int8 upsampler step, then the ancestral cascade
              in the int8 mode (int8 weights and ring caches in every
-             prior), lyric encoder -> 79-layer top -> two upsamplers ->
-             wav, with the launch counts of every decode kernel (f6
-             included) and of the LayerNorm kernels; then prior_5b at
-             full width, one decode step kernel path against plain path
+             prior, the context prefill writing int8 rows), lyric encoder
+             -> 79-layer top -> two upsamplers -> wav and html with the
+             top's alignment (layer 68, f6, head 2), with phase 4's checks
+             and the launch counts of every decode kernel (f6 included) and
+             of the LayerNorm kernels; then prior_5b at full width, one
+             decode step kernel path against plain path
   2d adam    the Adam kernel against its plain loop on the top prior's
              871 parameter tensors, fp32 and fp16 moments, three updates,
              run twice with equal bits, and planted faults (an update item
@@ -115,7 +129,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from jukebox_tpu_torch import align as align_mod
 from jukebox_tpu_torch import sample as sample_mod
+from jukebox_tpu_torch import save_html
 from jukebox_tpu_torch import train as train_mod
 from jukebox_tpu_torch.data.files_dataset import FixedMetadataDataset
 from jukebox_tpu_torch.hparams import Hyperparams, setup_hparams
@@ -142,6 +158,12 @@ STEP_TOL = 5e-2              # full-stack logits, relative to max(1, |plain|)
 # upsamplers run 8 of their 72 layers so the whole run stays near 10 minutes
 # (their decode loop is bound by the host's launch rate)
 N_SAMPLES, SAMPLE_LENGTH, UPS_DEPTH, TEMP = 4, 262144, 8, 0.99
+# the sample CLI's documented hop fractions (jukebox_tpu/utils/cli.py:4):
+# level 0 samples 7 windows, 6 of them after 4096 context tokens
+HOPS = (0.5, 0.5, 0.125)
+# phase 4b's prompt: about 3 s of phase 4's first wav, rounded down to a
+# multiple of the top's raw_to_tokens
+PROMPT_SECONDS = 3.0
 GEMV_BATCHES = (1, 3, 16)    # phases 2, 2e: the GEMVs also at these batches
 # flash kernels against their plain versions: fa.agreement, an elementwise
 # bound of two bf16 steps of |plain| plus AGREE_ATOL of the row's RMS; a
@@ -164,6 +186,14 @@ GEMV_BATCHES = (1, 3, 16)    # phases 2, 2e: the GEMVs also at these batches
 # smoke), so the probes get c_attn.w's limit of (1); the planted flash
 # fault cannot be told from this noise here (c_proj.w 4.6e-3), which is
 # why (1) isolates flash.
+# the cascade's lyric alignment against its plain path (flash and
+# LayerNorm plain), alignment_gap: the error over the alignment's own
+# departure from flat rows. The bf16 roundings of the LayerNorm kernels
+# (and flash's, 1b) carried through 63-68 random layers move it: the sound
+# path read 4.0e-2 (5b), 6.5e-2 and 7.6e-2 (1b primed and ancestral); the
+# planted fault (the next head) 1.35-2.34 (H100 smoke). The limit sits
+# 3.3x over the first, 5.4x under the second.
+ALIGN_TOL = 0.25
 LOSS_TOL, GN_TOL = 1e-5, 1e-4
 GRAD_TOL = {"c_attn": 5e-3, "c_proj": 2e-3}
 FULL_TOL = {"loss": 1e-5, "grad norm": 1e-4, "c_attn": 5e-3, "c_proj": 5e-3}
@@ -1440,84 +1470,257 @@ def time_decode_step(tr, dec, caches, x, t, level, int8=False, reps=20):
 # phase 4: the cascade
 # ---------------------------------------------------------------------------
 
-def decode_steps(priors, hps, sampling_kwargs):
-    """Token steps each prior decodes in the cascade (sampled tokens plus
-    the lyric prefix's prefill tail), for windows without context tokens."""
-    steps = []
+def cascade_windows(priors, hps, have=None):
+    """Per level, the windows the cascade samples as (context tokens, new
+    tokens), as sample.sample_level walks them from codes of length
+    have[level] (all 0 in the ancestral mode), and the levels' final code
+    lengths."""
+    have = list(have or [0] * len(priors))
+    out = []
     for level, prior in enumerate(priors):
         total = hps.sample_length // prior.raw_to_tokens
-        hop = int(hps.hop_fraction[level] * prior.n_ctx)
-        if total >= prior.n_ctx:
-            starts = get_starts(total, prior.n_ctx, hop)
-            assert all(b - a >= prior.n_ctx for a, b in zip(starts, starts[1:])), \
-                "the smoke's windows carry no context tokens"
-            n = len(starts) * prior.n_ctx
-        else:
-            n = total
-        if prior.single_enc_dec:
-            bc = prior.model.prior.block_ctx
-            chunk = max(1, sampling_kwargs[level]["chunk_size"] // bc) * bc
-            n += prior.n_tokens - (prior.n_tokens // chunk) * chunk
-        steps.append(n)
+        n_ctx = prior.n_ctx
+        wins = []
+        if total >= n_ctx:
+            hop = int(hps.hop_fraction[level] * n_ctx)
+            for start in get_starts(total, n_ctx, hop):
+                c = min(n_ctx, max(0, have[level] - start))
+                if c < n_ctx:
+                    wins.append((c, n_ctx - c))
+                    have[level] += n_ctx - c
+        else:  # sample_partial_window
+            cur = have[level]
+            c = cur if cur < n_ctx - total else n_ctx - total
+            wins.append((c, total))
+            have[level] += total
+        out.append(wins)
+    return out, have
+
+
+def window_work(prior, skw, c):
+    """(whole prefill chunks, decode steps of the prefill's tail) of one
+    window with c context tokens: the 1b top prefills its lyric prefix
+    too."""
+    P = c + (prior.n_tokens if prior.single_enc_dec else 0)
+    bc = prior.model.prior.block_ctx
+    chunk = max(1, skw["chunk_size"] // bc) * bc
+    return P // chunk, P - (P // chunk) * chunk
+
+
+def decode_steps(priors, hps, sampling_kwargs, have=None):
+    """Token steps each prior decodes in the cascade, over its windows and
+    batches: the sampled tokens and the tail of each window's prefill (its
+    context tokens, the 1b top's lyric prefix ahead of them) that is not a
+    whole chunk."""
+    steps = []
+    for level, wins in enumerate(cascade_windows(priors, hps, have)[0]):
+        prior, skw = priors[level], sampling_kwargs[level]
+        batches = -(-hps.n_samples // skw["max_batch_size"])
+        steps.append(batches * sum(new + window_work(prior, skw, c)[1]
+                                   for c, new in wins))
     return steps
 
 
-def cascade_layer_norms(priors, hps, sampling_kwargs):
-    """LayerNorm kernel launches of the cascade: per window and batch, the
-    conditioner's LayerNorm (upsamplers), two per layer for each whole
-    prefill chunk of the 1b top's lyric prefix (chunk_size rounded to
-    blocks; the decode steps, the prefix's tail included, normalise in
-    their GEMVs' prologue instead), and the 5b_lyrics top's lyric encoder
-    forward."""
+def cascade_layer_norms(priors, hps, sampling_kwargs, have=None):
+    """LayerNorm kernel launches of the cascade's sampling: per window and
+    batch, the conditioner's LayerNorm (upsamplers), two per layer for each
+    whole prefill chunk (the 1b top's lyric prefix and the windows' context
+    tokens, chunk_size rounded to blocks; the decode steps, the prefill's
+    tails included, normalise in their GEMVs' prologue instead), and the
+    5b_lyrics top's lyric encoder forward."""
     n = 0
-    for level, prior in enumerate(priors):
-        total = hps.sample_length // prior.raw_to_tokens
-        hop = int(hps.hop_fraction[level] * prior.n_ctx)
-        windows = (len(get_starts(total, prior.n_ctx, hop))
-                   if total >= prior.n_ctx else 1)
-        skw = sampling_kwargs[level]
+    for level, wins in enumerate(cascade_windows(priors, hps, have)[0]):
+        prior, skw = priors[level], sampling_kwargs[level]
         batches = -(-hps.n_samples // skw["max_batch_size"])
-        chunks = 0
-        if prior.single_enc_dec:
-            bc = prior.model.prior.block_ctx
-            chunks = prior.n_tokens // (max(1, skw["chunk_size"] // bc) * bc)
-        # a lyric encoder's forward: two per layer and prime_state_ln
         enc = prior.model.prime_prior
-        per_call = (int(prior.model.x_cond)
-                    + 2 * prior.model.prior.transformer.n_depth * chunks
-                    + (0 if enc is None else 2 * enc.transformer.n_depth + 1))
-        n += windows * batches * per_call
+        per_window = (int(prior.model.x_cond)
+                      + (0 if enc is None else 2 * enc.transformer.n_depth + 1))
+        for c, _ in wins:
+            chunks = window_work(prior, skw, c)[0]
+            n += batches * (per_window + 2 * prior.model.prior.transformer
+                            .n_depth * chunks)
     return {"layer_norm_fwd": n, "layer_norm_bwd": 0}
 
 
-def run_cascade(priors, hps, sampling_kwargs, int8=False):
-    """ancestral_sample + checks; int8=True samples in the int8 mode
-    (JUKEBOX_INT8_DECODE=1: int8 weights and ring caches in every prior).
-    Returns a report dict: the decode kernels' launches against their
-    expected counts (launches, expected) and the LayerNorm kernels'
-    (ln_launches, ln_expected)."""
+def aligns(prior):
+    """Whether the cascade computes the top prior's lyric alignment
+    (sample._compute_alignments)."""
+    return (prior.n_tokens > 0 and prior.alignment_layer is not None
+            and prior.alignment_head is not None)
+
+
+def alignment_launches(prior, hps, total, fp16):
+    """flash_fwd and layer_norm_fwd launches of get_alignment on `total`
+    top codes: per hop one recording forward of the whole batch, whose f0
+    layers take flash unless recorded (bf16, L >= 2048), with two
+    LayerNorms a layer, the conditioner's and a lyric encoder's forward."""
+    if not aligns(prior):
+        return {"flash_fwd": 0, "layer_norm_fwd": 0}
+    n_ctx = prior.n_ctx
+    hops = len(get_starts(max(total, n_ctx), n_ctx,
+                          int(hps.hop_fraction[-1] * n_ctx)))
+    tr = prior.model.prior.transformer
+    dtype = torch.bfloat16 if fp16 else torch.float32
+    flash = sum(blk.attn.uses_flash(tr.n_ctx, dtype,
+                                    d == prior.alignment_layer)
+                for d, blk in enumerate(tr.blocks))
+    enc = prior.model.prime_prior
+    lns = (2 * tr.n_depth + int(prior.model.x_cond)
+           + (0 if enc is None else 2 * enc.transformer.n_depth + 1))
+    return {"flash_fwd": hops * flash, "layer_norm_fwd": hops * lns}
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The flash and LayerNorm wrappers run their plain versions inside the
+    block: the plain path an alignment is held against."""
+    names = [(fa, n) for n in fa.LAUNCHES] + [(ln, n) for n in ln.LAUNCHES]
+    saved = {(m, n): getattr(m, n) for m, n in names}
+    for m, n in names:
+        setattr(m, n, getattr(m, n + "_plain"))
+    try:
+        yield
+    finally:
+        for (m, n), f in saved.items():
+            setattr(m, n, f)
+
+
+def alignment_gap(got, ref):
+    """The worst over samples of ||got - ref|| over the alignment's own
+    signal, ||ref - its row means|| on the columns each row attends (ref >
+    0; the characters outside the lyric window stay 0): random weights
+    attend nearly evenly, so the error is held against the departure from
+    flat rows."""
+    gaps = []
+    for g, r in zip(got, ref):
+        m = r > 0
+        mean = (r * m).sum(axis=1, keepdims=True) / np.maximum(
+            m.sum(axis=1, keepdims=True), 1)
+        signal = np.linalg.norm((r - mean) * m)
+        gaps.append(np.linalg.norm(g - r) / max(signal, 1e-30))
+    return max(gaps)
+
+
+def check_alignment(priors, hps, sampling_kwargs, zs, labels):
+    """The cascade's lyric alignment recomputed by get_alignment: one per
+    sample of shape [top codes, lyric characters], finite, in [0, 1], rows
+    summing to at most 1 + 1e-3, equal to the html JSON the cascade wrote;
+    its flash_fwd and layer_norm_fwd launches equal alignment_launches; it
+    agrees with the plain path (flash and LayerNorm plain) within
+    ALIGN_TOL (alignment_gap), and the planted fault (the next head) is
+    refused. Returns a report dict."""
+    top = priors[-1]
+    fp16 = sampling_kwargs[-1].get("fp16", False)
+    total = zs[-1].shape[1]
+    cuda = next(top.model.parameters()).is_cuda
+
+    def align():
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.time()
+        out = align_mod.get_alignment(None, zs, labels[-1], top, fp16, hps)
+        if cuda:
+            torch.cuda.synchronize()
+        return out, time.time() - t0
+    expected = alignment_launches(top, hps, total, fp16)
+    fa.reset_launches()
+    ln.reset_launches()
+    got, seconds = align()
+    launches = {"flash_fwd": fa.LAUNCHES["flash_fwd"],
+                "layer_norm_fwd": ln.LAUNCHES["layer_norm_fwd"]}
+    infos = labels[-1]["info"]
+    for i, a in enumerate(got):
+        shape = (total, len(infos[i]["full_tokens"]))
+        if a.shape != shape or not np.isfinite(a).all() or a.min() < 0 \
+                or a.max() > 1 or (a.sum(axis=1) > 1 + 1e-3).any():
+            raise AssertionError(f"alignment {i}: {a.shape} (want {shape}),"
+                                 f" range [{a.min()}, {a.max()}], largest "
+                                 f"row sum {a.sum(axis=1).max()}")
+        with open(os.path.join(hps.name, f"level_{len(priors) - 1}",
+                               f"item_{i}_align.json")) as f:
+            written = np.asarray(json.load(f))
+        want = np.asarray(save_html._downsample_alignment(a))
+        if written.shape != want.shape or np.abs(written - want).max() > 1e-3:
+            raise AssertionError(f"item {i}: the html's alignment JSON is not"
+                                 f" the recomputed alignment's")
+    with plain_kernels():
+        ref, plain_s = align()
+    gap = alignment_gap(got, ref)
+    head = top.alignment_head
+    planted = (head + 1) % top.model.prior.transformer.n_head
+    top.model.alignment_head = planted
+    try:
+        wrong, _ = align()
+    finally:
+        top.model.alignment_head = head
+    fault = alignment_gap(wrong, ref)
+    rep = dict(seconds=seconds, plain_s=plain_s, gap=gap, fault_gap=fault,
+               launches=launches, expected=expected, shape=got[0].shape)
+    log(f"  alignment: {len(got)} x {got[0].shape} in {seconds:.2f}s (plain"
+        f" path {plain_s:.2f}s); gap to the plain path {gap:.3e} (tol "
+        f"{ALIGN_TOL:g}), planted fault (head {planted}) {fault:.3e}; "
+        f"launches {launches} == expected {expected}")
+    if not gap <= ALIGN_TOL:
+        raise AssertionError(f"the alignment disagrees with its plain path "
+                             f"({gap:.3e})")
+    if not fault > ALIGN_TOL:
+        raise AssertionError(f"the planted alignment fault was not refused "
+                             f"({fault:.3e})")
+    if cuda and launches != expected:
+        raise AssertionError(f"alignment launches {launches} != expected "
+                             f"{expected}")
+    return rep
+
+
+def run_cascade(priors, hps, sampling_kwargs, int8=False, prompt=None):
+    """ancestral_sample (or, given a prompt [n, T, 1], primed_sample) +
+    checks; int8=True samples in the int8 mode (JUKEBOX_INT8_DECODE=1:
+    int8 weights and ring caches in every prior). Returns a report dict:
+    the decode kernels' launches against their expected counts (launches,
+    expected), the LayerNorm and flash kernels' (ln_launches, ln_expected,
+    fa_launches, fa_expected: the sampling's prefill and conditioners, and
+    the alignment's forward) and the alignment's check (align)."""
     metas = [dict(artist="unknown", genre="unknown", lyrics=LYRICS,
                   total_length=hps.sample_length, offset=0)] * hps.n_samples
     labels = [p.labeller.get_batch_labels(metas) for p in priors]
-    steps = decode_steps(priors, hps, sampling_kwargs)
+    device = next(priors[0].model.parameters()).device
+    cuda = device.type == "cuda"
+    prompt_zs = None
+    if prompt is not None:
+        prompt_zs = [z.cpu().numpy() for z in priors[-1].encode(
+            prompt.to(device), start_level=0, end_level=len(priors),
+            bs_chunks=prompt.shape[0])]
+    have = None if prompt_zs is None else [z.shape[1] for z in prompt_zs]
+    steps = decode_steps(priors, hps, sampling_kwargs, have)
+    final = cascade_windows(priors, hps, have)[1]
     expected = dict.fromkeys(ds.LAUNCHES, 0)
     for prior, n in zip(priors, steps):
         for k, v in step_launches(prior.model.prior.transformer, int8,
                                   int8).items():
             expected[k] += n * v
-    cuda = next(priors[0].model.parameters()).is_cuda
+    aligned = alignment_launches(priors[-1], hps, final[-1],
+                                 sampling_kwargs[-1].get("fp16", False))
+    ln_expected = cascade_layer_norms(priors, hps, sampling_kwargs, have)
+    ln_expected["layer_norm_fwd"] += aligned["layer_norm_fwd"]
+    fa_expected = dict.fromkeys(fa.LAUNCHES, 0)
+    fa_expected["flash_fwd"] = aligned["flash_fwd"]
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    ds.reset_launches()
-    ln.reset_launches()
+    for mod in (ds, ln, fa):
+        mod.reset_launches()
     env = {k: os.environ.pop(k, None)
            for k in ("JUKEBOX_INT8_DECODE", "JUKEBOX_INT8_CACHE")}
     if int8:
         os.environ["JUKEBOX_INT8_DECODE"] = "1"
     t0 = time.time()
     try:
-        zs = sample_mod.ancestral_sample(labels, sampling_kwargs, priors, hps)
+        if prompt is None:
+            zs = sample_mod.ancestral_sample(labels, sampling_kwargs, priors,
+                                             hps)
+        else:
+            zs = sample_mod.primed_sample(prompt, labels, sampling_kwargs,
+                                          priors, hps)
         if cuda:
             torch.cuda.synchronize()
     finally:
@@ -1526,25 +1729,37 @@ def run_cascade(priors, hps, sampling_kwargs, int8=False):
             if v is not None:
                 os.environ[k] = v
     wall = time.time() - t0
-    launches = dict(ds.LAUNCHES)
     report = dict(wall_s=wall, steps=steps, expected=expected,
-                  launches=launches, ln_launches=dict(ln.LAUNCHES),
-                  ln_expected=cascade_layer_norms(priors, hps,
-                                                  sampling_kwargs),
-                  levels={})
+                  launches=dict(ds.LAUNCHES), ln_launches=dict(ln.LAUNCHES),
+                  ln_expected=ln_expected, fa_launches=dict(fa.LAUNCHES),
+                  fa_expected=fa_expected, prompt=have, levels={},
+                  stages=dict(sample_mod.STAGE_SECONDS))
+    if cuda:
+        report["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     for level, prior in enumerate(priors):
         z = zs[level]
-        want = hps.sample_length // prior.raw_to_tokens
-        if z.shape != (hps.n_samples, want) or z.min() < 0 \
+        if z.shape != (hps.n_samples, final[level]) or z.min() < 0 \
                 or z.max() >= prior.l_bins:
             raise AssertionError(f"level {level}: codes {z.shape} "
-                                 f"[{z.min()}, {z.max()}] out of range")
-        with open(os.path.join(hps.name, f"level_{level}", "data.jkb"),
-                  "rb") as f:
+                                 f"[{z.min()}, {z.max()}] out of range "
+                                 f"(want {final[level]} codes)")
+        if prompt_zs is not None and not np.array_equal(
+                z[:, :have[level]], prompt_zs[level]):
+            raise AssertionError(f"level {level}: the prompt's codes were "
+                                 f"not kept")
+        logdir = os.path.join(hps.name, f"level_{level}")
+        with open(os.path.join(logdir, "data.jkb"), "rb") as f:
             x = pickle.load(f)["x"]
-        if x.shape != (hps.n_samples, hps.sample_length, 1) \
-                or not np.isfinite(x).all():
+        length = final[level] * prior.raw_to_tokens
+        if x.shape != (hps.n_samples, length, 1) or not np.isfinite(x).all():
             raise AssertionError(f"level {level}: audio {x.shape} not finite")
+        exts = (".wav", ".html") + (("_align.png", "_align.json")
+                                    if aligns(priors[-1]) else ())
+        files = {f"item_{i}{ext}" for i in range(hps.n_samples)
+                 for ext in exts}
+        missing = files - set(os.listdir(logdir))
+        if missing:
+            raise AssertionError(f"level {level}: {sorted(missing)} missing")
         sec = sample_mod.STAGE_SECONDS.get(f"windows_l{level}", float("nan"))
         report["levels"][level] = dict(tokens=int(z.shape[1]),
                                        decode_steps=steps[level],
@@ -1553,13 +1768,19 @@ def run_cascade(priors, hps, sampling_kwargs, int8=False):
                                        audio_rms=float(np.sqrt((x ** 2).mean())))
     report["vqvae_decode_s"] = sample_mod.STAGE_SECONDS.get("vqvae_decode")
     if cuda:
-        report["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        if launches != expected:
-            raise AssertionError(f"kernel launches {launches} != expected "
-                                 f"{expected}: a decode step missed a kernel")
-        if report["ln_launches"] != report["ln_expected"]:
+        if report["launches"] != expected:
+            raise AssertionError(f"kernel launches {report['launches']} != "
+                                 f"expected {expected}: a decode step missed a"
+                                 f" kernel")
+        if report["ln_launches"] != ln_expected:
             raise AssertionError(f"LayerNorm launches {report['ln_launches']}"
-                                 f" != expected {report['ln_expected']}")
+                                 f" != expected {ln_expected}")
+        if report["fa_launches"] != fa_expected:
+            raise AssertionError(f"flash launches {report['fa_launches']} != "
+                                 f"expected {fa_expected}")
+    if aligns(priors[-1]):
+        report["align"] = check_alignment(priors, hps, sampling_kwargs, zs,
+                                          labels)
     return report
 
 
@@ -2018,15 +2239,47 @@ def check_resume(seed, device, ckpt, n_more=2, wav_seconds=WAV_SECONDS,
 
 def log_cascade(rep, label):
     for level, lv in sorted(rep["levels"].items(), reverse=True):
-        log(f"  {label} level {level}: {lv['tokens']} codes, "
-            f"{lv['decode_steps']} decode steps in {lv['seconds']:.1f}s = "
-            f"{lv['tokens_per_s']:.1f} steps/s (x{N_SAMPLES} samples), "
+        log(f"  {label} level {level}: {lv['tokens']} codes"
+            + ("" if rep["prompt"] is None
+               else f" ({rep['prompt'][level]} of the prompt kept)")
+            + f", {lv['decode_steps']} decode steps in {lv['seconds']:.1f}s"
+            f" = {lv['tokens_per_s']:.1f} steps/s (x{N_SAMPLES} samples), "
             f"audio rms {lv['audio_rms']:.3f}")
+    st = rep["stages"]
     log(f"  {label} cascade {rep['wall_s']:.1f}s, vqvae decode "
-        f"{rep['vqvae_decode_s']:.1f}s, peak memory "
+        f"{rep['vqvae_decode_s']:.1f}s, alignment {st.get('align', 0):.2f}s,"
+        f" html {st.get('html', 0):.2f}s, peak memory "
         f"{rep['peak_mem_gb']:.1f} GB; launches {rep['launches']} == "
         f"expected {rep['expected']}; LayerNorm {rep['ln_launches']} == "
-        f"expected {rep['ln_expected']}")
+        f"expected {rep['ln_expected']}; flash {rep['fa_launches']} == "
+        f"expected {rep['fa_expected']}")
+
+
+def run_primed(priors, hps4, seed):
+    """Phase 4b: primed_sample from phase 4's level_0/item_0.wav, read by
+    load_prompts for PROMPT_SECONDS rounded down to the top's
+    raw_to_tokens, at phase 4's length and hop fractions: the first window
+    of every level carries the prompt's codes as context. Returns the
+    cascade's report."""
+    top = priors[-1]
+    duration = (int(PROMPT_SECONDS * hps4.sr) // top.raw_to_tokens
+                * top.raw_to_tokens)
+    hps = Hyperparams(n_samples=N_SAMPLES, sample_length=hps4.sample_length,
+                      sr=hps4.sr, hop_fraction=hps4.hop_fraction, seed=seed,
+                      name=tempfile.mkdtemp(prefix="jukebox_smoke_primed_"))
+    x = sample_mod.load_prompts(
+        [os.path.join(hps4.name, "level_0", "item_0.wav")], duration, hps)
+    skw = [dict(temp=TEMP, fp16=True, chunk_size=256,
+                max_batch_size=N_SAMPLES) for _ in priors]
+    log(f"phase 4b primed: a {duration}-sample prompt ({duration / hps.sr:.2f}"
+        f" s) of phase 4's first wav, {N_SAMPLES} x {hps.sample_length} "
+        f"samples")
+    try:
+        rep = run_cascade(priors, hps, skw, prompt=x)
+    finally:
+        shutil.rmtree(hps.name, ignore_errors=True)
+    log_cascade(rep, "primed")
+    return rep
 
 
 def run_5b_lyrics(seed, device, gen):
@@ -2038,7 +2291,7 @@ def run_5b_lyrics(seed, device, gen):
     Returns the cascade's report."""
     t = time.time()
     hps = Hyperparams(n_samples=N_SAMPLES, sample_length=SAMPLE_LENGTH,
-                      sr=44100, hop_fraction=(1.0, 1.0, 0.125), seed=seed,
+                      sr=44100, hop_fraction=HOPS, seed=seed,
                       name=tempfile.mkdtemp(prefix="jukebox_smoke_5b_"))
     vqvae, priors = make_model("5b_lyrics", hps, device, prior_overrides=[
         {"prior_depth": UPS_DEPTH}, {"prior_depth": UPS_DEPTH}, {}])
@@ -2116,7 +2369,7 @@ def main(argv=None):
 
     t = time.time()
     hps = Hyperparams(n_samples=N_SAMPLES, sample_length=SAMPLE_LENGTH,
-                      sr=44100, hop_fraction=(1.0, 1.0, 0.125), seed=args.seed,
+                      sr=44100, hop_fraction=HOPS, seed=args.seed,
                       name=tempfile.mkdtemp(prefix="jukebox_smoke_"))
     vqvae, priors = make_model("1b_lyrics", hps, device, prior_overrides=[
         {"prior_depth": UPS_DEPTH}, {"prior_depth": UPS_DEPTH}, {}])
@@ -2151,10 +2404,12 @@ def main(argv=None):
     for prior in (top, priors[0]):
         check_stack_step(prior, N_SAMPLES, device, gen)
 
-    log(f"phase 4 cascade: {N_SAMPLES} x {hps.sample_length} samples "
+    log(f"phase 4 cascade: hop fractions {HOPS}, {N_SAMPLES} x "
+        f"{hps.sample_length} samples "
         f"({hps.sample_length / hps.sr:.2f} s), temp {TEMP}")
     rep = run_cascade(priors, hps, skw)
     log_cascade(rep, "1b_lyrics")
+    rep4b = run_primed(priors, hps, args.seed)
 
     shutil.rmtree(hps.name, ignore_errors=True)
     del vqvae, priors, top, tr, prior
@@ -2203,9 +2458,13 @@ def main(argv=None):
     finally:
         shutil.rmtree(logdir, ignore_errors=True)
 
-    launches = dict({k: rep["launches"][k] + rep5["launches"][k]
+    cascades = (rep, rep4b, rep5)
+    launches = dict({k: sum(r["launches"][k] for r in cascades)
                      for k in ds.LAUNCHES}, **tr_rep["launches"],
                     **tr_rep["kernel_launches"])
+    for r in cascades:  # the prefill's LayerNorms, the alignment forwards
+        launches["flash_fwd"] += r["fa_launches"]["flash_fwd"]
+        launches["layer_norm_fwd"] += r["ln_launches"]["layer_norm_fwd"]
     sources = {k: f"jukebox_tpu_torch/csrc/{stem}.cu"
                for stem, mod in SOURCES.items() for k in mod.LAUNCHES}
     kernels = [dict(name=k, route="cuda", source=sources[k],

@@ -12,11 +12,13 @@ jukebox_tpu/models/attention.py), for the attention patterns of the
 Three modes: the full-context forward (also the training forward, with
 attention and residual dropout), one-token `decode_step` against a ring
 cache, and block-aligned `prefill_chunk`. In the full-context forward a
-masked dense (f0) layer of at least _FLASH_MIN_CTX positions in bf16 runs
-the flash kernels (ops/flash_attention.py), under the JAX package's condition
-(attention.py:254) without its backend test; every other pattern runs
-dense_attn, as the JAX package leaves them to XLA. Caches keep the standard
-layout [B, slots, A] with the JAX package's per-pattern retention:
+masked dense (f0) layer of at least _FLASH_MIN_CTX positions in bf16 that
+does not record its weights runs the flash kernels (ops/flash_attention.py),
+under the JAX package's condition (attention.py:254) without its backend
+test; every other pattern runs dense_attn, as the JAX package leaves them
+to XLA. Any layer can record its softmax weights (the lyric alignment).
+Caches keep the standard layout [B, slots, A] with the JAX package's
+per-pattern retention:
     f0 [B, n_ctx, A]   f1 [B, bc, A]   f2 [B, bc, blocks, A]
     f3 [B, 2bc, A]     f7 [B, _prime_len, A]
 and are updated in place (the JAX functions return new caches instead);
@@ -60,12 +62,13 @@ def causal_mask(q_l, kv_l, device):
 
 
 def dense_attn(q, k, v, n_head, mask=None, dropout_rate=0.0,
-               dropout_seed=None):
+               dropout_seed=None, record=False):
     """q, k, v [B, L, n_state]; mask None, "causal" or a float [Lq, Lkv]
     tensor (1 = attend). The reference's fused q*s @ k*s scale with
     s = hd^-1/4 in the activation dtype, fp32 scores and softmax, dropout of
     the softmax weights (training), and the weights cast to the activation
-    dtype before the PV product."""
+    dtype before the PV product. record=True returns (out, w): w the fp32
+    softmax weights [B, H, Lq, Lkv], taken before the dropout."""
     hd = q.shape[-1] // n_head
     scale = torch.tensor(1.0 / math.sqrt(math.sqrt(hd)), dtype=q.dtype)
     qh = split_heads(q, n_head) * scale
@@ -78,8 +81,10 @@ def dense_attn(q, k, v, n_head, mask=None, dropout_rate=0.0,
         w = torch.where(keep, w, torch.full_like(w, NEG))
     elif mask is not None:
         w = w * mask + NEG * (1 - mask)
-    w = dropout(torch.softmax(w, dim=-1), dropout_rate, dropout_seed)
-    return merge_heads(torch.matmul(w.to(q.dtype), vh))
+    w = torch.softmax(w, dim=-1)
+    out = merge_heads(torch.matmul(
+        dropout(w, dropout_rate, dropout_seed).to(q.dtype), vh))
+    return (out, w) if record else out
 
 
 class FactoredAttention(nn.Module):
@@ -129,42 +134,58 @@ class FactoredAttention(nn.Module):
 
     # -- full-context forward -------------------------------------------------
 
-    def forward(self, x, seed=None, plain=False, encoder_kv=None):
+    def forward(self, x, seed=None, plain=False, encoder_kv=None,
+                record=False):
         """x [B, L, n_in] with L == n_ctx -> [B, L, n_in]; encoder_kv
         [B, encoder_dims, n_in] feeds the f6 layers. seed (an int) turns on
         the training dropouts; plain=True runs the flash layers' plain
-        versions (the reference a kernel run is held against)."""
+        versions (the reference a kernel run is held against). record=True
+        returns (out, w): w the fp32 softmax weights [B, H, Lq, Lkv], an f7
+        layer's cut to music queries x lyric keys
+        (factored_attention.py:101-105)."""
         q, k, v = self._qkv(x, encoder_kv)
         s_attn, s_resid = ((fold_seed(seed, 0), fold_seed(seed, 1))
                            if seed is not None else (None, None))
-        a = self._pattern_full(q, k, v, s_attn, plain)
-        return dropout(self.c_proj(a), self.resid_dropout, s_resid)
+        a = self._pattern_full(q, k, v, s_attn, plain, record)
+        if not record:
+            return dropout(self.c_proj(a), self.resid_dropout, s_resid)
+        a, w = a
+        if self.attn_func == 7:
+            w = w[:, :, self.prime_len:, :self.prime_len]
+        return dropout(self.c_proj(a), self.resid_dropout, s_resid), w
 
-    def uses_flash(self, L, dtype):
+    def uses_flash(self, L, dtype, record=False):
         """The f0 dispatch of jukebox_tpu's _pattern_full (attention.py:254)
-        with the recording and backend tests dropped: the port records no
-        weights, and flash_dense_attn runs its plain version on the CPU."""
-        return (self.attn_func == 0 and self.mask and L >= _FLASH_MIN_CTX
-                and dtype == torch.bfloat16)
+        with the backend test dropped: flash_dense_attn runs its plain
+        version on the CPU. A recorded layer runs dense_attn."""
+        return (self.attn_func == 0 and self.mask and not record
+                and L >= _FLASH_MIN_CTX and dtype == torch.bfloat16)
 
-    def _pattern_full(self, q, k, v, seed=None, plain=False):
+    def _pattern_full(self, q, k, v, seed=None, plain=False, record=False):
+        """The pattern's attention [B, L, S]; record=True: (out, w), w the
+        softmax weights."""
         f = self.attn_func
         B, L, S = v.shape
         rate = self.attn_dropout if seed is not None else 0.0
 
         def attn(q_, k_, v_, mask):
-            return dense_attn(q_, k_, v_, self.n_head, mask, rate, seed)
+            out = dense_attn(q_, k_, v_, self.n_head, mask, rate, seed,
+                             record)
+            return out if record else (out, None)
+
+        def done(a, w):
+            return (a, w) if record else a
         if f == 0:
-            if self.uses_flash(L, q.dtype):
+            if self.uses_flash(L, q.dtype, record):
                 return flash_dense_attn(q, k, v, self.n_head, rate, seed,
                                         plain)
-            return attn(q, k, v, "causal" if self.mask else None)
+            return done(*attn(q, k, v, "causal" if self.mask else None))
         bc = self.block_ctx
         if f == 1:
             mask = causal_mask(bc, bc, q.device) if self.mask else None
-            a = attn(q.reshape(-1, bc, S), k.reshape(-1, bc, S),
-                     v.reshape(-1, bc, S), mask)
-            return a.reshape(B, L, S)
+            a, w = attn(q.reshape(-1, bc, S), k.reshape(-1, bc, S),
+                        v.reshape(-1, bc, S), mask)
+            return done(a.reshape(B, L, S), w)
         if f == 2:
             nb = L // bc
             mask = causal_mask(nb, nb, q.device) if self.mask else None
@@ -172,8 +193,9 @@ class FactoredAttention(nn.Module):
             def t_(x):
                 return x.reshape(B, nb, bc, S).transpose(1, 2).reshape(
                     B * bc, nb, S)
-            a = attn(t_(q), t_(k), t_(v), mask)
-            return a.reshape(B, bc, nb, S).transpose(1, 2).reshape(B, L, S)
+            a, w = attn(t_(q), t_(k), t_(v), mask)
+            return done(
+                a.reshape(B, bc, nb, S).transpose(1, 2).reshape(B, L, S), w)
         if f == 3:
             nb = L // bc
 
@@ -181,12 +203,13 @@ class FactoredAttention(nn.Module):
                 xb = x.reshape(B, nb, bc, S)
                 return torch.cat([torch.zeros_like(xb[:, :1]), xb[:, :-1]],
                                  dim=1).reshape(B * nb, bc, S)
-            a = attn(q.reshape(B * nb, bc, S), shift(k), shift(v), None)
-            return a.reshape(B, L, S)
+            a, w = attn(q.reshape(B * nb, bc, S), shift(k), shift(v), None)
+            return done(a.reshape(B, L, S), w)
         if f == 6:
-            return attn(q, k, v, None)
+            return done(*attn(q, k, v, None))
         pl_ = self._prime_len  # f == 7
-        return attn(q, k[:, :pl_], v[:, :pl_], "causal" if self.mask else None)
+        return done(*attn(q, k[:, :pl_], v[:, :pl_],
+                          "causal" if self.mask else None))
 
     # -- ring caches ----------------------------------------------------------
 

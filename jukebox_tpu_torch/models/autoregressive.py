@@ -92,13 +92,16 @@ class ConditionalAutoregressive2D(nn.Module):
     # -- teacher-forced forward -------------------------------------------------
 
     def forward(self, x, x_cond, y_cond, fp16=False, get_sep_loss=False,
-                seed=None, plain=False, encoder_kv=None):
+                seed=None, plain=False, encoder_kv=None,
+                record_layers=frozenset()):
         """x [N, D] tokens -> (loss in bits per dim, logits [N, D, bins]);
         with get_sep_loss the loss is (prime_loss, gen_loss), split at
         prime_len; only_encode returns the activations [N, D, width]
         alone. encoder_kv feeds the f6 layers. seed (an int) turns on the
         training dropouts; plain=True runs the flash layers' plain
-        versions."""
+        versions. With record_layers the recorded softmax weights ws
+        follow: (loss, logits, ws), or (activations, ws) under
+        only_encode."""
         N, D = x.shape
         assert D == self.input_dims
         if x_cond is None:
@@ -114,12 +117,13 @@ class ConditionalAutoregressive2D(nn.Module):
                           fold_seed(seed, 1))
             t_seed = fold_seed(seed, 2)
         h = emb + pos + x_cond
-        h = self.transformer(h, fp16=fp16, seed=t_seed, plain=plain,
-                             encoder_kv=encoder_kv)
+        h, ws = self.transformer(h, fp16=fp16, seed=t_seed, plain=plain,
+                                 encoder_kv=encoder_kv,
+                                 record_layers=record_layers)
         if self.add_cond_after_transformer:
             h = h + x_cond
         if self.only_encode:
-            return h
+            return (h, ws) if record_layers else h
         logits = self._logits(h)
         if get_sep_loss:
             P = self.prime_len
@@ -127,7 +131,7 @@ class ConditionalAutoregressive2D(nn.Module):
                     cross_entropy_bpd(logits[:, P:], x[:, P:]))
         else:
             loss = cross_entropy_bpd(logits, x)
-        return loss, logits
+        return (loss, logits, ws) if record_layers else (loss, logits)
 
     # -- incremental decoding pieces -----------------------------------------------
 

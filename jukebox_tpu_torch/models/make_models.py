@@ -204,6 +204,8 @@ def make_prior(hps, vqvae, device="cuda"):
                         labels_v3=hps.labels_v3,
                         single_enc_dec=hps.single_enc_dec,
                         merged_decoder=hps.merged_decoder, device=device)
+    model.alignment_head = hps.get("alignment_head", None)
+    model.alignment_layer = hps.get("alignment_layer", None)
     init_weights(model, hps.get("seed", 0) + hps.level + 1, device)
     model.requires_grad_(bool(train))
     runtime = PriorRuntime(model.eval(), vqvae)
@@ -283,10 +285,35 @@ class PriorRuntime:
         self.staged = None
         self.staged_mode = None
 
+    def encode(self, x, start_level=None, end_level=None, bs_chunks=1):
+        start_level = self.model.level if start_level is None else start_level
+        end_level = self.model.levels if end_level is None else end_level
+        return self.vqvae.encode(x, start_level, end_level, bs_chunks)
+
     def decode(self, zs, start_level=None, end_level=None, bs_chunks=1):
         start_level = self.model.level if start_level is None else start_level
         end_level = self.model.levels if end_level is None else end_level
         return self.vqvae.decode(zs, start_level, end_level, bs_chunks)
+
+    @torch.no_grad()
+    def z_forward(self, z, z_conds=(), y=None, fp16=False,
+                  get_attn_weights=frozenset(), attn_head=None):
+        """The prior's z_forward on codes z, conditioning z_conds and labels
+        y (numpy arrays or tensors) moved to its device. With
+        get_attn_weights the recorded weights of those layers, each cut to
+        head attn_head and cast to fp16 as jukebox_tpu's runtime does
+        (make_models.py:705-728), or whole [N, H, Lq, Lkv] fp32 maps
+        without a head; else (loss, metrics)."""
+        device = next(self.model.parameters()).device
+
+        def dev(a):
+            return None if a is None else torch.as_tensor(a, device=device)
+        z_conds = [dev(c) for c in z_conds] if z_conds else None
+        out = self.model.z_forward(dev(z), z_conds, dev(y), fp16=fp16,
+                                   get_attn_weights=get_attn_weights)
+        if not get_attn_weights or attn_head is None:
+            return out
+        return [w[:, attn_head].to(torch.float16) for w in out]
 
     @torch.no_grad()
     def sample(self, n_samples, z=None, z_conds=None, y=None, gen=None,
@@ -320,10 +347,12 @@ class PriorRuntime:
         return model.sample_finish(toks, z=z)
 
 
-def make_model(model, hps, device="cuda", prior_overrides=None):
+def make_model(model, hps, device="cuda", prior_overrides=None,
+               levels=None):
     """The VQ-VAE and the priors of a registered model, drawn from
     hps.seed. prior_overrides: optional per-level dicts merged into each
-    prior's hparams (e.g. a cut prior_depth)."""
+    prior's hparams (e.g. a cut prior_depth). levels: the levels whose
+    priors to build (default all; [-1] the top alone)."""
     vqvae_name, *prior_names = MODELS[model]
     vqvae = make_vqvae(setup_hparams(vqvae_name, dict(
         sample_length=hps.get("sample_length", 0),
@@ -331,7 +360,9 @@ def make_model(model, hps, device="cuda", prior_overrides=None):
         seed=hps.get("seed", 0))), device)
     hps.sample_length = vqvae.sample_length
     overrides = prior_overrides or [{}] * len(prior_names)
-    priors = [make_prior(setup_hparams(name, dict(seed=hps.get("seed", 0),
-                                                  **over)), vqvae, device)
-              for name, over in zip(prior_names, overrides)]
+    if levels is None:
+        levels = range(len(prior_names))
+    priors = [make_prior(setup_hparams(prior_names[level], dict(
+        seed=hps.get("seed", 0), **overrides[level])), vqvae, device)
+              for level in levels]
     return vqvae, priors

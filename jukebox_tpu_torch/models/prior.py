@@ -100,17 +100,21 @@ class SimplePrior(nn.Module):
                                   self.n_tokens, self.sample_length,
                                   v3=labels_v3)
                          if labels else EmptyLabeller())
+        # the lyric alignment's taps (make_prior sets them from hps)
+        self.alignment_layer = self.alignment_head = None
 
     # -- host-side label / window math ------------------------------------------
 
-    def get_y(self, labels, start):
+    def get_y(self, labels, start, get_indices=False):
+        """The window's labels at `start`; with get_indices also each
+        sample's lyric source indices (-1: padding), None without lyrics."""
         if not self.y_cond:
-            return None
+            return (None, None) if get_indices else None
         y = np.array(labels["y"], dtype=np.int64, copy=True)
         y[:, 2] = int(self.sample_length)
         y[:, 1:2] = y[:, 1:2] + int(start * self.raw_to_tokens)
-        self.labeller.set_y_lyric_tokens(y, labels)
-        return y
+        indices = self.labeller.set_y_lyric_tokens(y, labels)
+        return (y, indices) if get_indices else y
 
     def get_z_conds(self, zs, start, end):
         if self.level != self.levels - 1:
@@ -189,29 +193,35 @@ class SimplePrior(nn.Module):
         return self.prior(z, x_cond, y_cond, encoder_kv=encoder_kv)[1]
 
     def z_forward(self, z, z_conds=None, y=None, fp16=False, seed=None,
-                  plain=False):
+                  plain=False, get_attn_weights=frozenset()):
         """Training loss of codes z [N, n_ctx] (prior.py:271): returns
         (loss, metrics) with metrics bpd, prime_loss, gen_loss (detached).
         seed (an int) turns on the training dropouts; plain=True runs the
-        flash layers and LayerNorms' plain versions."""
+        flash layers and LayerNorms' plain versions. With get_attn_weights
+        (a set of the prior's layers) it returns their recorded softmax
+        weights instead, in depth order (prior.py:312-344)."""
+        record = frozenset(get_attn_weights)
         x_cond, y_cond, prime = self.get_cond(z_conds, y)
         if self.single_enc_dec:
             z_all, x_cond = self.prior_preprocess([prime, z], [None, x_cond])
-            (prime_loss, gen_loss), _ = self.prior(
+            (prime_loss, gen_loss), _, *ws = self.prior(
                 z_all, x_cond, y_cond, fp16=fp16, get_sep_loss=True,
-                seed=seed, plain=plain)
+                seed=seed, plain=plain, record_layers=record)
         else:
             encoder_kv = None
             if self.prime_prior is not None and prime is not None:
                 encoder_kv = self.get_encoder_kv(
                     prime, fp16, None if seed is None else fold_seed(seed, 1),
                     plain)
-            gen_loss, _ = self.prior(z, x_cond, y_cond, fp16=fp16,
-                                     seed=seed, plain=plain,
-                                     encoder_kv=encoder_kv)
+            gen_loss, _, *ws = self.prior(z, x_cond, y_cond, fp16=fp16,
+                                          seed=seed, plain=plain,
+                                          encoder_kv=encoder_kv,
+                                          record_layers=record)
             prime_loss = (self.get_prime_loss(encoder_kv, prime)
                           if encoder_kv is not None
                           else torch.zeros((), device=gen_loss.device))
+        if record:
+            return ws[0]
         loss = (self.prime_loss_fraction * prime_loss * self.prime_loss_dims
                 / self.total_loss_dims) \
             + (gen_loss * self.gen_loss_dims / self.total_loss_dims)

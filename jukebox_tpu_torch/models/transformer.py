@@ -89,11 +89,16 @@ class ResAttnBlock(nn.Module):
             return x + a + m
         return x + self.res_scale * (a + m)
 
-    def forward(self, x, seed=None, plain=False, encoder_kv=None):
+    def forward(self, x, seed=None, plain=False, encoder_kv=None,
+                record=False):
+        """(x, w): w the attention's recorded weights, or None."""
         s_attn, s_mlp = ((fold_seed(seed, 0), fold_seed(seed, 1))
                          if seed is not None else (None, None))
-        a = self.attn(self.ln_0(x, plain), s_attn, plain, encoder_kv)
-        return self._residual(x, a, self.mlp(self.ln_1(x + a, plain), s_mlp))
+        a = self.attn(self.ln_0(x, plain), s_attn, plain, encoder_kv,
+                      record)
+        a, w = a if record else (a, None)
+        return (self._residual(x, a, self.mlp(self.ln_1(x + a, plain),
+                                              s_mlp)), w)
 
     def decode_step(self, cache, x, t):
         a = self.attn.decode_step(cache, self.ln_0(x), t)
@@ -129,30 +134,35 @@ class Transformer(nn.Module):
         return ATTN_ORDERS[self.attn_order](d)
 
     def forward(self, x, fp16=False, seed=None, plain=False,
-                encoder_kv=None):
-        """Full-context forward, x [B, n_ctx, n_in] -> fp32, as
+                encoder_kv=None, record_layers=frozenset()):
+        """Full-context forward, x [B, n_ctx, n_in] -> (fp32 x, ws), as
         jukebox_tpu's Transformer.apply (encoder_kv feeds the f6 layers):
-        bf16
-        activations under fp16, layer d's dropouts seeded from
+        bf16 activations under fp16, layer d's dropouts seeded from
         fold_seed(seed, d) when seed is given (training), and with
         checkpoint_res == 1 and autograd on, each block recomputed in the
         backward pass (torch.utils.checkpoint, non-reentrant; the dropout
         masks are functions of their seeds, so the recompute draws the same
         ones). plain=True runs the plain versions of the flash layers and of
-        the LayerNorms."""
+        the LayerNorms. ws: the softmax weights of the layers in
+        record_layers, in depth order (a recorded block is not
+        recomputed)."""
         if fp16:
             x = x.to(torch.bfloat16)
         drop = seed is not None and self.dropout
         recompute = self.checkpoint_res == 1 and torch.is_grad_enabled()
+        ws = []
         for d, block in enumerate(self.blocks):
             s = fold_seed(seed, d) if drop else None
             enc = encoder_kv if self.attn_func(d) == 6 else None
-            if recompute:
-                x = checkpoint(block, x, s, plain, enc, use_reentrant=False,
-                               preserve_rng_state=False)
+            record = d in record_layers
+            if recompute and not record:
+                x, _ = checkpoint(block, x, s, plain, enc, use_reentrant=False,
+                                  preserve_rng_state=False)
             else:
-                x = block(x, s, plain, enc)
-        return x.float()
+                x, w = block(x, s, plain, enc, record)
+                if record:
+                    ws.append(w)
+        return x.float(), ws
 
     # -- incremental decoding -------------------------------------------------
 

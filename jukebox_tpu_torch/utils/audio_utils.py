@@ -79,11 +79,13 @@ def get_duration_sec(file):
         return w.getnframes() / w.getframerate()
 
 
-def load_audio(file, sr, offset, duration):
+def load_audio(file, sr, offset, duration, mono=False):
     """`duration` samples of a wav file at `offset` (both in samples at sr),
     as float32 [2, duration] (mono duplicated to stereo, zero-padded past
-    the end), and sr (utils/io.py load_audio). The file must be at sr: the
-    port does not resample."""
+    the end), and sr (utils/io.py load_audio); with mono=True the mean of
+    the file's channels, [1, duration] (the prompt read of
+    jukebox_tpu/utils/audio_utils.py load_audio). The file must be at sr:
+    the port does not resample."""
     offset, duration = int(offset), int(duration)
     with wave.open(file, "rb") as w:
         file_sr, n_channels = w.getframerate(), w.getnchannels()
@@ -107,6 +109,8 @@ def load_audio(file, sr, offset, duration):
     sig = data.reshape(-1, n_channels).T
     if sig.shape[1] < duration:
         sig = np.pad(sig, ((0, 0), (0, duration - sig.shape[1])))
+    if mono:
+        return np.mean(sig, axis=0, keepdims=True), sr
     if sig.shape[0] == 1:
         sig = np.concatenate([sig, sig], axis=0)
     return sig[:2], sr

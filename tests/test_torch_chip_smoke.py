@@ -312,3 +312,84 @@ def test_checkpoint_phase(counted_flash, monkeypatch, tmp_path):
     tr_depth = TRAIN_OVER["prior_depth"]
     assert res["sampling_dtypes"]["torch.float32"] == 2 * 2 * tr_depth
     assert res["sampling_dtypes"]["torch.bfloat16"] > 0
+
+
+# the tiny top with the lyric alignment's taps: its f7 layer 31, head 1
+TAPS = dict(alignment_layer=31, alignment_head=1)
+
+
+def test_context_and_alignment_accounting(tmp_path, monkeypatch):
+    """Phases 4 and 4b at the sample CLI's hop fractions (0.5, 0.5, 0.125):
+    windows that carry context prefill it in whole chunks and decode its
+    tail, and the cascade's alignment forward (one hop over the padded top
+    codes, the f0 layer on the flash path in bf16 once the length threshold
+    is lowered, the recorded f7 layer dense) adds its flash_fwd and its two
+    LayerNorms a layer. The plain calls of every decode, LayerNorm and
+    flash kernel equal the expected counts, for the ancestral cascade and
+    for the primed one (a 160-sample prompt of its first wav: 40, 20 and
+    10 codes kept); check_alignment then calls get_alignment three times
+    (kernel path, plain path, the planted head)."""
+    from jukebox_tpu_torch import sample as sample_mod
+    from jukebox_tpu_torch.models import attention
+    from jukebox_tpu_torch.ops import flash_attention as fa
+    from jukebox_tpu_torch.ops import layer_norm as ln
+    monkeypatch.setattr(attention, "_FLASH_MIN_CTX", 0)
+    vq = make_vqvae(setup_hparams("teeny", dict(VQ)), "cpu")
+    priors = [make_prior(setup_hparams("teeny", dict(UP, level=0)), vq, "cpu"),
+              make_prior(setup_hparams("teeny", dict(UP, level=1)), vq, "cpu"),
+              make_prior(setup_hparams("teeny", dict(TOP, **TAPS)), vq, "cpu")]
+    calls = [_count_plain(monkeypatch, m, m.LAUNCHES) for m in (ds, ln, fa)]
+    seen = []
+    monkeypatch.setattr(chip_smoke, "check_alignment",
+                        lambda *a: seen.append(a) or {})
+
+    def run(name, prompt=None):
+        for c in calls:
+            for k in c:
+                c[k] = 0
+        hps = Hyperparams(n_samples=2, sample_length=VQ["sample_length"],
+                          sr=VQ["sr"], hop_fraction=(0.5, 0.5, 0.125),
+                          seed=0, name=str(tmp_path / name))
+        # a 2-block chunk of the upsamplers (bc 8), one block of the top's
+        skw = [dict(temp=0.99, fp16=True, chunk_size=16, max_batch_size=2)
+               for _ in priors]
+        rep = chip_smoke.run_cascade(priors, hps, skw, prompt=prompt)
+        assert calls[0] == rep["expected"]
+        assert calls[1] == rep["ln_expected"]
+        assert calls[2] == rep["fa_expected"]
+        return rep, hps
+
+    rep, hps = run("ancestral")
+    # level 0: windows at 0, 32, 64 of 64 codes, the last two after 32
+    # context tokens (2 chunks each); the top's 24-token lyric prefix is one
+    # 15-token chunk and a 9-step tail
+    assert chip_smoke.cascade_windows(priors, hps)[0] == [
+        [(0, 64), (32, 32), (32, 32)], [(0, 64)], [(0, 32)]]
+    assert rep["steps"] == [128, 64, 32 + 9]
+    # conditioners 3 + 1 windows, 2 chunks x 3 layers x 2 in two windows,
+    # the top's chunk x 48 layers x 2, the alignment's 48 x 2
+    assert rep["ln_expected"]["layer_norm_fwd"] == 4 + 24 + 96 + 96
+    assert rep["fa_expected"] == {"flash_fwd": 1, "flash_dq": 0,
+                                  "flash_dkv": 0}
+    assert rep["launches"] == dict.fromkeys(ds.LAUNCHES, 0)  # CPU
+    wav = str(tmp_path / "ancestral" / "level_0" / "item_0.wav")
+    x = sample_mod.load_prompts([wav], 160, hps)
+    rep, hps = run("primed", x)
+    assert rep["prompt"] == [40, 20, 10]
+    assert chip_smoke.cascade_windows(priors, hps, rep["prompt"])[0] == [
+        [(40, 24), (32, 32), (32, 32)], [(20, 44)], [(10, 32)]]
+    # tails: 8 of level 0's first window, 4 of level 1's, the top's 34-token
+    # prefill (lyrics and prompt) 2 chunks and a 4-step tail
+    assert rep["steps"] == [24 + 8 + 32 + 32, 44 + 4, 32 + 4]
+    assert rep["levels"][2]["tokens"] == 42  # the prompt + a window's 32
+    assert rep["ln_expected"]["layer_norm_fwd"] == (
+        3 + 2 * 3 * 6 + 1 + 2 * 3 + 2 * 48 * 2 + 96)
+    assert [a[3][-1].shape[1] for a in seen] == [32, 42]
+    monkeypatch.undo()
+    monkeypatch.setattr(attention, "_FLASH_MIN_CTX", 0)
+    calls = [_count_plain(monkeypatch, m, m.LAUNCHES) for m in (ln, fa)]
+    out = chip_smoke.check_alignment(*seen[-1])
+    assert calls[0]["layer_norm_fwd"] == 3 * 96 and calls[1]["flash_fwd"] == 3
+    assert out["gap"] == 0.0 and out["fault_gap"] > chip_smoke.ALIGN_TOL
+    assert out["launches"] == {"flash_fwd": 0, "layer_norm_fwd": 0}  # CPU
+    assert out["expected"] == {"flash_fwd": 1, "layer_norm_fwd": 96}
