@@ -104,6 +104,24 @@ Phases, each printing timestamped lines:
              more steps, and a sampling make_prior restored from it holds
              its params as fp16_params casts them (bf16, LayerNorms fp32);
              the checkpoint's size, save and load times
+  8 vq       the README's Quick start on two songs it writes (239 s stereo
+             at 44.1 kHz, an IEEE float32 and an int16 wav, resampled to
+             22.05 kHz as they are read): (a) the first command, small_vqvae
+             through train.run for six steps at 262144 samples, bs 4, a
+             checkpoint_step_1.jkb with the codebook state; finite losses
+             and codebook metrics, codes in use, one Adam launch a step, no
+             thread left; its restore bit for bit, and restored for
+             training the fine-tuning reset as its formula; (b) the vqvae
+             preset at its published widths (3 levels, multipliers 2, 1, 1,
+             2048 codes), fresh: its gradients' Adam update through the
+             kernel against the plain loop on its own tensors, with a
+             planted fault (a one-element tensor's update item left out),
+             then one train step timed with its peak memory; (c) the second
+             command, small_prior (48 layers at width 1024, n_ctx 8192,
+             all_fp16, cpu_ema) over (a)'s checkpoint for three steps, each
+             epoch one step and one test batch: finite losses, the launches
+             of the LayerNorm, flash (none: no dense layer) and Adam
+             kernels, step walls and peak memory
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failed check raises: exit code != 0.
 It runs on the GPU only; without one it exits with an error.
@@ -133,10 +151,12 @@ from jukebox_tpu_torch import align as align_mod
 from jukebox_tpu_torch import sample as sample_mod
 from jukebox_tpu_torch import save_html
 from jukebox_tpu_torch import train as train_mod
-from jukebox_tpu_torch.data.files_dataset import FixedMetadataDataset
+from jukebox_tpu_torch.data.files_dataset import (FilesAudioDataset,
+                                                  FixedMetadataDataset)
 from jukebox_tpu_torch.hparams import Hyperparams, setup_hparams
-from jukebox_tpu_torch.models.make_models import (LN_KEYS, make_model,
-                                                  make_prior, make_vqvae)
+from jukebox_tpu_torch.models.make_models import (LN_KEYS, VQVAERuntime,
+                                                  make_model, make_prior,
+                                                  make_vqvae)
 from jukebox_tpu_torch.models.transformer import ATTN_ORDERS
 from jukebox_tpu_torch.ops import _build
 from jukebox_tpu_torch.ops import adam as ad
@@ -144,8 +164,11 @@ from jukebox_tpu_torch.ops import decode_stack as ds
 from jukebox_tpu_torch.ops import flash_attention as fa
 from jukebox_tpu_torch.ops import layer_norm as ln
 from jukebox_tpu_torch.ops.core import quantize_dense
+from jukebox_tpu_torch.utils import avio, wavio
+from jukebox_tpu_torch.utils.audio_utils import (audio_preprocess,
+                                                 calculate_bandwidth)
 from jukebox_tpu_torch.utils.checkpoints import load_checkpoint
-from jukebox_tpu_torch.utils.convert import named_leaves
+from jukebox_tpu_torch.utils.convert import STATE_KEYS, named_leaves
 from jukebox_tpu_torch.utils.sample_utils import get_starts
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (data sheet)
@@ -1279,19 +1302,26 @@ def _adam_ok(worst, fp16):
 
 
 @torch.no_grad()
-def check_adam(start, fp16, device, seed=7, time_it=True):
+def check_adam(start, fp16, device, seed=7, time_it=True, grads=None,
+               fault_at=None):
     """Phase 2d: ADAM_STEPS updates of the tensors `start` ({name: fp32
     parameter}, left unchanged) through the Adam kernel against the plain
     version from one state, with gradients of ~1e3 drawn per step (one
-    tensor's gradient None) and a loss scale x clip divisor on the card,
-    twice, the two runs equal bit for bit; then the same with planted
-    faults, an update item (and in the fp16 form an amax item) of the
-    largest tensor left out of the walk, which the check must refuse.
-    Times one update beside the bound and the plain version (no single
-    PyTorch call computes this update: torch's fused AdamW places eps and
-    the weight decay elsewhere). Returns the kernel's row."""
+    tensor's gradient None), or `grads` ({name: tensor}) at every step, and
+    a loss scale x clip divisor on the card, twice, the two runs equal bit
+    for bit; then the same with planted faults, an update item (and in the
+    fp16 form an amax item) of the largest tensor, or of tensor `fault_at`,
+    left out of the walk, which the check must refuse. Times one update
+    beside the bound and the plain version (no single PyTorch call computes
+    this update: torch's fused AdamW places eps and the weight decay
+    elsewhere). Returns the kernel's row."""
     shapes = {n: p.shape for n, p in start.items()}
-    none_at = min(shapes, key=lambda n: start[n].numel())
+    none_at = (None if grads is not None
+               else min(shapes, key=lambda n: start[n].numel()))
+
+    def grads_of(step):
+        return grads if grads is not None else _adam_grads(
+            shapes, step, device, seed, none_at)
     scale = torch.tensor(2.0 ** 16 * 1.7, device=device)
     cuda = torch.device(device).type == "cuda"
     what = "fp16 moments" if fp16 else "fp32 moments"
@@ -1302,8 +1332,7 @@ def check_adam(start, fp16, device, seed=7, time_it=True):
 
     def run(update, params, opt):
         for step in range(ADAM_STEPS):
-            update(params, _adam_grads(shapes, step, device, seed, none_at),
-                   opt, scale=scale, **ADAM_HYPER)
+            update(params, grads_of(step), opt, scale=scale, **ADAM_HYPER)
         return params, opt
 
     ref_params, ref_opt = run(ad.adam_update_plain, *clone())
@@ -1348,9 +1377,10 @@ def check_adam(start, fp16, device, seed=7, time_it=True):
         # largest |m| and |v| (the largest |gradient|), whose loss shrinks
         # the tensor's new scales
         sizes = [p.numel() for p in start.values()]
-        big = max(range(len(sizes)), key=sizes.__getitem__)
+        big = (max(range(len(sizes)), key=sizes.__getitem__)
+               if fault_at is None else list(start).index(fault_at))
         items = ad.item_order(sizes, fp16)
-        g0 = _adam_grads(shapes, 0, device, seed, none_at)[list(start)[big]]
+        g0 = grads_of(0)[list(start)[big]]
         peak = int(g0.abs().argmax()) // ad.CHUNK * ad.CHUNK
         faults = [("update", max(i for i, it in enumerate(items)
                                  if it[0] == big and it[2] == ad.UPDATE))]
@@ -1375,14 +1405,13 @@ def check_adam(start, fp16, device, seed=7, time_it=True):
         return row
     params, opt = clone()
     table = ad.AdamTable(params, opt)
-    grads = _adam_grads(shapes, 0, device, seed, none_at)
-    args = (grads, opt)
+    args = (grads_of(0), opt)
     ms = device_ms(lambda g, o: ad.adam_update_kernel(table, g, o, scale=scale,
                                                       **ADAM_HYPER),
                    [args], reps=10)
     plain_ms = device_ms(lambda g, o: ad.adam_update_plain(
         params, g, o, scale=scale, **ADAM_HYPER), [args], reps=2)
-    del params, opt, table, grads, args
+    del params, opt, table, args
     torch.cuda.empty_cache()
     nbytes, flops = adam_work([p.numel() for p in start.values()], fp16)
     row.update(KernelReport().timed("adam_update", what, ms, plain_ms, None,
@@ -2337,6 +2366,435 @@ def run_5b_lyrics(seed, device, gen):
     return rep
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the Quick start: train a VQ-VAE, then a prior over its codes
+# ---------------------------------------------------------------------------
+
+# upstream's two training commands (README "Quick start"); the second
+# restores the first's checkpoint and writes checkpoint_latest.jkb at
+# step 1 as the command does
+VQ_HPS = "small_vqvae"
+VQ_KW = dict(name="small_vqvae", sample_length=262144, bs=4, labels=False,
+             train=True, aug_shift=True, aug_blend=True)
+PRIOR_HPS = "small_vqvae,small_prior,all_fp16,cpu_ema"
+PRIOR_KW = dict(name="small_prior", sample_length=2097152, bs=4,
+                labels=False, train=True, test=True, aug_shift=True,
+                aug_blend=True, prior=True, levels=2, level=1,
+                weight_decay=0.01)
+VQ_STEPS, PRIOR_STEPS = 6, 3
+# the songs: two stereo files at 44.1 kHz (the presets train at 22.05 kHz),
+# one IEEE float32 wav and one int16
+SONG_SR, SONG_KINDS = 44100, ("float32", "int16")
+# the vqvae preset at its published widths, fresh (no restore), at the
+# first command's length and batch
+BIG_VQ_KW = dict(sample_length=262144, bs=4, train=True, labels=False,
+                 restore_vqvae="", aug_blend=True)
+
+
+def quick_start_hps(which, seed, **over):
+    name, kw = ((VQ_HPS, VQ_KW) if which == "vqvae" else (PRIOR_HPS,
+                                                         PRIOR_KW))
+    return setup_hparams(name, dict(kw, seed=seed, **over))
+
+
+def song_seconds(hps, n_files=2):
+    """Whole seconds of each of n_files songs so that the prior's dataset
+    holds a training batch of bs items and a test item (an epoch is then one
+    step), plus one second."""
+    n = hps.bs
+    while int(n * hps.train_test_split) < hps.bs or \
+            n - int(n * hps.train_test_split) < 1:
+        n += 1
+    return math.ceil(n * hps.sample_length / hps.sr / n_files) + 1
+
+
+def write_songs(dirname, seconds, sr, seed, kinds=SONG_KINDS):
+    """One stereo song per kind (a wav of IEEE float32 or int16 samples) of
+    `seconds` at rate sr: three-note chords changing every half second over
+    noise, drawn from seed. Returns the paths."""
+    from scipy.io import wavfile
+    rng = np.random.default_rng(seed)
+    n = int(seconds * sr)
+    paths = []
+    for i, kind in enumerate(kinds):
+        chords = rng.uniform(110, 880, size=(int(seconds * 2) + 1, 3))
+        freq = np.repeat(chords, sr // 2, axis=0)[:n]
+        phase = 2 * np.pi * np.cumsum(freq, axis=0) / sr
+        sig = np.sin(phase).sum(axis=1) / 6
+        sig = sig + 0.05 * rng.standard_normal(n)
+        x = np.clip(np.stack([sig, 0.8 * sig], axis=1), -1, 1)
+        data = (x.astype(np.float32) if kind == "float32"
+                else (x * 32767).astype(np.int16))
+        path = os.path.join(dirname, f"song_{i}.wav")
+        wavfile.write(path, sr, data)
+        paths.append(path)
+    return paths
+
+
+def expected_quick_start(hps, n_steps, n_evals):
+    """Kernel launches of n_steps train steps of the prior of hps and
+    n_evals eval batches: LayerNorm per step (its two per block, under
+    c_res twice in the forward), per eval batch its two per block forward
+    only; flash for its f0 layers (none in attn_order 2's cycle); one Adam
+    update per step."""
+    n_f0 = sum(ATTN_ORDERS[hps.attn_order](d) == 0
+               for d in range(hps.prior_depth))
+    n_ln = 2 * hps.prior_depth
+    fwd_per = ln.LAUNCHES_PER_STEP["layer_norm_fwd"] if hps.c_res == 1 else 1
+    return dict(
+        expected_flash(n_f0, n_steps),
+        layer_norm_fwd=fwd_per * n_ln * n_steps + n_ln * n_evals,
+        layer_norm_bwd=n_ln * n_steps, adam_update=n_steps)
+
+
+def _outlived(threads):
+    left = [t for t in set(threading.enumerate()) - threads if t.is_alive()]
+    if left or multiprocessing.active_children():
+        raise AssertionError(f"threads {left} or processes "
+                             f"{multiprocessing.active_children()} outlive "
+                             f"the run")
+
+
+def _finite(records, keys):
+    for r in records:
+        bad = {k: r[k] for k in keys if not math.isfinite(r[k])}
+        if bad:
+            raise AssertionError(f"step {r['it']}: {bad} not finite")
+
+
+def _peak_reset(cuda):
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_gb(cuda):
+    return torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+
+
+def run_vq_quick_start(seed, device, songs, logdir, n_steps=VQ_STEPS,
+                       **over):
+    """Phase 8 (a): the first Quick start command through train.run, for
+    n_steps, saving checkpoint_step_1.jkb under {logdir}/small_vqvae.
+    Checks finite losses and codebook metrics, used_curr > 0, one Adam
+    launch per step, a checkpoint at step 1 alone with params, optimizer
+    state and every level's whole codebook state, and that no thread
+    outlives the run. Returns a report dict."""
+    cuda = torch.device(device).type == "cuda"
+    threads = set(threading.enumerate())
+    kw = dict(VQ_KW, audio_files_dir=songs, max_steps=n_steps, log_steps=1,
+              local_logdir=logdir, seed=seed, **over)
+    _peak_reset(cuda)
+    reset_training_launches()
+    t0 = time.time()
+    out = train_mod.run(VQ_HPS, device=device, **kw)
+    wall = time.time() - t0
+    launches = training_launches()
+    records = out["records"]
+    runtime = out["runtime"]
+    hps = quick_start_hps("vqvae", seed, **over)
+    n_params = sum(p.numel() for p in runtime.params.values())
+    del out, runtime
+    if len(records) != n_steps:
+        raise AssertionError(f"{len(records)} steps, expected {n_steps}")
+    _finite(records, ("loss", "gn", "recons_loss", "multispectral_loss",
+                      "commit_loss", "entropy", "usage", "used_curr", "dk",
+                      "pn", "fit"))
+    if not all(r["used_curr"] > 0 for r in records):
+        raise AssertionError("a step used no code")
+    saved = [r["it"] for r in records if "checkpoint" in r]
+    if saved != [1]:
+        raise AssertionError(f"checkpoints saved at steps {saved}")
+    ckpt = records[0]["checkpoint"]
+    if os.path.basename(ckpt) != "checkpoint_step_1.jkb":
+        raise AssertionError(f"checkpoint {ckpt}")
+    file = load_checkpoint(ckpt)
+    blocks = file["state"]["level_blocks"]
+    if file["opt"] is None or len(blocks) != hps.levels or any(
+            set(b) != set(STATE_KEYS) for b in blocks):
+        raise AssertionError("the checkpoint lacks the optimizer state or "
+                             "the codebook state")
+    _outlived(threads)
+    expected = dict(expected_flash(0, n_steps), layer_norm_fwd=0,
+                    layer_norm_bwd=0,
+                    adam_update=sum(r["step_ok"] for r in records))
+    if cuda and launches != expected:
+        raise AssertionError(f"launches {launches} != expected {expected}")
+    walls = [r["wall_s"] for r in records[1:]]
+    return dict(records=records, launches=launches, expected=expected,
+                wall_s=wall, median_step_s=float(np.median(walls)),
+                n_params=n_params, checkpoint=ckpt,
+                bytes=os.path.getsize(ckpt), peak_mem_gb=_peak_gb(cuda))
+
+
+def check_vq_restore(seed, device, ckpt, **over):
+    """Phase 8 (a), the restore: a frozen make_vqvae restored from the
+    checkpoint holds its params and every level's codebook state bit for
+    bit; restored for training (train=True), the codebooks get the
+    fine-tuning reset, checked against its formula: k the file's, k_elem
+    num_tokens / k_bins for every code and k_sum k times that (fp32),
+    num_tokens = sample_length // the level's raw_to_tokens, init set,
+    threshold revival_threshold. Returns the step restored."""
+    file = load_checkpoint(ckpt)
+    hps = quick_start_hps("vqvae", seed, restore_vqvae=ckpt, train=False,
+                          **over)
+    vq = make_vqvae(hps, device)
+    assert_same(dict(vq.named_parameters()), named_leaves(vq, file["params"]),
+                "restored VQ-VAE params")
+    for level, (blk, ref) in enumerate(zip(vq.bottleneck.level_blocks,
+                                           file["state"]["level_blocks"])):
+        assert_same({k: getattr(blk, k) for k in STATE_KEYS}, ref,
+                    f"restored codebook state of level {level}")
+    step = vq.step
+    del vq
+    hps = quick_start_hps("vqvae", seed, restore_vqvae=ckpt, **over)
+    vq = make_vqvae(hps, device)
+    raw_to_tokens = np.cumprod(vq.downsamples)
+    for level, (blk, ref) in enumerate(zip(vq.bottleneck.level_blocks,
+                                           file["state"]["level_blocks"])):
+        e = np.float32(hps.sample_length // int(raw_to_tokens[level])
+                       / hps.l_bins)
+        want = dict(k=ref["k"], k_sum=ref["k"] * e,
+                    k_elem=np.full(hps.l_bins, e, np.float32),
+                    init=np.asarray(True),
+                    threshold=np.asarray(hps.revival_threshold, np.float32))
+        assert_same({k: getattr(blk, k) for k in STATE_KEYS}, want,
+                    f"fine-tuning reset of level {level}")
+    if not all(p.requires_grad for p in vq.parameters()):
+        raise AssertionError("a VQ-VAE restored for training is frozen")
+    del vq
+    return step
+
+
+def vq_batch(hps, songs, gen, device):
+    """bs items of the dataset over the songs (their bandwidth into hps),
+    preprocessed as the training loop does: [bs, T, 1] on device."""
+    hps.audio_files_dir = songs
+    dataset = FilesAudioDataset(hps)
+    hps.bandwidth = calculate_bandwidth(dataset, hps, duration=600)
+    x = np.stack([dataset[i] for i in range(hps.bs)])
+    return audio_preprocess(torch.from_numpy(x).to(device), hps, gen=gen)
+
+
+def check_vqvae_step(seed, device, songs, gen, **over):
+    """Phase 8 (b): the vqvae preset at its published widths (3 levels,
+    downs_t (3, 2, 2), multipliers (2, 1, 1), 2048 codes, lmix), fresh, on a
+    batch of the songs: its gradients' Adam update through the kernel
+    against the plain loop on the VQ-VAE's own tensors (check_adam with the
+    real gradients), with a planted fault (the update item of a one-element
+    tensor, the last conv's bias, left out of the walk); then one whole
+    train step (its codebooks seeded from the batch, one Adam launch),
+    timed, with its peak memory. Returns a report dict."""
+    cuda = torch.device(device).type == "cuda"
+    hps = setup_hparams("vqvae", dict(BIG_VQ_KW, seed=seed, **over))
+    x = vq_batch(hps, songs, gen, device)
+    t = time.time()
+    vq = make_vqvae(hps, device)
+    runtime = VQVAERuntime(vq)
+    params = runtime.params
+    n_params = sum(p.numel() for p in params.values())
+    widths = [e.level_blocks[0].downs[0]["conv_down"].w.shape[0]
+              for e in vq.encoders]
+    log(f"phase 8 (b) vqvae preset: {hps.levels} levels, downs_t "
+        f"{tuple(hps.downs_t)}, widths {widths}, {hps.l_bins} codes, "
+        f"{n_params / 1e6:.2f} M params in {len(params)} tensors "
+        f"(smallest {min(p.numel() for p in params.values())} elements), "
+        f"built in {time.time() - t:.1f}s; batch {tuple(x.shape)}")
+    for p in params.values():
+        p.grad = None
+    _, loss, _ = vq(x, hps, loss_fn=hps.loss_fn, train=True,
+                    gen=torch.Generator(device=device).manual_seed(seed))
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in params.items()}
+    for p in params.values():
+        p.grad = None
+    start = {n: p.detach().clone() for n, p in params.items()}
+    fault_at = min(start, key=lambda n: (start[n].numel(), n))
+    log(f"  Adam on its {len(start)} tensors, the planted fault at "
+        f"{fault_at} ({start[fault_at].numel()} element)")
+    adam_row = check_adam(start, hps.fp16_opt, device, grads=grads,
+                          fault_at=fault_at, time_it=cuda)
+    del grads, start
+    step = train_mod.make_vqvae_train_step(runtime, hps,
+                                           train_mod.make_lr_schedule(hps))
+    opt = train_mod.adam_init(params, fp16_state=hps.fp16_opt)
+    _peak_reset(cuda)
+    reset_training_launches()
+    t0 = time.time()
+    loss, metrics = step(opt, (x, None), seed, 1)
+    loss = float(loss)
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = training_launches()
+    peak = _peak_gb(cuda)
+    if not (math.isfinite(loss) and math.isfinite(float(metrics["gn"]))):
+        raise AssertionError(f"vqvae preset step: loss {loss} not finite")
+    if cuda and launches["adam_update"] != int(metrics["step_ok"]):
+        raise AssertionError(f"vqvae preset step: launches {launches}")
+    del vq, runtime, params, opt, x
+    return dict(loss=loss, wall_s=wall, peak_mem_gb=peak, launches=launches,
+                n_params=n_params, adam=adam_row,
+                used_curr=float(metrics["used_curr"]),
+                gn=float(metrics["gn"]))
+
+
+def check_prior_checkpoint(records, runtime, hps):
+    """Phase 8 (c)'s checkpoint: checkpoint_latest.jkb written at step 1
+    alone, holding step 1, a param of every trainable tensor at its shape
+    and, under fp16_opt, fp16 Adam moments with their scales. Returns
+    (path, bytes)."""
+    saved = [r["it"] for r in records if "checkpoint" in r]
+    if saved != [1]:
+        raise AssertionError(f"prior checkpoints saved at steps {saved}")
+    path = records[0]["checkpoint"]
+    if os.path.basename(path) != "checkpoint_latest.jkb":
+        raise AssertionError(f"prior checkpoint {path}")
+    file = load_checkpoint(path)
+    if int(file["step"]) != 1:
+        raise AssertionError(f"prior checkpoint at step {file['step']}")
+    # named_leaves raises on a missing, leftover or misshapen leaf
+    named_leaves(runtime.model, file["params"])
+    keys = ("m", "v", "m_scale", "v_scale") if hps.fp16_opt else ("m", "v")
+    opt = {k: named_leaves(runtime.model, file["opt"][k]) for k in keys}
+    if hps.fp16_opt and any(t.dtype != np.float16 for k in ("m", "v")
+                            for t in opt[k].values()):
+        raise AssertionError("prior checkpoint: moments not fp16")
+    return path, os.path.getsize(path)
+
+
+def run_prior_quick_start(seed, device, songs, vq_ckpt, logdir, gen,
+                          n_steps=PRIOR_STEPS, **over):
+    """Phase 8 (c): the second Quick start command through train.run, for
+    n_steps over the VQ-VAE of checkpoint vq_ckpt, saving
+    checkpoint_latest.jkb under {logdir}/small_prior at step 1: the VQ-VAE
+    restored with its codebooks (bit for bit, no reset), finite losses, the
+    launch counts of the LayerNorm, flash and Adam kernels against
+    expected_quick_start (here each epoch is one step and one test batch),
+    the checkpoint (check_prior_checkpoint), no thread left. Then, outside
+    the counted run, the LayerNorm kernels against their plain versions at
+    the run's rows [bs x n_ctx, width] in its dtype, and the Adam kernel
+    against the plain loop on the prior's own tensors in its moments' form
+    (check_adam). Returns a report dict with those rows' max_abs_err."""
+    cuda = torch.device(device).type == "cuda"
+    threads = set(threading.enumerate())
+    kw = dict(PRIOR_KW, audio_files_dir=songs, restore_vqvae=vq_ckpt,
+              max_steps=n_steps, log_steps=1, seed=seed, local_logdir=logdir,
+              **over)
+    hps = setup_hparams(PRIOR_HPS, kw)
+    _peak_reset(cuda)
+    reset_training_launches()
+    t0 = time.time()
+    out = train_mod.run(PRIOR_HPS, device=device, **kw)
+    wall = time.time() - t0
+    launches = training_launches()
+    runtime, records = out["runtime"], out["records"]
+    tr = runtime.model.prior.transformer
+    file = load_checkpoint(vq_ckpt)
+    for level, (blk, ref) in enumerate(zip(
+            runtime.vqvae.bottleneck.level_blocks,
+            file["state"]["level_blocks"])):
+        assert_same({k: getattr(blk, k) for k in STATE_KEYS}, ref,
+                    f"the prior's VQ-VAE codebook of level {level}")
+    # each epoch evaluates the test split, ceil(test items / bs) batches
+    n_items = len(FilesAudioDataset(hps))
+    n_test = n_items - int(n_items * hps.train_test_split)
+    n_evals = (len({r["epoch"] for r in records})
+               * math.ceil(n_test / hps.bs))
+    expected = expected_quick_start(hps, len(records), n_evals)
+    expected["adam_update"] = sum(r["step_ok"] for r in records)
+    report = dict(
+        records=records, launches=launches, expected=expected, wall_s=wall,
+        test=out["test"], n_depth=tr.n_depth, width=tr.n_in,
+        n_ctx=tr.n_ctx, n_flash_layers=n_flash_layers(runtime, hps),
+        n_params=sum(p.numel() for p in runtime.params.values()),
+        median_step_s=float(np.median([r["wall_s"] for r in records[1:]])),
+        peak_mem_gb=_peak_gb(cuda))
+    report["tokens_per_s"] = tr.n_ctx * hps.bs / report["median_step_s"]
+    if len(records) != n_steps:
+        raise AssertionError(f"{len(records)} steps, expected {n_steps}")
+    _finite(records, ("loss", "gn", "bpd"))
+    if not math.isfinite(report["test"]["loss"]):
+        raise AssertionError(f"test loss {report['test']}")
+    _outlived(threads)
+    if cuda and launches != expected:
+        raise AssertionError(f"launches {launches} != expected {expected}")
+    report["checkpoint"], report["bytes"] = check_prior_checkpoint(
+        records, runtime, hps)
+    ln_shape = (hps.bs * tr.n_ctx, tr.n_in,
+                torch.bfloat16 if hps.fp16 else torch.float32)
+    start = {n: p.detach().clone() for n, p in runtime.params.items()}
+    del out, runtime, tr
+    log(f"  (c) LayerNorm kernels at the run's rows {ln_shape[:2]} "
+        f"{str(ln_shape[2]).split('.')[-1]}; Adam on the prior's "
+        f"{len(start)} tensors")
+    report["rows"] = check_layer_norm([ln_shape], device, gen, time_it=False)
+    report["rows"]["adam_update"] = check_adam(start, hps.fp16_opt, device,
+                                               time_it=False)
+    del start
+    return report
+
+
+def run_quick_start(seed, device, gen):
+    """Phase 8: songs written to a temporary directory, then (a), its
+    restore, (b) and (c). Returns {"a", "b", "c"} reports."""
+    tmp = tempfile.mkdtemp(prefix="jukebox_quick_start_")
+    try:
+        songs, logdir = os.path.join(tmp, "songs"), os.path.join(tmp, "logs")
+        os.makedirs(songs)
+        seconds = song_seconds(quick_start_hps("prior", seed))
+        t = time.time()
+        write_songs(songs, seconds, SONG_SR, seed)
+        native = "built" if wavio.available() else "unavailable"
+        compressed = ("available" if avio.available() else
+                      "unavailable (no ffmpeg libraries): wav only")
+        log(f"phase 8 songs: {len(SONG_KINDS)} x {seconds} s stereo at "
+            f"{SONG_SR} Hz ({', '.join(SONG_KINDS)} wav) in "
+            f"{time.time() - t:.1f}s; native wav reader {native}, avio "
+            f"{compressed}")
+        a = run_vq_quick_start(seed, device, songs, logdir)
+        for r in a["records"]:
+            log(f"  (a) step {r['it']}: " + " ".join(
+                f"{pk} {r[k]:.5g}" for pk, k in train_mod.VQVAE_KEYS.items())
+                + f" step_ok {r['step_ok']} wall {r['wall_s']:.3f}s"
+                + (f"; saved in {r['save_s']:.2f}s" if "save_s" in r
+                   else ""))
+        log(f"  (a) run {a['wall_s']:.1f}s, median step (steps 2-"
+            f"{VQ_STEPS}) {a['median_step_s'] * 1e3:.1f} ms, peak memory "
+            f"{a['peak_mem_gb']:.2f} GB, {a['n_params'] / 1e6:.2f} M params;"
+            f" launches {a['launches']} == expected {a['expected']}; "
+            f"checkpoint {a['bytes']} bytes")
+        step = check_vq_restore(seed, device, a["checkpoint"])
+        log(f"  (a) restored at step {step}: params and codebook state bit "
+            f"for bit; for training, the fine-tuning reset as its formula")
+        b = check_vqvae_step(seed, device, songs, gen)
+        log(f"  (b) one train step: loss {b['loss']:.5g} gn {b['gn']:.5g} "
+            f"used_curr {b['used_curr']:.0f}, wall {b['wall_s'] * 1e3:.1f} "
+            f"ms, peak memory {b['peak_mem_gb']:.2f} GB, launches "
+            f"{b['launches']}")
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+        c = run_prior_quick_start(seed, device, songs, a["checkpoint"],
+                                  logdir, gen)
+        for r in c["records"]:
+            log(f"  (c) step {r['it']}: " + " ".join(
+                f"{pk} {r[k]:.5g}" for pk, k in train_mod.PRIOR_KEYS.items()
+                if k in r) + f" step_ok {r['step_ok']} wall "
+                f"{r['wall_s']:.3f}s")
+        log(f"  (c) {c['n_depth']} layers at width {c['width']}, n_ctx "
+            f"{c['n_ctx']}, {c['n_params'] / 1e6:.1f} M params; run "
+            f"{c['wall_s']:.1f}s, median step (steps 2-{PRIOR_STEPS}) "
+            f"{c['median_step_s'] * 1e3:.1f} ms = {c['tokens_per_s']:.0f} "
+            f"tokens/s, peak memory {c['peak_mem_gb']:.2f} GB, test loss "
+            f"{c['test']['loss']:.5g}; {c['n_flash_layers']} flash layers; "
+            f"launches {c['launches']} == expected {c['expected']}; "
+            f"checkpoint {c['bytes']} bytes, saved in "
+            f"{c['records'][0]['save_s']:.2f}s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(a=a, b=b, c=c)
+
+
 # LayerNorm shapes of phase 2c: the top prior's training rows (n_ctx 6144
 # + 384 lyric tokens) in the training dtype, the upsamplers' width, a
 # ragged shape, the 5b priors' width, a width whose rows the kernels read
@@ -2458,10 +2916,23 @@ def main(argv=None):
     finally:
         shutil.rmtree(logdir, ignore_errors=True)
 
+    torch.cuda.empty_cache()
+    log(f"phase 8 Quick start: {VQ_HPS} for {VQ_STEPS} steps, the vqvae "
+        f"preset's step, then {PRIOR_HPS} for {PRIOR_STEPS} steps")
+    qs = run_quick_start(args.seed, device, gen)
+
     cascades = (rep, rep4b, rep5)
     launches = dict({k: sum(r["launches"][k] for r in cascades)
                      for k in ds.LAUNCHES}, **tr_rep["launches"],
                     **tr_rep["kernel_launches"])
+    for r in (qs["a"], qs["b"], qs["c"]):  # phase 8's main paths
+        for k, n in r["launches"].items():
+            launches[k] += n
+    # phase 8's checks at its own shapes: the worst error over every check
+    for k, row in [("adam_update", qs["b"]["adam"])] + list(
+            qs["c"]["rows"].items()):
+        rows[k]["max_abs_err"] = max(rows[k]["max_abs_err"],
+                                     row["max_abs_err"])
     for r in cascades:  # the prefill's LayerNorms, the alignment forwards
         launches["flash_fwd"] += r["fa_launches"]["flash_fwd"]
         launches["layer_norm_fwd"] += r["ln_launches"]["layer_norm_fwd"]

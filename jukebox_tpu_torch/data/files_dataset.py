@@ -3,10 +3,10 @@ jukebox_tpu/data/files_dataset.py): item i maps to window
 [i * sample_length, (i + 1) * sample_length) of the concatenated wav files,
 with an optional +-sample_length / 2 aug_shift drawn per (seed, epoch, item)
 and song-boundary clamping (files_dataset.py:49-65), so the port reads the
-same chunks as the JAX package. It finds the audio files the JAX package's
-dataset finds (AUDIO_EXTS), but reads only .wav: a directory holding any
-other audio file is refused with a ValueError naming those files, rather
-than trained on without them.
+same chunks as the JAX package. It reads the audio files the JAX package's
+dataset reads (AUDIO_EXTS) through utils/io.py, at any rate, and caches
+their durations in `.dur` sidecars as the JAX package does; a file that no
+decoder on the machine can read raises, naming it.
 """
 
 import math
@@ -15,13 +15,10 @@ import os
 import numpy as np
 
 from jukebox_tpu_torch.data.labels import Labeller
-from jukebox_tpu_torch.utils.audio_utils import get_duration_sec, load_audio
+from jukebox_tpu_torch.utils.io import get_duration_sec, load_audio
 
-
-# the audio files the JAX package's dataset reads (a copy of its
-# AUDIO_EXTS), and those the port reads so far
+# the audio files of the dataset (a copy of the JAX package's AUDIO_EXTS)
 AUDIO_EXTS = (".mp3", ".opus", ".m4a", ".aac", ".wav", ".ogg", ".flac")
-READ_EXTS = (".wav",)
 
 
 def find_files(root, exts=AUDIO_EXTS):
@@ -65,16 +62,9 @@ class FilesAudioDataset:
 
     def init_dataset(self, hps):
         files = find_files(hps.audio_files_dir)
-        unread = [f for f in files if not f.lower().endswith(READ_EXTS)]
-        if unread:
-            more = (f" and {len(unread) - 20} more" if len(unread) > 20
-                    else "")
-            raise ValueError(
-                f"{len(unread)} of {len(files)} audio files are not .wav, "
-                f"which the port reads only once jukebox_tpu/utils/io.py's "
-                f"decoders are ported: {', '.join(unread[:20])}{more}")
         print(f"Found {len(files)} files. Getting durations")
-        durations = np.array([get_duration_sec(f) * self.sr for f in files])
+        durations = np.array([get_duration_sec(f, cache=True) * self.sr
+                              for f in files])
         self.filter(files, durations)
         if self.labels:
             self.labeller = Labeller(hps.max_bow_genre_size, hps.n_tokens,

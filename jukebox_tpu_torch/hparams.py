@@ -1,9 +1,11 @@
 """Hyperparameter registry of the PyTorch port: the config surface of
 jukebox_tpu/hparams.py (set names, keys, defaults, strict merge), holding
-only the presets of the 1b_lyrics, 5b and 5b_lyrics cascades (vqvae,
+the presets of the 1b_lyrics, 5b and 5b_lyrics cascades (vqvae,
 upsampler_level_0/1, prior_1b_lyrics, prior_5b, prior_5b_lyrics), the
-training sets all_fp16 and cpu_ema, and the empty `teeny` set that tests
-build on.
+small family that the README trains from scratch (easy, small_vqvae,
+small_prior, small_labelled_prior, small_single_enc_dec_prior,
+small_sep_enc_dec_prior, small_upsampler), the training sets all_fp16 and
+cpu_ema, and the empty `teeny` set that tests build on.
 """
 
 
@@ -55,6 +57,7 @@ REMOTE_PREFIX = "https://openaipublic.azureedge.net/"
 # ---------------------------------------------------------------------------
 
 _register("teeny")
+_register("easy", sr=22050)
 
 _register(
     "vqvae",
@@ -192,6 +195,115 @@ _register(
     alignment_layer=63,
     alignment_head=0,
     **_labels_v3,
+)
+
+# -- small (trainable-from-scratch) family ----------------------------------
+
+_register(
+    "small_vqvae",
+    sr=22050,
+    levels=2,
+    downs_t=(5, 3),
+    strides_t=(2, 2),
+    emb_width=64,
+    l_bins=1024,
+    l_mu=0.99,
+    commit=0.02,
+    spectral=0.0,
+    multispectral=1.0,
+    loss_fn="l2",
+    width=32,
+    depth=4,
+    m_conv=1.0,
+    dilation_growth_rate=3,
+)
+
+_small_prior = dict(
+    n_ctx=8192,
+    prior_width=1024,
+    prior_depth=48,
+    heads=1,
+    c_res=1,
+    attn_order=2,
+    blocks=64,
+    init_scale=0.7,
+)
+_register("small_prior", **_small_prior)
+
+_register(
+    "small_labelled_prior",
+    labels=True,
+    labels_v3=True,
+    y_bins=(10, 100),  # (genres, artists) — set for your dataset
+    max_bow_genre_size=1,
+    min_duration=60.0,
+    max_duration=600.0,
+    t_bins=64,
+    **_small_prior,
+)
+
+_register(
+    "small_single_enc_dec_prior",
+    n_ctx=6144,
+    prior_width=1024,
+    prior_depth=48,
+    heads=2,
+    attn_order=12,
+    blocks=64,
+    init_scale=0.7,
+    c_res=1,
+    prime_loss_fraction=0.4,
+    single_enc_dec=True,
+    labels=True,
+    labels_v3=True,
+    y_bins=(10, 100),
+    max_bow_genre_size=1,
+    min_duration=60.0,
+    max_duration=600.0,
+    t_bins=64,
+    use_tokens=True,
+    n_tokens=384,
+    n_vocab=79,
+)
+
+_register(
+    "small_sep_enc_dec_prior",
+    n_ctx=6144,
+    prior_width=1024,
+    prior_depth=50,
+    heads=2,
+    attn_order=8,
+    blocks=64,
+    init_scale=0.7,
+    c_res=1,
+    prime_width=256,
+    prime_depth=9,
+    prime_heads=2,
+    prime_attn_order=2,
+    prime_blocks=32,
+    prime_init_scale=0.7,
+    prime_c_res=1,
+    prime_loss_fraction=0.4,
+    labels=True,
+    labels_v3=True,
+    y_bins=(10, 100),
+    max_bow_genre_size=1,
+    min_duration=60.0,
+    max_duration=600.0,
+    t_bins=64,
+    use_tokens=True,
+    n_tokens=384,
+    n_vocab=79,
+)
+
+_register(
+    "small_upsampler",
+    cond_width=512,
+    cond_depth=16,
+    cond_dilation_growth_rate=3,
+    cond_dilation_cycle=8,
+    cond_c_res=1,
+    **_small_prior,
 )
 
 # fp16 -> bf16 compute + dynamic loss scaling; fp16_opt -> fp16 Adam moments

@@ -6,8 +6,11 @@ hps.restore_vqvae / hps.restore_prior when those name a checkpoint: a
 path cached under ~/.cache as the JAX package looks for it; a path that
 does not exist falls back to the fresh init with a message, as in the JAX
 package. With hps.train a prior's parameters are trainable fp32 masters and
-its dropouts and activation checkpointing follow hps; the VQ-VAE stays
-frozen. A sampling prior with hps.fp16_params holds its weights in bf16
+its dropouts and activation checkpointing follow hps, and the VQ-VAE stays
+frozen; with hps.train and not hps.prior the VQ-VAE is the model trained:
+its parameters are trainable and its codebooks start unseeded (or from the
+restored checkpoint, their EMA statistics reset for fine-tuning). A
+sampling prior with hps.fp16_params holds its weights in bf16
 after the restore, LayerNorms in fp32 (convert_params_bf16).
 """
 
@@ -26,7 +29,7 @@ from jukebox_tpu_torch.utils.checkpoints import (load_checkpoint,
 from jukebox_tpu_torch.utils.convert import (from_jax_params, named_to_tree,
                                              opt_state_from_jax,
                                              opt_state_to_jax, to_jax_params,
-                                             vqvae_tree)
+                                             vqvae_state, vqvae_tree)
 
 MODELS = {
     "5b": ("vqvae", "upsampler_level_0", "upsampler_level_1", "prior_5b"),
@@ -80,15 +83,16 @@ def load_any(path):
 
 
 def restore_model(model, checkpoint_path):
-    """Copy a checkpoint's params (and, for a VQ-VAE, the codebooks of its
-    state) into `model`. Returns the checkpoint's step, 0 when nothing is
-    restorable (the model keeps its fresh init)."""
+    """Copy a checkpoint's params (and, for a VQ-VAE, the codebook state
+    its state holds: every key of each level, or k alone) into `model`.
+    Returns the checkpoint's step, 0 when nothing is restorable (the model
+    keeps its fresh init)."""
     path = resolve_restore(checkpoint_path)
     if path is None:
         return 0
     ckpt = load_any(path)
     params = ckpt["params"]
-    if isinstance(model, VQVAE):
+    if isinstance(model, VQVAE) and ckpt.get("state") is not None:
         params = vqvae_tree(params, ckpt["state"])
     from_jax_params(model, params)
     print(f"Restored from {path}")
@@ -114,15 +118,18 @@ def restore_opt(opt_state, checkpoint_path, model):
 def save_model_checkpoint(logdir, name, runtime, opt_state, step, hps,
                           params=None):
     """{logdir}/checkpoint_{name}.jkb with hps, params (the model's, or
-    `params` as {name: tensor or array}, e.g. an EMA shadow), the JAX
-    layout of opt_state (None: no optimizer state, a sampling checkpoint)
-    and step. Returns the path."""
+    `params` as {name: tensor or array}, e.g. an EMA shadow), a VQ-VAE's
+    codebook state (None for a prior), the JAX layout of opt_state (None:
+    no optimizer state, a sampling checkpoint) and step. Returns the
+    path."""
     save_hps = {k: v for k, v in dict(hps).items() if k not in _UNSAVED_HPS}
     tree = (to_jax_params(runtime.model) if params is None
             else named_to_tree(runtime.model, params))
     opt = (None if opt_state is None
            else opt_state_to_jax(runtime.model, opt_state))
-    payload = dict(hps=save_hps, params=tree, state=None, opt=opt, step=step)
+    state = (vqvae_state(runtime.model) if isinstance(runtime.model, VQVAE)
+             else None)
+    payload = dict(hps=save_hps, params=tree, state=state, opt=opt, step=step)
     path = f"{logdir}/checkpoint_{name}.jkb"
     save_checkpoint(path, payload)
     return path
@@ -133,6 +140,14 @@ def save_model_checkpoint(logdir, name, runtime, opt_state, step, hps,
 # ---------------------------------------------------------------------------
 
 def make_vqvae(hps, device="cuda"):
+    """The VQ-VAE of hps on `device`, drawn from hps.seed and restored from
+    hps.restore_vqvae. Frozen, with a random codebook unless restored; with
+    hps.train and not hps.prior trainable, its codebooks unseeded (JAX's
+    init_state) before the restore, and after it, when hps.restore_vqvae is
+    set, reset for fine-tuning as jukebox_tpu's make_vqvae does
+    (make_models.py:777-790): restore_state(k, num_tokens = the tokens of a
+    step at that level, threshold = hps.revival_threshold), on one process.
+    The restored step is the model's `step`."""
     block = BlockCfg(width=hps.width, depth=hps.depth, m_conv=hps.m_conv,
                      dilation_growth_rate=hps.dilation_growth_rate,
                      dilation_cycle=hps.dilation_cycle,
@@ -145,9 +160,24 @@ def make_vqvae(hps, device="cuda"):
                              // top_raw_to_tokens) * top_raw_to_tokens
     model = VQVAE((hps.sample_length, 1), hps.levels, hps.downs_t,
                   hps.strides_t, hps.emb_width, hps.l_bins,
-                  hps.hvqvae_multipliers, block, device=device)
+                  hps.hvqvae_multipliers, block, device=device, mu=hps.l_mu,
+                  commit=hps.commit, spectral=hps.spectral,
+                  multispectral=hps.multispectral,
+                  use_bottleneck=hps.use_bottleneck)
     init_weights(model, hps.get("seed", 0), device).eval()
-    restore_model(model, hps.restore_vqvae)
+    train = hps.get("train", False) and not hps.get("prior", False)
+    if train:
+        model.bottleneck.reset_state()
+    model.step = restore_model(model, hps.restore_vqvae)
+    if train:
+        model.requires_grad_(True)
+        if hps.restore_vqvae:
+            downsamples = calculate_strides(hps.strides_t, hps.downs_t)
+            for level, blk in enumerate(model.bottleneck.level_blocks):
+                num_tokens = hps.sample_length // int(
+                    np.prod(downsamples[:level + 1]))
+                blk.restore_state(blk.k.clone(), num_tokens=num_tokens,
+                                  threshold=hps.revival_threshold)
     return model
 
 
@@ -245,6 +275,19 @@ def decode_mode(quantize=None):
     env = os.environ.get("JUKEBOX_INT8_CACHE")
     cache_int8 = quantize == "int8" if env is None else env != "0"
     return quantize, cache_int8
+
+
+class VQVAERuntime:
+    """A VQ-VAE being trained, with the training loop's interface: model,
+    params (the trainable parameters by name; the codebooks are buffers and
+    stay out of them) and step (the optimizer steps taken)."""
+
+    def __init__(self, model):
+        self.model, self.step = model, getattr(model, "step", 0)
+
+    @property
+    def params(self):
+        return dict(self.model.named_parameters())
 
 
 class PriorRuntime:

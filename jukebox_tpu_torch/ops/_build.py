@@ -1,11 +1,14 @@
 """Build and load the port's CUDA kernels: one plain `nvcc` call per source
-into a shared library with a C interface, loaded with ctypes.
+into a shared library with a C interface, loaded with ctypes; and the
+host-side audio readers (csrc/wavio.cpp, csrc/avio.cpp), one `g++` call
+each (build_host).
 
-The sources are jukebox_tpu_torch/csrc/*.cu; the libraries go to
+The sources are jukebox_tpu_torch/csrc/*.cu and *.cpp; the libraries go to
 build/jukebox_tpu_torch/ under the checkout, named by a hash of the sources
 and flags, so an edited source rebuilds and an unchanged one loads at once.
-Nothing here runs at import: the first kernel launch builds. nvcc is found
-through CUDA_HOME, else /usr/local/cuda/bin, else PATH.
+Nothing here runs at import: the first kernel launch, or the first audio
+read, builds. nvcc is found through CUDA_HOME, else /usr/local/cuda/bin,
+else PATH.
 """
 
 import ctypes
@@ -59,6 +62,9 @@ SIGNATURES = {
 
 _LIBS = {}
 BUILD_LOG = {}  # source stem -> {"seconds", "ptxas", "cached"}
+# g++ flags of the host libraries, by source stem
+HOST_FLAGS = {"wavio": [],
+              "avio": ["-lavformat", "-lavcodec", "-lavutil", "-lswresample"]}
 
 
 def find_nvcc():
@@ -74,10 +80,34 @@ def find_nvcc():
     return found
 
 
-def _lib_path(src):
+def _lib_path(src, flags=NVCC_FLAGS):
     h = hashlib.sha256(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
+
+
+def build_host(stem):
+    """The path of csrc/<stem>.cpp built by g++ (-O3, shared, with
+    HOST_FLAGS[stem]) into BUILD_DIR, building it when it is not there;
+    the build writes a temporary file and renames it, so processes that
+    build at once do not clash. Raises RuntimeError when g++ is missing or
+    fails."""
+    src = CSRC_DIR / f"{stem}.cpp"
+    out = _lib_path(src, HOST_FLAGS[stem])
+    if out.exists():
+        return out
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found: {src.name} cannot be built")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([gxx, "-O3", "-shared", "-fPIC", "-o", str(tmp),
+                           str(src), *HOST_FLAGS[stem]],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed on {src.name}:\n{proc.stderr[-4000:]}")
+    os.replace(tmp, out)
+    return out
 
 
 def _compile(src, nvcc):

@@ -36,7 +36,8 @@ from jukebox_tpu_torch.data.labels import EmptyLabeller
 from jukebox_tpu_torch.hparams import Hyperparams
 from jukebox_tpu_torch.models.make_models import make_model
 from jukebox_tpu_torch.save_html import save_html
-from jukebox_tpu_torch.utils.audio_utils import load_audio, save_wav
+from jukebox_tpu_torch.utils.audio_utils import save_wav
+from jukebox_tpu_torch.utils.io import load_prompt
 from jukebox_tpu_torch.utils.cli import fire
 from jukebox_tpu_torch.utils.sample_utils import get_starts, split_batch
 
@@ -235,13 +236,13 @@ def primed_sample(x, labels, sampling_kwargs, priors, hps):
 
 
 def load_prompts(audio_files, duration, hps):
-    """Prompt wavs as float32 [n_samples, duration, 1] on the CPU, the files
-    repeated to n_samples (sample.py:150-161)."""
+    """The first `duration` samples at hps.sr of each prompt file (any format
+    utils/io.py reads, at any rate), as float32 [n_samples, duration, 1] on
+    the CPU: the channel mean (io.load_prompt), the files repeated to
+    n_samples (sample.py:150-161)."""
     xs = []
     for audio_file in audio_files:
-        x, _ = load_audio(audio_file, sr=hps.sr, duration=duration,
-                          offset=0.0, mono=True)
-        xs.append(x.T)
+        xs.append(load_prompt(audio_file, hps.sr, duration)[:, None])
     while len(xs) < hps.n_samples:
         xs.extend(xs)
     xs = xs[: hps.n_samples]

@@ -1,28 +1,38 @@
-"""Prior training of the PyTorch port (counterpart of jukebox_tpu/train.py):
-the train step (frozen VQ-VAE encode, the prior's loss and gradients, the
-reference's scaled and clipped Adam update with the all-or-nothing step
-skip), the eval step, the training loop (dynamic loss scale, EMA, one
-metrics line per log_steps on stdout, a checkpoint every save_iters) and
+"""Training of the PyTorch port (counterpart of jukebox_tpu/train.py), for
+a VQ-VAE (hps.prior False) or a prior over a VQ-VAE's codes: the train
+steps (the VQ-VAE's forward with its codebook update, or a frozen VQ-VAE's
+encode and the prior's loss; gradients; the reference's scaled and clipped
+Adam update with the all-or-nothing step skip), the eval step, the
+training loop (dynamic loss scale, EMA, one line of the JAX package's
+print keys per log_steps on stdout, a checkpoint every save_iters) and
 `run`, which builds everything from hps, restores it from
-hps.restore_prior, trains to max_steps and evaluates under the EMA weights
-when hps.test is set.
+hps.restore_vqvae / hps.restore_prior, trains to max_steps and evaluates
+under the EMA weights when hps.test is set. The README's two commands:
 
+    python -m jukebox_tpu_torch.train --hps=small_vqvae --name=small_vqvae \\
+        --sample_length=262144 --bs=4 --audio_files_dir=<dir> \\
+        --labels=False --train=True --aug_shift=True --aug_blend=True
     python -m jukebox_tpu_torch.train \\
-        --hps=vqvae,prior_1b_lyrics,all_fp16,cpu_ema --name=finetune \\
-        --audio_files_dir=<wavs> --labels=False --prior --levels=3 \\
-        --level=2 --bs=1 --train --restore_prior=<.jkb>
+        --hps=small_vqvae,small_prior,all_fp16,cpu_ema --name=small_prior \\
+        --sample_length=2097152 --bs=4 --audio_files_dir=<dir> \\
+        --labels=False --train=True --test=True --aug_shift=True \\
+        --aug_blend=True --prior=True --levels=2 --level=1 \\
+        --restore_vqvae=logs/small_vqvae/checkpoint_step_<n>.jkb \\
+        --weight_decay=0.01
 
 or from Python `run(hps, device="cuda", dataset=None, **kwargs)` (a
 labelled run passes a labelled dataset subclass, see DataProcessor).
 Checkpoints are `.jkb` files, the JAX package's format: the training
-loop writes {local_logdir}/{name}/checkpoint_latest.jkb at every step i
+loop writes {local_logdir}/{name}/checkpoint_step_<i>.jkb (a VQ-VAE, with
+its codebook state) or checkpoint_latest.jkb (a prior) at every step i
 with i % save_iters == 1, holding the EMA weights as params when EMA is
-on, and --restore_prior (or restore_vqvae) takes one from either package.
-Randomness: step i of epoch e draws its aug_blend mix and its dropout seed
-from fold_seed(seed, e, i); jax.random draws other numbers, so the two
-packages agree step for step only without dropout and aug_blend.
-VQ-VAE training, in-training sampling, and audio and tensorboard logging
-are not ported yet.
+on, and --restore_prior / --restore_vqvae take one from either package.
+Randomness: step i of epoch e draws its aug_blend mix from
+fold_seed(seed, e, i, 0) and its dropout or codebook draws from
+fold_seed(seed, e, i, 1); jax.random draws other numbers, so the two
+packages agree step for step only without dropout, aug_blend and codebook
+restarts. In-training sampling, and audio and tensorboard logging
+(utils/logger.py) are not ported yet.
 """
 
 import time
@@ -31,8 +41,8 @@ import torch
 
 from jukebox_tpu_torch.data.data_processor import DataProcessor
 from jukebox_tpu_torch.hparams import setup_hparams
-from jukebox_tpu_torch.models.make_models import (make_prior, make_vqvae,
-                                                  restore_opt,
+from jukebox_tpu_torch.models.make_models import (VQVAERuntime, make_prior,
+                                                  make_vqvae, restore_opt,
                                                   save_model_checkpoint)
 from jukebox_tpu_torch.ops.core import fold_seed
 from jukebox_tpu_torch.utils.audio_utils import audio_preprocess
@@ -99,10 +109,48 @@ def make_prior_train_step(runtime, hps, lr_fn, mark=None):
     return step
 
 
+def make_vqvae_train_step(runtime, hps, lr_fn):
+    """step(opt_state, (x, y), seed, it, loss_scale) -> (loss, metrics) of
+    a VQ-VAE (jukebox_tpu/train.py:57): the training forward on audio x
+    [N, T, 1] (y is ignored), which updates the codebooks in place drawing
+    from a torch.Generator seeded `seed`, then gradients and the shared
+    update of the parameters and opt_state in place. The codebook update
+    stands when the step is skipped, as in the JAX package."""
+    model = runtime.model
+
+    def step(opt_state, batch, seed, it, loss_scale=1.0):
+        x, _ = batch
+        params = runtime.params
+        for p in params.values():
+            p.grad = None
+        gen = torch.Generator(device=x.device).manual_seed(int(seed))
+        _, loss, metrics = model(x, hps, loss_fn=hps.loss_fn, train=True,
+                                 gen=gen)
+        (loss * loss_scale).backward()
+        grads = {n: p.grad for n, p in params.items()}
+        gn, lr, ok = apply_update(params, grads, opt_state, hps, lr_fn, it,
+                                  loss_scale)
+        for p in params.values():
+            p.grad = None
+        return loss.detach(), dict(metrics, gn=gn, lr=lr, step_ok=ok)
+
+    return step
+
+
 def make_eval_step(runtime, hps):
-    """eval_fn(x, y) -> (loss, metrics): the prior's loss on audio x
-    [N, T, 1] and labels y (or None) without gradients
-    (jukebox_tpu/train.py:179)."""
+    """eval_fn(x, y) -> (loss, metrics) without gradients
+    (jukebox_tpu/train.py:179): the prior's loss on audio x [N, T, 1] and
+    labels y (or None), or a VQ-VAE's loss on x with its codebooks left as
+    they are."""
+    if not hps.prior:
+        model = runtime.model
+
+        @torch.no_grad()
+        def eval_vqvae(x, y):
+            _, loss, metrics = model(x, hps, loss_fn=hps.loss_fn, train=False)
+            return loss, metrics
+
+        return eval_vqvae
     prior, vqvae = runtime.model, runtime.vqvae
 
     @torch.no_grad()
@@ -153,15 +201,26 @@ def evaluate(eval_fn, runtime, data_processor, hps):
     return {k: averages.avg(k) for k in averages.sum}
 
 
-def save_latest(runtime, opt_state, ema, hps, it):
-    """checkpoint_latest.jkb under {local_logdir}/{name}, with the EMA
-    weights as params when there is an EMA (jukebox_tpu/train.py:278-289).
-    Returns (path, seconds)."""
+def save_step(runtime, opt_state, ema, hps, it):
+    """checkpoint_latest.jkb (a prior) or checkpoint_step_<it>.jkb (a
+    VQ-VAE) under {local_logdir}/{name}, with the EMA weights as params
+    when there is an EMA (jukebox_tpu/train.py:278-289). Returns (path,
+    seconds)."""
     t0 = time.time()
     params = ema.swap(runtime.params)[0] if ema is not None else None
-    path = save_model_checkpoint(f"{hps.local_logdir}/{hps.name}", "latest",
+    name = "latest" if hps.prior else f"step_{it}"
+    path = save_model_checkpoint(f"{hps.local_logdir}/{hps.name}", name,
                                  runtime, opt_state, it, hps, params=params)
     return path, time.time() - t0
+
+
+# the metrics of a step's line and their short names
+# (jukebox_tpu/train.py:205-210)
+PRIOR_KEYS = dict(l="loss", bpd="bpd", gn="gn", g_l="gen_loss",
+                  p_l="prime_loss")
+VQVAE_KEYS = dict(l="loss", sl="spectral_loss", rl="recons_loss",
+                  e="entropy", u="usage", uc="used_curr", gn="gn", pn="pn",
+                  dk="dk")
 
 
 def train(step_fn, runtime, opt_state, ema, data_processor, hps, epoch,
@@ -202,11 +261,13 @@ def train(step_fn, runtime, opt_state, ema, data_processor, hps, epoch,
             records.append(dict(it=it, epoch=epoch, step_ok=step_ok,
                                 wall_s=wall, **metrics))
             if hps.save and it % hps.save_iters == 1:
-                path, save_s = save_latest(runtime, opt_state, ema, hps, it)
+                path, save_s = save_step(runtime, opt_state, ema, hps, it)
                 records[-1].update(checkpoint=path, save_s=save_s)
             if it % hps.log_steps == 0:
+                keys = PRIOR_KEYS if hps.prior else VQVAE_KEYS
                 print(f"step {it}: " + " ".join(
-                    f"{k} {v:.6g}" for k, v in metrics.items())
+                    f"{pk} {metrics[k]:.6g}" for pk, k in keys.items()
+                    if k in metrics)
                     + f" step_ok {step_ok} wall {wall:.3f}s", flush=True)
             if hps.max_steps and it >= hps.max_steps:
                 break
@@ -216,15 +277,14 @@ def train(step_fn, runtime, opt_state, ema, data_processor, hps, epoch,
 
 
 def setup(hps="teeny", device="cuda", dataset=None, **kwargs):
-    """Everything a prior's training run needs, from hps (comma-separated
-    set names) and kwargs, on `device`: weights drawn from hps.seed, then
-    params, optimizer state and step restored from hps.restore_prior (and
-    the VQ-VAE from hps.restore_vqvae) when those name a checkpoint.
-    dataset: optional ready-made dataset for the DataProcessor (a labelled
-    subclass for labels=True). Returns a dict for `fit`."""
+    """Everything a training run needs, from hps (comma-separated set
+    names) and kwargs, on `device`: weights drawn from hps.seed, then the
+    VQ-VAE's params, codebook state (and, training it, optimizer state and
+    step) restored from hps.restore_vqvae, and a prior's from
+    hps.restore_prior, when those name a checkpoint. dataset: optional
+    ready-made dataset for the DataProcessor (a labelled subclass for
+    labels=True). Returns a dict for `fit`."""
     hps = setup_hparams(hps, kwargs)
-    if not hps.prior:
-        raise NotImplementedError("VQ-VAE training is not ported yet")
     hps.ngpus = 1
     hps.bs_sample = hps.nworkers = hps.bs
     # fp32 products at full precision, as the JAX package's HIGHEST
@@ -233,17 +293,24 @@ def setup(hps="teeny", device="cuda", dataset=None, **kwargs):
 
     data_processor = DataProcessor(hps, dataset=dataset)
     vqvae = make_vqvae(hps, device)
-    runtime = make_prior(hps, vqvae, device)
+    if hps.prior:
+        runtime = make_prior(hps, vqvae, device)
+        restore = hps.restore_prior
+        make_step = make_prior_train_step
+    else:
+        runtime = VQVAERuntime(vqvae)
+        restore = hps.restore_vqvae
+        make_step = make_vqvae_train_step
     lr_fn = make_lr_schedule(hps)
     opt_state = adam_init(runtime.params, fp16_state=hps.fp16_opt)
-    opt_state, _ = restore_opt(opt_state, hps.restore_prior, runtime.model)
+    opt_state, _ = restore_opt(opt_state, restore, runtime.model)
     ema = get_ema(runtime.params, hps)
     scalar = LossScalar(hps.fp16_loss_scale,
                         scale_factor=2.0 ** (1.0 / hps.fp16_scale_window)) \
         if hps.fp16 else None
     return dict(hps=hps, data_processor=data_processor, runtime=runtime,
                 opt_state=opt_state, ema=ema, scalar=scalar,
-                step_fn=make_prior_train_step(runtime, hps, lr_fn),
+                step_fn=make_step(runtime, hps, lr_fn),
                 eval_fn=make_eval_step(runtime, hps))
 
 
@@ -279,8 +346,8 @@ def fit(run_state):
 
 
 def run(hps="teeny", device="cuda", dataset=None, **kwargs):
-    """Fine-tune a prior: setup(hps, device, dataset, **kwargs), then
-    fit. Returns fit's dict."""
+    """Train a VQ-VAE or a prior: setup(hps, device, dataset, **kwargs),
+    then fit. Returns fit's dict."""
     return fit(setup(hps, device, dataset, **kwargs))
 
 

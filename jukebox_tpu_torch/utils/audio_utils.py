@@ -1,7 +1,7 @@
 """Host-side audio helpers of the PyTorch port (counterpart of
-jukebox_tpu/utils/audio_utils.py and the wav path of jukebox_tpu/utils/io.py):
-the dataset bandwidth statistics, channel preprocessing, and wav IO through
-the stdlib `wave` module and numpy (no scipy, no C extension).
+jukebox_tpu/utils/audio_utils.py): the dataset bandwidth statistics,
+channel preprocessing, resampling and writing wav files. Reading audio is
+utils/io.py's.
 """
 
 import math
@@ -73,47 +73,22 @@ def audio_preprocess(x, hps, gen=None):
     return x[:, :, None]
 
 
-def get_duration_sec(file):
-    """Duration of a wav file in seconds, from its header."""
-    with wave.open(file, "rb") as w:
-        return w.getnframes() / w.getframerate()
+def resample(x, from_sr, to_sr):
+    """x [C, T] from rate from_sr to to_sr by scipy's polyphase
+    resample_poly (jukebox_tpu/utils/audio_utils.py _resample), fp32."""
+    from scipy.signal import resample_poly
+    g = math.gcd(int(from_sr), int(to_sr))
+    return resample_poly(x, int(to_sr) // g, int(from_sr) // g,
+                         axis=-1).astype(np.float32)
 
 
-def load_audio(file, sr, offset, duration, mono=False):
-    """`duration` samples of a wav file at `offset` (both in samples at sr),
-    as float32 [2, duration] (mono duplicated to stereo, zero-padded past
-    the end), and sr (utils/io.py load_audio); with mono=True the mean of
-    the file's channels, [1, duration] (the prompt read of
-    jukebox_tpu/utils/audio_utils.py load_audio). The file must be at sr:
-    the port does not resample."""
-    offset, duration = int(offset), int(duration)
-    with wave.open(file, "rb") as w:
-        file_sr, n_channels = w.getframerate(), w.getnchannels()
-        width = w.getsampwidth()
-        if file_sr != sr:
-            raise ValueError(f"{file} is at {file_sr} Hz, not {sr}: "
-                             f"resampling is not ported")
-        start = min(offset, w.getnframes())
-        n = min(int(math.ceil(duration)), w.getnframes() - start)
-        w.setpos(start)
-        raw = w.readframes(n)
-    if width == 2:
-        data = np.frombuffer(raw, dtype="<i2").astype(np.float32) / 32768.0
-    elif width == 4:
-        data = np.frombuffer(raw, dtype="<i4").astype(np.float32) / 2147483648.0
-    elif width == 1:
-        data = (np.frombuffer(raw, dtype=np.uint8).astype(np.float32)
-                - 128.0) / 128.0
-    else:
-        raise ValueError(f"Unsupported sample width {width} in {file}")
-    sig = data.reshape(-1, n_channels).T
-    if sig.shape[1] < duration:
-        sig = np.pad(sig, ((0, 0), (0, duration - sig.shape[1])))
-    if mono:
-        return np.mean(sig, axis=0, keepdims=True), sr
-    if sig.shape[0] == 1:
-        sig = np.concatenate([sig, sig], axis=0)
-    return sig[:2], sr
+def resample_reach(from_sr, to_sr):
+    """Input frames past an output sample's place that resample reads for
+    it: resample_poly's filter half-length, 10 * max(up, down) taps at the
+    upsampled rate, in input frames, plus one."""
+    g = math.gcd(int(from_sr), int(to_sr))
+    up, down = int(to_sr) // g, int(from_sr) // g
+    return -(-10 * max(up, down) // up) + 1
 
 
 def save_wav(fname, aud, sr):

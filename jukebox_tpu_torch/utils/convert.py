@@ -58,7 +58,10 @@ def named_leaves(module, tree):
     like `module`'s parameters (params, Adam moments, per-tensor scales, an
     EMA shadow). Leaves keep their dtype; a missing or leftover leaf raises
     KeyError, a shape that does not fit ValueError."""
-    leaves = flatten_tree(tree)
+    return _named(module, flatten_tree(tree))
+
+
+def _named(module, leaves):
     params = dict(module.named_parameters())
     missing = sorted(set(params) - set(leaves))
     extra = sorted(set(leaves) - set(params))
@@ -99,9 +102,20 @@ def named_to_tree(module, named):
 @torch.no_grad()
 def from_jax_params(module, tree):
     """Copy a JAX param tree into `module`'s parameters (on their device and
-    dtype). Returns the module."""
+    dtype). Leaves that name a buffer of the module (a codebook's state, see
+    vqvae_tree) go into that buffer, in its dtype and shape. Returns the
+    module."""
     params = dict(module.named_parameters())
-    for name, a in named_leaves(module, tree).items():
+    buffers = dict(module.named_buffers())
+    leaves = flatten_tree(tree)
+    for name in [n for n in leaves if n in buffers]:
+        a = np.asarray(leaves.pop(name))
+        buf = buffers[name]
+        if a.size != buf.numel() or (a.ndim and a.shape != buf.shape):
+            raise ValueError(f"{name}: tree shape {a.shape} vs "
+                             f"{tuple(buf.shape)}")
+        buf.copy_(torch.from_numpy(np.array(a)).reshape(buf.shape))
+    for name, a in _named(module, leaves).items():
         params[name].copy_(torch.from_numpy(a.astype(np.float32)))
     return module
 
@@ -147,8 +161,25 @@ def _lists(node):
 
 
 def vqvae_tree(params, state):
-    """The JAX VQ-VAE as one tree for the port's VQVAE: the encoders' and
-    decoders' params and each level's codebook from the bottleneck state."""
+    """The JAX VQ-VAE as one tree for the port's VQVAE (from_jax_params):
+    the encoders' and decoders' params, and each level's codebook state as
+    the state has it (k alone, or k, k_sum, k_elem, init and threshold),
+    bound for the bottleneck's buffers."""
     return {"encoders": params["encoders"], "decoders": params["decoders"],
-            "bottleneck": {"level_blocks": [{"k": s["k"]}
+            "bottleneck": {"level_blocks": [dict(s)
                                             for s in state["level_blocks"]]}}
+
+
+STATE_KEYS = ("k", "k_sum", "k_elem", "init", "threshold")
+
+
+def vqvae_state(model):
+    """The VQ-VAE's codebook state in the JAX layout, {"level_blocks":
+    [{k, k_sum, k_elem, init, threshold}]} of numpy arrays ({} per level
+    without a bottleneck)."""
+    blocks = model.bottleneck.level_blocks
+    if not len(blocks):
+        return {"level_blocks": [{} for _ in range(model.levels)]}
+    return {"level_blocks": [
+        {key: getattr(blk, key).detach().cpu().numpy() for key in STATE_KEYS}
+        for blk in blocks]}

@@ -10,6 +10,7 @@ save at step 1 and the run restored from that checkpoint."""
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -393,3 +394,127 @@ def test_context_and_alignment_accounting(tmp_path, monkeypatch):
     assert out["gap"] == 0.0 and out["fault_gap"] > chip_smoke.ALIGN_TOL
     assert out["launches"] == {"flash_fwd": 0, "layer_norm_fwd": 0}  # CPU
     assert out["expected"] == {"flash_fwd": 1, "layer_norm_fwd": 96}
+
+
+# -- phase 8: the Quick start -------------------------------------------------
+
+def _dataset_items(seconds, n_files, hps):
+    """Items of the dataset over n_files songs of `seconds` each: (all,
+    train, test)."""
+    n = int(n_files * int(seconds * hps.sr) // hps.sample_length)
+    train = int(n * hps.train_test_split)
+    return n, train, n - train
+
+
+def test_quick_start_plan():
+    """Phase 8's sizes follow from the presets: each song holds the prior's
+    2097152-sample window, the prior's dataset a training batch of 4 and a
+    test item (an epoch is one step), the VQ-VAE's six steps fit in one
+    epoch; the prior's expected launches: no flash (attn_order 2 has no
+    dense layer), its 96 LayerNorms twice in the forward under c_res, once
+    in the backward and once per test batch, one Adam update a step."""
+    vq = chip_smoke.quick_start_hps("vqvae", 0)
+    pr = chip_smoke.quick_start_hps("prior", 0)
+    assert (vq.sr, vq.sample_length, vq.bs, vq.levels) == (22050, 262144, 4,
+                                                           2)
+    assert (pr.sample_length, pr.n_ctx, pr.prior_depth, pr.prior_width,
+            pr.c_res, pr.attn_order) == (2097152, 8192, 48, 1024, 1, 2)
+    assert pr.sample_length // (2 ** 5 * 2 ** 3) == pr.n_ctx
+    seconds = chip_smoke.song_seconds(pr)
+    assert seconds == 239 and seconds * pr.sr >= pr.sample_length
+    assert _dataset_items(seconds, 2, pr) == (5, 4, 1)
+    n, train, test = _dataset_items(seconds, 2, vq)
+    assert (n, train) == (40, 36) and train // vq.bs >= chip_smoke.VQ_STEPS
+    assert chip_smoke.expected_quick_start(pr, 3, 3) == {
+        "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+        "layer_norm_fwd": 2 * 96 * 3 + 96 * 3, "layer_norm_bwd": 96 * 3,
+        "adam_update": 3}
+    big = setup_hparams("vqvae", dict(chip_smoke.BIG_VQ_KW))
+    assert (big.levels, tuple(big.downs_t), tuple(big.hvqvae_multipliers),
+            big.l_bins, big.loss_fn, big.restore_vqvae) == (
+        3, (3, 2, 2), (2, 1, 1), 2048, "lmix", "")
+    # the bottom level's rows against its codes: a 1 GiB distance matrix
+    # whole, cut into row chunks of at most 2**26 elements
+    rows = big.sample_length // 8 * big.bs
+    assert rows == 131072
+    from jukebox_tpu_torch.models import bottleneck as bn
+    chunks = bn._chunks(rows, big.l_bins)
+    assert len(chunks) == 4 and chunks[-1][1] == rows
+
+
+# phase 8 cut to toy size: the same presets, narrower, shorter and at
+# 8 kHz from songs at 16 kHz; the prior 3 layers over 16 codes
+QS_VQ = dict(sample_length=2048, sr=8000, width=8, depth=1, emb_width=16,
+             l_bins=32, bs=2)
+QS_PRIOR = dict(QS_VQ, sample_length=16 * 256, n_ctx=16, prior_width=32,
+                prior_depth=3, blocks=4)
+
+
+def test_quick_start_rehearsal(tmp_path, monkeypatch):
+    """Phase 8's functions on the CPU at toy size: the plain calls of the
+    Adam, LayerNorm and flash kernels equal the expected launches of (a),
+    (b)'s step and (c)'s run (before its kernel checks); the checkpoint
+    restores bit for bit and with the fine-tuning reset; (b)'s Adam check
+    and (c)'s LayerNorm (at the run's rows) and Adam (on the prior's
+    tensors) checks hold the plain versions to themselves; (c) writes
+    checkpoint_latest.jkb at step 1."""
+    from jukebox_tpu_torch.ops import adam as ad
+    from jukebox_tpu_torch.ops import flash_attention as fa
+    from jukebox_tpu_torch.ops import layer_norm as ln
+    counters = [_count_plain(monkeypatch, m, m.LAUNCHES) for m in (ad, ln, fa)]
+
+    def counts():
+        return {k: v for c in counters for k, v in c.items()}
+
+    def reset():
+        for c in counters:
+            for k in c:
+                c[k] = 0
+    songs = tmp_path / "songs"
+    songs.mkdir()
+    seconds = chip_smoke.song_seconds(chip_smoke.quick_start_hps(
+        "prior", 0, **QS_PRIOR))
+    assert seconds == 2
+    paths = chip_smoke.write_songs(str(songs), seconds, 16000, 0)
+    from jukebox_tpu_torch.utils import wavio
+    assert [wavio.probe(p)["format"] for p in paths] == [3, 1]
+    a = chip_smoke.run_vq_quick_start(0, "cpu", str(songs),
+                                      str(tmp_path / "logs"), **QS_VQ)
+    assert [r["it"] for r in a["records"]] == list(range(1, 7))
+    assert counts() == a["expected"] and a["expected"]["adam_update"] == 6
+    assert a["launches"] == dict.fromkeys(counts(), 0)  # CPU: no kernel
+    assert a["checkpoint"].endswith("small_vqvae/checkpoint_step_1.jkb")
+    assert chip_smoke.check_vq_restore(0, "cpu", a["checkpoint"],
+                                       **QS_VQ) == 1
+    reset()
+    b = chip_smoke.check_vqvae_step(
+        0, "cpu", str(songs), torch.Generator().manual_seed(0),
+        **dict(QS_VQ, l_bins=64))
+    assert b["adam"] == {"max_abs_err": 0.0}
+    # the Adam check's two runs of 3 updates (the plain version, then the
+    # wrapper, which runs it on the CPU), and the step's one update
+    assert counts()["adam_update"] == 2 * 3 + 1 and np.isfinite(b["loss"])
+    reset()
+    before_checks, ln_shapes = {}, []
+    check_layer_norm = chip_smoke.check_layer_norm
+
+    def counted_check(shapes, *args, **kw):
+        before_checks.update(counts())
+        ln_shapes.extend(shapes)
+        return check_layer_norm(shapes, *args, **kw)
+    monkeypatch.setattr(chip_smoke, "check_layer_norm", counted_check)
+    c = chip_smoke.run_prior_quick_start(
+        0, "cpu", str(songs), a["checkpoint"], str(tmp_path / "logs"),
+        torch.Generator().manual_seed(0), **QS_PRIOR)
+    assert [r["it"] for r in c["records"]] == [1, 2, 3]
+    assert c["n_flash_layers"] == 0 and c["n_depth"] == 3
+    # one epoch of 3 steps, one test batch
+    assert c["expected"] == chip_smoke.expected_quick_start(
+        chip_smoke.quick_start_hps("prior", 0, **QS_PRIOR), 3, 1)
+    assert before_checks == c["expected"]
+    assert c["checkpoint"].endswith("small_prior/checkpoint_latest.jkb")
+    assert ln_shapes == [(2 * 16, 32, torch.bfloat16)]
+    assert c["rows"] == dict.fromkeys(
+        ("layer_norm_fwd", "layer_norm_bwd", "adam_update"),
+        {"max_abs_err": 0.0})
+    assert len(list(songs.glob("*.wav.dur"))) == 2  # durations cached

@@ -1,12 +1,11 @@
-"""The port's wav dataset, loader and audio helpers
-(jukebox_tpu_torch/data, utils/audio_utils.py) against jukebox_tpu's on the
-same wav files written to tmp_path. The port finds the files JAX's
-dataset finds and refuses a directory holding audio other than wav, which
-it cannot read yet. Host-side integer and numpy float64
-arithmetic on both sides: item windows, chunks, labels, loader batches and
-the bandwidth statistics must be equal (bandwidth to 1e-12 relative: the
-same float64 sums). aug_shift draws from the same (seed, epoch, item)
-streams, so the windows agree for every epoch."""
+"""The port's dataset, loader and audio helpers (jukebox_tpu_torch/data,
+utils/audio_utils.py) against jukebox_tpu's on the same wav files written
+to tmp_path (and a flac beside a wav). The port finds and reads the files
+JAX's dataset finds. Host-side integer and numpy float64 arithmetic on both
+sides: item windows, chunks, labels, loader batches and the bandwidth
+statistics must be equal (bandwidth to 1e-12 relative: the same float64
+sums). aug_shift draws from the same (seed, epoch, item) streams, so the
+windows agree for every epoch."""
 
 import threading
 import wave
@@ -73,19 +72,36 @@ def test_dataset_windows_chunks_labels(wav_dir):
             np.testing.assert_array_equal(ty, jy)
 
 
-def test_refuses_audio_it_cannot_read(tmp_path):
-    """JAX's dataset lists a flac beside a wav; the port's, which reads wav
-    alone, refuses the directory and names the flac."""
+def test_reads_wav_beside_flac_as_jax(tmp_path):
+    """A flac beside a wav: both packages' datasets list and read the same
+    files, with equal windows; a file that no decoder reads (a flac that is
+    not one) raises and names the file."""
     _write_wavs(tmp_path, seconds=(2.0,))
+    from jukebox_tpu.utils import avio as javio
+    if not javio.available():
+        pytest.skip("the ffmpeg libraries are not installed")
+    t = np.arange(int(2.5 * SR)) / SR
+    sig = np.stack([0.4 * np.sin(2 * np.pi * 330 * t),
+                    0.3 * np.sin(2 * np.pi * 550 * t)]).astype(np.float32)
     flac = tmp_path / "sub" / "song.FLAC"
     flac.parent.mkdir()
-    flac.write_bytes(b"fLaC")
+    assert javio.encode(str(flac.with_suffix(".flac")), sig, SR)
+    flac.with_suffix(".flac").rename(flac)
     assert jfd.find_files(str(tmp_path)) == [str(tmp_path / "f0.wav"),
                                              str(flac)]
     assert tfd.find_files(str(tmp_path)) == jfd.find_files(str(tmp_path))
-    with pytest.raises(ValueError, match=r"1 of 2 .*sub/song\.FLAC"):
-        tfd.FilesAudioDataset(Hyperparams(**dict(
-            HPS, audio_files_dir=str(tmp_path), labels=False)))
+    kw = dict(HPS, audio_files_dir=str(tmp_path), labels=False)
+    jd = jfd.FilesAudioDataset(JHyperparams(**kw))
+    td = tfd.FilesAudioDataset(Hyperparams(**kw))
+    assert td.files == jd.files and td.durations == jd.durations
+    assert len(td) == len(jd) >= 4
+    for item in range(len(td)):
+        assert td.get_index_offset(item) == jd.get_index_offset(item)
+        np.testing.assert_array_equal(td[item], jd[item])
+    bad = tmp_path / "sub" / "broken.flac"
+    bad.write_bytes(b"fLaC")
+    with pytest.raises(Exception, match="broken.flac"):
+        tfd.FilesAudioDataset(Hyperparams(**kw))
 
 
 def test_wav_only_directory_matches_jax(wav_dir):

@@ -63,8 +63,9 @@ def jax_vqvae_runtime(tvq):
                    use_bottleneck=hps.use_bottleneck, block=block)
     tree = jax.tree_util.tree_map(jnp.asarray, to_jax_params(tvq))
     state = model.init_state()
-    state["level_blocks"] = [dict(s, k=b["k"]) for s, b in zip(
-        state["level_blocks"], tree["bottleneck"]["level_blocks"])]
+    state["level_blocks"] = [dict(s, k=jnp.asarray(b.k.numpy())) for s, b in
+                             zip(state["level_blocks"],
+                                 tvq.bottleneck.level_blocks)]
     return jmm.VQVAERuntime(model, {"encoders": tree["encoders"],
                                     "decoders": tree["decoders"]}, state)
 
