@@ -45,9 +45,13 @@ Phases, each printing timestamped lines:
              autograd backward)
   4 cascade  the 1b_lyrics ancestral cascade (labels -> top codes -> two
              upsamplers -> 44.1 kHz wav, each level's html with the top's
-             lyric alignment) from random weights drawn from --seed, at the
-             sample CLI's hop fractions 0.5, 0.5, 0.125 (level 0: 7
-             windows, 6 after 4096 context tokens); checks codes, audio,
+             lyric alignment) from random weights drawn from --seed (the
+             priors' dense weights rounded to fp16 values, as upstream's
+             fp16 files hold them), at the sample CLI's hop fractions 0.5,
+             0.5, 0.125 (level 0: 7 windows, 6 after 4096 context tokens),
+             with the sequential scheduler and the inline finalize
+             (pipeline_cascade=False, JUKEBOX_ASYNC_FINALIZE=0), the
+             reference for phase 4c; checks codes, audio,
              every level's wav, html and alignment PNG / JSON, and that
              every decode step of every prior went through the kernels, and
              every LayerNorm of the prefill (lyrics and context), the
@@ -56,10 +60,29 @@ Phases, each printing timestamped lines:
              summing to at most 1, against the plain path (flash and
              LayerNorm plain) within ALIGN_TOL, and a planted fault (the
              next head) refused
+  4c upstream phase 4's four models written as upstream's .pth.tar files
+             (5b/vqvae, 5b/prior_level_0, 5b/prior_level_1,
+             1b_lyrics/prior_level_2, at the presets' paths under a
+             temporary HOME's ~/.cache/jukebox/models; hps pickled as
+             jukebox.hparams.Hyperparams from a module that exists only
+             while writing, the priors' dense weights in fp16, the top's
+             keys under "module."), restored by make_model("1b_lyrics")
+             through the presets' own restore paths: every parameter, the
+             codebooks and the steps bit for bit; each file's bytes, save
+             and restore seconds and the host's peak RSS; then phase 4's
+             cascade again with the default scheduler (pipelined, finalize
+             and staging on worker threads): codes equal to phase 4's at
+             every level, phase 4's checks, stage seconds beside phase 4's
   4b primed  primed_sample from ~3 s of phase 4's first wav (load_prompts)
-             at the same length: every level's first window carries the
-             prompt's codes as context; the prompt's codes kept at every
-             level, and phase 4's checks
+             at the same length, with phase 4's top and VQ-VAE, upsamplers
+             of 4 layers, and the default scheduler: every level's
+             first window carries the prompt's codes as context; the
+             prompt's codes kept at every level, and phase 4's checks
+  4d golden  the golden dump of 1b_lyrics at full width from random weights
+             (make_models.save_outputs, as `python -m
+             jukebox_tpu_torch.models.make_models 1b_lyrics` writes it):
+             the codes and decodes of fixed audio at every level, the top's
+             fp32 teacher-forced logits; shapes and finite values
   2e int8    gemv_int8, ring_attn_int8 (every ring pattern) and
              cross_attn_decode (f6, bf16 and int8 encoder K/V) against their
              plain versions at the 5b_lyrics top's shapes (S 4800, A 1200, 8
@@ -78,7 +101,9 @@ Phases, each printing timestamped lines:
              in the int8 mode (int8 weights and ring caches in every
              prior, the context prefill writing int8 rows), lyric encoder
              -> 79-layer top -> two upsamplers -> wav and html with the
-             top's alignment (layer 68, f6, head 2), with phase 4's checks
+             top's alignment (layer 68, f6, head 2; deferred: the top's
+             params exceed 6e9 bytes), with the default scheduler and phase
+             4's checks
              and the launch counts of every decode kernel (f6 included) and
              of the LayerNorm kernels; then prior_5b at full width, one
              decode step kernel path against plain path
@@ -136,11 +161,14 @@ import math
 import multiprocessing
 import os
 import pickle
+import re
 import shutil
 import subprocess
+import sys
 import tempfile
 import threading
 import time
+import types
 import wave
 
 import numpy as np
@@ -153,17 +181,20 @@ from jukebox_tpu_torch import save_html
 from jukebox_tpu_torch import train as train_mod
 from jukebox_tpu_torch.data.files_dataset import (FilesAudioDataset,
                                                   FixedMetadataDataset)
-from jukebox_tpu_torch.hparams import Hyperparams, setup_hparams
-from jukebox_tpu_torch.models.make_models import (LN_KEYS, VQVAERuntime,
-                                                  make_model, make_prior,
-                                                  make_vqvae)
+from jukebox_tpu_torch.hparams import REMOTE_PREFIX, Hyperparams, setup_hparams
+from jukebox_tpu_torch.models import make_models as mm
+from jukebox_tpu_torch.models.encdec import EncoderConvBlock
+from jukebox_tpu_torch.models.make_models import (LN_KEYS, MODELS,
+                                                  VQVAERuntime, make_model,
+                                                  make_prior, make_vqvae)
 from jukebox_tpu_torch.models.transformer import ATTN_ORDERS
 from jukebox_tpu_torch.ops import _build
 from jukebox_tpu_torch.ops import adam as ad
 from jukebox_tpu_torch.ops import decode_stack as ds
 from jukebox_tpu_torch.ops import flash_attention as fa
 from jukebox_tpu_torch.ops import layer_norm as ln
-from jukebox_tpu_torch.ops.core import quantize_dense
+from jukebox_tpu_torch.ops.core import (Conv1d, ConvTranspose1d, Dense,
+                                        LayerNorm, Table, quantize_dense)
 from jukebox_tpu_torch.utils import avio, wavio
 from jukebox_tpu_torch.utils.audio_utils import (audio_preprocess,
                                                  calculate_bandwidth)
@@ -185,8 +216,9 @@ N_SAMPLES, SAMPLE_LENGTH, UPS_DEPTH, TEMP = 4, 262144, 8, 0.99
 # level 0 samples 7 windows, 6 of them after 4096 context tokens
 HOPS = (0.5, 0.5, 0.125)
 # phase 4b's prompt: about 3 s of phase 4's first wav, rounded down to a
-# multiple of the top's raw_to_tokens
-PROMPT_SECONDS = 3.0
+# multiple of the top's raw_to_tokens; its upsamplers run 4 layers (phase
+# 4c's second 1b cascade took the smoke past ~850 s with 8)
+PROMPT_SECONDS, PRIMED_UPS_DEPTH = 3.0, 4
 GEMV_BATCHES = (1, 3, 16)    # phases 2, 2e: the GEMVs also at these batches
 # flash kernels against their plain versions: fa.agreement, an elementwise
 # bound of two bf16 steps of |plain| plus AGREE_ATOL of the row's RMS; a
@@ -1701,14 +1733,20 @@ def check_alignment(priors, hps, sampling_kwargs, zs, labels):
     return rep
 
 
-def run_cascade(priors, hps, sampling_kwargs, int8=False, prompt=None):
+def run_cascade(priors, hps, sampling_kwargs, int8=False, prompt=None,
+                sequential=False):
     """ancestral_sample (or, given a prompt [n, T, 1], primed_sample) +
     checks; int8=True samples in the int8 mode (JUKEBOX_INT8_DECODE=1:
-    int8 weights and ring caches in every prior). Returns a report dict:
-    the decode kernels' launches against their expected counts (launches,
-    expected), the LayerNorm and flash kernels' (ln_launches, ln_expected,
-    fa_launches, fa_expected: the sampling's prefill and conditioners, and
-    the alignment's forward) and the alignment's check (align)."""
+    int8 weights and ring caches in every prior); sequential=True with the
+    sequential scheduler and the inline finalize (pipeline_cascade=False,
+    JUKEBOX_ASYNC_FINALIZE=0), else with the default ones (pipelined,
+    finalize and staging on worker threads). Returns a report dict: the
+    codes (zs), the decode kernels' launches against their expected counts
+    (launches, expected), the LayerNorm and flash kernels' (ln_launches,
+    ln_expected, fa_launches, fa_expected: the sampling's prefill and
+    conditioners, and the alignment's forward, counted across threads),
+    the stage seconds (stages) and the alignment's check (align). No
+    thread may outlive the cascade."""
     metas = [dict(artist="unknown", genre="unknown", lyrics=LYRICS,
                   total_length=hps.sample_length, offset=0)] * hps.n_samples
     labels = [p.labeller.get_batch_labels(metas) for p in priors]
@@ -1739,9 +1777,15 @@ def run_cascade(priors, hps, sampling_kwargs, int8=False, prompt=None):
     for mod in (ds, ln, fa):
         mod.reset_launches()
     env = {k: os.environ.pop(k, None)
-           for k in ("JUKEBOX_INT8_DECODE", "JUKEBOX_INT8_CACHE")}
+           for k in ("JUKEBOX_INT8_DECODE", "JUKEBOX_INT8_CACHE",
+                     "JUKEBOX_PIPELINE", "JUKEBOX_ASYNC_FINALIZE",
+                     "JUKEBOX_ASYNC_STAGE", "JUKEBOX_ALIGN_DEFER")}
     if int8:
         os.environ["JUKEBOX_INT8_DECODE"] = "1"
+    if sequential:
+        os.environ["JUKEBOX_ASYNC_FINALIZE"] = "0"
+        hps = Hyperparams(dict(hps, pipeline_cascade=False))
+    threads = set(threading.enumerate())
     t0 = time.time()
     try:
         if prompt is None:
@@ -1758,7 +1802,9 @@ def run_cascade(priors, hps, sampling_kwargs, int8=False, prompt=None):
             if v is not None:
                 os.environ[k] = v
     wall = time.time() - t0
-    report = dict(wall_s=wall, steps=steps, expected=expected,
+    _outlived(threads)
+    report = dict(wall_s=wall, steps=steps, expected=expected, zs=zs,
+                  scheduler="sequential" if sequential else "pipelined",
                   launches=dict(ds.LAUNCHES), ln_launches=dict(ln.LAUNCHES),
                   ln_expected=ln_expected, fa_launches=dict(fa.LAUNCHES),
                   fa_expected=fa_expected, prompt=have, levels={},
@@ -1811,6 +1857,305 @@ def run_cascade(priors, hps, sampling_kwargs, int8=False, prompt=None):
         report["align"] = check_alignment(priors, hps, sampling_kwargs, zs,
                                           labels)
     return report
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: phase 4's models through upstream's .pth.tar files
+# ---------------------------------------------------------------------------
+
+def round_dense_fp16(priors):
+    """Round every prior's dense weights (upstream's Conv1D.w, which its
+    fp16_params models hold in fp16) to fp16 values in place, so that phase
+    4c's files hold them in fp16 and restore them bit for bit. Returns the
+    number of tensors."""
+    n = 0
+    with torch.no_grad():
+        for prior in priors:
+            for mod in prior.model.modules():
+                if isinstance(mod, Dense):
+                    mod.w.copy_(mod.w.to(torch.float16).to(mod.w.dtype))
+                    n += 1
+    return n
+
+
+def upstream_key(name, modules, layout="model"):
+    """Upstream's state-dict key of the port's parameter `name`, with the
+    module layout of upstream's torch code: a conv block is a numbered
+    Sequential (encoder: model.{i} = (strided conv, resnet), then
+    model.{down_t} the projection; decoder: model.0 the projection, then
+    model.{1 + i} = (resnet, transposed conv)), a resnet block is
+    {layout}.{j} = Sequential(ReLU, conv, ReLU, conv 1x1) (layout "model",
+    or "blocks" when trained with per-block checkpointing), the
+    transformer's layers are _attn_mods.{d}, convs and LayerNorms name
+    their tensors weight / bias. Returns (key, transpose): x_out and
+    prime_x_out are torch Linear layers, (out, in)."""
+    path, leaf = name.rsplit(".", 1) if "." in name else ("", name)
+    owner = modules[path]
+    if path.endswith(".proj"):
+        block = modules[path[:-len(".proj")]]
+        path = path[:-len("proj")] + (
+            f"model.{block.down_t}" if isinstance(block, EncoderConvBlock)
+            else "model.0")
+    for pat, rep in (
+            (r"\.downs\.(\d+)\.conv_down$", r".model.\1.0"),
+            (r"\.downs\.(\d+)\.resnet\.", r".model.\1.1."),
+            (r"\.ups\.(\d+)\.conv_up$",
+             lambda m: f".model.{1 + int(m.group(1))}.1"),
+            (r"\.ups\.(\d+)\.resnet\.",
+             lambda m: f".model.{1 + int(m.group(1))}.0."),
+            (r"\.blocks\.(\d+)\.conv_dil$", rf".{layout}.\1.model.1"),
+            (r"\.blocks\.(\d+)\.conv_1x1$", rf".{layout}.\1.model.3"),
+            (r"\.transformer\.blocks\.", ".transformer._attn_mods.")):
+        path = re.sub(pat, rep, path)
+    transpose = False
+    if isinstance(owner, (Conv1d, ConvTranspose1d)):
+        leaf = {"w": "weight", "b": "bias"}[leaf]
+    elif isinstance(owner, LayerNorm):
+        leaf = {"g": "weight", "b": "bias"}[leaf]
+    elif isinstance(owner, Table) and leaf == "w":
+        leaf, transpose = "weight", True
+    return (f"{path}.{leaf}" if path else leaf), transpose
+
+
+def upstream_state_dict(model, fp16=False, layout="model"):
+    """The state dict upstream's torch modules would hold for the port's
+    `model` (a VQVAE or a SimplePrior), on the CPU, in fp32, with the dense
+    weights (upstream's Conv1D.w) in fp16 under fp16, and a VQ-VAE's
+    codebooks as bottleneck.level_blocks.{level}.k."""
+    modules = dict(model.named_modules())
+    sd = {}
+    for name, p in model.named_parameters():
+        key, transpose = upstream_key(name, modules, layout)
+        t = p.detach().t() if transpose else p.detach()
+        half = fp16 and isinstance(modules[name.rsplit(".", 1)[0]], Dense) \
+            and name.endswith(".w")
+        sd[key] = t.to("cpu", torch.float16 if half else torch.float32,
+                       copy=True).contiguous()
+    if hasattr(model, "bottleneck"):
+        for level, blk in enumerate(model.bottleneck.level_blocks):
+            sd[f"bottleneck.level_blocks.{level}.k"] = blk.k.detach().to(
+                "cpu", torch.float32, copy=True)
+    return sd
+
+
+def save_upstream(path, model, hps, step, fp16=False, layout="model",
+                  prefix=""):
+    """Write `model` as upstream's save_checkpoint does: {"hps": an object
+    of class jukebox.hparams.Hyperparams (a module that exists only while
+    writing), "model": its state dict (keys under `prefix`, e.g. "module."),
+    "opt": None, "step": step}. Returns the state dict's dtypes counted."""
+    sd = {prefix + k: v for k, v in
+          upstream_state_dict(model, fp16, layout).items()}
+    pkg, mod = types.ModuleType("jukebox"), types.ModuleType("jukebox.hparams")
+    cls = type("Hyperparams", (dict,), {"__module__": "jukebox.hparams"})
+    mod.Hyperparams, pkg.hparams = cls, mod
+    saved = {k: sys.modules.get(k) for k in ("jukebox", "jukebox.hparams")}
+    sys.modules.update({"jukebox": pkg, "jukebox.hparams": mod})
+    try:
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        torch.save(dict(hps=cls(dict(hps)), model=sd, opt=None, step=step),
+                   path)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+    dtypes = {}
+    for v in sd.values():
+        dtypes[str(v.dtype)] = dtypes.get(str(v.dtype), 0) + 1
+    return dtypes
+
+
+def _rss_gb():
+    """This process's resident set (VmRSS of /proc/self/status) in GB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    raise RuntimeError("/proc/self/status has no VmRSS")
+
+
+class RssPeak:
+    """The largest VmRSS of this process (GB) inside a with block, read
+    from /proc/self/status every `every` seconds by a thread that ends
+    with the block (a sampled peak: a rise shorter than the period can be
+    missed)."""
+
+    def __init__(self, every=0.002):
+        self.every, self.peak = every, _rss_gb()
+        self._stop = threading.Event()
+
+    def _poll(self):
+        while not self._stop.wait(self.every):
+            self.peak = max(self.peak, _rss_gb())
+
+    def __enter__(self):
+        self._thread = threading.Thread(target=self._poll, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, _rss_gb())
+
+
+def assert_same_model(got, want, what):
+    """Every parameter (name, dtype, bits) and buffer of `got` equals
+    `want`'s, but a VQ-VAE's codebook state: k equal, and the EMA state
+    restore_state(k) sets (k_sum = k, k_elem 1, init, threshold 1)."""
+    a, b = dict(got.named_parameters()), dict(want.named_parameters())
+    if list(a) != list(b):
+        raise AssertionError(f"{what}: parameters differ")
+    for n in a:
+        if a[n].dtype != b[n].dtype or not torch.equal(a[n], b[n]):
+            raise AssertionError(f"{what}: {n} not restored bit for bit "
+                                 f"({a[n].dtype} vs {b[n].dtype})")
+    if hasattr(got, "bottleneck"):
+        for level, (x, y) in enumerate(zip(got.bottleneck.level_blocks,
+                                           want.bottleneck.level_blocks)):
+            ok = (torch.equal(x.k, y.k) and torch.equal(x.k_sum, x.k)
+                  and bool((x.k_elem == 1).all()) and bool(x.init)
+                  and float(x.threshold) == 1.0)
+            if not ok:
+                raise AssertionError(f"{what}: codebook {level} not restored")
+    return len(a)
+
+
+def run_upstream(vqvae, priors, hps4, rep4, seed, device):
+    """Phase 4c: phase 4's four models written as upstream's .pth.tar files
+    (5b/vqvae, 5b/prior_level_0, 5b/prior_level_1,
+    1b_lyrics/prior_level_2: the presets' own paths under a temporary
+    HOME's ~/.cache/jukebox/models), the priors' dense weights in fp16
+    and the rest in fp32, the top's keys under "module."; restored by
+    make_model("1b_lyrics") through resolve_restore (its params, codebooks
+    and steps checked bit for bit against phase 4's), then the same cascade
+    at phase 4's seed with the default scheduler: pipelined, finalize and
+    staging on worker threads. Its codes must equal phase 4's at every
+    level. Returns the cascade's report with the files' (files)."""
+    home = tempfile.mkdtemp(prefix="jukebox_smoke_home_")
+    vq_name, *prior_names = MODELS["1b_lyrics"]
+    plan = [(vq_name, setup_hparams(vq_name, {}).restore_vqvae, vqvae)] + [
+        (n, setup_hparams(n, {}).restore_prior, p.model)
+        for n, p in zip(prior_names, priors)]
+    files = []
+    try:
+        for i, (name, remote, model) in enumerate(plan):
+            path = os.path.join(home, ".cache", remote[len(REMOTE_PREFIX):])
+            t = time.time()
+            dtypes = save_upstream(
+                path, model, setup_hparams(name, {}), step=100 + i,
+                fp16=i > 0, prefix="module." if i == len(plan) - 1 else "")
+            files.append(dict(path=remote[len(REMOTE_PREFIX):],
+                              bytes=os.path.getsize(path),
+                              save_s=time.time() - t, dtypes=dtypes))
+        hps = Hyperparams(n_samples=N_SAMPLES, sample_length=SAMPLE_LENGTH,
+                          sr=hps4.sr, hop_fraction=hps4.hop_fraction,
+                          seed=seed,
+                          name=tempfile.mkdtemp(prefix="jukebox_smoke_4c_"))
+        load_s, load_any = {}, mm.load_any
+
+        def timed(path, *args):
+            t = time.time()
+            out = load_any(path, *args)
+            torch.cuda.synchronize()
+            load_s[os.path.relpath(path, home)] = time.time() - t
+            return out
+        old_home = os.environ.get("HOME")
+        os.environ["HOME"] = home
+        mm.load_any = timed
+        rss0 = _rss_gb()
+        t = time.time()
+        try:
+            with RssPeak() as rss:
+                vq2, priors2 = make_model("1b_lyrics", hps, device,
+                                          prior_overrides=[
+                                              {"prior_depth": UPS_DEPTH},
+                                              {"prior_depth": UPS_DEPTH},
+                                              {}])
+                torch.cuda.synchronize()
+        finally:
+            mm.load_any = load_any
+            if old_home is None:
+                os.environ.pop("HOME", None)
+            else:
+                os.environ["HOME"] = old_home
+        make_s = time.time() - t
+        peak = rss.peak
+        n = assert_same_model(vq2, vqvae, "vqvae")
+        for level, (p2, p) in enumerate(zip(priors2, priors)):
+            n += assert_same_model(p2.model, p.model, f"prior {level}")
+        steps = [vq2.step] + [p.step for p in priors2]
+        if steps != [100 + i for i in range(len(plan))] or len(load_s) != 4:
+            raise AssertionError(f"restored steps {steps}, files read "
+                                 f"{sorted(load_s)}")
+        for f in files:
+            f["load_s"] = load_s[os.path.join(".cache", f["path"])]
+            log(f"  {f['path']}: {f['bytes']} bytes ({f['dtypes']}), saved "
+                f"in {f['save_s']:.2f}s, restored in {f['load_s']:.2f}s")
+        log(f"  make_model restored {n} tensors bit for bit in {make_s:.1f}s"
+            f"; host RSS {rss0:.2f} GB before, {peak:.2f} GB at its peak "
+            f"while restoring (sampled every 2 ms)")
+        skw = [dict(temp=TEMP, fp16=True, chunk_size=256,
+                    max_batch_size=N_SAMPLES) for _ in priors2]
+        log(f"phase 4c cascade: the restored models, the default scheduler "
+            f"(pipelined, async finalize and staging), phase 4's seed")
+        rep = run_cascade(priors2, hps, skw)
+        for level, (z, z4) in enumerate(zip(rep["zs"], rep4["zs"])):
+            if not np.array_equal(z, z4):
+                raise AssertionError(
+                    f"level {level}: the pipelined cascade's codes differ "
+                    f"from phase 4's at {int((z != z4).sum())} of {z.size}")
+        log_cascade(rep, "upstream")
+        log(f"  codes equal to phase 4's at every level; stage seconds "
+            f"(thread-seconds) {_stages(rep)} vs phase 4's {_stages(rep4)}")
+        rep.update(files=files, restore_s=make_s, host_peak_gb=peak,
+                   host_rss_gb=rss0)
+        del vq2, priors2
+        shutil.rmtree(hps.name, ignore_errors=True)
+    finally:
+        shutil.rmtree(home, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return rep
+
+
+def run_golden(seed, device):
+    """Phase 4d: the golden dump of 1b_lyrics at full width from random
+    weights drawn from `seed` (make_models.save_outputs, as `python -m
+    jukebox_tpu_torch.models.make_models 1b_lyrics` runs it): labels_v3,
+    so the top prior alone runs its fp32 teacher-forced forward over 6144
+    codes and 384 lyric tokens. Checks the dump's shapes and that every
+    value is finite."""
+    t = time.time()
+    out = tempfile.mkdtemp(prefix="jukebox_smoke_golden_")
+    try:
+        data = mm.save_outputs("1b_lyrics", device, Hyperparams(seed=seed),
+                               path=os.path.join(out, "data.jkb"))
+        size = os.path.getsize(os.path.join(out, "data.jkb"))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    n = 6144 * 128
+    levels = sorted(k for k in data if isinstance(k, int))
+    shapes = dict(zs=[z.shape for z in data["zs"]],
+                  x_ds=[x.shape for x in data["x_ds"]],
+                  x_out=data[2]["x_out"].shape, preds=data[2]["preds"].shape)
+    bins = setup_hparams("vqvae", {}).l_bins
+    want = dict(zs=[(1, n // 8), (1, n // 32), (1, n // 128)],
+                x_ds=[(1, n, 1)] * 3, x_out=(1, n, 1),
+                preds=(1, 384 + 6144, 79 + bins))
+    finite = all(np.isfinite(a).all() for a in data["x_ds"] + [
+        data[2]["x_out"], data[2]["preds"]])
+    if shapes != want or levels != [2] or not finite:
+        raise AssertionError(f"golden dump: {shapes} (want {want}), levels "
+                             f"{levels}, finite {finite}")
+    log(f"phase 4d golden: save_outputs('1b_lyrics') at full width in "
+        f"{time.time() - t:.1f}s, {size} bytes: zs {shapes['zs']}, the "
+        f"top's preds {shapes['preds']} (fp32 forward), finite")
+
+
+def _stages(rep):
+    return {k: round(v, 2) for k, v in sorted(rep["stages"].items())}
 
 
 # ---------------------------------------------------------------------------
@@ -2275,7 +2620,8 @@ def log_cascade(rep, label):
             f" = {lv['tokens_per_s']:.1f} steps/s (x{N_SAMPLES} samples), "
             f"audio rms {lv['audio_rms']:.3f}")
     st = rep["stages"]
-    log(f"  {label} cascade {rep['wall_s']:.1f}s, vqvae decode "
+    log(f"  {label} cascade ({rep['scheduler']}) {rep['wall_s']:.1f}s, "
+        f"vqvae decode "
         f"{rep['vqvae_decode_s']:.1f}s, alignment {st.get('align', 0):.2f}s,"
         f" html {st.get('html', 0):.2f}s, peak memory "
         f"{rep['peak_mem_gb']:.1f} GB; launches {rep['launches']} == "
@@ -2287,10 +2633,15 @@ def log_cascade(rep, label):
 def run_primed(priors, hps4, seed):
     """Phase 4b: primed_sample from phase 4's level_0/item_0.wav, read by
     load_prompts for PROMPT_SECONDS rounded down to the top's
-    raw_to_tokens, at phase 4's length and hop fractions: the first window
-    of every level carries the prompt's codes as context. Returns the
-    cascade's report."""
+    raw_to_tokens, at phase 4's length and hop fractions, with phase 4's
+    VQ-VAE and top and upsamplers of PRIMED_UPS_DEPTH layers drawn from
+    `seed`: the first window of every level carries the prompt's codes as
+    context. Returns the cascade's report."""
     top = priors[-1]
+    device = next(top.model.parameters()).device
+    priors = [make_prior(setup_hparams(name, dict(
+        seed=seed, prior_depth=PRIMED_UPS_DEPTH)), top.vqvae, device)
+        for name in MODELS["1b_lyrics"][1:3]] + [top]
     duration = (int(PROMPT_SECONDS * hps4.sr) // top.raw_to_tokens
                 * top.raw_to_tokens)
     hps = Hyperparams(n_samples=N_SAMPLES, sample_length=hps4.sample_length,
@@ -2302,7 +2653,7 @@ def run_primed(priors, hps4, seed):
                 max_batch_size=N_SAMPLES) for _ in priors]
     log(f"phase 4b primed: a {duration}-sample prompt ({duration / hps.sr:.2f}"
         f" s) of phase 4's first wav, {N_SAMPLES} x {hps.sample_length} "
-        f"samples")
+        f"samples, {PRIMED_UPS_DEPTH}-layer upsamplers")
     try:
         rep = run_cascade(priors, hps, skw, prompt=x)
     finally:
@@ -2831,11 +3182,13 @@ def main(argv=None):
                       name=tempfile.mkdtemp(prefix="jukebox_smoke_"))
     vqvae, priors = make_model("1b_lyrics", hps, device, prior_overrides=[
         {"prior_depth": UPS_DEPTH}, {"prior_depth": UPS_DEPTH}, {}])
+    n_fp16 = round_dense_fp16(priors)
     torch.cuda.synchronize()
     log(f"models: 1b_lyrics drawn from seed {args.seed} in "
         f"{time.time() - t:.1f}s, depths "
         f"{[p.model.prior.transformer.n_depth for p in priors]}, "
-        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB")
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB; {n_fp16} dense "
+        f"weights rounded to fp16 values (phase 4c)")
 
     skw = [dict(temp=TEMP, fp16=True, chunk_size=256,
                 max_batch_size=N_SAMPLES) for _ in priors]
@@ -2864,13 +3217,18 @@ def main(argv=None):
 
     log(f"phase 4 cascade: hop fractions {HOPS}, {N_SAMPLES} x "
         f"{hps.sample_length} samples "
-        f"({hps.sample_length / hps.sr:.2f} s), temp {TEMP}")
-    rep = run_cascade(priors, hps, skw)
+        f"({hps.sample_length / hps.sr:.2f} s), temp {TEMP}, the sequential "
+        f"scheduler with the inline finalize")
+    rep = run_cascade(priors, hps, skw, sequential=True)
     log_cascade(rep, "1b_lyrics")
+    log("phase 4c upstream: phase 4's models as upstream .pth.tar files")
+    rep4c = run_upstream(vqvae, priors, hps, rep, args.seed, device)
     rep4b = run_primed(priors, hps, args.seed)
 
     shutil.rmtree(hps.name, ignore_errors=True)
     del vqvae, priors, top, tr, prior
+    torch.cuda.empty_cache()
+    run_golden(args.seed, device)
     torch.cuda.empty_cache()
     rep5 = run_5b_lyrics(args.seed, device, gen)
 
@@ -2921,7 +3279,7 @@ def main(argv=None):
         f"preset's step, then {PRIOR_HPS} for {PRIOR_STEPS} steps")
     qs = run_quick_start(args.seed, device, gen)
 
-    cascades = (rep, rep4b, rep5)
+    cascades = (rep, rep4c, rep4b, rep5)
     launches = dict({k: sum(r["launches"][k] for r in cascades)
                      for k in ds.LAUNCHES}, **tr_rep["launches"],
                     **tr_rep["kernel_launches"])

@@ -2,8 +2,10 @@
 PyTorch port (counterpart of jukebox_tpu/models/make_models.py). Models are
 built on their device and drawn there from a seed, then restored from
 hps.restore_vqvae / hps.restore_prior when those name a checkpoint: a
-`.jkb` file of either package (utils/checkpoints.py), or a REMOTE_PREFIX
-path cached under ~/.cache as the JAX package looks for it; a path that
+`.jkb` file of either package (utils/checkpoints.py) or upstream's
+`.pth.tar` (utils/torch_convert.py), local or a REMOTE_PREFIX path cached
+under ~/.cache as the JAX package looks for it (the presets' files at
+~/.cache/jukebox/models/<model>/<file>.pth.tar); a path that
 does not exist falls back to the fresh init with a message, as in the JAX
 package. With hps.train a prior's parameters are trainable fp32 masters and
 its dropouts and activation checkpointing follow hps, and the VQ-VAE stays
@@ -15,11 +17,13 @@ after the restore, LayerNorms in fp32 (convert_params_bf16).
 """
 
 import os
+import pickle
 
 import numpy as np
 import torch
 
-from jukebox_tpu_torch.hparams import REMOTE_PREFIX, setup_hparams
+from jukebox_tpu_torch.hparams import (REMOTE_PREFIX, Hyperparams,
+                                      setup_hparams)
 from jukebox_tpu_torch.models.encdec import BlockCfg
 from jukebox_tpu_torch.models.prior import SimplePrior
 from jukebox_tpu_torch.models.vqvae import VQVAE, calculate_strides
@@ -30,6 +34,7 @@ from jukebox_tpu_torch.utils.convert import (from_jax_params, named_to_tree,
                                              opt_state_from_jax,
                                              opt_state_to_jax, to_jax_params,
                                              vqvae_state, vqvae_tree)
+from jukebox_tpu_torch.utils.torch_convert import convert_checkpoint
 
 MODELS = {
     "5b": ("vqvae", "upsampler_level_0", "upsampler_level_1", "prior_5b"),
@@ -72,41 +77,44 @@ def resolve_restore(path):
     return None
 
 
-def load_any(path):
-    """A `.jkb` checkpoint as its numpy tree. Upstream `.pth.tar` state
-    dicts are not converted yet (ROADMAP queue 1 item 1)."""
+def load_any(path, kind=None, model=None):
+    """A checkpoint file: a `.jkb` as its numpy tree, or upstream's
+    `.pth.tar` converted into `model` in place (kind "vqvae" / "prior";
+    "opt" reads its step alone) as utils/torch_convert.py does, returning
+    its step and hps with params None."""
     if path.endswith(".pth.tar"):
-        raise NotImplementedError(
-            f"{path}: upstream .pth.tar checkpoints are not converted by the "
-            f"port yet (ROADMAP queue 1 item 1); restore a .jkb file")
+        return convert_checkpoint(path, kind, model)
     return load_checkpoint(path)
 
 
 def restore_model(model, checkpoint_path):
     """Copy a checkpoint's params (and, for a VQ-VAE, the codebook state
-    its state holds: every key of each level, or k alone) into `model`.
-    Returns the checkpoint's step, 0 when nothing is restorable (the model
-    keeps its fresh init)."""
+    its state holds: every key of each level, or k alone, as an upstream
+    file's k restores it) into `model`. Returns the checkpoint's step, 0
+    when nothing is restorable (the model keeps its fresh init)."""
     path = resolve_restore(checkpoint_path)
     if path is None:
         return 0
-    ckpt = load_any(path)
+    vq = isinstance(model, VQVAE)
+    ckpt = load_any(path, "vqvae" if vq else "prior", model)
     params = ckpt["params"]
-    if isinstance(model, VQVAE) and ckpt.get("state") is not None:
-        params = vqvae_tree(params, ckpt["state"])
-    from_jax_params(model, params)
+    if params is not None:
+        if vq and ckpt.get("state") is not None:
+            params = vqvae_tree(params, ckpt["state"])
+        from_jax_params(model, params)
     print(f"Restored from {path}")
     return int(np.asarray(ckpt.get("step", 0)))
 
 
 def restore_opt(opt_state, checkpoint_path, model):
     """(opt_state, step): the checkpoint's optimizer state for `model`'s
-    parameters on their device, or opt_state unchanged and 0 when there is
-    no checkpoint or it holds none."""
+    parameters on their device, or opt_state unchanged when there is no
+    checkpoint (step 0) or it holds none (an upstream `.pth.tar`: its
+    step, with the fresh state, as jukebox_tpu's restore_opt)."""
     path = resolve_restore(checkpoint_path)
     if path is None:
         return opt_state, 0
-    ckpt = load_any(path)
+    ckpt = load_any(path, "opt")
     opt = ckpt.get("opt")
     step = int(np.asarray(ckpt.get("step", 0)))
     if opt is None:
@@ -340,23 +348,40 @@ class PriorRuntime:
 
     @torch.no_grad()
     def z_forward(self, z, z_conds=(), y=None, fp16=False,
-                  get_attn_weights=frozenset(), attn_head=None):
+                  get_attn_weights=frozenset(), attn_head=None,
+                  get_preds=False):
         """The prior's z_forward on codes z, conditioning z_conds and labels
         y (numpy arrays or tensors) moved to its device. With
         get_attn_weights the recorded weights of those layers, each cut to
         head attn_head and cast to fp16 as jukebox_tpu's runtime does
         (make_models.py:705-728), or whole [N, H, Lq, Lkv] fp32 maps
-        without a head; else (loss, metrics)."""
+        without a head; else (loss, metrics), with the logits as
+        metrics["preds"] under get_preds."""
         device = next(self.model.parameters()).device
 
         def dev(a):
             return None if a is None else torch.as_tensor(a, device=device)
         z_conds = [dev(c) for c in z_conds] if z_conds else None
         out = self.model.z_forward(dev(z), z_conds, dev(y), fp16=fp16,
-                                   get_attn_weights=get_attn_weights)
+                                   get_attn_weights=get_attn_weights,
+                                   get_preds=get_preds)
         if not get_attn_weights or attn_head is None:
             return out
         return [w[:, attn_head].to(torch.float16) for w in out]
+
+    @torch.no_grad()
+    def forward(self, x, y=None, fp16=False, decode=False, get_preds=False):
+        """Audio x [N, T, 1] encoded to this level and the levels above,
+        then z_forward on its codes (jukebox_tpu make_models.py:732):
+        (x_out, loss, metrics), x_out the codes decoded back under decode
+        (else None)."""
+        device = next(self.model.parameters()).device
+        x = torch.as_tensor(x, dtype=torch.float32, device=device)
+        z, *z_conds = self.encode(x, bs_chunks=x.shape[0])
+        loss, metrics = self.z_forward(z, z_conds=z_conds, y=y, fp16=fp16,
+                                       get_preds=get_preds)
+        x_out = self.decode([z, *z_conds]) if decode else None
+        return x_out, loss, metrics
 
     @torch.no_grad()
     def sample(self, n_samples, z=None, z_conds=None, y=None, gen=None,
@@ -409,3 +434,73 @@ def make_model(model, hps, device="cuda", prior_overrides=None,
         seed=hps.get("seed", 0), **overrides[level])), vqvae, device)
               for level in levels]
     return vqvae, priors
+
+
+# ---------------------------------------------------------------------------
+# the golden dump (jukebox_tpu make_models.py:896-939)
+# ---------------------------------------------------------------------------
+
+def save_outputs(model, device, hps, path="data.jkb"):
+    """Golden outputs of a registered model for checking another
+    implementation against this one: seeded random audio encoded at every
+    level and decoded from each level (zs, x_ds), and each prior's
+    teacher-forced forward on it with fixed labels (x, y, x_out: its codes
+    decoded, preds: its logits), pickled into `path`. With labels_v3 only
+    the top prior is run. hps.labels_v3 defaults to the top prior's preset,
+    and without hps.sample_length or sample_length_in_seconds the models
+    take the dump's audio length (jukebox_tpu's run needs both given)."""
+    if "labels_v3" not in hps:
+        hps.labels_v3 = setup_hparams(MODELS[model][-1], {}).labels_v3
+    n_ctx, n_tokens, prime_bins = ((6144, 384, 79) if hps.labels_v3
+                                   else (8192, 512, 80))
+    rng = np.random.RandomState(0)
+    x = (2 * rng.rand(1, n_ctx * 8 * 4 * 4, 1) - 1.0).astype(np.float32)
+    lyric_tokens = rng.randint(0, prime_bins, (n_tokens,))
+    artist_id, genre_ids = 10, [1]
+    total_length, offset = 2 * 2646000, 2646000
+    if not hps.get("sample_length") and not hps.get(
+            "sample_length_in_seconds"):
+        hps.sample_length = x.shape[1]
+    vqvae, priors = make_model(model, hps, device)
+    dev = next(vqvae.parameters()).device
+    vq_prior = priors[-1]
+    with torch.no_grad():
+        zs = vq_prior.encode(torch.as_tensor(x, device=dev), start_level=0)
+        x_ds = [vq_prior.decode(zs[level:], start_level=level)
+                for level in range(len(zs))]
+    data = dict(zs=[z.cpu().numpy() for z in zs],
+                x_ds=[d.float().cpu().numpy() for d in x_ds])
+    for level, prior in enumerate(priors):
+        if hps.labels_v3 and level != len(priors) - 1:
+            continue
+        print(f"Doing level {level}")
+        x_in = x[:, : n_ctx * 8 * (4 ** level)]
+        y_in = prior.labeller.get_y_from_ids(artist_id, genre_ids,
+                                             lyric_tokens, total_length,
+                                             offset)[None]
+        x_out, _, metrics = prior.forward(x_in, y=y_in,
+                                          fp16=hps.get("fp16", False),
+                                          get_preds=True, decode=True)
+        data[level] = dict(x=x_in, y=y_in,
+                           x_out=x_out.float().cpu().numpy(),
+                           preds=metrics["preds"].float().cpu().numpy())
+    with open(path, "wb") as f:
+        pickle.dump(data, f)
+    print("Saved data")
+    return data
+
+
+def run(model, port=29500, device="cuda", **kwargs):
+    """CLI: the golden dump of a registered model into ./data.jkb,
+
+        python -m jukebox_tpu_torch.models.make_models 1b_lyrics [--seed=0]
+            [--labels_v3=True] [--fp16=True] [--device=cpu]
+
+    from random weights drawn from --seed unless the presets' checkpoints
+    are cached under ~/.cache/jukebox/models."""
+    save_outputs(model, device, Hyperparams(**kwargs))
+
+
+if __name__ == "__main__":
+    from jukebox_tpu_torch.utils.cli import fire
+    fire(run)

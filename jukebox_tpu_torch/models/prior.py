@@ -193,9 +193,11 @@ class SimplePrior(nn.Module):
         return self.prior(z, x_cond, y_cond, encoder_kv=encoder_kv)[1]
 
     def z_forward(self, z, z_conds=None, y=None, fp16=False, seed=None,
-                  plain=False, get_attn_weights=frozenset()):
+                  plain=False, get_attn_weights=frozenset(), get_preds=False):
         """Training loss of codes z [N, n_ctx] (prior.py:271): returns
-        (loss, metrics) with metrics bpd, prime_loss, gen_loss (detached).
+        (loss, metrics) with metrics bpd, prime_loss, gen_loss (detached),
+        and with get_preds the logits [N, tokens, bins] as preds (the lyric
+        tokens' too in a single_enc_dec prior).
         seed (an int) turns on the training dropouts; plain=True runs the
         flash layers and LayerNorms' plain versions. With get_attn_weights
         (a set of the prior's layers) it returns their recorded softmax
@@ -204,7 +206,7 @@ class SimplePrior(nn.Module):
         x_cond, y_cond, prime = self.get_cond(z_conds, y)
         if self.single_enc_dec:
             z_all, x_cond = self.prior_preprocess([prime, z], [None, x_cond])
-            (prime_loss, gen_loss), _, *ws = self.prior(
+            (prime_loss, gen_loss), preds, *ws = self.prior(
                 z_all, x_cond, y_cond, fp16=fp16, get_sep_loss=True,
                 seed=seed, plain=plain, record_layers=record)
         else:
@@ -213,7 +215,7 @@ class SimplePrior(nn.Module):
                 encoder_kv = self.get_encoder_kv(
                     prime, fp16, None if seed is None else fold_seed(seed, 1),
                     plain)
-            gen_loss, _, *ws = self.prior(z, x_cond, y_cond, fp16=fp16,
+            gen_loss, preds, *ws = self.prior(z, x_cond, y_cond, fp16=fp16,
                                           seed=seed, plain=plain,
                                           encoder_kv=encoder_kv,
                                           record_layers=record)
@@ -227,6 +229,8 @@ class SimplePrior(nn.Module):
             + (gen_loss * self.gen_loss_dims / self.total_loss_dims)
         metrics = dict(bpd=gen_loss.detach(), prime_loss=prime_loss.detach(),
                        gen_loss=gen_loss.detach())
+        if get_preds:
+            metrics["preds"] = preds.detach()
         return loss, metrics
 
     # -- segmented sampling ---------------------------------------------------------

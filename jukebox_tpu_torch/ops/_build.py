@@ -17,6 +17,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -150,11 +151,26 @@ def _load(src):
     return lib
 
 
+_BUILD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
 def lib(stem="decode_stack"):
-    """The loaded library of csrc/<stem>.cu, built on first use."""
+    """The loaded library of csrc/<stem>.cu, built on first use (once, also
+    when several threads launch first)."""
     if stem not in _LIBS:
-        build_all()
+        with _BUILD_LOCK:
+            if stem not in _LIBS:
+                build_all()
     return _LIBS[stem]
+
+
+def count(launches, key):
+    """launches[key] += 1 under a lock: kernels launch from the sampling
+    cascade's worker threads too, and the launch counts are checked
+    exactly."""
+    with _COUNT_LOCK:
+        launches[key] += 1
 
 
 def _template_args(s):

@@ -273,7 +273,7 @@ def adam_update_kernel(table, grads, opt_state, lr, beta1, beta2, eps,
     args = launch_args(table, grads, opt_state, lr, beta1, beta2, eps,
                        weight_decay, scale)
     _check(_build.lib("adam").jk_adam(*args), "adam_update")
-    LAUNCHES["adam_update"] += 1
+    _build.count(LAUNCHES, "adam_update")
     opt_state["step"] += 1
     return opt_state
 

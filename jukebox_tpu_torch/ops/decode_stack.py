@@ -234,7 +234,7 @@ def _gemv_launch(name, x, w, s, b, epilogue, res, res2, rs, keep, out32,
         _ptr(b_ln), B, K, N, splits, chunk, pitch, EPILOGUES[epilogue],
         int(N % 16 == 0), float(rs), LN_EPS, _stream())
     _check(err, key)
-    LAUNCHES[key] += 1
+    _build.count(LAUNCHES, key)
     return (y, aux) if keep else (y, y32) if out32 else y
 
 
@@ -572,7 +572,7 @@ def _attn_launch(name, q, qstride, A, kv_new, caches, scales, geom, n_head,
         caches[1].data_ptr(), _ptr(ks), _ptr(vs), o.data_ptr(), _ptr(ws),
         _ptr(cnt), B, A, n_head, rows, r0, n, w, splits, chunk, hd ** -0.25,
         int(int8), _stream()), name)
-    LAUNCHES[name] += 1
+    _build.count(LAUNCHES, name)
     return o
 
 

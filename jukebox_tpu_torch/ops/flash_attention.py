@@ -290,7 +290,7 @@ def flash_fwd(qh, kh, vh, scale, rate=0.0, seed=0):
         lse.data_ptr(), items.data_ptr(), items.shape[0], ws.data_ptr(),
         cnt.data_ptr(), BH, L, hd, scale, *_dropout_args(rate, seed),
         _stream()), "flash_fwd")
-    LAUNCHES["flash_fwd"] += 1
+    _build.count(LAUNCHES, "flash_fwd")
     return out, lse
 
 
@@ -322,7 +322,7 @@ def flash_dq(qh, kh, vh, g, lse, dd, scale, rate=0.0, seed=0):
         qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), g.data_ptr(),
         lse.data_ptr(), dd.data_ptr(), dq.data_ptr(), *plan, scale,
         *_dropout_args(rate, seed), _stream()), "flash_dq")
-    LAUNCHES["flash_dq"] += 1
+    _build.count(LAUNCHES, "flash_dq")
     return dq
 
 
@@ -336,7 +336,7 @@ def flash_dkv(qh, kh, vh, g, lse, dd, scale, rate=0.0, seed=0):
         qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), g.data_ptr(),
         lse.data_ptr(), dd.data_ptr(), dk.data_ptr(), dv.data_ptr(), *plan,
         scale, *_dropout_args(rate, seed), _stream()), "flash_dkv")
-    LAUNCHES["flash_dkv"] += 1
+    _build.count(LAUNCHES, "flash_dkv")
     return dk, dv
 
 

@@ -174,7 +174,7 @@ def layer_norm_fwd(x, g, b, eps=EPS):
         x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(), mu.data_ptr(),
         rstd.data_ptr(), N, D, eps, fwd_blocks(N, rows), int(vec), cv,
         DTYPES[x.dtype], _stream()), "layer_norm_fwd")
-    LAUNCHES["layer_norm_fwd"] += 1
+    _build.count(LAUNCHES, "layer_norm_fwd")
     return y, mu, rstd
 
 
@@ -196,7 +196,7 @@ def layer_norm_bwd(x, g, mu, rstd, dy):
         x.data_ptr(), g.data_ptr(), mu.data_ptr(), rstd.data_ptr(),
         dy.data_ptr(), dx.data_ptr(), part.data_ptr(), N, D, blocks,
         int(vec), cv, DTYPES[x.dtype], _stream()), "layer_norm_bwd")
-    LAUNCHES["layer_norm_bwd"] += 1
+    _build.count(LAUNCHES, "layer_norm_bwd")
     dgb = part.sum(dim=0)
     return dx, dgb[0], dgb[1]
 

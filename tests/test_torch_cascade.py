@@ -1,7 +1,7 @@
 """The PyTorch port's ancestral cascade against jukebox_tpu's on the CPU:
 a tiny 3-level family (VQ-VAE, two upsamplers, an order-12 lyric top prior)
-on the same weights, sampled at temp 0 (argmax) in fp32 with the sequential
-scheduler. The codes at every level must be equal; the decoded audio of
+on the same weights, sampled at temp 0 (argmax) in fp32 (the JAX package's
+sequential scheduler, the port's default). The codes at every level must be equal; the decoded audio of
 each level agrees within 1e-4 (fp32 convs, summation order only); the port
 writes data.jkb and one wav per sample under tmp_path."""
 

@@ -222,10 +222,11 @@ def test_restore_specs_resolve_as_jax(tmp_path, monkeypatch, capsys):
     cached.write_bytes(b"")
     assert tmm.resolve_restore(remote) == jmm._resolve_restore(remote) \
         == str(cached)
+    # an upstream file resolves the same way and is read by the port's
+    # converter (tests/test_torch_upstream.py holds its conversion)
     pth = tmp_path / "prior_level_2.pth.tar"
-    pth.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 1"):
-        tmm.load_any(str(pth))
+    torch.save(dict(model={}, opt=None, step=5), pth)
+    assert tmm.load_any(str(pth), "opt")["step"] == 5
 
 
 def test_missing_checkpoint_keeps_fresh_init(capsys):

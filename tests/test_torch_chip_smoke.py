@@ -5,7 +5,13 @@ tensors). The expected per-kernel launch counts that the card run holds
 the kernels' counters to must equal the number of plain-version calls the
 cascade makes here, for the decode kernels and the LayerNorm kernels; the
 same holds for the training phases (flash, LayerNorm, Adam), including the
-save at step 1 and the run restored from that checkpoint."""
+save at step 1 and the run restored from that checkpoint. Phase 4 runs the
+sequential scheduler with the inline finalize and phase 4c's cascade the
+default one (pipelined, the finalize and staging on worker threads; so do
+phases 4b and 7): both give the same codes here; phase 4c's upstream
+files (save_upstream) restore bit for bit, and the writer itself is held
+to the JAX package's converter in tests/test_torch_upstream.py; phase
+4d's golden dump runs on presets cut to narrow widths."""
 
 import sys
 from pathlib import Path
@@ -155,6 +161,86 @@ def test_cascade_launch_accounting(priors, tmp_path, monkeypatch):
     assert rep["launches"] == dict.fromkeys(ds.LAUNCHES, 0)  # CPU: no kernel
     for level, lv in rep["levels"].items():
         assert lv["tokens"] == VQ["sample_length"] // priors[level].raw_to_tokens
+
+
+def test_schedulers_give_phase_4s_codes(tmp_path, monkeypatch):
+    """Phase 4 (sequential=True: pipeline_cascade=False and the inline
+    finalize) and phase 4c's cascade (the default scheduler: pipelined,
+    finalize and staging on worker threads) sample the same codes, and
+    each run's plain calls of the decode kernels equal its expected
+    counts."""
+    vq = make_vqvae(setup_hparams("teeny", dict(VQ)), "cpu")
+    priors = [make_prior(setup_hparams("teeny", dict(UP, level=0)), vq, "cpu"),
+              make_prior(setup_hparams("teeny", dict(UP, level=1)), vq, "cpu"),
+              make_prior(setup_hparams("teeny", dict(TOP)), vq, "cpu")]
+    calls = _count_plain(monkeypatch, ds, ds.LAUNCHES)
+    reps = []
+    for sequential in (True, False):
+        for k in calls:
+            calls[k] = 0
+        hps = Hyperparams(n_samples=2, sample_length=VQ["sample_length"],
+                          sr=VQ["sr"], hop_fraction=(0.5, 0.5, 0.125),
+                          seed=0, name=str(tmp_path / str(sequential)))
+        skw = [dict(temp=0.99, fp16=True, chunk_size=16, max_batch_size=2)
+               for _ in priors]
+        rep = chip_smoke.run_cascade(priors, hps, skw, sequential=sequential)
+        assert calls == rep["expected"]
+        reps.append(rep)
+    assert [r["scheduler"] for r in reps] == ["sequential", "pipelined"]
+    for a, b in zip(reps[0]["zs"], reps[1]["zs"]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_upstream_round_trip(tmp_path):
+    """Phase 4c's files at toy size: after round_dense_fp16, each model
+    written by save_upstream (the priors' dense weights in fp16, the top's
+    keys under "module.") restores through make_vqvae / make_prior bit for
+    bit, with the file's step (assert_same_model; the writer itself is
+    held to the JAX package's converter in tests/test_torch_upstream.py)."""
+    from jukebox_tpu_torch.utils.torch_convert import load_state
+    vq = make_vqvae(setup_hparams("teeny", dict(VQ)), "cpu")
+    cfgs = [dict(UP, level=0), dict(UP, level=1), dict(TOP)]
+    priors = [make_prior(setup_hparams("teeny", dict(c)), vq, "cpu")
+              for c in cfgs]
+    assert chip_smoke.round_dense_fp16(priors) == sum(
+        2 * p.model.prior.transformer.n_depth * 2 for p in priors)
+    path = str(tmp_path / "vqvae.pth.tar")
+    chip_smoke.save_upstream(path, vq, dict(VQ), step=100)
+    vq2 = make_vqvae(setup_hparams("teeny", dict(VQ, restore_vqvae=path,
+                                                 seed=1)), "cpu")
+    assert vq2.step == 100
+    n = chip_smoke.assert_same_model(vq2, vq, "vqvae")
+    for level, (p, c) in enumerate(zip(priors, cfgs)):
+        path = str(tmp_path / f"prior_level_{level}.pth.tar")
+        dtypes = chip_smoke.save_upstream(
+            path, p.model, c, step=101 + level, fp16=True,
+            prefix="module." if level == 2 else "")
+        assert set(dtypes) == {"torch.float16", "torch.float32"}
+        keys = list(load_state(path)["model"])
+        assert all(k.startswith("module.") == (level == 2) for k in keys)
+        p2 = make_prior(setup_hparams("teeny", dict(c, restore_prior=path,
+                                                    seed=1)), vq2, "cpu")
+        assert p2.step == 101 + level
+        n += chip_smoke.assert_same_model(p2.model, p.model, f"{level}")
+    assert n == sum(len(list(m.parameters()))
+                    for m in [vq] + [p.model for p in priors])
+
+
+def test_golden_phase(monkeypatch):
+    """Phase 4d on presets cut to narrow widths and two layers at their own
+    n_ctx (the dump hard-wires 6144 codes and 384 lyric tokens): the
+    dump's shapes and finite values as the card run checks them."""
+    from jukebox_tpu_torch import hparams as thp
+    narrow = {"vqvae": dict(emb_width=16, l_bins=64, width=8, depth=1),
+              "upsampler_level_0": dict(prior_width=32, prior_depth=1,
+                                        cond_width=16, cond_depth=1),
+              "upsampler_level_1": dict(prior_width=32, prior_depth=1,
+                                        cond_width=16, cond_depth=1),
+              "prior_1b_lyrics": dict(prior_width=32, prior_depth=2)}
+    for name, over in narrow.items():
+        monkeypatch.setitem(thp.HPARAMS_REGISTRY, name, thp.Hyperparams(
+            thp.HPARAMS_REGISTRY[name], **over))
+    chip_smoke.run_golden(0, "cpu")
 
 
 # -- the training phases ------------------------------------------------------

@@ -1,9 +1,9 @@
 """The port stands alone: no file of jukebox_tpu_torch/ nor chip_smoke.py
-imports jax, jaxlib or jukebox_tpu (static AST scan), loading a checkpoint
-that jukebox_tpu wrote imports neither of them either (a fresh process
-reads one through the port's restore path), and chip_smoke.py refuses to
-run without a CUDA device instead of falling back to the CPU, also when it
-is copied out of the repository alone."""
+imports jax, jaxlib, jukebox_tpu or upstream's jukebox (static AST scan),
+loading a checkpoint that jukebox_tpu wrote imports none of them either (a
+fresh process reads one through the port's restore path), and
+chip_smoke.py refuses to run without a CUDA device instead of falling back
+to the CPU, also when it is copied out of the repository alone."""
 
 import ast
 import os
@@ -15,7 +15,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "jukebox_tpu")
+FORBIDDEN = ("jax", "jaxlib", "jukebox_tpu", "jukebox")
 
 
 def _sources():

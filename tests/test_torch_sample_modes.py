@@ -15,7 +15,7 @@ alignment taps), the same weights on both sides:
   prompt, labels, sampling kwargs and hps; the port's run then samples the
   ancestral and the primed mode end to end on the CPU;
 * the alignment's rules (none without taps or under JUKEBOX_SKIP_ALIGN=1,
-  a failure raises) and the pipelined scheduler's refusal.
+  a failure raises) and the pipelined scheduler as the default.
 """
 
 import json
@@ -263,9 +263,19 @@ def test_alignment_rules(fam, tmp_path, monkeypatch):
         tsample._compute_alignments(zs, labels, skw, tps, th)
 
 
-def test_pipelined_scheduler_refused(fam, tmp_path):
+@pytest.mark.parametrize("pipeline", [True, None])
+def test_pipelined_scheduler_is_the_default(fam, tmp_path, monkeypatch,
+                                            pipeline):
+    """pipeline_cascade=True, and hps without it, take the pipelined
+    scheduler (tests/test_torch_pipeline.py holds what it samples)."""
     _, _, _, tps = fam
-    th = THyperparams(n_samples=N, pipeline_cascade=True,
-                      name=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="pipelined"):
-        tsample.ancestral_sample(None, None, tps, th)
+    taken = []
+    monkeypatch.setattr(tsample, "_sample_pipelined",
+                        lambda *a: taken.append("pipelined"))
+    monkeypatch.setattr(tsample, "_sample_sequential",
+                        lambda *a: taken.append("sequential"))
+    kw = {} if pipeline is None else dict(pipeline_cascade=pipeline)
+    th = THyperparams(n_samples=N, name=str(tmp_path), **kw)
+    tsample.ancestral_sample(None, None, tps, th)
+    tsample.upsample(None, None, None, tps[1:], th)  # one level: sequential
+    assert taken == ["pipelined", "sequential"]
