@@ -34,7 +34,9 @@ Phases, each printing timestamped lines:
              planted fault (one tile skipped) that the check must refuse;
              dq and dk/dv also give the same bits on a second call and are
              refused with one split pair left out of the merge; times per
-             launch beside the bound, the plain version and SDPA
+             launch beside the bound, the plain version and SDPA; the same
+             at head dim 128, [8, 6528, 128] (small_single_enc_dec_prior's
+             f0 layer at its recipe's batch)
   2c ln      the LayerNorm kernels (forward, backward) against their plain
              versions at the top's training rows [6528, 2048] bf16, at
              [6528, 1920] fp32, a ragged [1000, 1000] bf16, the 5b width
@@ -44,8 +46,8 @@ Phases, each printing timestamped lines:
              the bound, the plain version and F.layer_norm (and its
              autograd backward)
   4 cascade  the 1b_lyrics ancestral cascade (labels -> top codes -> two
-             upsamplers -> 44.1 kHz wav, each level's html with the top's
-             lyric alignment) from random weights drawn from --seed (the
+             4-layer upsamplers -> 44.1 kHz wav, each level's html with the
+             top's lyric alignment) from random weights drawn from --seed (the
              priors' dense weights rounded to fp16 values, as upstream's
              fp16 files hold them), at the sample CLI's hop fractions 0.5,
              0.5, 0.125 (level 0: 7 windows, 6 after 4096 context tokens),
@@ -100,7 +102,7 @@ Phases, each printing timestamped lines:
              in int8, one int8 upsampler step, then the ancestral cascade
              in the int8 mode (int8 weights and ring caches in every
              prior, the context prefill writing int8 rows), lyric encoder
-             -> 79-layer top -> two upsamplers -> wav and html with the
+             -> 79-layer top -> two 8-layer upsamplers -> wav and html with the
              top's alignment (layer 68, f6, head 2; deferred: the top's
              params exceed 6e9 bytes), with the default scheduler and phase
              4's checks
@@ -118,13 +120,20 @@ Phases, each printing timestamped lines:
              LayerNorm kernels against the plain path on one batch, against
              the path with flash alone plain, and a planted flash fault that
              the checks must refuse; the launch counts; one step timed by
-             parts and one under torch.profiler
+             parts and one under torch.profiler; then 9 (c) on the same
+             batch, and the fp32 decode (the in-training sample's) of 128
+             tokens as a CUDA graph a token against op by op at temp 0:
+             equal tokens, the LayerNorm wrapper's launches less the
+             replayed steps', and the replays' LayerNorm kernels counted
+             in a profiler trace of the graphed decode
   6 run      train.run: six optimizer steps of the top prior from two
              synthetic 40 s wavs (labelled dataset, aug_shift, aug_blend,
              loss scaling, fp16 Adam, host EMA every 2 steps), saving
-             checkpoint_latest.jkb at step 1; checks finite losses, launch
-             counts of every training kernel, and that no thread outlives
-             the run; then a run restored from the checkpoint holds its
+             checkpoint_latest.jkb and sampling a window (fp32, under the
+             EMA weights) at step 1; checks finite losses, the sample's
+             codes and audio, launch counts of every training kernel (the
+             sample's LayerNorms too), and that no thread outlives the
+             run; then a run restored from the checkpoint holds its
              params, optimizer state and step bit for bit and takes two
              more steps, and a sampling make_prior restored from it holds
              its params as fp16_params casts them (bf16, LayerNorms fp32);
@@ -146,7 +155,32 @@ Phases, each printing timestamped lines:
              all_fp16, cpu_ema) over (a)'s checkpoint for three steps, each
              epoch one step and one test batch: finite losses, the launches
              of the LayerNorm, flash (none: no dense layer) and Adam
-             kernels, step walls and peak memory
+             kernels, the sample at step 1, step walls and peak memory
+  9 recipes  upstream's other training recipes on (a)'s checkpoint and
+             songs: (a) the upsampler (small_upsampler at full depth: 48
+             layers at 1024, a 16-layer conditioner at 512) through
+             train.run for 3 steps with JUKEBOX_TRAIN_JSONL and
+             debug_speed: finite losses, LayerNorm and Adam launches, the
+             logger's files (every metric's scalar each step in the events
+             read back with CRCs, argv.txt, the input wavs of steps 1 and 3,
+             the sample's, JSONL lines with JAX's keys), the step-1 sample
+             at full depth (codes in [0, 1024), finite audio, its wall),
+             the trace of step 3 (d) naming the LayerNorm kernels, and the
+             trained prior's fp32 decode as a CUDA graph against op by op;
+             (b) small_labelled_prior, small_single_enc_dec_prior and
+             small_sep_enc_dec_prior over a fresh 3-level vqvae on labels
+             inside their y_bins: one full-depth step each through the
+             kernels against the plain path (RECIPE_TOL), which must
+             refuse a planted LayerNorm fault (the last 16 bytes of every
+             row zero; phase 2c's one-row fault read beside it), the
+             single-enc-dec one (its f0 layer at head dim 128) also
+             against flash alone plain (LOSS_TOL / GN_TOL), then
+             train.run for 2 steps at a cut depth (4 layers; sep-enc-dec
+             10, keeping its f6 layer) with
+             the checks of (a) and the labels' text in the events; (c) runs
+             after phase 5: its step with c_attn = c_mlp = 1 against c_res
+             alone, loss and gradients bit for bit where c_res alone repeats
+             to the bit, peak memory of both
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failed check raises: exit code != 0.
 It runs on the GPU only; without one it exits with an error.
@@ -182,6 +216,7 @@ from jukebox_tpu_torch import train as train_mod
 from jukebox_tpu_torch.data.files_dataset import (FilesAudioDataset,
                                                   FixedMetadataDataset)
 from jukebox_tpu_torch.hparams import REMOTE_PREFIX, Hyperparams, setup_hparams
+from jukebox_tpu_torch.models import autoregressive as ar
 from jukebox_tpu_torch.models import make_models as mm
 from jukebox_tpu_torch.models.encdec import EncoderConvBlock
 from jukebox_tpu_torch.models.make_models import (LN_KEYS, MODELS,
@@ -209,16 +244,18 @@ KERNEL_TOL = 1e-2            # kernel vs plain, relative to max(1, |plain|)
 STEP_TOL = 5e-2              # full-stack logits, relative to max(1, |plain|)
 # the cascade: 4 samples of 262144 audio samples (5.94 s), the shortest
 # cascade whose upsamplers get a full window of conditioning codes; the
-# upsamplers run 8 of their 72 layers so the whole run stays near 10 minutes
-# (their decode loop is bound by the host's launch rate)
-N_SAMPLES, SAMPLE_LENGTH, UPS_DEPTH, TEMP = 4, 262144, 8, 0.99
+# upsamplers run 4 of their 72 layers in the 1b_lyrics cascades (phases 4,
+# 4c, 4b; 8 before phase 9 came) and 8 in the 5b_lyrics one (phase 7,
+# UPS_DEPTH_5B) so the whole run stays near 15 minutes (their decode loop
+# is bound by the host's launch rate)
+N_SAMPLES, SAMPLE_LENGTH, UPS_DEPTH, TEMP = 4, 262144, 4, 0.99
+UPS_DEPTH_5B = 8
 # the sample CLI's documented hop fractions (jukebox_tpu/utils/cli.py:4):
 # level 0 samples 7 windows, 6 of them after 4096 context tokens
 HOPS = (0.5, 0.5, 0.125)
 # phase 4b's prompt: about 3 s of phase 4's first wav, rounded down to a
-# multiple of the top's raw_to_tokens; its upsamplers run 4 layers (phase
-# 4c's second 1b cascade took the smoke past ~850 s with 8)
-PROMPT_SECONDS, PRIMED_UPS_DEPTH = 3.0, 4
+# multiple of the top's raw_to_tokens
+PROMPT_SECONDS = 3.0
 GEMV_BATCHES = (1, 3, 16)    # phases 2, 2e: the GEMVs also at these batches
 # flash kernels against their plain versions: fa.agreement, an elementwise
 # bound of two bf16 steps of |plain| plus AGREE_ATOL of the row's RMS; a
@@ -252,6 +289,21 @@ ALIGN_TOL = 0.25
 LOSS_TOL, GN_TOL = 1e-5, 1e-4
 GRAD_TOL = {"c_attn": 5e-3, "c_proj": 2e-3}
 FULL_TOL = {"loss": 1e-5, "grad norm": 1e-4, "c_attn": 5e-3, "c_proj": 5e-3}
+# phase 9 (b): a labelled or lyric prior's full-depth step through the
+# kernels against the all-plain path. The LayerNorm kernels' bf16 roundings
+# (phase 2c) carried through 48-50 fresh layers at bs 4 moved the loss by
+# 2.7e-6 to 2.0e-5 of itself and the grad norm by 8.4e-7 to 1.3e-5
+# (eleven readings, H100 smoke runs): over FULL_TOL's loss limit. A
+# planted fault in every LayerNorm forward (faulty_layer_norm "vector":
+# the last 16 bytes of every row zero) moved them by 8.2e-3 to 1.7e-2 and
+# 9.2e-4 to 1.2e-2 (three readings), so both limits sit 5-8x over the
+# sound path's largest reading and 9-80x under the fault's smallest,
+# which the check must refuse. Phase 2c's fault (one row of a launch)
+# moved them by no more than the sound path's noise (4.0e-6 to 1.9e-5,
+# 3.1e-6 to 1.5e-5): the step cannot see it, phase 2c does. Flash alone
+# is held to LOSS_TOL / GN_TOL (read: 9.5e-8 to 2.8e-7, 7.9e-6 to
+# 9.2e-6).
+RECIPE_TOL = {"loss": 1e-4, "grad norm": 1e-4}
 # the training configuration: upstream's fine-tuning command for the
 # 1b_lyrics top prior (README "Fine-tune pre-trained top-level prior")
 TRAIN_HPS = "vqvae,prior_1b_lyrics,all_fp16,cpu_ema"
@@ -2178,18 +2230,109 @@ def expected_flash(n_layers, n_steps):
             for k, per in fa.LAUNCHES_PER_STEP.items()}
 
 
-def expected_layer_norms(runtime, n_steps):
-    """LayerNorm kernel launches of n_steps train steps of the prior: the
-    transformer's two per block (under checkpoint_res the forward runs
-    again in the recompute) and the conditioner's, forward and backward
-    once each."""
-    tr = runtime.model.prior.transformer
-    n_tr = 2 * tr.n_depth
-    n_cond = int(runtime.model.x_cond)
-    fwd_per = ln.LAUNCHES_PER_STEP["layer_norm_fwd"] \
-        if tr.checkpoint_res == 1 else 1
-    return {"layer_norm_fwd": (fwd_per * n_tr + n_cond) * n_steps,
-            "layer_norm_bwd": (n_tr + n_cond) * n_steps}
+def expected_layer_norms(runtime, n_steps, n_evals=0):
+    """LayerNorm kernel launches of n_steps train steps of the prior and
+    n_evals eval batches: the transformer's two per block (under
+    checkpoint_res the forward runs again in the recompute), the
+    conditioner's one and a lyric encoder's two per block and its
+    prime_state_ln, forward and backward once each (the eval batches
+    forward only)."""
+    model = runtime.model
+    tr, enc = model.prior.transformer, model.prime_prior
+
+    def per(t):
+        return ln.LAUNCHES_PER_STEP["layer_norm_fwd"] \
+            if t.checkpoint_res == 1 else 1
+    once = int(model.x_cond)
+    fwd, bwd = per(tr) * 2 * tr.n_depth + once, 2 * tr.n_depth + once
+    if enc is not None:
+        fwd += per(enc.transformer) * 2 * enc.transformer.n_depth + 1
+        bwd += 2 * enc.transformer.n_depth + 1
+    return {"layer_norm_fwd": fwd * n_steps + bwd * n_evals,
+            "layer_norm_bwd": bwd * n_steps}
+
+
+def sample_layer_norms(runtime):
+    """LayerNorm kernels one in-training sample runs (train.sample_prior:
+    the fp32 decode through the layer modules): two per layer for each
+    token step (n_ctx, and the tail of a single_enc_dec prior's lyric
+    prefix that is not a whole block_ctx chunk) and each whole chunk of
+    that prefix, the conditioner's one and a lyric encoder's forward (two
+    per layer and prime_state_ln). The wrapper counts them less the token
+    steps a CUDA graph replays, plus each capture's (check_samples)."""
+    model = runtime.model
+    steps = model.n_ctx
+    if model.single_enc_dec:
+        bc = model.prior.block_ctx
+        steps += model.n_tokens // bc + model.n_tokens % bc
+    enc = model.prime_prior
+    once = int(model.x_cond) + (0 if enc is None
+                                else 2 * enc.transformer.n_depth + 1)
+    return 2 * model.prior.transformer.n_depth * steps + once
+
+
+@contextlib.contextmanager
+def sampling_watch():
+    """While open, train.sample_prior is wrapped: each in-training sample
+    appends to the yielded list its kernel launches (the wrappers'
+    counts), its decode graph's captures and replays, wall seconds (the
+    card synchronised), codes and audio checks, the LayerNorm kernels
+    sample_layer_norms expects it to run and the LayerNorms of one token
+    step."""
+    real, calls = train_mod.sample_prior, []
+
+    def watched(runtime, *args, **kw):
+        before, graphs = training_launches(), dict(ar.GRAPHS)
+        t0 = time.time()
+        z, x = real(runtime, *args, **kw)
+        if z.is_cuda:
+            torch.cuda.synchronize()
+        after = training_launches()
+        calls.append(dict(
+            launches={k: after[k] - before[k] for k in after},
+            graphs={k: ar.GRAPHS[k] - graphs[k] for k in graphs},
+            wall_s=time.time() - t0, codes=(int(z.min()), int(z.max())),
+            shape=tuple(z.shape), audio=tuple(x.shape),
+            finite=bool(torch.isfinite(x).all()), bins=runtime.l_bins,
+            n_ctx=runtime.n_ctx, expected_ln=sample_layer_norms(runtime),
+            step_ln=2 * runtime.model.prior.transformer.n_depth))
+        return z, x
+    train_mod.sample_prior = watched
+    try:
+        yield calls
+    finally:
+        train_mod.sample_prior = real
+
+
+def check_samples(calls, n, cuda, what):
+    """The in-training samples of a run: n of them, codes in [0, l_bins)
+    of n_ctx per item, finite audio; on the card a decode graph replayed
+    and the LayerNorm wrapper's launches as sample_layer_norms expects
+    less the replayed steps' and plus the captured one's, and no other
+    kernel. Returns the launches the wrappers are expected to count,
+    summed."""
+    if len(calls) != n:
+        raise AssertionError(f"{what}: {len(calls)} in-training samples, "
+                             f"expected {n}")
+    total = dict.fromkeys(training_launches(), 0)
+    for c in calls:
+        lo, hi = c["codes"]
+        if not (0 <= lo and hi < c["bins"] and c["shape"][1] == c["n_ctx"]
+                and c["finite"]):
+            raise AssertionError(f"{what}: sample codes {c['codes']} of "
+                                 f"{c['shape']}, audio finite {c['finite']}")
+        want = dict.fromkeys(c["launches"], 0)
+        g = c["graphs"]
+        want["layer_norm_fwd"] = (c["expected_ln"] - c["step_ln"]
+                                  * (g["replays"] - g["captures"]))
+        if cuda and not (g["captures"] == 1 and g["replays"] > 0):
+            raise AssertionError(f"{what}: the sample's decode graph {g}")
+        if cuda and c["launches"] != want:
+            raise AssertionError(f"{what}: sample launches {c['launches']} "
+                                 f"!= expected {want}")
+        for k, v in want.items():
+            total[k] += v
+    return total
 
 
 def reset_training_launches():
@@ -2256,6 +2399,31 @@ def faulty_flash_fwd():
         yield
     finally:
         fa.flash_fwd = real
+
+
+@contextlib.contextmanager
+def faulty_layer_norm(kind):
+    """A planted fault in layer_norm_fwd for the step checks: "row", phase
+    2c's (each launch leaves its last row out: y, mu and rstd zero there),
+    or "vector" (each launch leaves the last 16 bytes of every row of y
+    zero: a column loop one vector short)."""
+    real = ln.layer_norm_fwd
+
+    def faulty(x, g, b, eps=ln.EPS):
+        if kind == "row" and x.shape[0] >= 2:
+            y, mu, rstd = real(x[:-1], g, b, eps)
+            return (torch.cat([y, torch.zeros_like(x[-1:])]),
+                    torch.cat([mu, mu.new_zeros(1)]),
+                    torch.cat([rstd, rstd.new_zeros(1)]))
+        y, mu, rstd = real(x, g, b, eps)
+        if kind == "vector":
+            y[:, -(16 // x.element_size()):] = 0
+        return y, mu, rstd
+    ln.layer_norm_fwd = faulty
+    try:
+        yield
+    finally:
+        ln.layer_norm_fwd = real
 
 
 def step_gaps(kernel, plain):
@@ -2358,7 +2526,19 @@ def check_train_step(seed, device, gen, rows=None, **over):
         raise AssertionError(f"LayerNorm launches {ln_launches} != expected "
                              f"{expected_layer_norms(runtime, 1)}")
     profile_train_step(runtime, hps, x, y)
-    return launches
+    c = check_c_attn(runtime, hps, x, y)
+    log(f"phase 9 (c) c_attn = c_mlp = 1 on phase 5's step: loss "
+        f"{c['loss'][1]:.6f} against c_res alone {c['loss'][0]:.6f}, grad "
+        f"norm {c['gn'][1]:.6g} against {c['gn'][0]:.6g}; {c['equal']} of "
+        f"{c['n']} gradients equal bit for bit ({c['repeat_equal']} repeat "
+        f"to the bit under c_res alone; differing: {c['differ'][:4]}); "
+        f"wall {c['wall_s'][1] * 1e3:.1f} ms against "
+        f"{c['wall_s'][0] * 1e3:.1f}; peak memory {_gb(c['peak_gb'][1])} "
+        f"against {_gb(c['peak_gb'][0])}")
+    graph = check_decode_graph(runtime, x, y, GRAPH_TOKENS,
+                               "phase 5 top prior")
+    return dict(launches=dict(launches, **ln_launches), c_attn=c,
+                graph=graph)
 
 
 def profile_train_step(runtime, hps, x, y, top=8):
@@ -2457,8 +2637,8 @@ def run_training(seed, device, n_steps=TRAIN_STEPS, wav_seconds=WAV_SECONDS,
     with tempfile.TemporaryDirectory(prefix="jukebox_train_") as wavs:
         kw = dict(over, audio_files_dir=wavs, max_steps=n_steps,
                   cpu_ema_freq=CPU_EMA_FREQ, log_steps=1)
-        if logdir is None:
-            kw.update(save=False)
+        if logdir is None:  # the logs go with the wavs
+            kw.update(save=False, local_logdir=wavs, name="smoke")
         else:  # save_iters > n_steps: only step 1 saves
             kw.update(save=True, save_iters=n_steps + 1, local_logdir=logdir,
                       name="smoke")
@@ -2470,8 +2650,9 @@ def run_training(seed, device, n_steps=TRAIN_STEPS, wav_seconds=WAV_SECONDS,
             torch.cuda.reset_peak_memory_stats()
         reset_training_launches()
         t0 = time.time()
-        out = train_mod.run(TRAIN_HPS, device=device, dataset=dataset,
-                            **dict(TRAIN_KW, seed=seed, **kw))
+        with sampling_watch() as samples:
+            out = train_mod.run(TRAIN_HPS, device=device, dataset=dataset,
+                                **dict(TRAIN_KW, seed=seed, **kw))
         wall = time.time() - t0
         launches = dict(fa.LAUNCHES)
         kernel_launches = dict(**ln.LAUNCHES, **ad.LAUNCHES)
@@ -2479,11 +2660,15 @@ def run_training(seed, device, n_steps=TRAIN_STEPS, wav_seconds=WAV_SECONDS,
     n_flash = n_flash_layers(runtime, hps)
     walls = [r["wall_s"] for r in records[1:]]
     step_s = float(np.median(walls)) if walls else float("nan")
+    sampled = check_samples(samples, 1, cuda, "phase 6")
+    expected = expected_layer_norms(runtime, len(records))
+    expected["layer_norm_fwd"] += sampled["layer_norm_fwd"]
     report = dict(records=records, launches=launches, wall_s=wall,
                   expected=expected_flash(n_flash, len(records)),
-                  kernel_launches=kernel_launches,
+                  kernel_launches=kernel_launches, samples=samples,
+                  n_depth=runtime.model.prior.transformer.n_depth,
                   kernel_expected=dict(
-                      expected_layer_norms(runtime, len(records)),
+                      expected,
                       adam_update=sum(r["step_ok"] for r in records)),
                   median_step_s=step_s, n_flash_layers=n_flash,
                   tokens_per_s=runtime.model.prior.input_dims * hps.bs / step_s,
@@ -2541,7 +2726,7 @@ def check_resume(seed, device, ckpt, n_more=2, wav_seconds=WAV_SECONDS,
     with tempfile.TemporaryDirectory(prefix="jukebox_train_") as wavs:
         kw = dict(over, audio_files_dir=wavs, max_steps=step + n_more,
                   cpu_ema_freq=CPU_EMA_FREQ, log_steps=1, save=False,
-                  restore_prior=ckpt)
+                  restore_prior=ckpt, local_logdir=wavs, name="resumed")
         hps = train_hps(seed, **kw)
         write_wavs(wavs, 2, wav_seconds, hps.sr, seed)
         dataset = FixedMetadataDataset(hps, "unknown", "unknown", LYRICS)
@@ -2634,13 +2819,13 @@ def run_primed(priors, hps4, seed):
     """Phase 4b: primed_sample from phase 4's level_0/item_0.wav, read by
     load_prompts for PROMPT_SECONDS rounded down to the top's
     raw_to_tokens, at phase 4's length and hop fractions, with phase 4's
-    VQ-VAE and top and upsamplers of PRIMED_UPS_DEPTH layers drawn from
+    VQ-VAE and top and upsamplers of UPS_DEPTH layers drawn from
     `seed`: the first window of every level carries the prompt's codes as
     context. Returns the cascade's report."""
     top = priors[-1]
     device = next(top.model.parameters()).device
     priors = [make_prior(setup_hparams(name, dict(
-        seed=seed, prior_depth=PRIMED_UPS_DEPTH)), top.vqvae, device)
+        seed=seed, prior_depth=UPS_DEPTH)), top.vqvae, device)
         for name in MODELS["1b_lyrics"][1:3]] + [top]
     duration = (int(PROMPT_SECONDS * hps4.sr) // top.raw_to_tokens
                 * top.raw_to_tokens)
@@ -2653,7 +2838,7 @@ def run_primed(priors, hps4, seed):
                 max_batch_size=N_SAMPLES) for _ in priors]
     log(f"phase 4b primed: a {duration}-sample prompt ({duration / hps.sr:.2f}"
         f" s) of phase 4's first wav, {N_SAMPLES} x {hps.sample_length} "
-        f"samples, {PRIMED_UPS_DEPTH}-layer upsamplers")
+        f"samples, {UPS_DEPTH}-layer upsamplers")
     try:
         rep = run_cascade(priors, hps, skw, prompt=x)
     finally:
@@ -2664,7 +2849,7 @@ def run_primed(priors, hps4, seed):
 
 def run_5b_lyrics(seed, device, gen):
     """Phase 7: the 5b_lyrics cascade drawn from `seed` (the top at all 79
-    layers, the upsamplers at UPS_DEPTH): one full-width top decode step
+    layers, the upsamplers at UPS_DEPTH_5B): one full-width top decode step
     kernel path against plain path in bf16 and in int8 and one int8
     upsampler step (phase 3), then the ancestral cascade in the int8 mode;
     then prior_5b at full width and one of its decode steps checked.
@@ -2674,7 +2859,7 @@ def run_5b_lyrics(seed, device, gen):
                       sr=44100, hop_fraction=HOPS, seed=seed,
                       name=tempfile.mkdtemp(prefix="jukebox_smoke_5b_"))
     vqvae, priors = make_model("5b_lyrics", hps, device, prior_overrides=[
-        {"prior_depth": UPS_DEPTH}, {"prior_depth": UPS_DEPTH}, {}])
+        {"prior_depth": UPS_DEPTH_5B}, {"prior_depth": UPS_DEPTH_5B}, {}])
     torch.cuda.synchronize()
     top = priors[-1]
     n_params = sum(p.numel() for p in top.model.parameters())
@@ -2821,6 +3006,10 @@ def _peak_reset(cuda):
 
 def _peak_gb(cuda):
     return torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+
+
+def _gb(x):
+    return "not measured (CPU)" if x is None else f"{x:.2f} GB"
 
 
 def run_vq_quick_start(seed, device, songs, logdir, n_steps=VQ_STEPS,
@@ -3036,7 +3225,8 @@ def run_prior_quick_start(seed, device, songs, vq_ckpt, logdir, gen,
     _peak_reset(cuda)
     reset_training_launches()
     t0 = time.time()
-    out = train_mod.run(PRIOR_HPS, device=device, **kw)
+    with sampling_watch() as samples:
+        out = train_mod.run(PRIOR_HPS, device=device, **kw)
     wall = time.time() - t0
     launches = training_launches()
     runtime, records = out["runtime"], out["records"]
@@ -3054,8 +3244,11 @@ def run_prior_quick_start(seed, device, songs, vq_ckpt, logdir, gen,
                * math.ceil(n_test / hps.bs))
     expected = expected_quick_start(hps, len(records), n_evals)
     expected["adam_update"] = sum(r["step_ok"] for r in records)
+    expected["layer_norm_fwd"] += check_samples(
+        samples, 1, cuda, "phase 8 (c)")["layer_norm_fwd"]
     report = dict(
         records=records, launches=launches, expected=expected, wall_s=wall,
+        samples=samples,
         test=out["test"], n_depth=tr.n_depth, width=tr.n_in,
         n_ctx=tr.n_ctx, n_flash_layers=n_flash_layers(runtime, hps),
         n_params=sum(p.numel() for p in runtime.params.values()),
@@ -3086,64 +3279,590 @@ def run_prior_quick_start(seed, device, songs, vq_ckpt, logdir, gen,
     return report
 
 
-def run_quick_start(seed, device, gen):
-    """Phase 8: songs written to a temporary directory, then (a), its
-    restore, (b) and (c). Returns {"a", "b", "c"} reports."""
-    tmp = tempfile.mkdtemp(prefix="jukebox_quick_start_")
-    try:
-        songs, logdir = os.path.join(tmp, "songs"), os.path.join(tmp, "logs")
-        os.makedirs(songs)
-        seconds = song_seconds(quick_start_hps("prior", seed))
-        t = time.time()
-        write_songs(songs, seconds, SONG_SR, seed)
-        native = "built" if wavio.available() else "unavailable"
-        compressed = ("available" if avio.available() else
-                      "unavailable (no ffmpeg libraries): wav only")
-        log(f"phase 8 songs: {len(SONG_KINDS)} x {seconds} s stereo at "
-            f"{SONG_SR} Hz ({', '.join(SONG_KINDS)} wav) in "
-            f"{time.time() - t:.1f}s; native wav reader {native}, avio "
-            f"{compressed}")
-        a = run_vq_quick_start(seed, device, songs, logdir)
-        for r in a["records"]:
-            log(f"  (a) step {r['it']}: " + " ".join(
-                f"{pk} {r[k]:.5g}" for pk, k in train_mod.VQVAE_KEYS.items())
-                + f" step_ok {r['step_ok']} wall {r['wall_s']:.3f}s"
-                + (f"; saved in {r['save_s']:.2f}s" if "save_s" in r
-                   else ""))
-        log(f"  (a) run {a['wall_s']:.1f}s, median step (steps 2-"
-            f"{VQ_STEPS}) {a['median_step_s'] * 1e3:.1f} ms, peak memory "
-            f"{a['peak_mem_gb']:.2f} GB, {a['n_params'] / 1e6:.2f} M params;"
-            f" launches {a['launches']} == expected {a['expected']}; "
-            f"checkpoint {a['bytes']} bytes")
-        step = check_vq_restore(seed, device, a["checkpoint"])
-        log(f"  (a) restored at step {step}: params and codebook state bit "
-            f"for bit; for training, the fine-tuning reset as its formula")
-        b = check_vqvae_step(seed, device, songs, gen)
-        log(f"  (b) one train step: loss {b['loss']:.5g} gn {b['gn']:.5g} "
-            f"used_curr {b['used_curr']:.0f}, wall {b['wall_s'] * 1e3:.1f} "
-            f"ms, peak memory {b['peak_mem_gb']:.2f} GB, launches "
-            f"{b['launches']}")
-        if torch.device(device).type == "cuda":
-            torch.cuda.empty_cache()
-        c = run_prior_quick_start(seed, device, songs, a["checkpoint"],
-                                  logdir, gen)
-        for r in c["records"]:
-            log(f"  (c) step {r['it']}: " + " ".join(
-                f"{pk} {r[k]:.5g}" for pk, k in train_mod.PRIOR_KEYS.items()
-                if k in r) + f" step_ok {r['step_ok']} wall "
-                f"{r['wall_s']:.3f}s")
-        log(f"  (c) {c['n_depth']} layers at width {c['width']}, n_ctx "
-            f"{c['n_ctx']}, {c['n_params'] / 1e6:.1f} M params; run "
-            f"{c['wall_s']:.1f}s, median step (steps 2-{PRIOR_STEPS}) "
-            f"{c['median_step_s'] * 1e3:.1f} ms = {c['tokens_per_s']:.0f} "
-            f"tokens/s, peak memory {c['peak_mem_gb']:.2f} GB, test loss "
-            f"{c['test']['loss']:.5g}; {c['n_flash_layers']} flash layers; "
-            f"launches {c['launches']} == expected {c['expected']}; "
-            f"checkpoint {c['bytes']} bytes, saved in "
-            f"{c['records'][0]['save_s']:.2f}s")
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+def quick_start_songs(tmp, seed):
+    """Phase 8's songs written under tmp/songs. Returns (songs, logdir),
+    the logs' directory tmp/logs."""
+    songs, logdir = os.path.join(tmp, "songs"), os.path.join(tmp, "logs")
+    os.makedirs(songs)
+    seconds = song_seconds(quick_start_hps("prior", seed))
+    t = time.time()
+    write_songs(songs, seconds, SONG_SR, seed)
+    native = "built" if wavio.available() else "unavailable"
+    compressed = ("available" if avio.available() else
+                  "unavailable (no ffmpeg libraries): wav only")
+    log(f"phase 8 songs: {len(SONG_KINDS)} x {seconds} s stereo at "
+        f"{SONG_SR} Hz ({', '.join(SONG_KINDS)} wav) in "
+        f"{time.time() - t:.1f}s; native wav reader {native}, avio "
+        f"{compressed}")
+    return songs, logdir
+
+
+def run_quick_start(seed, device, gen, songs, logdir, only_a=False):
+    """Phase 8 on the songs, logging under logdir: (a), its restore, (b)
+    and (c); only (a) with only_a. Returns {"a", "b", "c"} reports (None
+    where not run)."""
+    a = run_vq_quick_start(seed, device, songs, logdir)
+    for r in a["records"]:
+        log(f"  (a) step {r['it']}: " + " ".join(
+            f"{pk} {r[k]:.5g}" for pk, k in train_mod.VQVAE_KEYS.items())
+            + f" step_ok {r['step_ok']} wall {r['wall_s']:.3f}s"
+            + (f"; saved in {r['save_s']:.2f}s" if "save_s" in r else ""))
+    log(f"  (a) run {a['wall_s']:.1f}s, median step (steps 2-"
+        f"{VQ_STEPS}) {a['median_step_s'] * 1e3:.1f} ms, peak memory "
+        f"{a['peak_mem_gb']:.2f} GB, {a['n_params'] / 1e6:.2f} M params;"
+        f" launches {a['launches']} == expected {a['expected']}; "
+        f"checkpoint {a['bytes']} bytes")
+    if only_a:
+        return dict(a=a, b=None, c=None)
+    step = check_vq_restore(seed, device, a["checkpoint"])
+    log(f"  (a) restored at step {step}: params and codebook state bit "
+        f"for bit; for training, the fine-tuning reset as its formula")
+    b = check_vqvae_step(seed, device, songs, gen)
+    log(f"  (b) one train step: loss {b['loss']:.5g} gn {b['gn']:.5g} "
+        f"used_curr {b['used_curr']:.0f}, wall {b['wall_s'] * 1e3:.1f} "
+        f"ms, peak memory {b['peak_mem_gb']:.2f} GB, launches "
+        f"{b['launches']}")
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    c = run_prior_quick_start(seed, device, songs, a["checkpoint"], logdir,
+                              gen)
+    for r in c["records"]:
+        log(f"  (c) step {r['it']}: " + " ".join(
+            f"{pk} {r[k]:.5g}" for pk, k in train_mod.PRIOR_KEYS.items()
+            if k in r) + f" step_ok {r['step_ok']} wall "
+            f"{r['wall_s']:.3f}s"
+            + (f"; sample {r['sample_s']:.1f}s" if "sample_s" in r else ""))
+    log(f"  (c) {c['n_depth']} layers at width {c['width']}, n_ctx "
+        f"{c['n_ctx']}, {c['n_params'] / 1e6:.1f} M params; run "
+        f"{c['wall_s']:.1f}s, median step (steps 2-{PRIOR_STEPS}) "
+        f"{c['median_step_s'] * 1e3:.1f} ms = {c['tokens_per_s']:.0f} "
+        f"tokens/s, peak memory {c['peak_mem_gb']:.2f} GB, test loss "
+        f"{c['test']['loss']:.5g}; {c['n_flash_layers']} flash layers; "
+        f"launches {c['launches']} == expected {c['expected']}; "
+        f"checkpoint {c['bytes']} bytes, saved in "
+        f"{c['records'][0]['save_s']:.2f}s; sample "
+        f"{c['samples'][0]['wall_s']:.1f}s")
     return dict(a=a, b=b, c=c)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: upstream's other training recipes
+# ---------------------------------------------------------------------------
+
+# README "Train the upsampler" over phase 8 (a)'s VQ-VAE at the preset's
+# published widths and depth (48 layers at 1024, a 16-layer conditioner at
+# 512, n_ctx 8192): three steps, the inputs logged at steps 1 and 3
+# (save_iters 2), the in-training sample of step 1 at full depth, step 3
+# traced (debug_speed)
+UPS_HPS = "small_vqvae,small_upsampler,all_fp16,cpu_ema"
+UPS_KW = dict(name="small_upsampler", sample_length=262144, bs=4,
+              labels=False, train=True, test=True, aug_shift=True,
+              aug_blend=True, prior=True, levels=2, level=0,
+              weight_decay=0.01, save_iters=2, log_steps=1,
+              debug_speed=True)
+UPS_STEPS = 3
+# the fp32 decode as a CUDA graph against op by op, at temp 0 (phase 9 (a)'s
+# upsampler, phase 5's 72-layer top), and the graphed decode's kernels
+# counted in a profiler trace of its first PROFILED_TOKENS tokens
+GRAPH_TOKENS, PROFILED_TOKENS = 128, 16
+# the labelled and lyric small priors over the 3-level vqvae preset, fresh
+# (its released file is on neither machine), at sample_length n_ctx x 128
+LABELLED_LENGTH = {"small_labelled_prior": 1048576,
+                   "small_single_enc_dec_prior": 786432,
+                   "small_sep_enc_dec_prior": 786432}
+LABELLED_KW = dict(bs=4, labels=True, train=True, test=True, aug_shift=True,
+                   aug_blend=True, prior=True, levels=3, level=2,
+                   weight_decay=0.01, restore_vqvae="", log_steps=1)
+LABELLED_STEPS = 2
+# their train.run at a cut depth, widths kept (one full-depth step each is
+# held to the plain path first): 4 layers; the sep-enc-dec prior 10, so
+# that its first f6 cross-attention layer (depth 9) stays
+CUT_DEPTH = {"small_labelled_prior": 4, "small_single_enc_dec_prior": 4,
+             "small_sep_enc_dec_prior": 10}
+# the labels: v3 artist 3 and genre 9, inside the presets' y_bins (10, 100)
+RECIPE_ARTIST, RECIPE_GENRE = "dianne reeves", "bebop"
+# what a prior's step logs each log_steps (jukebox_tpu/train.py) under
+# all_fp16, and the JSONL line's own keys
+STEP_TAGS = ("bpd", "gen_loss", "gn", "lr", "prime_loss", "loss",
+             "lg_loss_scale")
+JSONL_KEYS = ("it", "wall_s", "window_s") + STEP_TAGS
+
+
+def recipe_args(preset, seed, **over):
+    """(hps set names, kwargs) of a recipe's train.run."""
+    if preset == "small_upsampler":
+        names, kw = UPS_HPS, dict(UPS_KW)
+    else:
+        names = f"vqvae,{preset},all_fp16,cpu_ema"
+        kw = dict(LABELLED_KW, name=preset,
+                  sample_length=LABELLED_LENGTH[preset])
+    kw.update(seed=seed, **over)
+    return names, kw
+
+
+def recipe_hps(preset, seed, **over):
+    return setup_hparams(*recipe_args(preset, seed, **over))
+
+
+def recipe_dataset(hps):
+    """The labelled dataset of a recipe, or None (labels=False)."""
+    if not hps.labels:
+        return None
+    return FixedMetadataDataset(hps, RECIPE_ARTIST, RECIPE_GENRE, LYRICS)
+
+
+def recipe_label_ids(hps):
+    """(artist id, genre ids) of the recipes' metadata under hps's
+    labeller; raises unless they fall inside hps.y_bins (genres,
+    artists)."""
+    from jukebox_tpu_torch.data.labels import Labeller
+    lab = Labeller(hps.max_bow_genre_size, hps.n_tokens, hps.sample_length,
+                   v3=hps.labels_v3)
+    y = lab.get_label(RECIPE_ARTIST, RECIPE_GENRE, LYRICS,
+                      hps.sample_length * 4, 0)["y"]
+    artist, genres = int(y[3]), [int(g) for g in
+                                 y[4:4 + hps.max_bow_genre_size]]
+    n_genres, n_artists = hps.y_bins
+    if not (0 <= artist < n_artists and all(-1 <= g < n_genres
+                                            for g in genres)):
+        raise AssertionError(f"label ids artist {artist} genres {genres} "
+                             f"outside y_bins {hps.y_bins}")
+    return artist, genres
+
+
+def check_logs(logdir, hps, records, jsonl, labelled, evaluated, start=0):
+    """The logger's files of a train.run under logdir that started at step
+    `start`: argv.txt; events (utils/logger.py read_events, CRCs checked)
+    holding every STEP_TAGS scalar, finite, at each step i with i %
+    log_steps == 0, the test_* averages after an evaluation, and for a
+    labelled prior the labels' text of its inputs and its sample naming
+    the recipe's artist and genre; the input wavs at the steps i with
+    (i - 1) % save_iters == 0 and the sample's at step 1; JSONL lines at
+    the logged steps with JAX's keys. Returns a summary dict."""
+    from jukebox_tpu_torch.utils.logger import read_events
+    if not os.path.exists(os.path.join(logdir, "argv.txt")):
+        raise AssertionError(f"{logdir}: no argv.txt")
+    paths = [os.path.join(logdir, "logs", f) for f in
+             os.listdir(os.path.join(logdir, "logs"))
+             if f.startswith("events.out.tfevents.")]
+    if len(paths) != 1:
+        raise AssertionError(f"{logdir}: event files {paths}")
+    events = read_events(paths[0])
+    got = {(step, tag): v for step, tag, v in events}
+    steps = [r["it"] for r in records]
+    for it in steps:
+        if it % hps.log_steps:
+            continue
+        for tag in STEP_TAGS:
+            v = got.get((it, tag))
+            if not (isinstance(v, float) and math.isfinite(v)):
+                raise AssertionError(f"{logdir}: scalar {tag} at step {it}: "
+                                     f"{v}")
+    if evaluated and not any(tag.startswith("test_") and step == steps[-1]
+                             for step, tag in got):
+        raise AssertionError(f"{logdir}: no test_* scalar")
+    name = f"artist:{RECIPE_ARTIST}, genre:{RECIPE_GENRE}"
+    texts = {tag: v for (step, tag), v in got.items() if step == 1
+             and tag.endswith("/text_summary")}
+    if labelled and not all(name in texts.get(f"{t}/text_summary", "")
+                            for t in ("train_y_in", "sample_x_T1")):
+        raise AssertionError(f"{logdir}: the labels' text {texts}")
+    n_clips = min(hps.bs, hps.max_log)
+    want = {f"sample_x_T1_{i}_it1.wav" for i in range(n_clips)}
+    want |= {f"train_x_in_{i}_it{it}.wav" for it in steps
+             if (it - 1) % hps.save_iters == 0 for i in range(n_clips)}
+    have = set(os.listdir(os.path.join(logdir, "audio")))
+    if have != want:
+        raise AssertionError(f"{logdir}: audio {sorted(have)} != "
+                             f"{sorted(want)}")
+    with open(jsonl) as f:
+        lines = [json.loads(line) for line in f]
+    logged = [it for it in steps if it % hps.log_steps == 0]
+    if [r["it"] for r in lines] != logged or any(
+            set(r) != set(JSONL_KEYS) for r in lines):
+        raise AssertionError(f"{jsonl}: lines {lines}")
+    return dict(events=len(events), tags=len({t for _, t, _ in events}),
+                audio=len(have), jsonl=len(lines))
+
+
+def run_recipe(preset, seed, device, songs, logdir, n_steps, graph_check=0,
+               **over):
+    """Phase 9 (a) / (b): train.run of a recipe for n_steps on the songs
+    under logdir, JUKEBOX_TRAIN_JSONL set: finite losses, the LayerNorm,
+    flash and Adam launches (expected_layer_norms with the run's
+    evaluation, its in-training sample's own launches as
+    sample_layer_norms), the sample (check_samples), the logger's files
+    (check_logs), no thread left. With debug_speed, the trace of step 3:
+    a Chrome trace file naming the LayerNorm or flash kernels. With
+    graph_check, the trained prior's fp32 decode of that many tokens as a
+    CUDA graph against op by op (check_decode_graph). Returns a report
+    dict."""
+    cuda = torch.device(device).type == "cuda"
+    threads = set(threading.enumerate())
+    names, kw = recipe_args(preset, seed, audio_files_dir=songs,
+                            max_steps=n_steps, local_logdir=logdir, **over)
+    hps = setup_hparams(names, kw)
+    if hps.labels:
+        recipe_label_ids(hps)
+    jsonl = os.path.join(logdir, f"{hps.name}.jsonl")
+    _peak_reset(cuda)
+    reset_training_launches()
+    saved_env = os.environ.get("JUKEBOX_TRAIN_JSONL")
+    os.environ["JUKEBOX_TRAIN_JSONL"] = jsonl
+    t0 = time.time()
+    try:
+        with sampling_watch() as samples:
+            out = train_mod.run(names, device=device,
+                                dataset=recipe_dataset(hps), **kw)
+    finally:
+        if saved_env is None:
+            os.environ.pop("JUKEBOX_TRAIN_JSONL", None)
+        else:
+            os.environ["JUKEBOX_TRAIN_JSONL"] = saved_env
+    wall = time.time() - t0
+    launches = training_launches()
+    runtime, records = out["runtime"], out["records"]
+    model = runtime.model
+    tr = model.prior.transformer
+    n_items = len(FilesAudioDataset(hps))
+    n_test = n_items - int(n_items * hps.train_test_split)
+    n_evals = math.ceil(n_test / hps.bs) if hps.test else 0
+    n_flash = n_flash_layers(runtime, hps)
+    expected = dict(expected_flash(n_flash, len(records)),
+                    **expected_layer_norms(runtime, len(records), n_evals),
+                    adam_update=sum(r["step_ok"] for r in records))
+    expected["flash_fwd"] += n_flash * n_evals
+    sampled = check_samples(samples, 1, cuda, f"phase 9 {preset}")
+    expected["layer_norm_fwd"] += sampled["layer_norm_fwd"]
+    report = dict(
+        preset=preset, records=records, launches=launches, wall_s=wall,
+        expected=expected, samples=samples, n_depth=tr.n_depth,
+        width=tr.n_in, n_ctx=model.n_ctx, n_flash_layers=n_flash,
+        n_params=sum(p.numel() for p in runtime.params.values()),
+        peak_mem_gb=_peak_gb(cuda), test=out["test"],
+        encoder=(None if model.prime_prior is None else
+                 (model.prime_prior.transformer.n_depth,
+                  model.prime_prior.transformer.n_in)),
+        cond=(hps.cond_depth, hps.cond_width) if model.x_cond else None)
+    logdir_run = out["logger"].logdir
+    if graph_check:
+        x = 0.3 * torch.randn((1, hps.sample_length, 1),
+                              device=next(model.parameters()).device)
+        report["graph"] = check_decode_graph(runtime, x, None, graph_check,
+                                             f"phase 9 {preset}")
+    del out, runtime, model, tr
+    if len(records) != n_steps:
+        raise AssertionError(f"{preset}: {len(records)} steps")
+    _finite(records, ("loss", "gn", "bpd"))
+    if hps.test and not math.isfinite(report["test"]["loss"]):
+        raise AssertionError(f"{preset}: test loss {report['test']}")
+    _outlived(threads)
+    if cuda and launches != expected:
+        raise AssertionError(f"{preset}: launches {launches} != expected "
+                             f"{expected}")
+    report["logs"] = check_logs(logdir_run, hps, records, jsonl, hps.labels,
+                                hps.test)
+    if hps.debug_speed:
+        report["trace"] = check_trace(logdir_run, cuda)
+    return report
+
+
+def check_trace(logdir, cuda):
+    """debug_speed's trace under {logdir}/trace: one Chrome trace file
+    whose events name the LayerNorm or flash kernels (on the card). Returns
+    (path's bytes, kernel names found)."""
+    d = os.path.join(logdir, "trace")
+    files = [os.path.join(d, f) for f in os.listdir(d) if f.endswith(".json")]
+    if len(files) != 1:
+        raise AssertionError(f"debug_speed traces {files}")
+    with open(files[0]) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    found = sorted({n for n in names if "layer_norm_" in n or "flash_" in n})
+    if cuda and not found:
+        raise AssertionError("the trace names no LayerNorm or flash kernel")
+    return os.path.getsize(files[0]), found
+
+
+def check_recipe_step(preset, seed, device, gen, **over):
+    """Phase 9 (b): one full-depth step of a labelled or lyric recipe on
+    one batch of random audio and the recipe's labels: loss and global
+    gradient norm through the kernels against the plain path within
+    RECIPE_TOL, the same with a planted LayerNorm fault (faulty_layer_norm:
+    "row" read, "vector" refused), and for a prior with flash layers also
+    against the path with flash alone plain within LOSS_TOL / GN_TOL
+    (phase 5's method).
+    Returns a report with the kernel path's launches."""
+    hps = recipe_hps(preset, seed, **over)
+    t = time.time()
+    runtime = make_prior(hps, make_vqvae(hps, device), device)
+    model = runtime.model
+    tr = model.prior.transformer
+    n_flash = n_flash_layers(runtime, hps)
+    x = (0.3 * torch.randn((hps.bs, hps.sample_length, 1), generator=gen,
+                           device=device)).clamp(-1, 1)
+    meta = dict(artist=RECIPE_ARTIST, genre=RECIPE_GENRE, lyrics=LYRICS,
+                total_length=hps.sample_length * 3, offset=0)
+    y = torch.as_tensor(runtime.get_y(runtime.labeller.get_batch_labels(
+        [meta] * hps.bs), 0), device=device)
+    build_s = time.time() - t
+    reset_training_launches()
+    kernel = loss_and_grads(runtime, hps, x, y, False, [])
+    launches = training_launches()
+    plain = loss_and_grads(runtime, hps, x, y, True, [])
+    gaps = step_gaps(kernel, plain)
+    faults = {}
+    for kind in ("row", "vector"):
+        with faulty_layer_norm(kind):
+            faults[kind] = step_gaps(loss_and_grads(runtime, hps, x, y, False,
+                                                    []), plain)
+    rep = dict(preset=preset, n_depth=tr.n_depth, width=tr.n_in,
+               n_ctx=tr.n_ctx, n_flash_layers=n_flash, build_s=build_s,
+               loss=kernel[0], gn=kernel[1], full=gaps, faults=faults,
+               launches=launches,
+               n_params=sum(p.numel() for p in runtime.params.values()))
+    if not all(gaps[k] <= RECIPE_TOL[k] for k in gaps):
+        raise AssertionError(f"{preset}: the kernel path's step disagrees "
+                             f"with the plain path: {gaps}")
+    if all(faults["vector"][k] <= RECIPE_TOL[k] for k in gaps):
+        raise AssertionError(f"{preset}: the step check passes a LayerNorm "
+                             f"forward that leaves the last 16 bytes of "
+                             f"every row out: {faults['vector']}")
+    if n_flash:
+        with plain_flash():
+            rep["flash"] = step_gaps(kernel, loss_and_grads(
+                runtime, hps, x, y, False, []))
+        if not (rep["flash"]["loss"] <= LOSS_TOL
+                and rep["flash"]["grad norm"] <= GN_TOL):
+            raise AssertionError(f"{preset}: the kernel path's step "
+                                 f"disagrees with flash alone plain: "
+                                 f"{rep['flash']}")
+    want = dict(expected_flash(n_flash, 1),
+                **expected_layer_norms(runtime, 1), adam_update=0)
+    if x.is_cuda and launches != want:
+        raise AssertionError(f"{preset}: launches {launches} != {want}")
+    del runtime, model, tr, x
+    return rep
+
+
+def check_c_attn(runtime, hps, x, y):
+    """Phase 9 (c): phase 5's full-width step again with c_attn = c_mlp = 1
+    on every block (as make_prior sets them from hps), against the same
+    step under c_res alone: the loss and every gradient equal bit for bit
+    where the c_res step itself repeats to the bit (a second c_res step
+    tells), else within FULL_TOL; peak memory of both. Returns a report."""
+    cuda = x.is_cuda
+    tr = runtime.model.prior.transformer
+    names = list(runtime.params)
+
+    def step(flags):
+        for blk in tr.blocks:
+            blk.checkpoint_attn = blk.checkpoint_mlp = flags
+        _peak_reset(cuda)
+        t0 = time.time()
+        loss, gn, grads = loss_and_grads(runtime, hps, x, y, False, names)
+        if cuda:
+            torch.cuda.synchronize()
+        return loss, gn, grads, time.time() - t0, _peak_gb(cuda)
+    try:
+        base = step(0)
+        again = step(0)
+        flagged = step(1)
+    finally:
+        for blk in tr.blocks:
+            blk.checkpoint_attn = blk.checkpoint_mlp = 0
+    repeats = {n for n in names if torch.equal(base[2][n], again[2][n])}
+    differ = [n for n in names if not torch.equal(base[2][n],
+                                                  flagged[2][n])]
+    rep = dict(loss=(base[0], flagged[0]), gn=(base[1], flagged[1]),
+               wall_s=(base[3], flagged[3]), peak_gb=(base[4], flagged[4]),
+               repeat_equal=len(repeats), n=len(names),
+               differ=differ, equal=len(names) - len(differ))
+    # where c_res alone does not repeat to the bit, FULL_TOL's limits
+    if (flagged[0] != base[0] if base[0] == again[0] else
+            abs(flagged[0] - base[0]) > FULL_TOL["loss"] * abs(base[0])):
+        raise AssertionError(f"c_attn / c_mlp loss {flagged[0]} != "
+                             f"{base[0]}")
+    for n in differ:
+        # a gradient that c_res alone does not repeat to the bit (the
+        # embedding backward's atomic adds) is held to FULL_TOL's
+        # gradient limit instead
+        gap = (torch.linalg.vector_norm((flagged[2][n] - base[2][n]).float())
+               / torch.linalg.vector_norm(base[2][n].float())).item()
+        if n in repeats or gap > FULL_TOL["c_attn"]:
+            raise AssertionError(f"c_attn / c_mlp: {n} differs from the "
+                                 f"c_res step's ({gap:.3e})")
+    return rep
+
+
+def trace_kernels(prof, name):
+    """Kernels whose name holds `name` in a torch.profiler run's Chrome
+    trace (its CUPTI kernel records: a CUDA graph's replays too)."""
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    return sum(1 for e in events if str(e.get("cat", "")).lower() == "kernel"
+               and name in e.get("name", ""))
+
+
+def check_decode_graph(runtime, x, y, n_tokens, what):
+    """The fp32 layer-module decode (the in-training sample's) as a CUDA
+    graph a token against op by op (DecodeGraph.wanted refusing), from the
+    same caches at temp 0 for n_tokens: equal tokens; on the card the
+    LayerNorm wrapper's launches, op by op two a layer a token, graphed
+    the same less the replayed steps' and plus the capture's (ar.GRAPHS);
+    the walls of both. On the card the graphed decode of PROFILED_TOKENS
+    runs again under torch.profiler, and its trace must hold two
+    layer_norm_fwd kernels a layer a token, less fewer than one a replay
+    (records the trace lost): what the replays ran, which no wrapper
+    counts. x: audio [N, T, 1] for the levels above, y: labels or None.
+    Returns a report."""
+    model = runtime.model
+    cuda = x.is_cuda
+    per_step = 2 * model.prior.transformer.n_depth
+    z_conds = runtime.encode(x[:1], bs_chunks=1)[1:] or None
+    y = None if y is None else y[:1]
+    enc = (model.encoder_kv_from_y(y) if y is not None
+           and model.prime_prior is not None else None)
+    t0 = model.sample_prefix_len(None)
+    n_tokens = min(n_tokens, model.prior.input_dims - t0)
+
+    def decode(n, around=contextlib.nullcontext()):
+        with torch.no_grad():
+            caches, x_tok, x_cond, y_cond = model.sample_init(
+                1, z_conds=z_conds, y=y, encoder_kv=enc)
+            reset_training_launches()
+            before = dict(ar.GRAPHS)
+            if cuda:
+                torch.cuda.synchronize()
+            t = time.time()
+            with around:
+                toks, _ = model.sample_segment(
+                    caches, x_tok, t0, n, None, x_cond, y_cond, temp=0.0)
+                if cuda:
+                    torch.cuda.synchronize()
+        return (toks, time.time() - t, ln.LAUNCHES["layer_norm_fwd"],
+                {k: ar.GRAPHS[k] - before[k] for k in before})
+    wanted = ar.DecodeGraph.wanted
+    ar.DecodeGraph.wanted = staticmethod(lambda *a: False)
+    try:
+        eager = decode(n_tokens)
+    finally:
+        ar.DecodeGraph.wanted = wanted
+    graph = decode(n_tokens)
+    g = graph[3]
+    rep = dict(n=n_tokens, eager_s=eager[1], graph_s=graph[1],
+               same=bool(torch.equal(eager[0], graph[0])),
+               launches=(eager[2], graph[2]), graphs=g, profiled=None)
+    if cuda:
+        n_prof = min(PROFILED_TOKENS, n_tokens)
+        prof = torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA])
+        replays = decode(n_prof, prof)[3]["replays"]
+        rep["profiled"] = (n_prof, trace_kernels(prof, "layer_norm_fwd"),
+                           replays)
+    log(f"  {what}: fp32 decode of {n_tokens} tokens at temp 0, op by op "
+        f"{eager[1]:.2f}s, as a CUDA graph a token {graph[1]:.2f}s; tokens "
+        f"equal {rep['same']}; layer_norm_fwd wrapper launches {eager[2]} "
+        f"and {graph[2]} (graphs {g})" + (
+            f"; the graphed decode of {rep['profiled'][0]} tokens "
+            f"({rep['profiled'][2]} replays) ran {rep['profiled'][1]} "
+            f"layer_norm_fwd kernels of {per_step * rep['profiled'][0]} "
+            f"(profiler trace)" if cuda else ""))
+    if not rep["same"]:
+        diff = int((eager[0] != graph[0]).sum())
+        raise AssertionError(f"{what}: the graphed decode's tokens differ "
+                             f"at {diff} of {eager[0].numel()}")
+    if cuda and (eager[2] != per_step * n_tokens or graph[2] != per_step * (
+            n_tokens - g["replays"] + g["captures"])):
+        raise AssertionError(f"{what}: layer_norm_fwd wrapper launches "
+                             f"{eager[2]} op by op, {graph[2]} graphed "
+                             f"({g}), {per_step} a token step")
+    if cuda and not (g["captures"] == 1 and g["replays"] > 0):
+        raise AssertionError(f"{what}: the decode graph {g}")
+    # the trace may lose kernel records (an H100 smoke run read 2303 of
+    # 2304 and 1533 of 1536): fewer lost than the run's replays, so a graph
+    # one LayerNorm short is still refused
+    if cuda and not (per_step * rep["profiled"][0] - rep["profiled"][2]
+                     < rep["profiled"][1] <= per_step * rep["profiled"][0]):
+        raise AssertionError(f"{what}: the graphed decode of "
+                             f"{rep['profiled'][0]} tokens ran "
+                             f"{rep['profiled'][1]} layer_norm_fwd kernels, "
+                             f"expected {per_step} a token")
+    return rep
+
+
+def run_recipes(seed, device, gen, songs, vq_ckpt, logdir):
+    """Phase 9 (a), (b) and (d) (the trace of (a)). Returns {"a", "b"}:
+    (a)'s report, and per labelled / lyric preset its full-depth step's
+    and its cut run's."""
+    cuda = torch.device(device).type == "cuda"
+    log(f"phase 9 (a) upsampler: {UPS_HPS} at full depth for {UPS_STEPS} "
+        f"steps over phase 8 (a)'s checkpoint, sampling at step 1, step 3 "
+        f"traced")
+    a = run_recipe("small_upsampler", seed, device, songs, logdir, UPS_STEPS,
+                   graph_check=GRAPH_TOKENS, restore_vqvae=vq_ckpt)
+    log_recipe("(a)", a)
+    if cuda:
+        torch.cuda.empty_cache()
+    b = {}
+    for preset in LABELLED_LENGTH:
+        step = check_recipe_step(preset, seed, device, gen)
+        log(f"phase 9 (b) {preset}: {step['n_depth']} layers at width "
+            f"{step['width']}, n_ctx {step['n_ctx']}, "
+            f"{step['n_params'] / 1e6:.1f} M params, "
+            f"{step['n_flash_layers']} flash layers, built in "
+            f"{step['build_s']:.1f}s; one step: loss {step['loss']:.6f} gn "
+            f"{step['gn']:.6g}; against all plain: " + ", ".join(
+                f"{k} {v:.3e}" for k, v in step["full"].items())
+            + (" (tol " + ", ".join(f"{k} {RECIPE_TOL[k]:g}"
+                                    for k in step["full"]) + ")")
+            + "".join(f"; planted LayerNorm fault ({kind}): " + ", ".join(
+                f"{k} {v:.3e}" for k, v in gaps.items())
+                for kind, gaps in step["faults"].items())
+            + ("; against flash alone plain: " + ", ".join(
+                f"{k} {v:.3e}" for k, v in step["flash"].items())
+               + f" (tol {LOSS_TOL:g}, {GN_TOL:g})" if "flash" in step
+               else "") + f"; launches {step['launches']}")
+        if cuda:
+            torch.cuda.empty_cache()
+        run = run_recipe(preset, seed, device, songs, logdir, LABELLED_STEPS,
+                         prior_depth=CUT_DEPTH[preset])
+        log_recipe(f"(b) {preset}", run)
+        b[preset] = dict(step=step, run=run)
+        if cuda:
+            torch.cuda.empty_cache()
+    return dict(a=a, b=b)
+
+
+def log_recipe(label, r):
+    for rec in r["records"]:
+        log(f"  {label} step {rec['it']}: " + " ".join(
+            f"{pk} {rec[k]:.5g}" for pk, k in train_mod.PRIOR_KEYS.items()
+            if k in rec) + f" step_ok {rec['step_ok']} wall "
+            f"{rec['wall_s']:.3f}s"
+            + (f"; sample {rec['sample_s']:.1f}s" if "sample_s" in rec
+               else ""))
+    s = r["samples"][0]
+    log(f"  {label} {r['n_depth']} layers at width {r['width']}, n_ctx "
+        f"{r['n_ctx']}, {r['n_params'] / 1e6:.1f} M params"
+        + (f", lyric encoder {r['encoder'][0]} layers at {r['encoder'][1]}"
+           if r["encoder"] else "")
+        + (f", conditioner {r['cond'][0]} layers at {r['cond'][1]}"
+           if r["cond"] else "")
+        + f"; run {r['wall_s']:.1f}s, peak memory {_gb(r['peak_mem_gb'])}"
+        f", test loss {r['test']['loss']:.5g}; sample {s['wall_s']:.1f}s "
+        f"({s['shape'][0]} x {s['shape'][1]} codes in [{s['codes'][0]}, "
+        f"{s['codes'][1]}], {s['launches']['layer_norm_fwd']} LayerNorm "
+        f"wrapper launches, decode graph {s['graphs']}); launches "
+        f"{r['launches']} == expected {r['expected']}; "
+        f"logs {r['logs']}"
+        + (f"; trace {r['trace'][0]} bytes naming {r['trace'][1][:4]}"
+           if "trace" in r else ""))
 
 
 # LayerNorm shapes of phase 2c: the top prior's training rows (n_ctx 6144
@@ -3164,6 +3883,27 @@ REPLACES = dict(
     layer_norm_fwd="jukebox_tpu/ops/pallas/layer_norm.py:63",
     layer_norm_bwd="jukebox_tpu/ops/pallas/layer_norm.py:98",
     adam_update="jukebox_tpu/ops/pallas/adam.py:36")
+
+
+# phase 2b at head dim 128: small_single_enc_dec_prior's f0 layer at its
+# recipe's batch (bs 4 x 2 heads, n_ctx 6144 + 384 lyric tokens, width 1024,
+# so n_state 256)
+FLASH128 = dict(B=4, L=6528, S=256, H=2)
+
+
+def check_flash_hd128(rows, device, gen):
+    """Phase 2b at head dim 128 (FLASH128): the flash kernels' checks of
+    check_flash, planted faults included, and their times; each kernel's
+    row gets them under "hd128" and its max_abs_err the worse of both."""
+    log(f"phase 2b flash kernels at head dim 128 "
+        f"(small_single_enc_dec_prior's f0 layer, bs {FLASH128['B']})")
+    for k, row in check_flash(device=device, gen=gen, **FLASH128).items():
+        if k in rows:
+            rows[k]["hd128"] = row
+            rows[k]["max_abs_err"] = max(rows[k]["max_abs_err"],
+                                         row["max_abs_err"])
+        else:
+            rows[k] = row
 
 
 def main(argv=None):
@@ -3209,6 +3949,7 @@ def main(argv=None):
     tr = top.model.prior.transformer
     rows.update(check_flash(1, tr.n_ctx, tr.blocks[0].attn.n_state,
                             tr.n_head, device, gen))
+    check_flash_hd128(rows, device, gen)
     log("phase 2c LayerNorm kernels against their plain versions")
     rows.update(check_layer_norm(LN_SHAPES, device, gen))
 
@@ -3234,11 +3975,11 @@ def main(argv=None):
 
     log("phase 2d Adam kernel against its plain version (on the top "
         "prior's parameters), then phase 5")
-    check_train_step(args.seed, device, gen, rows=rows)
+    p5 = check_train_step(args.seed, device, gen, rows=rows)
     torch.cuda.empty_cache()
     log(f"phase 6 train.run: {TRAIN_STEPS} steps of the top prior, "
         f"{TRAIN_HPS}, host EMA every {CPU_EMA_FREQ} steps, a checkpoint "
-        f"at step 1")
+        f"and a sample at step 1")
     logdir = tempfile.mkdtemp(prefix="jukebox_ckpt_")
     try:
         tr_rep = run_training(args.seed, device, logdir=logdir)
@@ -3248,6 +3989,11 @@ def main(argv=None):
                 f"{r['step_ok']} wall {r['wall_s']:.3f}s"
                 + (f"; saved in {r['save_s']:.1f}s" if "save_s" in r
                    else ""))
+        log(f"  {tr_rep['n_depth']} layers; sample at step 1 "
+            f"{tr_rep['samples'][0]['wall_s']:.1f}s, "
+            f"{tr_rep['samples'][0]['launches']['layer_norm_fwd']} LayerNorm "
+            f"wrapper launches, decode graph "
+            f"{tr_rep['samples'][0]['graphs']}")
         log(f"  run {tr_rep['wall_s']:.1f}s; median step (steps 2-"
             f"{TRAIN_STEPS}) {tr_rep['median_step_s'] * 1e3:.1f} ms = "
             f"{tr_rep['tokens_per_s']:.1f} tokens/s; peak memory "
@@ -3277,13 +4023,23 @@ def main(argv=None):
     torch.cuda.empty_cache()
     log(f"phase 8 Quick start: {VQ_HPS} for {VQ_STEPS} steps, the vqvae "
         f"preset's step, then {PRIOR_HPS} for {PRIOR_STEPS} steps")
-    qs = run_quick_start(args.seed, device, gen)
+    tmp = tempfile.mkdtemp(prefix="jukebox_quick_start_")
+    try:
+        songs, logdir = quick_start_songs(tmp, args.seed)
+        qs = run_quick_start(args.seed, device, gen, songs, logdir)
+        torch.cuda.empty_cache()
+        r9 = run_recipes(args.seed, device, gen, songs,
+                         qs["a"]["checkpoint"], logdir)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     cascades = (rep, rep4c, rep4b, rep5)
     launches = dict({k: sum(r["launches"][k] for r in cascades)
                      for k in ds.LAUNCHES}, **tr_rep["launches"],
                     **tr_rep["kernel_launches"])
-    for r in (qs["a"], qs["b"], qs["c"]):  # phase 8's main paths
+    # phase 8's and phase 9's runs, the full-depth steps of phases 5 and 9
+    for r in (qs["a"], qs["b"], qs["c"], r9["a"], p5) + tuple(
+            r[k] for r in r9["b"].values() for k in ("step", "run")):
         for k, n in r["launches"].items():
             launches[k] += n
     # phase 8's checks at its own shapes: the worst error over every check
@@ -3299,6 +4055,11 @@ def main(argv=None):
     kernels = [dict(name=k, route="cuda", source=sources[k],
                     replaces=REPLACES[k], launches=launches[k], **rows[k])
                for k in rows]
+    log(f"decode graph replays (the fp32 decode of the in-training samples "
+        f"and of the graph checks): {ar.GRAPHS}; a replay runs two "
+        f"layer_norm_fwd kernels a layer that no wrapper counts (measured "
+        f"in check_decode_graph's profiler trace), so the kernels line's "
+        f"launches leave them out")
     print(json.dumps({"kernels": kernels}), flush=True)
     faulthandler.cancel_dump_traceback_later()
     log(f"done in {time.time() - T0:.1f}s")

@@ -23,8 +23,10 @@ per-pattern retention:
     f3 [B, 2bc, A]     f7 [B, _prime_len, A]
 and are updated in place (the JAX functions return new caches instead);
 an f6 layer's cache is the encoder K/V [B, encoder_dims, A], projected once
-per window by init_cache and only read. Positions t are host ints: the
-decode loop runs in Python. prefill_chunk takes the layer's staged decode
+per window by init_cache and only read. decode_step reads a step's
+positions as device tensors (StepIndex.positions: the decode loop's host
+int t, or a position a CUDA graph of the fp32 decode step advances on the
+device, so that one capture replays at any t). prefill_chunk takes the layer's staged decode
 params (Transformer.prepare_decode_params) when they are int8, and then
 runs its products as the JAX package's int8 dense does. Against an int8
 cache ({"k", "v"} int8 with {"ks", "vs"} row scales) prefill_chunk writes
@@ -59,6 +61,42 @@ def merge_heads(x):
 
 def causal_mask(q_l, kv_l, device):
     return torch.tril(torch.ones((q_l, kv_l), device=device))
+
+
+class StepIndex:
+    """The position of a token step as a device tensor t [1], advanced by
+    one on the device (advance), and the cache positions every attention
+    pattern derives from it (positions), which decode_step reads: the form
+    in which a CUDA graph captured for one step replays for the next
+    (models/autoregressive.py DecodeGraph). block_ctx, blocks and
+    prime_len are the transformer's (None where it has no such layer)."""
+
+    def __init__(self, t, device, block_ctx=None, blocks=None,
+                 prime_len=None):
+        self.t = torch.full((1,), int(t), dtype=torch.long, device=device)
+        self.bc, self.blocks, self.prime_len = block_ctx, blocks, prime_len
+
+    def advance(self):
+        self.t.add_(1)
+
+    def positions(self):
+        """{"t", and where defined: "mod" (t % bc), "div" (t // bc), "f2"
+        (the column cache's flat slot), "f3" (the ring slot written),
+        "f3_prev" (the previous ring's first slot), "f7" (min(t,
+        prime_len - 1)), "f7_keep" (t < prime_len)}, each a [1] tensor."""
+        t = self.t
+        out = {"t": t}
+        if self.bc:
+            bc = self.bc
+            mod = torch.remainder(t, bc)
+            div = torch.div(t, bc, rounding_mode="floor")
+            out.update(mod=mod, div=div, f2=mod * self.blocks + div,
+                       f3=torch.remainder(div, 2) * bc + mod,
+                       f3_prev=torch.remainder(div - 1, 2) * bc)
+        if self.prime_len:
+            out.update(f7=torch.clamp(t, max=self.prime_len - 1),
+                       f7_keep=t < self.prime_len)
+        return out
 
 
 def dense_attn(q, k, v, n_head, mask=None, dropout_rate=0.0,
@@ -239,57 +277,71 @@ class FactoredAttention(nn.Module):
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
 
-    def _write_token(self, cache, k, v, t):
-        """Write one token's k, v [B, 1, S] at position t, in place."""
-        f = self.attn_func
-        if f == 0:
-            idx = (slice(None), t)
-        elif f == 1:
-            idx = (slice(None), t % self.block_ctx)
-        elif f == 2:
-            idx = (slice(None), t % self.block_ctx, t // self.block_ctx)
-        elif f == 3:
-            bc = self.block_ctx
-            idx = (slice(None), ((t // bc) % 2) * bc + t % bc)
-        else:  # f7: writes past the prime are dropped
-            if t >= self._prime_len:
-                return
-            idx = (slice(None), t)
-        cache["k"][idx] = k[:, 0]
-        cache["v"][idx] = v[:, 0]
+    def step_index(self, t, device, prime=False):
+        """A StepIndex at position t (a host int) with this layer's block
+        geometry, and its f7 prime length where prime."""
+        return StepIndex(t, device, self.block_ctx if self.blocks else None,
+                         self.blocks, self._prime_len if prime else None)
 
-    def decode_step(self, cache, x, t):
-        """One token x [B, 1, n_in] at position t -> [B, 1, n_in]."""
+    def decode_step(self, cache, x, pos):
+        """One token x [B, 1, n_in] at the step's positions pos (a
+        StepIndex's positions: device tensors; or a host int t, whose
+        positions it derives) -> [B, 1, n_in]. Writes the token's k, v into
+        the ring cache in place and reads, per pattern:
+          f0 dense  write t, read 0..t
+          f1 row    write t % bc, read 0..t % bc
+          f2 column write (t % bc, t // bc), read column t % bc, blocks
+                    0..t // bc
+          f3 prev   write ring (t // bc) % 2 slot t % bc, read the whole
+                    previous ring ((t // bc) - 1) % 2 unmasked (in the
+                    first block it is still the zero init, so every score
+                    is 0 and the output 0)
+          f6 cross  no write, read the encoder K/V
+          f7 prime  write t while t < _prime_len (later writes leave the
+                    row as it is), read 0..min(t, _prime_len - 1)
+        Every slice is an index_copy_ / index_select at a device
+        position."""
         f = self.attn_func
         if f == 6:
             q = self.c_attn(x)
             return self.c_proj(dense_attn(q, cache["k"], cache["v"],
                                           self.n_head))
+        if not isinstance(pos, dict):
+            pos = self.step_index(pos, x.device, f == 7).positions()
         q, k, v = self._qkv(x)
-        self._write_token(cache, k, v, t)
         kc, vc = cache["k"], cache["v"]
         dev = x.device
-        if f == 0:
-            mask = (torch.arange(kc.shape[1], device=dev) <= t).float()[None]
-        elif f == 1:
-            mask = (torch.arange(self.block_ctx, device=dev)
-                    <= t % self.block_ctx).float()[None]
-        elif f == 2:
-            bc = self.block_ctx
-            kc, vc = kc[:, t % bc], vc[:, t % bc]
+        if f == 2:
+            B, A = kc.shape[0], kc.shape[-1]
+            for c, new in ((kc, k), (vc, v)):
+                c.view(B, -1, A).index_copy_(1, pos["f2"], new)
+            kc = kc.index_select(1, pos["mod"])[:, 0]
+            vc = vc.index_select(1, pos["mod"])[:, 0]
             mask = (torch.arange(self.blocks, device=dev)
-                    <= t // bc).float()[None]
-        elif f == 3:
-            # the previous ring, unmasked: in the first block it is still the
-            # zero init, so every score is 0 and the output 0
-            bc = self.block_ctx
-            prev = ((t // bc) - 1) % 2
-            kc, vc = kc[:, prev * bc:(prev + 1) * bc], vc[:, prev * bc:(prev + 1) * bc]
-            mask = None
+                    <= pos["div"]).float()[None]
+        elif f == 7:
+            row = pos["f7"]
+            for c, new in ((kc, k), (vc, v)):
+                # writes past the prime leave the row as it is
+                c.index_copy_(1, row, torch.where(pos["f7_keep"], new,
+                                                  c.index_select(1, row)))
+            mask = (torch.arange(self._prime_len, device=dev)
+                    <= row).float()[None]
         else:
-            pl_ = self._prime_len
-            mask = (torch.arange(pl_, device=dev)
-                    <= min(t, pl_ - 1)).float()[None]
+            slot = {0: pos["t"], 1: pos["mod"], 3: pos["f3"]}[f]
+            for c, new in ((kc, k), (vc, v)):
+                c.index_copy_(1, slot, new)
+            if f == 0:
+                mask = (torch.arange(kc.shape[1], device=dev)
+                        <= pos["t"]).float()[None]
+            elif f == 1:
+                mask = (torch.arange(self.block_ctx, device=dev)
+                        <= pos["mod"]).float()[None]
+            else:
+                rows = pos["f3_prev"] + torch.arange(self.block_ctx,
+                                                     device=dev)
+                kc, vc = kc.index_select(1, rows), vc.index_select(1, rows)
+                mask = None
         return self.c_proj(dense_attn(q, kc, vc, self.n_head, mask))
 
     @staticmethod

@@ -2,7 +2,9 @@
 jukebox_tpu/models/autoregressive.py): the teacher-forced forward (also the
 training forward, with embedding dropout and the split prime/gen loss), and
 token decoding as a host loop over positions with ring caches and sampling
-from an explicit torch.Generator.
+from an explicit torch.Generator. On the card the fp32 decode (the layer
+modules, as the in-training sample runs it) replays one CUDA graph a token
+(DecodeGraph), as the JAX package runs its fp32 decode jitted.
 """
 
 import numpy as np
@@ -10,7 +12,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from jukebox_tpu_torch.models.attention import StepIndex
 from jukebox_tpu_torch.models.transformer import Transformer
+from jukebox_tpu_torch.ops import _build
 from jukebox_tpu_torch.ops.core import Table, dropout, filter_logits, fold_seed
 
 LN2 = float(np.log(2.0))
@@ -39,8 +43,9 @@ class ConditionalAutoregressive2D(nn.Module):
                  zero_out=False, init_scale=1.0, res_scale=False,
                  prime_len=None, mask=True, attn_dropout=0.0,
                  resid_dropout=0.0, emb_dropout=0.0, checkpoint_res=0,
-                 y_cond=True, encoder_dims=0, only_encode=False,
-                 merged_decoder=False, device=None):
+                 checkpoint_attn=0, checkpoint_mlp=0, y_cond=True,
+                 encoder_dims=0, only_encode=False, merged_decoder=False,
+                 device=None):
         super().__init__()
         self.input_shape, self.bins, self.width = tuple(input_shape), bins, width
         self.input_dims = int(np.prod(self.input_shape))
@@ -61,7 +66,8 @@ class ConditionalAutoregressive2D(nn.Module):
             width, self.input_dims, heads, depth, attn_order, blocks,
             prime_len, m_attn, m_mlp, mask, zero_out, init_scale, res_scale,
             attn_dropout, resid_dropout, checkpoint_res,
-            encoder_dims or None, device=device)
+            encoder_dims or None, checkpoint_attn=checkpoint_attn,
+            checkpoint_mlp=checkpoint_mlp, device=device)
         if not only_encode and not self.share_x_emb_x_out:
             self.x_out = Table((width, bins), 0.0, name="w",
                                bound=1.0 / np.sqrt(width), device=device)
@@ -137,16 +143,24 @@ class ConditionalAutoregressive2D(nn.Module):
 
     def _emb_at(self, t, x_tok, x_cond, y_cond, n):
         """Input embedding at position t given the previous token x_tok
-        [N, 1] (reference get_emb, autoregressive.py:177-197)."""
-        if t == 0:
+        [N, 1] (reference get_emb, autoregressive.py:177-197); t a host
+        int, or a StepIndex at t >= 1 (read on the device)."""
+        on_device = isinstance(t, StepIndex)
+        if not on_device and t == 0:
             emb = self.start_emb(y_cond, n)
         else:
             emb = self.x_emb.table[x_tok]
-        cond = x_cond[:, t:t + 1] if x_cond.shape[1] > 1 else x_cond
-        return emb + self.pos_emb.table[t:t + 1][None] + cond, cond
+
+        def at(a, dim):
+            return (a.index_select(dim, t.t) if on_device
+                    else a.narrow(dim, t, 1))
+        cond = at(x_cond, 1) if x_cond.shape[1] > 1 else x_cond
+        return emb + at(self.pos_emb.table, 0)[None] + cond, cond
 
     def _decode_one(self, dec_params, caches, x_tok, t, x_cond, y_cond, fp16,
                     n):
+        """Logits [N, 1, bins] at position t (a host int; a StepIndex for
+        the layer modules alone) given the previous token x_tok."""
         h, cond = self._emb_at(t, x_tok, x_cond, y_cond, n)
         h = self.transformer.decode_step(dec_params, caches, h, t, fp16=fp16)
         if self.add_cond_after_transformer:
@@ -169,12 +183,21 @@ class ConditionalAutoregressive2D(nn.Module):
                        dec_params=None):
         """Decode n_steps tokens from position t0; x_tok [N, 1] is the
         previous token (unused at t == 0). Returns (tokens [N, n_steps],
-        x_tok)."""
+        x_tok). The fp32 layer-module decode (no dec_params) runs its
+        steps from t = max(t0, 1) through a DecodeGraph when
+        DecodeGraph.wanted says so."""
         N = x_tok.shape[0]
         toks = []
+        graph = None
         for t in range(t0, t0 + n_steps):
-            logits = self._decode_one(dec_params, caches, x_tok, t, x_cond,
-                                      y_cond, fp16, N)
+            if (graph is None and t >= 1 and dec_params is None and not fp16
+                    and DecodeGraph.wanted(x_tok.device, t0 + n_steps - t)):
+                graph = DecodeGraph(self, caches, t, x_cond, y_cond, N)
+            if graph is not None:
+                logits = graph.step(x_tok)
+            else:
+                logits = self._decode_one(dec_params, caches, x_tok, t,
+                                          x_cond, y_cond, fp16, N)
             x_tok = self._sample_tok(logits, gen, temp, top_k, top_p)
             toks.append(x_tok)
         return torch.cat(toks, dim=1), x_tok
@@ -212,3 +235,65 @@ class ConditionalAutoregressive2D(nn.Module):
             self.transformer.decode_step(dec_params, caches, h_in[:, t:t + 1],
                                          t, fp16=fp16)
         return x_prime[:, -1:].long()
+
+
+# a DecodeGraph's captures and replays. A replay runs the kernel launches
+# its capture recorded without calling their wrappers, so the wrappers'
+# launch counts hold each capture's once and no replay; these count the
+# replays apart.
+GRAPHS = {"captures": 0, "replays": 0}
+
+
+def reset_graph_counts():
+    for k in GRAPHS:
+        GRAPHS[k] = 0
+
+
+class DecodeGraph:
+    """The fp32 layer-module decode of one token (_decode_one at a
+    StepIndex, which then advances) for a window whose caches stay put, as
+    one CUDA graph replayed a token. The first step runs op by op on a side
+    stream (the warm-up CUDA graphs need) and is a real step: its cache
+    writes and logits stand; the capture after it runs nothing, and each
+    replay runs the next position (the graph advances its own StepIndex).
+    The card alone: wanted says when."""
+
+    def __init__(self, model, caches, t, x_cond, y_cond, n):
+        device = x_cond.device
+        self.pos = model.transformer.step_index(t, device)
+        self.tok = torch.zeros((n, 1), dtype=torch.long, device=device)
+        self.args = model, caches, x_cond, y_cond, n
+        self.graph = self.logits = None
+
+    @staticmethod
+    def wanted(device, n_steps):
+        """A graph for n_steps >= 2 on the card; op by op on the CPU."""
+        return n_steps >= 2 and torch.device(device).type == "cuda"
+
+    def run(self):
+        """The step op by op: logits [N, 1, bins] at self.pos given the
+        previous token self.tok; then self.pos advances."""
+        model, caches, x_cond, y_cond, n = self.args
+        logits = model._decode_one(None, caches, self.tok, self.pos, x_cond,
+                                   y_cond, False, n)
+        self.pos.advance()
+        return logits
+
+    def step(self, x_tok):
+        """Logits [N, 1, bins] of the next position given the previous
+        token x_tok [N, 1]."""
+        self.tok.copy_(x_tok)
+        if self.graph is not None:
+            self.graph.replay()
+            _build.count(GRAPHS, "replays")
+            return self.logits
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            first = self.run()
+        torch.cuda.current_stream().wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.logits = self.run()
+        _build.count(GRAPHS, "captures")
+        return first

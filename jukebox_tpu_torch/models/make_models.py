@@ -8,7 +8,8 @@ under ~/.cache as the JAX package looks for it (the presets' files at
 ~/.cache/jukebox/models/<model>/<file>.pth.tar); a path that
 does not exist falls back to the fresh init with a message, as in the JAX
 package. With hps.train a prior's parameters are trainable fp32 masters and
-its dropouts and activation checkpointing follow hps, and the VQ-VAE stays
+its dropouts and activation checkpointing (c_res, c_attn, c_mlp and the
+lyric encoder's prime_c_*) follow hps, and the VQ-VAE stays
 frozen; with hps.train and not hps.prior the VQ-VAE is the model trained:
 its parameters are trainable and its codebooks start unseeded (or from the
 restored checkpoint, their EMA statistics reset for fine-tuning). A
@@ -191,9 +192,6 @@ def make_vqvae(hps, device="cuda"):
 
 def make_prior(hps, vqvae, device="cuda"):
     train = hps.get("train", False)
-    if train and (hps.get("c_attn", 0) or hps.get("c_mlp", 0)):
-        raise NotImplementedError("c_attn / c_mlp checkpointing is not "
-                                  "ported; c_res is")
     dropped = {k: hps.get(k, v) for k, v in _UNPORTED_PRIOR_KEYS.items()
                if hps.get(k, v) != v}
     if dropped:
@@ -206,7 +204,9 @@ def make_prior(hps, vqvae, device="cuda"):
         attn_dropout=hps.attn_dropout if train else 0.0,
         resid_dropout=hps.resid_dropout if train else 0.0,
         emb_dropout=hps.emb_dropout if train else 0.0,
-        checkpoint_res=hps.c_res if train else 0)
+        checkpoint_res=hps.c_res if train else 0,
+        checkpoint_attn=hps.c_attn if train else 0,
+        checkpoint_mlp=hps.c_mlp if train else 0)
     x_cond_kwargs = dict(
         out_width=hps.prior_width, init_scale=hps.init_scale,
         width=hps.cond_width, depth=hps.cond_depth, m_conv=hps.cond_m_conv,
@@ -232,7 +232,9 @@ def make_prior(hps, vqvae, device="cuda"):
             attn_dropout=hps.prime_attn_dropout if train else 0.0,
             resid_dropout=hps.prime_resid_dropout if train else 0.0,
             emb_dropout=hps.prime_emb_dropout if train else 0.0,
-            checkpoint_res=hps.prime_c_res if train else 0)
+            checkpoint_res=hps.prime_c_res if train else 0,
+            checkpoint_attn=hps.prime_c_attn if train else 0,
+            checkpoint_mlp=hps.prime_c_mlp if train else 0)
     # z_shapes of every level when this level gets n_ctx codes
     z_shapes = [(z[0] * hps.n_ctx // vqvae.z_shapes[hps.level][0],)
                 for z in vqvae.z_shapes]

@@ -2,8 +2,9 @@
 (counterpart of jukebox_tpu/models/transformer.py).
 
 Three modes as in the JAX package: the full-context forward (the training
-forward too: bf16 activations under fp16, per-layer dropout seeds, and
-checkpoint_res=1 recomputing each block in the backward), one-token
+forward too: bf16 activations under fp16, per-layer dropout seeds,
+checkpoint_res=1 recomputing each block in the backward, checkpoint_attn /
+checkpoint_mlp each block's attention / MLP), one-token
 `decode_step` and block-aligned `prefill_chunk`, threading per-layer ring
 caches (a list with one {"k", "v"} dict per layer, updated in place).
 
@@ -25,7 +26,7 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
-from jukebox_tpu_torch.models.attention import FactoredAttention
+from jukebox_tpu_torch.models.attention import FactoredAttention, StepIndex
 from jukebox_tpu_torch.ops.core import (Dense, LayerNorm, dense_any, dropout,
                                         fold_seed, quick_gelu,
                                         quantize_dense_tree)
@@ -71,9 +72,11 @@ class ResAttnBlock(nn.Module):
                  prime_len=None, m_attn=0.25, m_mlp=1.0, mask=False,
                  zero_out=False, init_scale=1.0, res_scale=1.0,
                  attn_dropout=0.0, resid_dropout=0.0, encoder_dims=None,
-                 device=None):
+                 checkpoint_attn=0, checkpoint_mlp=0, device=None):
         super().__init__()
         self.res_scale = res_scale
+        self.checkpoint_attn = checkpoint_attn
+        self.checkpoint_mlp = checkpoint_mlp
         # f6 layers zero their c_proj at init (jukebox_tpu ResAttnBlock.attn)
         self.attn = FactoredAttention(
             n_in, n_ctx, int(m_attn * n_in), n_head, attn_func, blocks,
@@ -91,17 +94,36 @@ class ResAttnBlock(nn.Module):
 
     def forward(self, x, seed=None, plain=False, encoder_kv=None,
                 record=False):
-        """(x, w): w the attention's recorded weights, or None."""
+        """(x, w): w the attention's recorded weights, or None. With
+        checkpoint_attn (unless recording) and checkpoint_mlp and autograd
+        on, the LayerNorm + attention and the LayerNorm + MLP are each
+        recomputed in the backward pass, as jukebox_tpu wraps them in
+        jax.checkpoint (transformer.py:123-131); their dropout masks are
+        functions of their seeds, so the recompute draws the same ones."""
         s_attn, s_mlp = ((fold_seed(seed, 0), fold_seed(seed, 1))
                          if seed is not None else (None, None))
-        a = self.attn(self.ln_0(x, plain), s_attn, plain, encoder_kv,
-                      record)
-        a, w = a if record else (a, None)
-        return (self._residual(x, a, self.mlp(self.ln_1(x + a, plain),
-                                              s_mlp)), w)
+        grad = torch.is_grad_enabled()
 
-    def decode_step(self, cache, x, t):
-        a = self.attn.decode_step(cache, self.ln_0(x), t)
+        def attn(h):
+            return self.attn(self.ln_0(h, plain), s_attn, plain, encoder_kv)
+
+        def mlp(h):
+            return self.mlp(self.ln_1(h, plain), s_mlp)
+        if record:
+            a, w = self.attn(self.ln_0(x, plain), s_attn, plain, encoder_kv,
+                             True)
+        elif self.checkpoint_attn and grad:
+            a, w = checkpoint(attn, x, use_reentrant=False,
+                              preserve_rng_state=False), None
+        else:
+            a, w = attn(x), None
+        h = x + a
+        m = (checkpoint(mlp, h, use_reentrant=False, preserve_rng_state=False)
+             if self.checkpoint_mlp and grad else mlp(h))
+        return self._residual(x, a, m), w
+
+    def decode_step(self, cache, x, pos):
+        a = self.attn.decode_step(cache, self.ln_0(x), pos)
         return self._residual(x, a, self.mlp(self.ln_1(x + a)))
 
     def prefill_chunk(self, cache, x, t0, n_blocks, p=None):
@@ -114,7 +136,8 @@ class Transformer(nn.Module):
                  blocks=None, prime_len=None, m_attn=0.25, m_mlp=1.0,
                  mask=False, zero_out=False, init_scale=1.0, res_scale=False,
                  attn_dropout=0.0, resid_dropout=0.0, checkpoint_res=0,
-                 encoder_dims=None, device=None):
+                 encoder_dims=None, checkpoint_attn=0, checkpoint_mlp=0,
+                 device=None):
         super().__init__()
         self.n_in, self.n_ctx, self.n_head = n_in, n_ctx, n_head
         self.n_depth, self.attn_order = n_depth, attn_order
@@ -126,12 +149,19 @@ class Transformer(nn.Module):
             ResAttnBlock(n_in, n_ctx, n_head, self.attn_func(d), blocks,
                          prime_len, m_attn, m_mlp, mask, zero_out, init_scale,
                          self.res_scale, attn_dropout, resid_dropout,
-                         encoder_dims, device=device)
+                         encoder_dims, checkpoint_attn, checkpoint_mlp,
+                         device=device)
             for d in range(n_depth)])
         self.layer_order = tuple(self._plan_order())
 
     def attn_func(self, d):
         return ATTN_ORDERS[self.attn_order](d)
+
+    def step_index(self, t, device):
+        """A StepIndex at position t (a host int) with this stack's block
+        geometry, the f7 layers' prime length where it has any."""
+        return self.blocks[0].attn.step_index(
+            t, device, any(b.attn.attn_func == 7 for b in self.blocks))
 
     def forward(self, x, fp16=False, seed=None, plain=False,
                 encoder_kv=None, record_layers=frozenset()):
@@ -280,7 +310,9 @@ class Transformer(nn.Module):
                     fp16_out=False, plain=False):
         """One token x [B, 1, n_in] at position t. With staged dec_params
         (prepare_decode_params) the layers run the decode-step kernels
-        (plain=True: their plain versions); without, the layer modules."""
+        (plain=True: their plain versions) at the host int t; without, the
+        layer modules, at t's positions on the device (t a host int, or a
+        StepIndex)."""
         if fp16:
             x = x.to(torch.bfloat16)
         if dec_params is not None:
@@ -299,8 +331,11 @@ class Transformer(nn.Module):
                                      self.n_head, plain, self.res_scale)
             x = h.reshape(B, 1, S)
         else:
+            if not isinstance(t, StepIndex):
+                t = self.step_index(t, x.device)
+            pos = t.positions()
             for d in self.layer_order:
-                x = self.blocks[d].decode_step(caches[d], x, t)
+                x = self.blocks[d].decode_step(caches[d], x, pos)
         return x if fp16_out else x.float()
 
     def prefill_chunk(self, caches, x, t0, n_blocks, fp16=False,

@@ -303,7 +303,7 @@ def ring_geometry(attn_func, t, cache_shape, block_ctx=None, prime_len=None):
 
     The rows read are contiguous in every pattern; rows that the JAX decode
     path masks (NEG = -1e9 before the softmax, so exp(.) == 0 exactly) are
-    simply not read. Patterns (models/attention.py _write_token/decode_step):
+    simply not read. Patterns (models/attention.py decode_step):
       f0 dense  [B, n_ctx, A]: write t, read 0..t
       f1 row    [B, bc, A]: write t % bc, read 0..t % bc
       f2 column [B, bc, blocks, A]: write (t % bc, t // bc), read column

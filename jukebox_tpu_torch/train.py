@@ -28,15 +28,32 @@ its codebook state) or checkpoint_latest.jkb (a prior) at every step i
 with i % save_iters == 1, holding the EMA weights as params when EMA is
 on, and --restore_prior / --restore_vqvae take one from either package.
 Randomness: step i of epoch e draws its aug_blend mix from
-fold_seed(seed, e, i, 0) and its dropout or codebook draws from
-fold_seed(seed, e, i, 1); jax.random draws other numbers, so the two
+fold_seed(seed, e, i, 0), its dropout or codebook draws from
+fold_seed(seed, e, i, 1) and its in-training sample's tokens from
+fold_seed(seed, e, i, 2); jax.random draws other numbers, so the two
 packages agree step for step only without dropout, aug_blend and codebook
-restarts. In-training sampling, and audio and tensorboard logging
-(utils/logger.py) are not ported yet.
+restarts, and their samples' tokens differ.
+
+Logging, at the JAX loop's steps (utils/logger.py), under
+{local_logdir}/{name}: argv.txt; TensorBoard events in logs/ (every
+metric's running average each log_steps, lg_loss_scale = log2 of the loss
+scale under fp16, the test_* averages of each evaluation, the labels' text
+of a labelled prior); int16 wavs in audio/: train_x_in at every step i
+with (i - 1) % save_iters == 0, and for a prior sample_x_T1 at every step
+i with i % 12000 == 1 (step 1 included): one window sampled at temp 1.0
+under the EMA weights through the fp32 layer-module decode, as
+jukebox_tpu/train.py:129 samples it. JUKEBOX_TRAIN_JSONL=<path> appends
+one line of running averages each log_steps (it, wall_s, window_s and the
+metrics, rounded as the JAX package rounds them); hps.debug_speed writes
+a torch.profiler Chrome trace of steps 3 to 2 + min(8, debug_iters) under
+trace/ (utils/profiler.py).
 """
 
+import json
+import os
 import time
 
+import numpy as np
 import torch
 
 from jukebox_tpu_torch.data.data_processor import DataProcessor
@@ -46,7 +63,9 @@ from jukebox_tpu_torch.models.make_models import (VQVAERuntime, make_prior,
                                                   save_model_checkpoint)
 from jukebox_tpu_torch.ops.core import fold_seed
 from jukebox_tpu_torch.utils.audio_utils import audio_preprocess
+from jukebox_tpu_torch.utils import profiler
 from jukebox_tpu_torch.utils.cli import fire
+from jukebox_tpu_torch.utils.logger import Metrics, init_logging
 from jukebox_tpu_torch.utils.train_utils import (LossScalar, adam_init,
                                                  adam_update,
                                                  clipped_grad_scale,
@@ -169,36 +188,40 @@ def _batch(batch, hps, device, gen=None):
     return x, (torch.as_tensor(y).to(device) if y is not None else None)
 
 
-class Averages:
-    """Running averages of named metrics, weighted by batch size."""
-
-    def __init__(self):
-        self.sum, self.n = {}, {}
-
-    def update(self, key, val, n):
-        self.sum[key] = self.sum.get(key, 0.0) + float(val) * n
-        self.n[key] = self.n.get(key, 0) + n
-
-    def avg(self, key):
-        return self.sum[key] / self.n[key]
-
-
-def evaluate(eval_fn, runtime, data_processor, hps):
+def evaluate(eval_fn, runtime, data_processor, hps, logger=None,
+             metrics=None):
     """One pass over the test split, forward only (jukebox_tpu/train.py
-    :155): {metric: average weighted by batch size}, with "loss"."""
-    averages = Averages()
+    :155): {metric: average weighted by batch size}, with "loss". With a
+    logger, each average goes to its events as test_<metric> at the
+    logger's step; metrics (a logger.Metrics, fresh when None) keeps the
+    test_<metric> sums."""
+    metrics = Metrics() if metrics is None else metrics
     device = next(runtime.model.parameters()).device
-    loader = iter(data_processor.test_loader)
+    loader = data_processor.test_loader
+    batches = iter(loader)
+    keys = []
     try:
-        for batch in loader:
+        steps = (logger.get_range(batches, total=len(loader))
+                 if logger is not None else enumerate(batches))
+        for _, batch in steps:
             x, y = _batch(batch, hps, device)
-            loss, metrics = eval_fn(x, y)
-            metrics = dict(metrics, loss=loss)
-            for key, val in metrics.items():
-                averages.update(key, float(val), int(x.shape[0]))
+            loss, out = eval_fn(x, y)
+            out = dict(sorted(out.items()), loss=loss)
+            keys = list(out)
+            for key, val in out.items():
+                metrics.update(f"test_{key}", float(val), int(x.shape[0]))
+            if logger is not None:
+                logger.set_postfix(**{
+                    pk: metrics.avg(f"test_{k}")
+                    for pk, k in EVAL_KEYS[bool(hps.prior)].items()
+                    if k in out})
     finally:
-        loader.close()
-    return {k: averages.avg(k) for k in averages.sum}
+        batches.close()
+    if logger is not None:
+        for key in keys:
+            logger.add_scalar(f"test_{key}", metrics.avg(f"test_{key}"))
+        logger.close_range()
+    return {k: metrics.avg(f"test_{k}") for k in keys}
 
 
 def save_step(runtime, opt_state, ema, hps, it):
@@ -215,65 +238,184 @@ def save_step(runtime, opt_state, ema, hps, it):
 
 
 # the metrics of a step's line and their short names
-# (jukebox_tpu/train.py:205-210)
+# (jukebox_tpu/train.py:205-210), and of an evaluation's postfix (:160-163)
 PRIOR_KEYS = dict(l="loss", bpd="bpd", gn="gn", g_l="gen_loss",
                   p_l="prime_loss")
 VQVAE_KEYS = dict(l="loss", sl="spectral_loss", rl="recons_loss",
                   e="entropy", u="usage", uc="used_curr", gn="gn", pn="pn",
                   dk="dk")
+EVAL_KEYS = {True: dict(l="loss", bpd="bpd"),
+             False: dict(l="loss", rl="recons_loss", sl="spectral_loss")}
+# a prior samples one window every SAMPLE_ITERS steps, at step 1 first
+SAMPLE_ITERS = 12000
+
+
+# ---------------------------------------------------------------------------
+# logging and in-training sampling (jukebox_tpu/train.py:103-152)
+# ---------------------------------------------------------------------------
+
+def log_aud(logger, tag, x, hps):
+    logger.add_audios(tag, x, hps.sr, max_len=hps.max_len,
+                      max_log=hps.max_log)
+    logger.flush()
+
+
+def log_labels(logger, labeller, tag, y, hps):
+    y = y.cpu().numpy() if hasattr(y, "cpu") else np.asarray(y)
+    txt = ""
+    for item in range(y.shape[0]):
+        d = labeller.describe_label(y[item])
+        txt += (f"{item} artist:{d['artist']}, genre:{d['genre']}, "
+                f"lyrics:{d['lyrics']}\n")
+    logger.add_text(tag, txt)
+    logger.flush()
+
+
+def log_inputs(runtime, logger, x_in, y, x_out, hps, tag="train"):
+    print(f"Logging {tag} inputs/outputs")
+    log_aud(logger, f"{tag}_x_in", x_in, hps)
+    if x_out is not None:
+        log_aud(logger, f"{tag}_x_out", x_out, hps)
+    if hps.prior and hps.labels and y is not None:
+        log_labels(logger, runtime.labeller, f"{tag}_y_in", y, hps)
+    logger.flush()
+
+
+def sample_prior(runtime, ema, logger, x_in, y, hps, gen=None):
+    """One window sampled at temp 1.0 under the EMA weights
+    (jukebox_tpu/train.py:129): the first bs_sample clips of x_in encoded,
+    the prior's codes sampled (fp32, conditioned on the levels above and
+    on y when the prior takes labels) from the torch.Generator gen,
+    decoded and logged as sample_x_T1 (with the labels' text). The params
+    hold their own values again after. Returns (codes, audio)."""
+    with ema_params(ema, runtime.params):
+        x_in = x_in[: hps.bs_sample]
+        bs = x_in.shape[0]
+        if not hps.labels:
+            y = None
+        elif y is not None:
+            y = y[: hps.bs_sample]
+        zs = runtime.encode(x_in, start_level=runtime.level, bs_chunks=bs)
+        z_conds = zs[1:] if len(zs) > 1 else None
+        z = runtime.sample(bs, z_conds=z_conds, y=y, gen=gen, fp16=False,
+                           temp=1.0)
+        x_sample = runtime.decode([z] + (list(z_conds) if z_conds else []),
+                                  bs_chunks=bs)
+        log_aud(logger, "sample_x_T1", x_sample, hps)
+        if hps.labels and y is not None:
+            log_labels(logger, runtime.labeller, "sample_x_T1", y, hps)
+    logger.flush()
+    return z, x_sample
+
+
+def _append_jsonl(path, rec):
+    try:
+        with open(path, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+    except OSError:
+        pass
 
 
 def train(step_fn, runtime, opt_state, ema, data_processor, hps, epoch,
-          scalar, records):
+          scalar, records, logger, metrics):
     """One epoch of the loader, or fewer steps once runtime.step reaches
-    hps.max_steps. Appends one record per step to `records` (metrics, the
-    step's wall seconds, synchronised, and a checkpoint's path and save
-    seconds at the steps that save). Returns the epoch's averages."""
-    averages = Averages()
+    hps.max_steps, with the JAX loop's side effects at its steps (see the
+    module's docstring): logger.iters follows runtime.step, metrics
+    (logger.Metrics) keeps the running averages. Appends one record per
+    step to `records` (metrics, loss_scale under fp16, the step's wall
+    seconds, synchronised, a checkpoint's path and save seconds at the
+    steps that save, the sample's seconds at the steps that sample).
+    Returns the epoch's averages."""
     device = next(runtime.model.parameters()).device
-    loader = iter(data_processor.train_loader)
+    seed = hps.get("seed", 0)
+    timer = profiler.StepTimer(skip_first=1)
+    tracing = False
+    jsonl = os.environ.get("JUKEBOX_TRAIN_JSONL")
+    t_start = t_last = time.time()
+    keys = PRIOR_KEYS if hps.prior else VQVAE_KEYS
+    loader = data_processor.train_loader
+    batches = iter(loader)
+    logger.iters = runtime.step
     try:
-        for batch in loader:
-            runtime.step += 1
-            it = runtime.step
+        for _, batch in logger.get_range(batches, total=len(loader)):
+            it = runtime.step + 1
             gen = torch.Generator(device=device).manual_seed(
-                fold_seed(hps.get("seed", 0), epoch, it, 0))
+                fold_seed(seed, epoch, it, 0))
             x, y = _batch(batch, hps, device, gen)
+            log_input_output = logger.iters % hps.save_iters == 0
+            # a trace of a few steady-state steps
+            if hps.debug_speed and logger.iters == 2 and not tracing:
+                profiler.start_trace(f"{logger.logdir}/trace")
+                tracing = True
+            if tracing and logger.iters >= 2 + min(8, hps.debug_iters):
+                profiler.stop_trace()
+                tracing = False
+                print(f"Saved profiler trace to {logger.logdir}/trace")
+            logger.step()
+            runtime.step = it
             loss_scale = scalar.get_scale() if scalar else 1.0
             t0 = time.time()
-            loss, metrics = step_fn(opt_state, (x, y),
-                                    fold_seed(hps.get("seed", 0), epoch, it, 1),
-                                    it, loss_scale)
-            metrics = {k: float(v) for k, v in metrics.items()}
-            metrics["loss"] = float(loss)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
+            with timer:
+                loss, out = step_fn(opt_state, (x, y),
+                                    fold_seed(seed, epoch, it, 1), it,
+                                    loss_scale)
+                # in the JAX step's order: its jitted dict comes back sorted
+                out = {k: float(v) for k, v in sorted(out.items())}
+                out["loss"] = float(loss)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
             wall = time.time() - t0
             if ema is not None:
                 ema.step(runtime.params)
-            step_ok = bool(metrics.pop("step_ok"))
+            step_ok = bool(out.pop("step_ok"))
+            logged = dict(out)
             if scalar is not None:
                 # dynamic loss scaling: halve on overflow, grow per window
                 scalar.update_scale(not step_ok)
-                metrics["loss_scale"] = scalar.get_scale()
-            for key, val in metrics.items():
-                averages.update(key, val, int(x.shape[0]))
+                out["loss_scale"] = scalar.get_scale()
+                logged["lg_loss_scale"] = float(np.log2(scalar.get_scale()))
+            for key, val in logged.items():
+                logged[key] = metrics.update(key, val, int(x.shape[0]))
+                if it % hps.log_steps == 0:
+                    logger.add_scalar(key, logged[key])
+            if jsonl and it % hps.log_steps == 0:
+                now = time.time()
+                _append_jsonl(jsonl, dict(
+                    it=it, wall_s=round(now - t_start, 2),
+                    window_s=round(now - t_last, 2),
+                    **{k: round(float(v), 6) for k, v in logged.items()}))
+                t_last = now
             records.append(dict(it=it, epoch=epoch, step_ok=step_ok,
-                                wall_s=wall, **metrics))
+                                wall_s=wall, **out))
             if hps.save and it % hps.save_iters == 1:
                 path, save_s = save_step(runtime, opt_state, ema, hps, it)
                 records[-1].update(checkpoint=path, save_s=save_s)
+            if hps.prior and it % SAMPLE_ITERS == 1:
+                t0 = time.time()
+                sample_prior(runtime, ema, logger, x, y, hps,
+                             torch.Generator(device=device).manual_seed(
+                                 fold_seed(seed, epoch, it, 2)))
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                records[-1].update(sample_s=time.time() - t0)
+            if log_input_output:
+                log_inputs(runtime, logger, x, y, None, hps)
+            logger.set_postfix(**{pk: logged[k] for pk, k in keys.items()
+                                  if k in logged})
             if it % hps.log_steps == 0:
-                keys = PRIOR_KEYS if hps.prior else VQVAE_KEYS
                 print(f"step {it}: " + " ".join(
-                    f"{pk} {metrics[k]:.6g}" for pk, k in keys.items()
-                    if k in metrics)
+                    f"{pk} {out[k]:.6g}" for pk, k in keys.items()
+                    if k in out)
                     + f" step_ok {step_ok} wall {wall:.3f}s", flush=True)
             if hps.max_steps and it >= hps.max_steps:
                 break
     finally:
-        loader.close()  # shuts the loader's thread pool down
-    return {k: averages.avg(k) for k in averages.sum}
+        batches.close()  # shuts the loader's thread pool down
+        if tracing:
+            profiler.stop_trace()
+        logger.close_range()
+    print(f"Step timing: {timer.summary()}")
+    return {key: metrics.avg(key) for key in metrics.sum}
 
 
 def setup(hps="teeny", device="cuda", dataset=None, **kwargs):
@@ -283,7 +425,8 @@ def setup(hps="teeny", device="cuda", dataset=None, **kwargs):
     step) restored from hps.restore_vqvae, and a prior's from
     hps.restore_prior, when those name a checkpoint. dataset: optional
     ready-made dataset for the DataProcessor (a labelled subclass for
-    labels=True). Returns a dict for `fit`."""
+    labels=True). The logger (init_logging: argv.txt, the event file)
+    writes under {local_logdir}/{name}. Returns a dict for `fit`."""
     hps = setup_hparams(hps, kwargs)
     hps.ngpus = 1
     hps.bs_sample = hps.nworkers = hps.bs
@@ -308,9 +451,11 @@ def setup(hps="teeny", device="cuda", dataset=None, **kwargs):
     scalar = LossScalar(hps.fp16_loss_scale,
                         scale_factor=2.0 ** (1.0 / hps.fp16_scale_window)) \
         if hps.fp16 else None
+    logger, metrics = init_logging(hps, 0, 0)
+    logger.iters = runtime.step
     return dict(hps=hps, data_processor=data_processor, runtime=runtime,
-                opt_state=opt_state, ema=ema, scalar=scalar,
-                step_fn=make_step(runtime, hps, lr_fn),
+                opt_state=opt_state, ema=ema, scalar=scalar, logger=logger,
+                metrics=metrics, step_fn=make_step(runtime, hps, lr_fn),
                 eval_fn=make_eval_step(runtime, hps))
 
 
@@ -318,31 +463,35 @@ def fit(run_state):
     """Train from `setup`'s state until hps.max_steps (or hps.epochs),
     from the restored step on, evaluating on the test split under the EMA
     weights after each epoch when hps.test is set. Returns dict(runtime,
-    opt_state, ema, scalar, records, test) with test the last evaluation's
-    averages (or None)."""
+    opt_state, ema, scalar, records, test, logger) with test the last
+    evaluation's averages (or None)."""
     hps, runtime = run_state["hps"], run_state["runtime"]
     data_processor, ema = run_state["data_processor"], run_state["ema"]
     opt_state, scalar = run_state["opt_state"], run_state["scalar"]
+    logger, metrics = run_state["logger"], run_state["metrics"]
     records, test = [], None
     for epoch in range(max(0, hps.curr_epoch), hps.epochs):
         if hps.max_steps and runtime.step >= hps.max_steps:
             break
+        metrics.reset()
         data_processor.set_epoch(epoch)
         if hps.train:
             averages = train(run_state["step_fn"], runtime, opt_state, ema,
-                             data_processor, hps, epoch, scalar, records)
+                             data_processor, hps, epoch, scalar, records,
+                             logger, metrics)
             print(f"Train epoch {epoch}: " + " ".join(
                 f"{k} {v:0.4f}" for k, v in averages.items()), flush=True)
         if hps.test:
             with ema_params(ema, runtime.params):
                 test = evaluate(run_state["eval_fn"], runtime,
-                                data_processor, hps)
+                                data_processor, hps, logger, metrics)
             print(f"Ema epoch {epoch}: " + " ".join(
                 f"{k} {v:0.4f}" for k, v in test.items()), flush=True)
         if hps.max_steps and runtime.step >= hps.max_steps:
             break
+    logger.flush()
     return dict(runtime=runtime, opt_state=opt_state, ema=ema, scalar=scalar,
-                records=records, test=test)
+                records=records, test=test, logger=logger)
 
 
 def run(hps="teeny", device="cuda", dataset=None, **kwargs):

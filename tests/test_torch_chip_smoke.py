@@ -336,13 +336,28 @@ def test_flash_checks():
 
 
 def test_train_step_check(counted_flash):
-    launches = chip_smoke.check_train_step(0, "cpu", torch.Generator(),
-                                           **TRAIN_OVER)
-    assert launches == dict.fromkeys(counted_flash, 0)  # CPU: no kernel
+    from jukebox_tpu_torch.ops import layer_norm as ln
+    rep = chip_smoke.check_train_step(0, "cpu", torch.Generator(),
+                                      **TRAIN_OVER)
+    # CPU: no kernel
+    assert rep["launches"] == dict.fromkeys([*counted_flash, *ln.LAUNCHES],
+                                            0)
     # the kernel path, the plain path, the path with flash alone plain, the
     # planted fault and the step timed by parts (the profiled step runs on
-    # the card only) each ran one step's passes
-    assert counted_flash == chip_smoke.expected_flash(1, 5)
+    # the card only) each ran one step's passes; then phase 9 (c): the
+    # c_res step twice and the c_attn / c_mlp step, whose f0 attention
+    # forward runs a third time (its own recompute inside the block's)
+    want = chip_smoke.expected_flash(1, 7)
+    want["flash_fwd"] += 3
+    want["flash_dq"] += 1
+    want["flash_dkv"] += 1
+    assert counted_flash == want
+    c = rep["c_attn"]
+    assert c["differ"] == [] and c["equal"] == c["n"] == c["repeat_equal"]
+    assert c["loss"][0] == c["loss"][1] and c["gn"][0] == c["gn"][1]
+    assert c["peak_gb"] == (None, None)  # not measured on the CPU
+    # the decode check (op by op twice on the CPU): the tiny top's 64 codes
+    assert rep["graph"]["same"] and rep["graph"]["n"] == 64
 
 
 def test_training_run_launch_accounting(counted_flash):
@@ -378,9 +393,13 @@ def test_checkpoint_phase(counted_flash, monkeypatch, tmp_path):
     adam_calls = _count_plain(monkeypatch, ad, ad.LAUNCHES)
     rep = chip_smoke.run_training(0, "cpu", n_steps=2, wav_seconds=1.0,
                                   logdir=str(tmp_path), **TRAIN_OVER)
-    assert rep["kernel_expected"] == {"layer_norm_fwd": 2 * 2 * 96,
-                                      "layer_norm_bwd": 2 * 96,
-                                      "adam_update": 2}
+    # two steps' LayerNorms (twice in the forward under c_res) and step 1's
+    # sample: two per layer for each of its 64 codes and of the 384-token
+    # lyric prefix's 6 whole chunks of block_ctx 56 and 48 tail steps
+    assert rep["kernel_expected"] == {
+        "layer_norm_fwd": 2 * 2 * 96 + 96 * (64 + 6 + 48),
+        "layer_norm_bwd": 2 * 96, "adam_update": 2}
+    assert len(rep["samples"]) == 1
     assert dict(ln_calls, **adam_calls) == rep["kernel_expected"]
     ckpt = rep["records"][0]["checkpoint"]
     assert ckpt == str(tmp_path / "smoke" / "checkpoint_latest.jkb")
@@ -594,9 +613,12 @@ def test_quick_start_rehearsal(tmp_path, monkeypatch):
         torch.Generator().manual_seed(0), **QS_PRIOR)
     assert [r["it"] for r in c["records"]] == [1, 2, 3]
     assert c["n_flash_layers"] == 0 and c["n_depth"] == 3
-    # one epoch of 3 steps, one test batch
-    assert c["expected"] == chip_smoke.expected_quick_start(
+    # one epoch of 3 steps, one test batch, and step 1's sample: two
+    # LayerNorms per layer for each of its 16 codes
+    want = chip_smoke.expected_quick_start(
         chip_smoke.quick_start_hps("prior", 0, **QS_PRIOR), 3, 1)
+    want["layer_norm_fwd"] += 2 * 3 * 16
+    assert c["expected"] == want
     assert before_checks == c["expected"]
     assert c["checkpoint"].endswith("small_prior/checkpoint_latest.jkb")
     assert ln_shapes == [(2 * 16, 32, torch.bfloat16)]
@@ -604,3 +626,131 @@ def test_quick_start_rehearsal(tmp_path, monkeypatch):
         ("layer_norm_fwd", "layer_norm_bwd", "adam_update"),
         {"max_abs_err": 0.0})
     assert len(list(songs.glob("*.wav.dur"))) == 2  # durations cached
+
+
+# -- phase 9: the recipes ----------------------------------------------------
+
+def test_recipes_plan(monkeypatch):
+    """Phase 9's configurations follow the README's recipes: the upsampler
+    at its published widths and depth over the small_vqvae; the labelled
+    and lyric priors over the 3-level vqvae at sample_length n_ctx x 128,
+    under their min_duration, with labels inside y_bins (and a label
+    outside refused); the cut depths keep the sep-enc-dec prior's first f6
+    layer; phase 2b's head-dim-128 shape is the single-enc-dec prior's f0
+    layer; phase 8's songs hold a batch and a test item of every recipe."""
+    from jukebox_tpu_torch.models.transformer import ATTN_ORDERS
+    up = chip_smoke.recipe_hps("small_upsampler", 0)
+    assert (up.n_ctx, up.prior_width, up.prior_depth, up.cond_depth,
+            up.cond_width, up.levels, up.level, up.labels, up.bs) == (
+        8192, 1024, 48, 16, 512, 2, 0, False, 4)
+    assert up.sample_length == up.n_ctx * 2 ** 5
+    assert (up.save_iters, up.debug_speed, up.test) == (2, True, True)
+    seconds = chip_smoke.song_seconds(chip_smoke.quick_start_hps("prior", 0))
+    for preset, length in chip_smoke.LABELLED_LENGTH.items():
+        h = chip_smoke.recipe_hps(preset, 0)
+        assert h.sample_length == length == h.n_ctx * 128
+        assert length < h.min_duration * h.sr and seconds >= h.min_duration
+        assert (h.levels, h.level, h.labels, h.restore_vqvae) == (3, 2, True,
+                                                                  "")
+        assert chip_smoke.recipe_label_ids(h) == (3, [9])
+        assert _dataset_items(seconds, 2, h)[1:] >= (h.bs, 1)
+        funcs = [ATTN_ORDERS[h.attn_order](d) for d in
+                 range(chip_smoke.CUT_DEPTH[preset])]
+        if preset == "small_sep_enc_dec_prior":
+            assert funcs.index(6) == chip_smoke.CUT_DEPTH[preset] - 1 == 9
+        else:
+            assert 6 not in funcs and chip_smoke.CUT_DEPTH[preset] == 4
+    assert _dataset_items(seconds, 2, up)[1:] >= (up.bs, 1)
+    h = chip_smoke.recipe_hps("small_single_enc_dec_prior", 0)
+    f = chip_smoke.FLASH128
+    assert (f["L"], f["S"] // f["H"], f["B"], f["H"]) == (
+        h.n_ctx + h.n_tokens, 128, h.bs, h.heads)
+    assert f["S"] == int(h.prior_width * h.m_attn)
+    assert [d for d in range(h.prior_depth)
+            if ATTN_ORDERS[h.attn_order](d) == 0] == [47]
+    monkeypatch.setattr(chip_smoke, "RECIPE_ARTIST", "the beatles")
+    with pytest.raises(AssertionError, match="outside y_bins"):
+        chip_smoke.recipe_label_ids(h)
+
+
+# phase 9 cut to toy size over phase 8 (a)'s toy VQ-VAE (QS_VQ): each
+# recipe's presets, narrower, shorter and at 8 kHz, min_duration under the
+# toy songs' 2 s
+TOY_UPS = dict(QS_VQ, sample_length=2048, n_ctx=64, prior_width=32,
+               prior_depth=2, blocks=4, cond_width=16, cond_depth=2)
+TOY_LAB = dict(width=8, depth=1, emb_width=16, l_bins=32, sr=8000, bs=2,
+               sample_length=2048, n_ctx=16, prior_width=32, min_duration=0.5)
+TOY = {"small_labelled_prior": dict(TOY_LAB, prior_depth=3, blocks=4),
+       "small_single_enc_dec_prior": dict(TOY_LAB, prior_depth=4, blocks=8),
+       "small_sep_enc_dec_prior": dict(TOY_LAB, prior_depth=10, blocks=4,
+                                       prime_width=32, prime_depth=2,
+                                       prime_blocks=32)}
+
+
+def test_recipes_rehearsal(tmp_path, monkeypatch):
+    """Phase 9's functions on the CPU at toy size: each recipe's train.run
+    with its in-training sample, its logs (read back by check_logs:
+    events through utils/logger.py read_events, wavs, JSONL) and, for the
+    upsampler, its debug_speed trace; the plain calls of the LayerNorm,
+    flash and Adam kernels equal each run's expected launches, its sample's
+    as sample_layer_norms counts them; a full-depth single-enc-dec step
+    against its plain path and flash alone plain."""
+    from jukebox_tpu_torch.models import attention
+    from jukebox_tpu_torch.ops import adam as ad
+    from jukebox_tpu_torch.ops import flash_attention as fa
+    from jukebox_tpu_torch.ops import layer_norm as ln
+    monkeypatch.setattr(attention, "_FLASH_MIN_CTX", 0)
+    counters = [_count_plain(monkeypatch, m, m.LAUNCHES) for m in (ad, ln, fa)]
+
+    def counts():
+        return {k: v for c in counters for k, v in c.items()}
+
+    def reset():
+        for c in counters:
+            for k in c:
+                c[k] = 0
+    songs = tmp_path / "songs"
+    songs.mkdir()
+    chip_smoke.write_songs(str(songs), 2, 16000, 0)
+    logdir = str(tmp_path / "logs")
+    a = chip_smoke.run_vq_quick_start(0, "cpu", str(songs), logdir, **QS_VQ)
+    reset()
+    up = chip_smoke.run_recipe("small_upsampler", 0, "cpu", str(songs),
+                               logdir, 3, graph_check=16,
+                               restore_vqvae=a["checkpoint"], **TOY_UPS)
+    assert up["graph"]["same"] and up["graph"]["n"] == 16
+    assert [r["it"] for r in up["records"]] == [1, 2, 3]
+    # and the decode check's two runs: the conditioner's LayerNorm and two
+    # a layer for each of 16 tokens
+    assert counts() == dict(up["expected"], layer_norm_fwd=up["expected"][
+        "layer_norm_fwd"] + 2 * (1 + 2 * 2 * 16))
+    # 3 steps (the conditioner's LayerNorm and the transformer's two a
+    # layer, twice in the forward under c_res), one test batch, and the
+    # sample: two a layer for each of its 64 codes and the conditioner's
+    assert up["expected"]["layer_norm_fwd"] == 3 * (2 * 4 + 1) + (4 + 1) \
+        + (4 * 64 + 1)
+    assert up["samples"][0]["shape"] == (2, 64)
+    assert up["logs"]["audio"] == 2 + 2 * 2  # the sample, steps 1 and 3
+    assert up["logs"]["jsonl"] == 3 and up["trace"][0] > 0
+    chip_smoke.log_recipe("(a)", up)
+    for preset, over in TOY.items():
+        reset()
+        r = chip_smoke.run_recipe(preset, 0, "cpu", str(songs), logdir, 2,
+                                  **over)
+        assert counts() == r["expected"], preset
+        assert r["samples"][0]["shape"] == (2, 16)
+        assert r["logs"]["audio"] == 2 + 2
+        chip_smoke.log_recipe(f"(b) {preset}", r)
+    reset()
+    step = chip_smoke.check_recipe_step(
+        "small_single_enc_dec_prior", 0, "cpu",
+        torch.Generator().manual_seed(0),
+        **dict(TOY["small_single_enc_dec_prior"], prior_depth=48))
+    assert step["n_flash_layers"] == 1 and "flash" in step
+    assert all(v == 0.0 for v in step["full"].values())
+    # the planted LayerNorm faults move the step; the vector one beyond
+    # RECIPE_TOL (check_recipe_step raises otherwise)
+    assert all(v > 0.0 for f in step["faults"].values() for v in f.values())
+    # the kernel path, the plain path, the two planted LayerNorm faults
+    # and flash alone plain
+    assert counts()["flash_dq"] == 5
