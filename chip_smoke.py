@@ -181,6 +181,24 @@ Phases, each printing timestamped lines:
              after phase 5: its step with c_attn = c_mlp = 1 against c_res
              alone, loss and gradients bit for bit where c_res alone repeats
              to the bit, peak memory of both
+  10 parallel phase 5's top prior (all_fp16) at its width 2048 and 48 of
+             its 72 layers (the f0 layer at 47 kept) across ranks
+             (parallel/): world 1's references on one set of weights (a
+             step at bs 2 and at bs 1, the kernel decode of 64 forced
+             tokens in bf16 and 16 in int8); (a) fsdp=True, mesh_dp=1 over
+             a process group of one (NCCL) in this process, against the
+             unsharded step;
+             (b) two ranks on the one card over gloo, started from here,
+             every part run (a collective that fails fails the phase):
+             the dp=2 and the ZeRO-3 dp=2 steps against world
+             1 at bs 2 (ZeRO-3: each rank's params + m + v about half of
+             world 1's), the mp=2 step (Megatron split) against world 1 at
+             bs 1, and the decode at mp=2 in bf16 and in int8 (its kernels
+             on the rank's heads, rows and columns, K/V caches halved, an
+             int8 row scaled by the rank's piece) within STEP_TOL of world
+             1's logits, with each rank's launches. The weights' biases
+             are drawn nonzero from the seed, so that every comparison
+             sees where a row-split product's bias is added
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failed check raises: exit code != 0.
 It runs on the GPU only; without one it exits with an error.
@@ -3906,11 +3924,466 @@ def check_flash_hd128(rows, device, gen):
             rows[k] = row
 
 
+# ---------------------------------------------------------------------------
+# phase 10: training and decoding across ranks (parallel/)
+# ---------------------------------------------------------------------------
+
+P10_BS = 2           # the data-parallel parts' global batch (1 a rank)
+# phase 10's depth: 48 of the top's 72 layers at its width, the f0 layer
+# (flash) at 47 kept: (b)'s time grows with the depth (gloo's collectives
+# through the host, ~1.6 s a layer at 72), and with it the whole smoke
+# stays near 1000 s of its 1200
+P10_DEPTH = 48
+P10_TOKENS = 64      # forced tokens of the tensor-parallel decode, bf16
+P10_INT8_TOKENS = 16  # and int8
+P10_DECODE_B = 2     # its batch
+P10_SAMPLE = 256     # elements compared of each updated tensor
+# a placed step against world 1's on the same weights and global batch:
+# the loss and the gradient norm relative, the updated params normwise
+# over the compared elements against how far the step moved them (Adam's
+# first step moves an element by about lr whatever its gradient's size, so
+# an element whose gradient the bf16 noise of another batch split flips
+# moves the other way)
+P10_TOL = {"loss": 1e-4, "gn": 1e-3, "params": 2e-2}
+P10_TIMEOUT = 300
+P10_BIAS = 0.3       # std of the biases drawn (p10_biases)
+# the parts of (b), each across its two ranks
+P10_PARTS = ("dp", "fsdp", "mp", "decode", "decode_int8")
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def p10_biases(model, seed):
+    """Every bias of model drawn from seed, N(0, P10_BIAS^2) on the host in
+    name order: the init leaves them 0, and a bias of 0 hides where a
+    row-split product's bias is added (once, after the all-reduce)."""
+    gen = torch.Generator().manual_seed(seed + 11)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if n.endswith(".b"):
+                p.copy_(torch.randn(p.shape, generator=gen) * P10_BIAS)
+
+
+def p10_runtime(seed, bs, device, **over):
+    """(hps, runtime): phase 5's top prior drawn from seed (its biases
+    too, p10_biases), bs a process."""
+    hps = train_hps(seed, bs=bs, **over)
+    runtime = make_prior(hps, make_vqvae(hps, device), device)
+    p10_biases(runtime.model, seed)
+    return hps, runtime
+
+
+def p10_batch(runtime, hps, device, seed):
+    """Phase 10's global batch of P10_BS rows, the same in every
+    process."""
+    gen = torch.Generator(device=device).manual_seed(seed + 10)
+    return train_batch(runtime, Hyperparams(dict(hps), bs=P10_BS), device,
+                       gen)
+
+
+def p10_samples(named):
+    """{name: P10_SAMPLE evenly spaced elements of the tensor} on the
+    host."""
+    out = {}
+    for n, t in named.items():
+        flat = t.detach().reshape(-1)
+        idx = torch.linspace(0, flat.numel() - 1, min(flat.numel(),
+                                                      P10_SAMPLE),
+                             device=flat.device).long()
+        out[n] = flat[idx].float().cpu()
+    return out
+
+
+def p10_state_bytes(runtime, opt):
+    return sum(t.numel() * t.element_size() for d in
+               (runtime.params, opt["m"], opt["v"]) for t in d.values())
+
+
+def p10_step(runtime, hps, x, y):
+    """One train step (loss scale 1, fresh Adam state) of the runtime,
+    placed or not: its loss, gradient norm, wall, the bytes of params + m +
+    v the rank holds, its kernel launches, and samples of the updated
+    tensors (the rank's pieces)."""
+    opt = train_mod.adam_init(runtime.params, fp16_state=hps.fp16_opt)
+    step = train_mod.make_prior_train_step(
+        runtime, hps, train_mod.make_lr_schedule(hps))
+    cuda = x.is_cuda
+    reset_training_launches()
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    loss, m = step(opt, (x, y), None, 1, 1.0)
+    if cuda:
+        torch.cuda.synchronize()
+    return dict(loss=float(loss), gn=float(m["gn"]), ok=bool(m["step_ok"]),
+                wall_s=time.time() - t0,
+                state_bytes=p10_state_bytes(runtime, opt),
+                peak_gb=_peak_gb(cuda), launches=training_launches(),
+                samples=p10_samples(runtime.params))
+
+
+def p10_layout(runtime):
+    """How the rank's pieces lie in the whole tensors (p10_piece)."""
+    pl = runtime.placement
+    mesh = pl.mesh
+    return dict(split=dict(pl.split), dp_axes=dict(pl.dp_axes),
+                mesh=(mesh.dp, mesh.mp, mesh.dp_rank, mesh.mp_rank))
+
+
+def p10_piece(full, name, layout):
+    """The piece of a whole tensor that the rank of `layout` holds."""
+    from jukebox_tpu_torch.parallel.placement import mp_slice
+    dp, mp, dp_rank, mp_rank = layout["mesh"]
+    t = full
+    if name in layout["split"]:
+        axis, parts = layout["split"][name]
+        t = mp_slice(t, axis, parts, mp, mp_rank)
+    ax = layout["dp_axes"][name]
+    if ax is not None:
+        t = t.chunk(dp, ax)[dp_rank]
+    return t
+
+
+def p10_gaps(out, ref, start, moved_ref, layout=None):
+    """out's loss, gn and sampled params against world 1's (ref: its
+    result, moved_ref: its updated params whole, start: the weights
+    before the step, both on the host)."""
+    gaps = {"loss": abs(out["loss"] - ref["loss"]) / abs(ref["loss"]),
+            "gn": abs(out["gn"] - ref["gn"]) / ref["gn"]}
+    diff = moved = 0.0
+    equal = 0
+    for n, got in out["samples"].items():
+        want, w0 = moved_ref[n], start[n]
+        if layout is not None:
+            want, w0 = p10_piece(want, n, layout), p10_piece(w0, n, layout)
+        want, w0 = p10_samples({n: want})[n], p10_samples({n: w0})[n]
+        diff += float(((got - want) ** 2).sum())
+        moved += float(((want - w0) ** 2).sum())
+        equal += bool(torch.equal(got, want))
+    gaps["params"] = math.sqrt(diff) / max(math.sqrt(moved), 1e-30)
+    gaps["equal tensors"] = (equal, len(out["samples"]))
+    return gaps
+
+
+def p10_check(what, gaps):
+    log(f"  {what}: loss {gaps['loss']:.3e} (tol {P10_TOL['loss']:g}), gn "
+        f"{gaps['gn']:.3e} (tol {P10_TOL['gn']:g}), params "
+        f"{gaps['params']:.3e} of the step's move (tol "
+        f"{P10_TOL['params']:g}); {gaps['equal tensors'][0]} of "
+        f"{gaps['equal tensors'][1]} tensors' compared elements equal bit "
+        f"for bit")
+    bad = [k for k in P10_TOL if not gaps[k] <= P10_TOL[k]]
+    if bad:
+        raise AssertionError(f"phase 10 {what} disagrees with world 1: {bad}")
+
+
+def p10_decode(runtime, y, device, quantize=None):
+    """Logits [B, n, bins] of the top prior's kernel path (bf16 staged, or
+    with quantize="int8" int8 weights and caches; one decode step a token)
+    on its stream's first n tokens forced (P10_TOKENS, int8
+    P10_INT8_TOKENS), and the decode kernels' launches; under a Megatron
+    split every rank's staged pieces, heads and caches."""
+    m = runtime.model
+    arm = m.prior
+    B = y.shape[0]
+    with torch.no_grad():
+        x_cond, y_cond, prime = m.get_cond(None, y)
+        z = torch.zeros((B, m.n_ctx), dtype=torch.long, device=device)
+        stream, x_cond = m.prior_preprocess([prime, z], [None, x_cond])
+        x_cond = x_cond.to(torch.bfloat16)
+        dec = arm.transformer.prepare_decode_params(torch.bfloat16,
+                                                    quantize=quantize)
+        caches = arm.init_decode_caches(B, device, fp16=True,
+                                        dec_params=dec, int8=bool(quantize))
+        cache_bytes = sum(t.numel() * t.element_size() for c in caches
+                          for t in c.values())
+        kv_bytes = sum(c[k].numel() * c[k].element_size() for c in caches
+                       for k in ("k", "v"))
+        ds.reset_launches()
+        x_tok = torch.zeros((B, 1), dtype=torch.long, device=device)
+        logits = []
+        t0 = time.time()
+        for t in range(P10_INT8_TOKENS if quantize else P10_TOKENS):
+            logits.append(arm._decode_one(dec, caches, x_tok, t, x_cond,
+                                          y_cond, True, B)[:, 0].float())
+            x_tok = stream[:, t:t + 1]
+        if stream.is_cuda:
+            torch.cuda.synchronize()
+    return dict(logits=torch.stack(logits, 1).cpu(), cache_bytes=cache_bytes,
+                kv_bytes=kv_bytes, launches=dict(ds.LAUNCHES),
+                wall_s=time.time() - t0)
+
+
+@contextlib.contextmanager
+def p10_world_one(device):
+    """A process group of one rank in this process (NCCL on the card,
+    gloo on the CPU), through setup_dist's variables."""
+    import torch.distributed as dist
+    from jukebox_tpu_torch.parallel.dist import make_mesh, setup_dist
+    env = dict(JAX_COORDINATOR_ADDRESS=f"localhost:{_free_port()}",
+               JAX_NUM_PROCESSES="1", JAX_PROCESS_ID="0")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        setup_dist(device)
+        yield make_mesh(1, 1, device), dist.get_backend()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def p10_rank(spec_path):
+    """One rank of phase 10 (b) (`chip_smoke.py --p10-rank`): every part
+    of spec, each on a fresh prior from the seed; writes rank_<r>.pt beside
+    spec. A collective that fails fails the rank, and with it the
+    phase."""
+    from jukebox_tpu_torch.parallel.dist import (batch_slice, make_mesh,
+                                                 setup_dist)
+    from jukebox_tpu_torch.parallel.placement import Placement
+    faulthandler.dump_traceback_later(P10_TIMEOUT, exit=True)
+    with open(spec_path) as f:
+        spec = json.load(f)
+    device, seed, over = spec["device"], spec["seed"], spec["over"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.time()
+    rank, world = setup_dist(device)
+    device = f"cuda:{torch.cuda.current_device()}" if device == "cuda" \
+        else device
+    out = {"rank": rank, "world": world, "start_s": time.time() - t0,
+           "parts": {}}
+    meshes = {"dp": make_mesh(world, 1, device),
+              "mp": make_mesh(1, world, device)}
+    for part in spec["parts"]:
+        t1 = time.time()
+        mesh = meshes["mp" if part.startswith(("mp", "decode")) else "dp"]
+        hps, runtime = p10_runtime(seed, 1, device, **over)
+        x, y = p10_batch(runtime, hps, device, seed)
+        rows = batch_slice(P10_BS, mesh) if part != "mp" else slice(0, 1)
+        runtime.placement = Placement(runtime.model, mesh,
+                                      fsdp=part == "fsdp")
+        if part.startswith("decode"):
+            r = p10_decode(runtime, y[:P10_DECODE_B], device,
+                           "int8" if part == "decode_int8" else None)
+        else:
+            r = p10_step(runtime, hps, x[rows], y[rows])
+            r["layout"] = p10_layout(runtime)
+        r["part_s"] = time.time() - t1
+        out["parts"][part] = r
+        del runtime
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    torch.save(out, os.path.join(os.path.dirname(spec_path),
+                                 f"rank_{rank}.pt"))
+    faulthandler.cancel_dump_traceback_later()
+
+
+def p10_launch(workdir, world, device):
+    """Run `world` ranks of p10_rank over gloo (JUKEBOX_DIST_BACKEND) and
+    read their results; any rank failing or outliving P10_TIMEOUT fails
+    the phase, and every rank is stopped."""
+    port = _free_port()
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, JAX_COORDINATOR_ADDRESS=f"localhost:{port}",
+                   JAX_NUM_PROCESSES=str(world), JAX_PROCESS_ID=str(r),
+                   JUKEBOX_DIST_BACKEND="gloo")
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--p10-rank",
+             os.path.join(workdir, "spec.json")], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=P10_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"phase 10 rank {r} failed "
+                                 f"({p.returncode}):\n{text[-3000:]}")
+    return [torch.load(os.path.join(workdir, f"rank_{r}.pt"),
+                       weights_only=False) for r in range(world)]
+
+
+def run_phase10(seed, device, world=2, **over):
+    """Phase 10: world 1's references on one set of weights (phase 5's top
+    prior drawn from seed, bs 2 and bs 1 steps, the bf16 decode of
+    P10_TOKENS forced tokens), (a) the ZeRO-3 step at dp=1 in this process
+    over a process group of one (NCCL on the card), (b) `world` ranks over
+    gloo started from here: dp, ZeRO-3 dp and mp steps against world 1,
+    and the tensor-parallel decode's logits (bf16, int8) within STEP_TOL.
+    Returns the
+    report (its kernel launches among it)."""
+    from jukebox_tpu_torch.parallel.placement import Placement
+    t0 = time.time()
+    cuda = torch.device(device).type == "cuda"
+
+    def host(named):
+        return {n: t.detach().float().cpu().clone() for n, t in
+                named.items()}
+
+    def free():
+        if cuda:
+            torch.cuda.empty_cache()
+    rep = {"launches": {}}
+    hps, runtime = p10_runtime(seed, P10_BS, device, **over)
+    x, y = p10_batch(runtime, hps, device, seed)
+    start = host(runtime.params)
+    ref2 = p10_step(runtime, hps, x, y)
+    moved2 = host(runtime.params)
+    del runtime
+    free()
+    hps1, runtime = p10_runtime(seed, 1, device, **over)
+    ref1 = p10_step(runtime, hps1, x[:1], y[:1])
+    moved1 = host(runtime.params)
+    del runtime
+    free()
+    _, runtime = p10_runtime(seed, 1, device, **over)
+    dec_refs = {"decode": p10_decode(runtime, y[:P10_DECODE_B], device),
+                "decode_int8": p10_decode(runtime, y[:P10_DECODE_B], device,
+                                          "int8")}
+    dec_ref = dec_refs["decode"]
+    del runtime
+    free()
+    tr_desc = train_hps(seed, **over)
+    log(f"phase 10 world 1 on one set of weights ({tr_desc.prior_depth} "
+        f"layers, width {tr_desc.prior_width}, n_ctx {tr_desc.n_ctx}): bs "
+        f"{P10_BS} step loss "
+        f"{ref2['loss']:.6f} gn {ref2['gn']:.6g} {ref2['wall_s'] * 1e3:.1f} "
+        f"ms; bs 1 step loss {ref1['loss']:.6f} gn {ref1['gn']:.6g} "
+        f"{ref1['wall_s'] * 1e3:.1f} ms, params + m + v "
+        f"{_gb(ref1['state_bytes'] / 1e9)}; decode of {P10_TOKENS} tokens "
+        f"bf16 {dec_ref['wall_s']:.2f}s, caches "
+        f"{_gb(dec_ref['cache_bytes'] / 1e9)}; {P10_INT8_TOKENS} int8 "
+        f"{dec_refs['decode_int8']['wall_s']:.2f}s, caches "
+        f"{_gb(dec_refs['decode_int8']['cache_bytes'] / 1e9)}")
+
+    # (a) ZeRO-3 at dp=1 over a process group of one, in this process
+    with p10_world_one(device) as (mesh, backend):
+        _, runtime = p10_runtime(seed, 1, device, **over)
+        runtime.placement = Placement(runtime.model, mesh, fsdp=True)
+        out_a = p10_step(runtime, hps1, x[:1], y[:1])
+        del runtime
+        free()
+    gaps = p10_gaps(out_a, ref1, start, moved1)
+    log(f"phase 10 (a) fsdp=True, mesh_dp=1 over {backend} (world 1): loss "
+        f"{out_a['loss']:.6f} gn {out_a['gn']:.6g}, "
+        f"{out_a['wall_s'] * 1e3:.1f} ms against {ref1['wall_s'] * 1e3:.1f};"
+        f" params + m + v {_gb(out_a['state_bytes'] / 1e9)}, peak "
+        f"{_gb(out_a['peak_gb'])} against {_gb(ref1['peak_gb'])}; launches "
+        f"{out_a['launches']}")
+    p10_check("(a) against the unsharded step", gaps)
+    rep["a"] = dict(out_a, gaps=gaps)
+    rep["launches"] = dict(out_a["launches"])
+
+    # (b) world ranks over gloo
+    workdir = tempfile.mkdtemp(prefix="jukebox_p10_")
+    try:
+        with open(os.path.join(workdir, "spec.json"), "w") as f:
+            json.dump(dict(device=device, seed=seed, over=over,
+                           parts=list(P10_PARTS)), f)
+        t1 = time.time()
+        ranks = p10_launch(workdir, world, device)
+        rep["b_wall_s"] = time.time() - t1
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log(f"phase 10 (b) {world} ranks over gloo on {device}: "
+        f"{rep['b_wall_s']:.1f}s (rank start {ranks[0]['start_s']:.1f}s)")
+    refs = {"dp": (ref2, moved2), "fsdp": (ref2, moved2),
+            "mp": (ref1, moved1)}
+    rep["b"] = {}
+    for part in P10_PARTS:
+        got = [r["parts"][part] for r in ranks]
+        for r in got:
+            for k, v in r["launches"].items():
+                rep["launches"][k] = rep["launches"].get(k, 0) + v
+        if part.startswith("decode"):
+            dec_ref = dec_refs[part]
+            e, rel = _err(got[0]["logits"], dec_ref["logits"])
+            same = all(torch.equal(g["logits"], got[0]["logits"])
+                       for g in got)
+            log(f"phase 10 (b) {part} at mp={world}: "
+                f"{dec_ref['logits'].shape[1]} forced "
+                f"tokens x {P10_DECODE_B} rows, max logit err {e:.3e} (rel "
+                f"{rel:.2e}, tol {STEP_TOL:g}) against world 1's kernel "
+                f"path; ranks equal {same}; caches a rank "
+                f"{_gb(got[0]['cache_bytes'] / 1e9)} against "
+                f"{_gb(dec_ref['cache_bytes'] / 1e9)}; "
+                f"{got[0]['wall_s']:.2f}s against {dec_ref['wall_s']:.2f}s;"
+                f" launches a rank "
+                + "; ".join(str({k: v for k, v in g["launches"].items()
+                                 if v}) for g in got))
+            if not (torch.isfinite(got[0]["logits"]).all() and same
+                    and rel <= STEP_TOL):
+                raise AssertionError("phase 10 tensor-parallel decode "
+                                     "disagrees with world 1")
+            if any(g["kv_bytes"] * world != dec_ref["kv_bytes"]
+                   for g in got):
+                raise AssertionError("phase 10: a rank's K/V caches are not "
+                                     "1/mp of world 1's")
+            kinds = (("ring_attn_int8", "gemv_int8", "ln_gemv_int8")
+                     if part == "decode_int8" else
+                     ("ring_attn_decode", "gemv_bf16", "ln_gemv_bf16"))
+            if cuda and not all(g["launches"][k] for g in got
+                                for k in kinds):
+                raise AssertionError("phase 10: the decode kernels did not "
+                                     "run on every rank")
+            rep["b"][part] = dict(err=e, rel=rel, cache_bytes=[
+                g["cache_bytes"] for g in got], wall_s=got[0]["wall_s"],
+                launches=[g["launches"] for g in got])
+            continue
+        ref, moved = refs[part]
+        ref_bytes = ref1["state_bytes"]
+        log(f"phase 10 (b) {part}: " + "; ".join(
+            f"rank {i}: loss {g['loss']:.6f} gn {g['gn']:.6g} step "
+            f"{g['wall_s'] * 1e3:.1f} ms, params + m + v "
+            f"{_gb(g['state_bytes'] / 1e9)} ({g['state_bytes'] / ref_bytes:.3f} "
+            f"of world 1's), peak {_gb(g['peak_gb'])}"
+            for i, g in enumerate(got)))
+        for i, g in enumerate(got):
+            p10_check(f"(b) {part} rank {i} against world 1 at global bs "
+                      f"{P10_BS if part != 'mp' else 1}",
+                      p10_gaps(g, ref, start, moved, g["layout"]))
+        if part == "fsdp" and not all(
+                g["state_bytes"] <= 0.55 * ref_bytes for g in got):
+            raise AssertionError("phase 10: fsdp ranks hold more than 0.55 "
+                                 "of world 1's params + m + v")
+        rep["b"][part] = dict(loss=[g["loss"] for g in got],
+                              gn=[g["gn"] for g in got],
+                              wall_s=[g["wall_s"] for g in got],
+                              state_bytes=[g["state_bytes"] for g in got],
+                              ref_bytes=ref_bytes)
+    rep["wall_s"] = time.time() - t0
+    log(f"phase 10 done in {rep['wall_s']:.1f}s; launches {rep['launches']}")
+    return rep
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights and of sampling")
+    p.add_argument("--p10-rank", metavar="SPEC", default=None,
+                   help="run one rank of phase 10 (b) (started by phase 10)")
     args = p.parse_args(argv)
+    if args.p10_rank is not None:
+        return p10_rank(args.p10_rank)
     name, count = phase_device()
     phase_build()
     device = "cuda"
@@ -4033,6 +4506,11 @@ def main(argv=None):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    torch.cuda.empty_cache()
+    log("phase 10 parallel: phase 5's top prior trained and decoded across "
+        "ranks (ZeRO-3 at dp=1 here, then 2 ranks over gloo)")
+    r10 = run_phase10(args.seed, device, prior_depth=P10_DEPTH)
+
     cascades = (rep, rep4c, rep4b, rep5)
     launches = dict({k: sum(r["launches"][k] for r in cascades)
                      for k in ds.LAUNCHES}, **tr_rep["launches"],
@@ -4047,6 +4525,8 @@ def main(argv=None):
             qs["c"]["rows"].items()):
         rows[k]["max_abs_err"] = max(rows[k]["max_abs_err"],
                                      row["max_abs_err"])
+    for k, n in r10["launches"].items():  # phase 10's ranks
+        launches[k] += n
     for r in cascades:  # the prefill's LayerNorms, the alignment forwards
         launches["flash_fwd"] += r["fa_launches"]["flash_fwd"]
         launches["layer_norm_fwd"] += r["ln_launches"]["layer_norm_fwd"]

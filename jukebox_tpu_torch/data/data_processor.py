@@ -35,13 +35,18 @@ class OffsetView:
 
 
 class ShardedLoader:
-    """Deterministic epoch-shuffled batch loader yielding numpy batches
-    [bs, T, C] (and labels [bs, ...] for labelled views): jukebox_tpu's
-    loader on one host (its per-process sharding is the identity there;
-    multi-process training is not ported)."""
+    """Deterministic epoch-shuffled, process-sharded batch loader yielding
+    numpy batches [bs, T, C] (and labels [bs, ...] for labelled views), as
+    jukebox_tpu's: each of nproc processes (default: torch.distributed's
+    world; a data-parallel run passes its "dp" size) reads its slice
+    idx[proc::nproc] of the epoch's order, cut to the same length on every
+    process when dropping the last batch."""
 
     def __init__(self, view, bs, shuffle=True, drop_last=True, nworkers=2,
-                 seed=0):
+                 seed=0, proc=None, nproc=None):
+        from jukebox_tpu_torch.parallel.dist import get_rank, world_size
+        self.proc = get_rank() if proc is None else proc
+        self.nproc = world_size() if nproc is None else nproc
         self.view = view
         self.bs = bs
         self.shuffle = shuffle
@@ -59,7 +64,9 @@ class ShardedLoader:
         if self.shuffle:
             rng = np.random.RandomState(self.seed + self.epoch)
             rng.shuffle(idx)
-        return idx
+        # each process reads its slice of the global batch
+        per = n // self.nproc if self.drop_last else -(-n // self.nproc)
+        return idx[self.proc::self.nproc][:per]
 
     def __len__(self):
         per = len(self._indices())
@@ -89,9 +96,10 @@ class ShardedLoader:
 class DataProcessor:
     """Dataset, bandwidth statistics, split and loaders. `dataset` may be a
     ready-made FilesAudioDataset (e.g. a labelled subclass); by default the
-    unlabelled base is built from hps."""
+    unlabelled base is built from hps. proc / nproc: this process's slice
+    of each batch (ShardedLoader)."""
 
-    def __init__(self, hps, dataset=None):
+    def __init__(self, hps, dataset=None, proc=None, nproc=None):
         self.dataset = dataset if dataset is not None else FilesAudioDataset(hps)
         duration = 1 if hps.prior else 600
         hps.bandwidth = calculate_bandwidth(self.dataset, hps,
@@ -103,11 +111,13 @@ class DataProcessor:
         self.train_loader = ShardedLoader(self.train_dataset, hps.bs,
                                           shuffle=True, drop_last=True,
                                           nworkers=hps.nworkers,
-                                          seed=hps.get("seed", 0))
+                                          seed=hps.get("seed", 0),
+                                          proc=proc, nproc=nproc)
         self.test_loader = ShardedLoader(self.test_dataset, hps.bs,
                                          shuffle=False, drop_last=False,
                                          nworkers=hps.nworkers,
-                                         seed=hps.get("seed", 0))
+                                         seed=hps.get("seed", 0),
+                                         proc=proc, nproc=nproc)
         print(f"Train {len(self.train_dataset)} samples. "
               f"Test {len(self.test_dataset)} samples")
 

@@ -5,6 +5,10 @@ jukebox_tpu/models/attention.py), for the attention patterns of the
     1 row        attend within your block of the [blocks, block_ctx] grid
     2 column     attend to the same column of previous blocks
     3 prev-row   attend to the whole previous block
+    4 summary    attend to the last position of each previous block
+    5 summary-spread  attend to the last `spread` positions of each
+                 previous block (4 and 5: the full-context forward only,
+                 as the JAX package samples neither in the port's form)
     6 cross      attend to the lyric encoder's K/V (q-only c_attn, the
                  encoder projected by c_enc_kv)
     7 prime      attend to the first _prime_len positions (lyric prefix)
@@ -44,6 +48,7 @@ import torch.nn as nn
 from jukebox_tpu_torch.ops.core import Dense, dense_any, dropout, fold_seed
 from jukebox_tpu_torch.ops.decode_stack import quantize_rows
 from jukebox_tpu_torch.ops.flash_attention import flash_dense_attn
+from jukebox_tpu_torch.parallel.dist import copy_to_group, reduce_from_group
 
 NEG = -1e9
 _FLASH_MIN_CTX = 2048
@@ -61,6 +66,17 @@ def merge_heads(x):
 
 def causal_mask(q_l, kv_l, device):
     return torch.tril(torch.ones((q_l, kv_l), device=device))
+
+
+def summary_mask(q_l, blocks, spread, device):
+    """[q_l, blocks * spread]: query i attends the zero pad and the
+    summaries of the blocks it has passed (jukebox_tpu attention.py
+    _summary_mask)."""
+    bc = q_l // blocks
+    tril = torch.tril(torch.ones((q_l, q_l), device=device))
+    m = tril.reshape(q_l, blocks, bc)[:, :-1, -spread:]
+    m = torch.cat([torch.ones_like(m[:, :1]), m], dim=1)
+    return m.reshape(q_l, blocks * spread)
 
 
 class StepIndex:
@@ -129,17 +145,22 @@ class FactoredAttention(nn.Module):
     def __init__(self, n_in, n_ctx, n_state, n_head, attn_func=0, blocks=None,
                  prime_len=None, mask=False, zero_out=False, init_scale=1.0,
                  attn_dropout=0.0, resid_dropout=0.0, encoder_dims=None,
-                 device=None):
+                 spread=None, device=None):
         super().__init__()
-        if attn_func not in (0, 1, 2, 3, 6, 7):
+        if attn_func not in range(8):
             raise NotImplementedError(f"attn_func {attn_func} is not ported")
+        if attn_func == 5 and not spread:
+            raise ValueError("the summary-spread pattern (5) needs spread")
         assert n_state % n_head == 0
         if blocks is not None:
             assert n_ctx % blocks == 0
         self.n_ctx, self.n_state, self.n_head = n_ctx, n_state, n_head
         self.attn_func, self.blocks, self.prime_len = attn_func, blocks, prime_len
-        self.encoder_dims = encoder_dims
+        self.encoder_dims, self.spread = encoder_dims, spread
         self.mask = mask
+        # the "mp" group of a Megatron split (parallel/placement.py), which
+        # leaves this module n_head / mp heads of n_state / mp columns
+        self.tp = None
         self.attn_dropout, self.resid_dropout = attn_dropout, resid_dropout
         if attn_func == 6:
             self.c_attn = Dense(n_in, n_state, init_scale, device=device)
@@ -164,11 +185,24 @@ class FactoredAttention(nn.Module):
         return mod(x) if p is None else dense_any(x, p)
 
     def _qkv(self, x, encoder_kv=None, p=None):
+        x = copy_to_group(x, self.tp)
         if self.attn_func == 6:
             q = self._lin(self.c_attn, x, p)
-            k, v = self.c_enc_kv(encoder_kv.to(x.dtype)).chunk(2, dim=2)
+            enc = copy_to_group(encoder_kv.to(x.dtype), self.tp)
+            k, v = self.c_enc_kv(enc).chunk(2, dim=2)
             return q, k, v
         return self._lin(self.c_attn, x, p).chunk(3, dim=2)
+
+    def _out(self, a, p=None):
+        """c_proj of the heads' output a (p: its int8 staged dict); split
+        over "mp", the rows' partial products summed over the group before
+        the bias (a staged dict's bias is then zero)."""
+        if self.tp is None:
+            return self._lin(self.c_proj, a, p)
+        y = (torch.matmul(a, self.c_proj.w.to(a.dtype)) if p is None
+             else dense_any(a, p))
+        y = reduce_from_group(y, self.tp)
+        return y + self.c_proj.b.to(y.dtype)
 
     # -- full-context forward -------------------------------------------------
 
@@ -186,11 +220,11 @@ class FactoredAttention(nn.Module):
                            if seed is not None else (None, None))
         a = self._pattern_full(q, k, v, s_attn, plain, record)
         if not record:
-            return dropout(self.c_proj(a), self.resid_dropout, s_resid)
+            return dropout(self._out(a), self.resid_dropout, s_resid)
         a, w = a
         if self.attn_func == 7:
             w = w[:, :, self.prime_len:, :self.prime_len]
-        return dropout(self.c_proj(a), self.resid_dropout, s_resid), w
+        return dropout(self._out(a), self.resid_dropout, s_resid), w
 
     def uses_flash(self, L, dtype, record=False):
         """The f0 dispatch of jukebox_tpu's _pattern_full (attention.py:254)
@@ -243,6 +277,17 @@ class FactoredAttention(nn.Module):
                                  dim=1).reshape(B * nb, bc, S)
             a, w = attn(q.reshape(B * nb, bc, S), shift(k), shift(v), None)
             return done(a.reshape(B, L, S), w)
+        if f in (4, 5):
+            blocks = self.blocks
+            spread = 1 if f == 4 else self.spread
+
+            def summarize(x):
+                xb = x.reshape(B, blocks, L // blocks, S)[:, :-1, -spread:]
+                xb = torch.cat([torch.zeros_like(xb[:, :1]), xb], dim=1)
+                return xb.reshape(B, blocks * spread, S)
+            mask = (summary_mask(L, blocks, spread, q.device) if self.mask
+                    else None)
+            return done(*attn(q, summarize(k), summarize(v), mask))
         if f == 6:
             return done(*attn(q, k, v, None))
         pl_ = self._prime_len  # f == 7
@@ -253,6 +298,10 @@ class FactoredAttention(nn.Module):
 
     def cache_shape(self, bs):
         f, A = self.attn_func, self.n_state
+        if f in (4, 5):
+            raise NotImplementedError(
+                f"attn_func {f} decodes in neither the port nor, for 5, "
+                f"the JAX package (its summary sampling is not ported)")
         if f == 0:
             return (bs, self.n_ctx, A)
         if f == 1:
@@ -304,8 +353,8 @@ class FactoredAttention(nn.Module):
         f = self.attn_func
         if f == 6:
             q = self.c_attn(x)
-            return self.c_proj(dense_attn(q, cache["k"], cache["v"],
-                                          self.n_head))
+            return self._out(dense_attn(q, cache["k"], cache["v"],
+                                        self.n_head))
         if not isinstance(pos, dict):
             pos = self.step_index(pos, x.device, f == 7).positions()
         q, k, v = self._qkv(x)
@@ -342,7 +391,7 @@ class FactoredAttention(nn.Module):
                                                      device=dev)
                 kc, vc = kc.index_select(1, rows), vc.index_select(1, rows)
                 mask = None
-        return self.c_proj(dense_attn(q, kc, vc, self.n_head, mask))
+        return self._out(dense_attn(q, kc, vc, self.n_head, mask))
 
     @staticmethod
     def _put(cache, idx, k, v):
@@ -373,7 +422,7 @@ class FactoredAttention(nn.Module):
         f = self.attn_func
 
         def proj(a):
-            return self._lin(self.c_proj, a, None if p is None else p["proj"])
+            return self._out(a, None if p is None else p["proj"])
         qp = None if p is None else p["qkv"]
         everything = (slice(None),)
 

@@ -45,7 +45,7 @@ class ConditionalAutoregressive2D(nn.Module):
                  resid_dropout=0.0, emb_dropout=0.0, checkpoint_res=0,
                  checkpoint_attn=0, checkpoint_mlp=0, y_cond=True,
                  encoder_dims=0, only_encode=False, merged_decoder=False,
-                 device=None):
+                 spread=None, device=None):
         super().__init__()
         self.input_shape, self.bins, self.width = tuple(input_shape), bins, width
         self.input_dims = int(np.prod(self.input_shape))
@@ -67,7 +67,7 @@ class ConditionalAutoregressive2D(nn.Module):
             prime_len, m_attn, m_mlp, mask, zero_out, init_scale, res_scale,
             attn_dropout, resid_dropout, checkpoint_res,
             encoder_dims or None, checkpoint_attn=checkpoint_attn,
-            checkpoint_mlp=checkpoint_mlp, device=device)
+            checkpoint_mlp=checkpoint_mlp, spread=spread, device=device)
         if not only_encode and not self.share_x_emb_x_out:
             self.x_out = Table((width, bins), 0.0, name="w",
                                bound=1.0 / np.sqrt(width), device=device)
@@ -185,12 +185,14 @@ class ConditionalAutoregressive2D(nn.Module):
         previous token (unused at t == 0). Returns (tokens [N, n_steps],
         x_tok). The fp32 layer-module decode (no dec_params) runs its
         steps from t = max(t0, 1) through a DecodeGraph when
-        DecodeGraph.wanted says so."""
+        DecodeGraph.wanted says so, op by op under a Megatron split (its
+        all-reduces are not captured)."""
         N = x_tok.shape[0]
         toks = []
         graph = None
         for t in range(t0, t0 + n_steps):
             if (graph is None and t >= 1 and dec_params is None and not fp16
+                    and self.transformer.tp is None
                     and DecodeGraph.wanted(x_tok.device, t0 + n_steps - t)):
                 graph = DecodeGraph(self, caches, t, x_cond, y_cond, N)
             if graph is not None:

@@ -17,6 +17,12 @@ order that changes from run to run, while a GEMM gives the same bits on
 every run, so the codebook's statistics repeat exactly for the same
 inputs. Only these sums are made deterministic: the rest of a training
 step (cuDNN's convolution gradients among them) may not be.
+
+Data parallel (group: the "dp" group of parallel/dist.py), every rank
+keeps the same codebook, as the JAX package's replicated state does: the
+segment sums are summed over the group, and the first-batch init and the
+restarts draw from the group's whole batch (gathered in rank order) with
+one generator seed on every rank.
 """
 
 import math
@@ -24,6 +30,8 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from jukebox_tpu_torch.parallel.dist import all_gather_cat, all_reduce_
 
 # rows of one chunk of the distance and one-hot products: at most 2**26
 # fp32 elements (256 MiB) a chunk
@@ -50,6 +58,7 @@ class BottleneckBlock(nn.Module):
                                                  device=device))
         self.register_buffer("threshold", torch.tensor(float(threshold),
                                                        **f32))
+        self.group = None  # the "dp" group of data-parallel training
 
     def init_(self, gen):
         # a model for sampling draws its codebook so that decoded audio is
@@ -123,7 +132,7 @@ class BottleneckBlock(nn.Module):
             one_hot = F.one_hot(x_l[lo:hi], self.k_bins).to(torch.float32)
             out += one_hot.t() @ x[lo:hi]
             count += one_hot.sum(0)
-        return out, count
+        return all_reduce_(out, self.group), all_reduce_(count, self.group)
 
     def _prenorm(self, x):
         return torch.linalg.vector_norm(x - x.mean()) / math.sqrt(
@@ -149,7 +158,7 @@ class BottleneckBlock(nn.Module):
     @torch.no_grad()
     def _init_k(self, x, gen):
         """Seed the codebook from the batch (the first training batch)."""
-        k = self._rand_candidates(x, gen)
+        k = self._rand_candidates(all_gather_cat(x, self.group), gen)
         self.k.copy_(k)
         self.k_sum.copy_(k)
         self.k_elem.fill_(1.0)
@@ -162,7 +171,7 @@ class BottleneckBlock(nn.Module):
         the batch. Returns the update's metrics."""
         mu = self.mu
         _k_sum, _k_elem = self._segment_sum(x, x_l)
-        _k_rand = self._rand_candidates(x, gen)
+        _k_rand = self._rand_candidates(all_gather_cat(x, self.group), gen)
         old_k = self.k.clone()
         k_sum = mu * self.k_sum + (1.0 - mu) * _k_sum
         k_elem = mu * self.k_elem + (1.0 - mu) * _k_elem

@@ -29,6 +29,7 @@ from jukebox_tpu_torch.models.encdec import BlockCfg
 from jukebox_tpu_torch.models.prior import SimplePrior
 from jukebox_tpu_torch.models.vqvae import VQVAE, calculate_strides
 from jukebox_tpu_torch.ops.core import init_weights
+from jukebox_tpu_torch.parallel.dist import get_rank
 from jukebox_tpu_torch.utils.checkpoints import (load_checkpoint,
                                                  save_checkpoint)
 from jukebox_tpu_torch.utils.convert import (from_jax_params, named_to_tree,
@@ -46,9 +47,9 @@ MODELS = {
 }
 
 
-# prior keys the port does not build, with the value that builds nothing
-_UNPORTED_PRIOR_KEYS = dict(spread=None, pos_init=False, copy_input=False,
-                            prime_spread=None, prime_pos_init=False)
+# prior keys the port refuses, with the value that builds nothing: the JAX
+# package asserts them off too (autoregressive.py:100)
+_UNPORTED_PRIOR_KEYS = dict(pos_init=False, prime_pos_init=False)
 # hps entries a checkpoint does not keep (jukebox_tpu save_model_checkpoint)
 _UNSAVED_HPS = ("metadata_v2", "metadata_v3", "alignments", "lyric_processor",
                 "midi_processor", "bandwidth")
@@ -124,14 +125,46 @@ def restore_opt(opt_state, checkpoint_path, model):
     return opt_state_from_jax(model, opt, device), step
 
 
+def _full_opt(placement, opt_state):
+    """The whole optimizer state from every rank's pieces: fp16 moments
+    unscaled by each rank's own scale, gathered and scaled again by the
+    whole tensor's (ops/adam.py's s = 1e-8 + max|x| / 65504)."""
+    out = {"step": opt_state["step"]}
+    fp16 = "m_scale" in opt_state
+    for key in ("m", "v"):
+        if not fp16:
+            out[key] = placement.full_dict(opt_state[key])
+            continue
+        out[key], out[key + "_scale"] = {}, {}
+        for n, t in opt_state[key].items():
+            x = placement.full(n, t.float() * opt_state[key + "_scale"][n])
+            sc = 1e-8 + torch.amax(torch.abs(x)) / 65504.0
+            out[key][n] = (x / sc).to(torch.float16)
+            out[key + "_scale"][n] = sc
+    return out
+
+
 def save_model_checkpoint(logdir, name, runtime, opt_state, step, hps,
                           params=None):
     """{logdir}/checkpoint_{name}.jkb with hps, params (the model's, or
     `params` as {name: tensor or array}, e.g. an EMA shadow), a VQ-VAE's
     codebook state (None for a prior), the JAX layout of opt_state (None:
     no optimizer state, a sampling checkpoint) and step. Returns the
-    path."""
+    path. A model placed over several ranks (runtime.placement) is
+    gathered whole first, every rank taking part, and rank 0 writes the
+    file a single process would."""
     save_hps = {k: v for k, v in dict(hps).items() if k not in _UNSAVED_HPS}
+    placement = getattr(runtime, "placement", None)
+    if placement is not None:
+        device = next(runtime.model.parameters()).device
+        params = placement.full_dict(
+            placement.params if params is None else
+            {n: torch.as_tensor(v, device=device) for n, v in params.items()})
+        opt_state = (None if opt_state is None
+                     else _full_opt(placement, opt_state))
+    path = f"{logdir}/checkpoint_{name}.jkb"
+    if placement is not None and get_rank() != 0:
+        return path
     tree = (to_jax_params(runtime.model) if params is None
             else named_to_tree(runtime.model, params))
     opt = (None if opt_state is None
@@ -139,7 +172,6 @@ def save_model_checkpoint(logdir, name, runtime, opt_state, step, hps,
     state = (vqvae_state(runtime.model) if isinstance(runtime.model, VQVAE)
              else None)
     payload = dict(hps=save_hps, params=tree, state=state, opt=opt, step=step)
-    path = f"{logdir}/checkpoint_{name}.jkb"
     save_checkpoint(path, payload)
     return path
 
@@ -199,7 +231,8 @@ def make_prior(hps, vqvae, device="cuda"):
     prior_kwargs = dict(
         input_shape=(hps.n_ctx,), bins=vqvae.l_bins, width=hps.prior_width,
         depth=hps.prior_depth, heads=hps.heads, attn_order=hps.attn_order,
-        blocks=hps.blocks, zero_out=hps.zero_out, res_scale=hps.res_scale,
+        blocks=hps.blocks, spread=hps.spread, zero_out=hps.zero_out,
+        res_scale=hps.res_scale,
         init_scale=hps.init_scale, m_attn=hps.m_attn, m_mlp=hps.m_mlp,
         attn_dropout=hps.attn_dropout if train else 0.0,
         resid_dropout=hps.resid_dropout if train else 0.0,
@@ -226,7 +259,8 @@ def make_prior(hps, vqvae, device="cuda"):
         prime_kwargs.update(
             width=hps.prime_width, depth=hps.prime_depth,
             heads=hps.prime_heads, attn_order=hps.prime_attn_order,
-            blocks=hps.prime_blocks, zero_out=hps.prime_zero_out,
+            blocks=hps.prime_blocks, spread=hps.prime_spread,
+            zero_out=hps.prime_zero_out,
             res_scale=hps.prime_res_scale, init_scale=hps.prime_init_scale,
             m_attn=hps.prime_m_attn, m_mlp=hps.prime_m_mlp,
             attn_dropout=hps.prime_attn_dropout if train else 0.0,
@@ -243,7 +277,8 @@ def make_prior(hps, vqvae, device="cuda"):
                         y_cond_kwargs, prime_kwargs, labels=hps.labels,
                         labels_v3=hps.labels_v3,
                         single_enc_dec=hps.single_enc_dec,
-                        merged_decoder=hps.merged_decoder, device=device)
+                        merged_decoder=hps.merged_decoder,
+                        copy_input=hps.copy_input, device=device)
     model.alignment_head = hps.get("alignment_head", None)
     model.alignment_layer = hps.get("alignment_layer", None)
     init_weights(model, hps.get("seed", 0) + hps.level + 1, device)
@@ -290,13 +325,17 @@ def decode_mode(quantize=None):
 class VQVAERuntime:
     """A VQ-VAE being trained, with the training loop's interface: model,
     params (the trainable parameters by name; the codebooks are buffers and
-    stay out of them) and step (the optimizer steps taken)."""
+    stay out of them), step (the optimizer steps taken) and placement (a
+    parallel/placement.py Placement over several ranks, or None)."""
 
     def __init__(self, model):
         self.model, self.step = model, getattr(model, "step", 0)
+        self.placement = None
 
     @property
     def params(self):
+        if self.placement is not None:
+            return self.placement.params
         return dict(self.model.named_parameters())
 
 
@@ -306,26 +345,40 @@ class PriorRuntime:
     or int8 with stage_decode(quantize="int8") or JUKEBOX_INT8_DECODE=1);
     sample runs one window: sample_init (conditioning, the lyric encoder,
     caches, prefill), the token loop, and sample_finish. params are the
-    trainable fp32 masters by name; step counts the optimizer steps
-    taken."""
+    trainable fp32 masters by name (the rank's pieces under a placement,
+    parallel/placement.py); step counts the optimizer steps taken."""
 
     def __init__(self, model, vqvae):
         self.model, self.vqvae = model, vqvae
         self.staged = None
         self.staged_mode = None
         self.step = 0
+        self.placement = None
 
     @property
     def params(self):
+        if self.placement is not None:
+            return self.placement.params
         return dict(self.model.named_parameters())
 
     def __getattr__(self, name):
         # n_ctx, raw_to_tokens, labeller, n_tokens, level, z_shapes, ...
         return getattr(self.__dict__["model"], name)
 
-    def stage_decode(self, quantize=None):
+    def stage_decode(self, quantize=None, mesh=None):
         """Stage the decode weights once per mode (decode_mode): a change
-        of mode, or of the environment switches, restages."""
+        of mode, or of the environment switches, restages. mesh: a
+        parallel/dist.py Mesh with mp > 1 splits the prior over "mp" first
+        (parallel/placement.py tensor_parallel, in place, unless a
+        placement split it already): each rank stages its columns, rows and
+        heads, its KV caches hold its heads (cache bytes / mp), and every
+        row-split product is all-reduced, in bf16 and int8 alike
+        (jukebox_tpu make_models.py:447-566). Returns the mode."""
+        if mesh is not None and mesh.mp > 1 and \
+                self.model.prior.transformer.tp is None:
+            from jukebox_tpu_torch.parallel.placement import tensor_parallel
+            tensor_parallel(self.model, mesh)
+            self.staged = None
         mode = decode_mode(quantize)
         if self.staged is None or self.staged_mode != mode:
             self.staged = None

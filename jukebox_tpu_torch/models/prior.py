@@ -29,7 +29,7 @@ class SimplePrior(nn.Module):
     def __init__(self, z_shapes, l_bins, level, downs_t, strides_t,
                  prior_kwargs, x_cond_kwargs, y_cond_kwargs, prime_kwargs,
                  labels=True, labels_v3=False, single_enc_dec=False,
-                 merged_decoder=False, device=None):
+                 merged_decoder=False, copy_input=False, device=None):
         super().__init__()
         prior_kwargs = dict(prior_kwargs)
         prime_kwargs = dict(prime_kwargs)
@@ -38,6 +38,11 @@ class SimplePrior(nn.Module):
         self.prime_loss_fraction = prime_kwargs.pop("prime_loss_fraction",
                                                     0.0)
         self.prime_prior = None
+        # copy_input: the lyric stream is the window's first n_tokens codes
+        # (jukebox_tpu prior.py:62-64, :282-283)
+        self.copy_input = copy_input
+        if copy_input:
+            prime_kwargs["bins"] = l_bins
         self.z_shapes, self.levels = z_shapes, len(z_shapes)
         self.z_shape, self.level, self.l_bins = z_shapes[level], level, l_bins
         self.x_cond = level != self.levels - 1
@@ -204,6 +209,8 @@ class SimplePrior(nn.Module):
         weights instead, in depth order (prior.py:312-344)."""
         record = frozenset(get_attn_weights)
         x_cond, y_cond, prime = self.get_cond(z_conds, y)
+        if self.copy_input:
+            prime = z[:, :self.n_tokens]
         if self.single_enc_dec:
             z_all, x_cond = self.prior_preprocess([prime, z], [None, x_cond])
             (prime_loss, gen_loss), preds, *ws = self.prior(

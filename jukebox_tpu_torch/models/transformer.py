@@ -28,8 +28,11 @@ from torch.utils.checkpoint import checkpoint
 
 from jukebox_tpu_torch.models.attention import FactoredAttention, StepIndex
 from jukebox_tpu_torch.ops.core import (Dense, LayerNorm, dense_any, dropout,
-                                        fold_seed, quick_gelu,
+                                        fold_seed, quick_gelu, quantize_dense,
                                         quantize_dense_tree)
+from jukebox_tpu_torch.parallel.dist import (all_reduce_, copy_to_group,
+                                             reduce_from_group)
+from jukebox_tpu_torch.parallel.shardings import decode_param_specs
 from jukebox_tpu_torch.ops.decode_stack import (quantize_rows, ring_geometry,
                                                 stack_layer_step)
 
@@ -58,13 +61,22 @@ class MLP(nn.Module):
         self.resid_dropout = resid_dropout
         self.c_fc = Dense(n_in, n_state, init_scale, device=device)
         self.c_proj = Dense(n_state, n_in, init_scale, zero_out, device=device)
+        self.tp = None  # the "mp" group of a Megatron split
 
     def forward(self, x, seed=None, p=None):
-        """p: the layer's int8 staged decode params (prefill)."""
-        if p is not None:
-            return dense_any(quick_gelu(dense_any(x, p["fc"])), p["mlp"])
-        return dropout(self.c_proj(quick_gelu(self.c_fc(x))),
-                       self.resid_dropout, seed)
+        """p: the layer's int8 staged decode params (prefill). Split over
+        "mp", c_fc holds the rank's columns and c_proj its rows, whose
+        partial products are summed over the group before the bias."""
+        x = copy_to_group(x, self.tp)
+        h = quick_gelu(self.c_fc(x) if p is None else dense_any(x, p["fc"]))
+        if self.tp is None:
+            y = self.c_proj(h) if p is None else dense_any(h, p["mlp"])
+        else:
+            y = (torch.matmul(h, self.c_proj.w.to(h.dtype)) if p is None
+                 else dense_any(h, p["mlp"]))
+            y = reduce_from_group(y, self.tp)
+            y = y + self.c_proj.b.to(y.dtype)
+        return y if p is not None else dropout(y, self.resid_dropout, seed)
 
 
 class ResAttnBlock(nn.Module):
@@ -72,7 +84,8 @@ class ResAttnBlock(nn.Module):
                  prime_len=None, m_attn=0.25, m_mlp=1.0, mask=False,
                  zero_out=False, init_scale=1.0, res_scale=1.0,
                  attn_dropout=0.0, resid_dropout=0.0, encoder_dims=None,
-                 checkpoint_attn=0, checkpoint_mlp=0, device=None):
+                 checkpoint_attn=0, checkpoint_mlp=0, spread=None,
+                 device=None):
         super().__init__()
         self.res_scale = res_scale
         self.checkpoint_attn = checkpoint_attn
@@ -81,7 +94,8 @@ class ResAttnBlock(nn.Module):
         self.attn = FactoredAttention(
             n_in, n_ctx, int(m_attn * n_in), n_head, attn_func, blocks,
             prime_len, mask, zero_out or attn_func == 6, init_scale,
-            attn_dropout, resid_dropout, encoder_dims, device=device)
+            attn_dropout, resid_dropout, encoder_dims, spread=spread,
+            device=device)
         self.ln_0 = LayerNorm(n_in, device=device)
         self.mlp = MLP(n_in, int(m_mlp * n_in), zero_out, init_scale,
                        resid_dropout, device=device)
@@ -137,9 +151,10 @@ class Transformer(nn.Module):
                  mask=False, zero_out=False, init_scale=1.0, res_scale=False,
                  attn_dropout=0.0, resid_dropout=0.0, checkpoint_res=0,
                  encoder_dims=None, checkpoint_attn=0, checkpoint_mlp=0,
-                 device=None):
+                 spread=None, device=None):
         super().__init__()
         self.n_in, self.n_ctx, self.n_head = n_in, n_ctx, n_head
+        self.tp = None  # the "mp" group of a Megatron split
         self.n_depth, self.attn_order = n_depth, attn_order
         self.prime_len = prime_len
         self.res_scale = (1.0 / n_depth) if res_scale else 1.0
@@ -150,7 +165,7 @@ class Transformer(nn.Module):
                          prime_len, m_attn, m_mlp, mask, zero_out, init_scale,
                          self.res_scale, attn_dropout, resid_dropout,
                          encoder_dims, checkpoint_attn, checkpoint_mlp,
-                         device=device)
+                         spread=spread, device=device)
             for d in range(n_depth)])
         self.layer_order = tuple(self._plan_order())
 
@@ -248,7 +263,10 @@ class Transformer(nn.Module):
         {"w_q", "s", "b"} of quantize_dense (scales from the fp32 weights,
         the bias in `dtype`). f6 layers keep enc_kv, their encoder
         projection, which init_cache applies once per window: fp32, or int8
-        like the rest (jukebox_tpu quantizes the kept enc_proj too)."""
+        like the rest (jukebox_tpu quantizes the kept enc_proj too). Split
+        over "mp" (self.tp), each layer stages the rank's pieces, and the
+        row-split products of decode_param_specs as _stage_row_split
+        says."""
         if quantize not in (None, "int8"):
             raise ValueError(f"unknown decode quantization {quantize!r}")
 
@@ -265,6 +283,8 @@ class Transformer(nn.Module):
         staged = []
         for blk in self.blocks:
             at, mlp = blk.attn, blk.mlp
+            mods = dict(qkv=at.c_attn, proj=at.c_proj, fc=mlp.c_fc,
+                        mlp=mlp.c_proj)
             p = dict(ln0_g=f32(blk.ln_0.g), ln0_b=f32(blk.ln_0.b),
                      qkv=dense(at.c_attn), proj=dense(at.c_proj),
                      ln1_g=f32(blk.ln_1.g), ln1_b=f32(blk.ln_1.b),
@@ -272,8 +292,25 @@ class Transformer(nn.Module):
             if at.attn_func == 6:
                 p["enc_kv"] = {"w": at.c_enc_kv.w.detach(),
                                "b": at.c_enc_kv.b.detach()}
+            if self.tp is not None:
+                self._stage_row_split(p, mods, quantize)
             staged.append(p)
         return quantize_dense_tree(staged) if quantize else staged
+
+    def _stage_row_split(self, p, mods, quantize):
+        """A layer's staged dict p split over "mp": each product that
+        decode_param_specs splits by rows gets a zero bias and, beside it
+        as "<key>_b", its module's bias in fp32, which stack_layer_step adds
+        after the all-reduce; int8 quantizes it with the scales of the whole
+        weight's columns (the group's largest |w|)."""
+        for key, spec in decode_param_specs([p])[0].items():
+            if not (isinstance(spec, dict) and spec["w"] == ("mp", None)):
+                continue
+            p[key + "_b"] = mods[key].b.detach().float().contiguous()
+            p[key]["b"] = torch.zeros_like(p[key]["b"])
+            if quantize:
+                p[key] = quantize_dense(
+                    p[key], lambda s: all_reduce_(s, self.tp, "max"))
 
     def init_cache(self, bs, dtype, device, encoder_kv=None, dec_params=None,
                    int8=False):
@@ -328,7 +365,8 @@ class Transformer(nn.Module):
                         attn.block_ctx if attn.blocks else None,
                         attn._prime_len if f == 7 else None)
                 h = stack_layer_step(dec_params[d], caches[d], h, geoms[f],
-                                     self.n_head, plain, self.res_scale)
+                                     attn.n_head, plain, self.res_scale,
+                                     self.tp)
             x = h.reshape(B, 1, S)
         else:
             if not isinstance(t, StepIndex):

@@ -38,16 +38,20 @@ def dense_any(x, p):
     return dense(x, p["w"], p["b"])
 
 
-def quantize_dense(p):
+def quantize_dense(p, reduce=None):
     """Weight-only int8 form of a dense param dict {"w", "b"} (w [..., in,
     out]): per-output-column absmax over the input axis / 127, floored at
     1e-12, w_q = clip(round(w / s), -127, 127) as int8, s fp32 [..., out].
+    reduce: optional in-place reduction of the column absmax (the largest
+    over the ranks that hold a row-split weight's other rows).
     Every step is one correctly rounded fp32 operation (the divisors are
     tensors: a host-scalar divisor turns into a product with its reciprocal
     on the card), so the result is bit-identical to jukebox_tpu's numpy
     quantize_dense on the CPU and on the card. b passes through."""
     w = p["w"].detach().float()
     s = torch.amax(w.abs(), dim=-2, keepdim=True)
+    if reduce is not None:
+        s = reduce(s.contiguous())
     s = torch.clamp_min(s / torch.full_like(s, 127.0), 1e-12)
     w_q = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
     return {"w_q": w_q, "s": s.squeeze(-2).contiguous(), "b": p["b"]}

@@ -30,6 +30,7 @@ import functools
 import torch
 
 from jukebox_tpu_torch.ops import _build
+from jukebox_tpu_torch.parallel.dist import all_reduce_
 
 LAUNCHES = {"ln_gemv_bf16": 0, "ln_gemv_int8": 0, "gemv_bf16": 0,
             "gemv_int8": 0, "ring_attn_decode": 0, "ring_attn_int8": 0,
@@ -635,14 +636,29 @@ def cross_attn_decode(q32, k_cache, v_cache, n_head, k_scale=None,
 # One layer of the decode stack, composed from the kernels
 # ---------------------------------------------------------------------------
 
-def stack_layer_step(p, cache, x, geom, n_head, plain=False, res_scale=1.0):
+def _row_split(o, p, bias, group, plain, epilogue, res, res2=None,
+               rs=1.0, keep=False):
+    """A row-split product of a Megatron split: the GEMV of the rank's rows
+    (zero bias, a zero residual) writes its fp32 product, summed over the
+    "mp" group; the layer's bias and the epilogue follow as the kernel
+    applies them (_epilogue)."""
+    _, y32 = gemv(o, p, "residual", torch.zeros_like(res), plain=plain,
+                  out32=True)
+    y = all_reduce_(y32.contiguous(), group) + bias
+    return _epilogue(y, res.dtype, epilogue, res, res2, rs, keep)
+
+
+def stack_layer_step(p, cache, x, geom, n_head, plain=False, res_scale=1.0,
+                     group=None):
     """x [B, S] -> x + a + m (or x + (a + m) * res_scale) for one layer
     (ResAttnBlock.decode_step), with p the layer's staged params
     (Transformer.prepare_decode_params: "qkv" is q alone in f6 layers) and
     cache its ring cache, updated in place: {"k", "v"}, plus {"ks", "vs"}
     when int8; an f6 layer's is the read-only encoder K/V. plain=True runs
     the plain versions on any device: the reference a kernel run is held
-    against."""
+    against. group: the "mp" group of a Megatron split, where p holds the
+    rank's pieces and n_head its heads: the proj and mlp products are the
+    rank's rows, all-reduced in fp32 before the bias (_row_split)."""
     if plain:
         ring, ring8, cross = (ring_attn_decode_plain, ring_attn_int8_plain,
                               cross_attn_decode_plain)
@@ -661,6 +677,18 @@ def stack_layer_step(p, cache, x, geom, n_head, plain=False, res_scale=1.0):
                   geom, n_head, qkv32)
     else:
         o = ring(qkv, cache["k"], cache["v"], geom, n_head, qkv32)
+    if group is not None:
+        keep = res_scale != 1.0
+        r = _row_split(o, p["proj"], p["proj_b"], group, plain, "residual",
+                       x, keep=keep)
+        r, a = r if keep else (r, None)
+        h = gemv(r, p["fc"], "gelu", plain=plain, ln=(p["ln1_g"],
+                                                       p["ln1_b"]))
+        if not keep:
+            return _row_split(h, p["mlp"], p["mlp_b"], group, plain,
+                              "residual", r)
+        return _row_split(h, p["mlp"], p["mlp_b"], group, plain,
+                          "res_scale", x, a, res_scale)
     if res_scale == 1.0:
         r = gemv(o, p["proj"], "residual", x, plain=plain)
     else:

@@ -34,6 +34,27 @@ fold_seed(seed, e, i, 2); jax.random draws other numbers, so the two
 packages agree step for step only without dropout, aug_blend and codebook
 restarts, and their samples' tokens differ.
 
+Several processes (parallel/): launched with JAX_COORDINATOR_ADDRESS,
+JAX_NUM_PROCESSES and JAX_PROCESS_ID, as the JAX package's run is, the
+ranks form a ("dp", "mp") mesh of hps.mesh_dp x hps.mesh_mp (mesh_dp -1:
+all the ranks mp leaves); hps.ngpus is the world size and hps.bs stays
+per process, so a step's global batch is bs x world / mp (each "dp" index
+reads its slice of the loader's order). Gradients are averaged over "dp"
+before the clipped Adam, so a step is one process's step on the global
+batch; a prior with mesh_mp > 1 is split over "mp" (Megatron) and with
+hps.fsdp its parameters and moments are held at 1/dp a rank (ZeRO-3),
+parallel/placement.py. A VQ-VAE trains data-parallel, its codebooks kept
+equal on every rank. The draws of a step (aug_blend, dropout, codebook
+restarts) use the same seeds on every rank. Rank 0 alone writes the logs,
+the checkpoints and the trace; a mesh that the world does not fill
+raises.
+
+    JAX_COORDINATOR_ADDRESS=localhost:29500 JAX_NUM_PROCESSES=2 \
+    JAX_PROCESS_ID=<rank> python -m jukebox_tpu_torch.train ... --fsdp=True
+
+(one command per rank; JUKEBOX_DIST_BACKEND=gloo for several ranks on one
+card, and on the CPU).
+
 Logging, at the JAX loop's steps (utils/logger.py), under
 {local_logdir}/{name}: argv.txt; TensorBoard events in logs/ (every
 metric's running average each log_steps, lg_loss_scale = log2 of the loss
@@ -49,6 +70,7 @@ a torch.profiler Chrome trace of steps 3 to 2 + min(8, debug_iters) under
 trace/ (utils/profiler.py).
 """
 
+import contextlib
 import json
 import os
 import time
@@ -56,12 +78,15 @@ import time
 import numpy as np
 import torch
 
-from jukebox_tpu_torch.data.data_processor import DataProcessor
+from jukebox_tpu_torch.data.data_processor import DataProcessor, ShardedLoader
 from jukebox_tpu_torch.hparams import setup_hparams
 from jukebox_tpu_torch.models.make_models import (VQVAERuntime, make_prior,
                                                   make_vqvae, restore_opt,
                                                   save_model_checkpoint)
 from jukebox_tpu_torch.ops.core import fold_seed
+from jukebox_tpu_torch.parallel.dist import (make_mesh, rank_device,
+                                             replicate, setup_dist)
+from jukebox_tpu_torch.parallel.placement import Placement
 from jukebox_tpu_torch.utils.audio_utils import audio_preprocess
 from jukebox_tpu_torch.utils import profiler
 from jukebox_tpu_torch.utils.cli import fire
@@ -74,13 +99,15 @@ from jukebox_tpu_torch.utils.train_utils import (LossScalar, adam_init,
                                                  make_lr_schedule)
 
 
-def apply_update(params, grads, opt_state, hps, lr_fn, it, loss_scale):
+def apply_update(params, grads, opt_state, hps, lr_fn, it, loss_scale,
+                 placement=None):
     """The reference's scaled-gradient Adam with clipping folded into the
     divisor, skipped as a whole when the gradient norm is not finite or
     above hps.ignore_grad_norm (train.py:236-243, fp16.py:39-65).
     `loss_scale` is the loss scale the gradients carry. Returns (gn, lr, ok);
-    params and opt_state change in place only when ok."""
-    gn_scaled = global_grad_norm(grads)
+    params and opt_state change in place only when ok. Under a placement
+    the norm is the whole gradient's, so every rank decides alike."""
+    gn_scaled = global_grad_norm(grads, placement)
     gn = gn_scaled / loss_scale
     scale = clipped_grad_scale(gn, hps.clip, scale=loss_scale)
     lr = lr_fn(it)
@@ -94,13 +121,44 @@ def apply_update(params, grads, opt_state, hps, lr_fn, it, loss_scale):
     return gn, lr, ok
 
 
+def _begin(runtime):
+    """Gradients cleared (and, under a placement, its step begun)."""
+    if runtime.placement is not None:
+        runtime.placement.begin_step()
+        return
+    for p in runtime.params.values():
+        p.grad = None
+
+
+def _finish(runtime, hps, lr_fn, opt_state, it, loss_scale, loss, metrics):
+    """The gradients (averaged over "dp" under a placement), the update,
+    and the loss and metrics (the global batch's under a placement)."""
+    params, placement = runtime.params, runtime.placement
+    if placement is not None:
+        grads = placement.grads()
+    else:
+        grads = {n: p.grad for n, p in params.items()}
+    gn, lr, ok = apply_update(params, grads, opt_state, hps, lr_fn, it,
+                              loss_scale, placement)
+    for p in params.values():
+        p.grad = None
+    loss = loss.detach()
+    if placement is not None:
+        loss = placement.mean_over_dp(loss)
+        metrics = {k: placement.mean_over_dp(torch.as_tensor(v))
+                   for k, v in metrics.items()}
+    return loss, dict(metrics, gn=gn, lr=lr, step_ok=ok)
+
+
 def make_prior_train_step(runtime, hps, lr_fn, mark=None):
     """step(opt_state, (x, y), seed, it, loss_scale) -> (loss, metrics): the
     prior's parameters and opt_state are updated in place. x is audio
     [N, T, 1], y labels [N, ...] or None, seed the step's dropout seed (an
     int or None), it the step number of the LR schedule. mark: optional
     callable, called with the name of each part of the step (encode,
-    forward, backward, update) as it ends, to time the step by parts."""
+    forward, backward, update) as it ends, to time the step by parts.
+    Under runtime.placement, x and y are the rank's slice of the global
+    batch and the loss and metrics are the global batch's."""
     prior, vqvae = runtime.model, runtime.vqvae
     mark = mark or (lambda part: None)
 
@@ -109,21 +167,16 @@ def make_prior_train_step(runtime, hps, lr_fn, mark=None):
         zs = vqvae.encode(x, start_level=prior.level)
         z, z_conds = zs[0], zs[1:]
         mark("encode")
-        params = runtime.params
-        for p in params.values():
-            p.grad = None
+        _begin(runtime)
         loss, metrics = prior.z_forward(z, z_conds=z_conds or None, y=y,
                                         fp16=hps.fp16, seed=seed)
         mark("forward")
         (loss * loss_scale).backward()
         mark("backward")
-        grads = {n: p.grad for n, p in params.items()}
-        gn, lr, ok = apply_update(params, grads, opt_state, hps, lr_fn, it,
-                                  loss_scale)
-        for p in params.values():
-            p.grad = None
+        out = _finish(runtime, hps, lr_fn, opt_state, it, loss_scale, loss,
+                      metrics)
         mark("update")
-        return loss.detach(), dict(metrics, gn=gn, lr=lr, step_ok=ok)
+        return out
 
     return step
 
@@ -139,19 +192,13 @@ def make_vqvae_train_step(runtime, hps, lr_fn):
 
     def step(opt_state, batch, seed, it, loss_scale=1.0):
         x, _ = batch
-        params = runtime.params
-        for p in params.values():
-            p.grad = None
+        _begin(runtime)
         gen = torch.Generator(device=x.device).manual_seed(int(seed))
         _, loss, metrics = model(x, hps, loss_fn=hps.loss_fn, train=True,
                                  gen=gen)
         (loss * loss_scale).backward()
-        grads = {n: p.grad for n, p in params.items()}
-        gn, lr, ok = apply_update(params, grads, opt_state, hps, lr_fn, it,
-                                  loss_scale)
-        for p in params.values():
-            p.grad = None
-        return loss.detach(), dict(metrics, gn=gn, lr=lr, step_ok=ok)
+        return _finish(runtime, hps, lr_fn, opt_state, it, loss_scale, loss,
+                       metrics)
 
     return step
 
@@ -160,23 +207,31 @@ def make_eval_step(runtime, hps):
     """eval_fn(x, y) -> (loss, metrics) without gradients
     (jukebox_tpu/train.py:179): the prior's loss on audio x [N, T, 1] and
     labels y (or None), or a VQ-VAE's loss on x with its codebooks left as
-    they are."""
+    they are; under runtime.placement, on the rank's slice with the
+    placement's parameters, averaged over "dp"."""
     if not hps.prior:
         model = runtime.model
 
-        @torch.no_grad()
-        def eval_vqvae(x, y):
+        def forward(x, y):
             _, loss, metrics = model(x, hps, loss_fn=hps.loss_fn, train=False)
             return loss, metrics
+    else:
+        prior, vqvae = runtime.model, runtime.vqvae
 
-        return eval_vqvae
-    prior, vqvae = runtime.model, runtime.vqvae
+        def forward(x, y):
+            zs = vqvae.encode(x, start_level=prior.level)
+            return prior.z_forward(zs[0], z_conds=zs[1:] or None, y=y,
+                                   fp16=hps.fp16)
 
     @torch.no_grad()
     def eval_fn(x, y):
-        zs = vqvae.encode(x, start_level=prior.level)
-        return prior.z_forward(zs[0], z_conds=zs[1:] or None, y=y,
-                               fp16=hps.fp16)
+        placement = runtime.placement
+        if placement is None:
+            return forward(x, y)
+        loss, metrics = forward(x, y)
+        return placement.mean_over_dp(loss), {
+            k: placement.mean_over_dp(torch.as_tensor(v))
+            for k, v in metrics.items()}
 
     return eval_fn
 
@@ -198,6 +253,15 @@ def evaluate(eval_fn, runtime, data_processor, hps, logger=None,
     metrics = Metrics() if metrics is None else metrics
     device = next(runtime.model.parameters()).device
     loader = data_processor.test_loader
+    if runtime.placement is not None:
+        # every rank takes part in each batch's collectives
+        counts = [len(ShardedLoader(loader.view, loader.bs, False, False,
+                                    proc=r, nproc=loader.nproc))
+                  for r in range(loader.nproc)]
+        if len(set(counts)) > 1:
+            raise ValueError(f"the test split gives the ranks {counts} "
+                             f"batches; evaluate with a split that "
+                             f"{loader.nproc} x bs divides")
     batches = iter(loader)
     keys = []
     try:
@@ -287,8 +351,13 @@ def sample_prior(runtime, ema, logger, x_in, y, hps, gen=None):
     the prior's codes sampled (fp32, conditioned on the levels above and
     on y when the prior takes labels) from the torch.Generator gen,
     decoded and logged as sample_x_T1 (with the labels' text). The params
-    hold their own values again after. Returns (codes, audio)."""
-    with ema_params(ema, runtime.params):
+    hold their own values again after. Returns (codes, audio). Under
+    runtime.placement every rank samples (the prior whole or its Megatron
+    split) and rank 0 logs."""
+    placement = runtime.placement
+    gathered = (placement.materialized() if placement is not None
+                else contextlib.nullcontext())
+    with ema_params(ema, runtime.params), gathered:
         x_in = x_in[: hps.bs_sample]
         bs = x_in.shape[0]
         if not hps.labels:
@@ -344,7 +413,8 @@ def train(step_fn, runtime, opt_state, ema, data_processor, hps, epoch,
             x, y = _batch(batch, hps, device, gen)
             log_input_output = logger.iters % hps.save_iters == 0
             # a trace of a few steady-state steps
-            if hps.debug_speed and logger.iters == 2 and not tracing:
+            if (hps.debug_speed and logger.iters == 2 and not tracing
+                    and logger.rank == 0):
                 profiler.start_trace(f"{logger.logdir}/trace")
                 tracing = True
             if tracing and logger.iters >= 2 + min(8, hps.debug_iters):
@@ -378,7 +448,7 @@ def train(step_fn, runtime, opt_state, ema, data_processor, hps, epoch,
                 logged[key] = metrics.update(key, val, int(x.shape[0]))
                 if it % hps.log_steps == 0:
                     logger.add_scalar(key, logged[key])
-            if jsonl and it % hps.log_steps == 0:
+            if jsonl and logger.rank == 0 and it % hps.log_steps == 0:
                 now = time.time()
                 _append_jsonl(jsonl, dict(
                     it=it, wall_s=round(now - t_start, 2),
@@ -402,7 +472,7 @@ def train(step_fn, runtime, opt_state, ema, data_processor, hps, epoch,
                 log_inputs(runtime, logger, x, y, None, hps)
             logger.set_postfix(**{pk: logged[k] for pk, k in keys.items()
                                   if k in logged})
-            if it % hps.log_steps == 0:
+            if it % hps.log_steps == 0 and logger.rank == 0:
                 print(f"step {it}: " + " ".join(
                     f"{pk} {out[k]:.6g}" for pk, k in keys.items()
                     if k in out)
@@ -414,7 +484,8 @@ def train(step_fn, runtime, opt_state, ema, data_processor, hps, epoch,
         if tracing:
             profiler.stop_trace()
         logger.close_range()
-    print(f"Step timing: {timer.summary()}")
+    if logger.rank == 0:
+        print(f"Step timing: {timer.summary()}")
     return {key: metrics.avg(key) for key in metrics.sum}
 
 
@@ -426,15 +497,23 @@ def setup(hps="teeny", device="cuda", dataset=None, **kwargs):
     hps.restore_prior, when those name a checkpoint. dataset: optional
     ready-made dataset for the DataProcessor (a labelled subclass for
     labels=True). The logger (init_logging: argv.txt, the event file)
-    writes under {local_logdir}/{name}. Returns a dict for `fit`."""
+    writes under {local_logdir}/{name}, from rank 0. Over several ranks
+    (the JAX_* variables, parallel/dist.py setup_dist) the model is built
+    whole on every rank, restored, replicated from rank 0 and then placed
+    (parallel/placement.py) on the hps.mesh_dp x hps.mesh_mp mesh, its
+    moments with it. Returns a dict for `fit`."""
+    rank, world = setup_dist(device)
     hps = setup_hparams(hps, kwargs)
-    hps.ngpus = 1
+    mesh = make_mesh(hps.mesh_dp, hps.mesh_mp, device)
+    device = rank_device(device)
+    hps.ngpus = world
     hps.bs_sample = hps.nworkers = hps.bs
     # fp32 products at full precision, as the JAX package's HIGHEST
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    data_processor = DataProcessor(hps, dataset=dataset)
+    data_processor = DataProcessor(hps, dataset=dataset, proc=mesh.dp_rank,
+                                   nproc=mesh.dp)
     vqvae = make_vqvae(hps, device)
     if hps.prior:
         runtime = make_prior(hps, vqvae, device)
@@ -447,16 +526,39 @@ def setup(hps="teeny", device="cuda", dataset=None, **kwargs):
     lr_fn = make_lr_schedule(hps)
     opt_state = adam_init(runtime.params, fp16_state=hps.fp16_opt)
     opt_state, _ = restore_opt(opt_state, restore, runtime.model)
+    if world > 1 or hps.fsdp or mesh.mp > 1:
+        opt_state = place(runtime, opt_state, mesh, hps)
     ema = get_ema(runtime.params, hps)
     scalar = LossScalar(hps.fp16_loss_scale,
                         scale_factor=2.0 ** (1.0 / hps.fp16_scale_window)) \
         if hps.fp16 else None
-    logger, metrics = init_logging(hps, 0, 0)
+    logger, metrics = init_logging(hps, rank, rank)
     logger.iters = runtime.step
     return dict(hps=hps, data_processor=data_processor, runtime=runtime,
                 opt_state=opt_state, ema=ema, scalar=scalar, logger=logger,
                 metrics=metrics, step_fn=make_step(runtime, hps, lr_fn),
                 eval_fn=make_eval_step(runtime, hps))
+
+
+def place(runtime, opt_state, mesh, hps):
+    """runtime's model (and a VQ-VAE's codebooks) broadcast from rank 0,
+    then placed on mesh: runtime.placement, a Megatron split over "mp"
+    for a prior and ZeRO-3 over "dp" with hps.fsdp (a VQ-VAE trains data
+    parallel, replicated, as the JAX package trains it). Returns opt_state
+    with m and v cut to the rank's pieces."""
+    model = runtime.model
+    replicate(list(model.parameters()) + list(model.buffers()))
+    fsdp = bool(hps.fsdp) and bool(hps.prior)
+    if hps.fsdp and not hps.prior:
+        print("fsdp places priors; the VQ-VAE trains replicated over dp")
+    runtime.placement = Placement(model, mesh, fsdp=fsdp)
+    if not hps.prior:
+        for blk in model.bottleneck.level_blocks:
+            blk.group = mesh.dp_group
+    out = dict(opt_state)
+    for key in ("m", "v"):
+        out[key] = runtime.placement.shard_dict(opt_state[key])
+    return out
 
 
 def fit(run_state):
@@ -479,14 +581,17 @@ def fit(run_state):
             averages = train(run_state["step_fn"], runtime, opt_state, ema,
                              data_processor, hps, epoch, scalar, records,
                              logger, metrics)
-            print(f"Train epoch {epoch}: " + " ".join(
-                f"{k} {v:0.4f}" for k, v in averages.items()), flush=True)
+            if logger.rank == 0:
+                print(f"Train epoch {epoch}: " + " ".join(
+                    f"{k} {v:0.4f}" for k, v in averages.items()),
+                    flush=True)
         if hps.test:
             with ema_params(ema, runtime.params):
                 test = evaluate(run_state["eval_fn"], runtime,
                                 data_processor, hps, logger, metrics)
-            print(f"Ema epoch {epoch}: " + " ".join(
-                f"{k} {v:0.4f}" for k, v in test.items()), flush=True)
+            if logger.rank == 0:
+                print(f"Ema epoch {epoch}: " + " ".join(
+                    f"{k} {v:0.4f}" for k, v in test.items()), flush=True)
         if hps.max_steps and runtime.step >= hps.max_steps:
             break
     logger.flush()

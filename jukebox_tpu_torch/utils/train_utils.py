@@ -15,6 +15,7 @@ import contextlib
 import torch
 
 from jukebox_tpu_torch.ops import adam as _adam
+from jukebox_tpu_torch.parallel.dist import all_reduce_
 
 
 # ---------------------------------------------------------------------------
@@ -56,11 +57,21 @@ def adam_update(params, grads, opt_state, lr, beta1, beta2, eps, weight_decay,
                              weight_decay, scale)
 
 
-def global_grad_norm(grads):
-    """L2 norm over every gradient (fp16.py:104-120), an fp32 0-d tensor."""
-    sq = [torch.sum(torch.square(g.float())) for g in grads.values()
-          if g is not None]
-    return torch.sqrt(torch.stack(sq).sum())
+def global_grad_norm(grads, placement=None):
+    """L2 norm over every gradient (fp16.py:104-120), an fp32 0-d tensor.
+    With a placement (parallel/placement.py) the grads are the rank's
+    pieces and the norm is the whole gradient's: each piece's square sum
+    weighted by one over the ranks that hold the same piece, summed over
+    the world, so a replicated leaf counts once and every rank reads the
+    same norm."""
+    if placement is None:
+        sq = [torch.sum(torch.square(g.float())) for g in grads.values()
+              if g is not None]
+        return torch.sqrt(torch.stack(sq).sum())
+    sq = [torch.sum(torch.square(g.float())) * placement.weight[n]
+          for n, g in grads.items() if g is not None]
+    total = all_reduce_(torch.stack(sq).sum(), placement.mesh.world_group)
+    return torch.sqrt(total)
 
 
 def clipped_grad_scale(grad_norm, max_grad_norm, scale=1.0):

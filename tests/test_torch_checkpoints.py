@@ -241,9 +241,10 @@ def test_missing_checkpoint_keeps_fresh_init(capsys):
         assert torch.equal(a, b), n
 
 
-@pytest.mark.parametrize("key,value", [("spread", 2), ("pos_init", True),
-                                       ("copy_input", True),
-                                       ("prime_spread", 2)])
+# the options the JAX package asserts off too; spread, copy_input and
+# prime_spread are built (tests/test_torch_prior_options.py)
+@pytest.mark.parametrize("key,value", [("pos_init", True),
+                                       ("prime_pos_init", True)])
 def test_unported_prior_options_raise(key, value):
     vq = tmm.make_vqvae(thp.setup_hparams("teeny", dict(VQ)), "cpu")
     with pytest.raises(NotImplementedError, match=key):

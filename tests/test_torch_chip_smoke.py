@@ -754,3 +754,53 @@ def test_recipes_rehearsal(tmp_path, monkeypatch):
     # the kernel path, the plain path, the two planted LayerNorm faults
     # and flash alone plain
     assert counts()["flash_dq"] == 5
+
+
+# phase 10 at a tiny depth and width: 4 layers of the 1b top's order at
+# width 64 (2 heads: the Megatron split takes one a rank)
+P10_OVER = dict(n_ctx=64, sample_length=64 * 128, prior_depth=4,
+                prior_width=64, blocks=8, min_duration=0.5)
+
+
+def test_phase10_rehearsal():
+    """Phase 10 on the CPU: world 1's references, (a) in this process over
+    gloo, (b) two chip_smoke.py ranks over gloo; every part runs (gloo
+    carries every collective on CPU tensors) and holds."""
+    rep = chip_smoke.run_phase10(0, "cpu", **P10_OVER)
+    gaps = rep["a"]["gaps"]
+    assert gaps["loss"] == gaps["gn"] == gaps["params"] == 0.0
+    assert gaps["equal tensors"][0] == gaps["equal tensors"][1]
+    b = rep["b"]
+    assert set(b) == set(chip_smoke.P10_PARTS)
+    for part in ("dp", "fsdp"):
+        assert b[part]["loss"][0] == b[part]["loss"][1]
+    assert all(n < b["fsdp"]["ref_bytes"] * 0.6
+               for n in b["fsdp"]["state_bytes"])
+    assert all(n < b["mp"]["ref_bytes"] for n in b["mp"]["state_bytes"])
+    assert b["decode"]["rel"] <= chip_smoke.STEP_TOL
+    assert b["decode_int8"]["rel"] <= chip_smoke.STEP_TOL
+    assert rep["launches"] == dict.fromkeys(rep["launches"], 0)  # CPU
+
+
+def test_phase10_refuses_a_faulty_gather(monkeypatch):
+    """(a) must refuse a ZeRO-3 gather that halves what it gathers (at
+    this width the blocks' parameters are whole: the embeddings outside
+    them are sharded)."""
+    from torch.distributed.fsdp._fully_shard._fsdp_param_group import \
+        FSDPParamGroup
+    real = FSDPParamGroup.wait_for_unshard
+
+    def faulty(self):
+        fresh = bool(self._all_gather_result)
+        real(self)
+        if fresh:
+            for fp in self.fsdp_params:
+                for t in fp.all_gather_outputs:
+                    # as FSDP's own copy: autograd keeps what it saved
+                    with torch.no_grad(), \
+                            torch.autograd._unsafe_preserve_version_counter(t):
+                        t.mul_(0.5)
+    monkeypatch.setattr(FSDPParamGroup, "wait_for_unshard", faulty)
+    monkeypatch.setattr(chip_smoke, "p10_launch", None)  # (b) not reached
+    with pytest.raises(AssertionError, match="phase 10 \\(a\\)"):
+        chip_smoke.run_phase10(0, "cpu", **P10_OVER)
