@@ -25,7 +25,13 @@ Phases, each printing timestamped lines:
              check must refuse; the attention reads q in fp32 (the c_attn
              product's fp32 row, its bf16 rounding feeding the new k, v);
              times per launch beside the bound, the plain version and one
-             library call (the LN-GEMV: F.layer_norm, then addmm)
+             library call (the LN-GEMV: F.layer_norm, then addmm); the
+             summary pattern (f4) at the 1b top's widths ([4, 65, 512]
+             caches: the zero pad and 64 summaries) before, at and after
+             a block's last token and in the last block, output and
+             caches, with a planted fault at every block end (the
+             summary written one row off) that the check must refuse,
+             timed at the last block beside its bound and SDPA
   3 step     one full-width decode step per prior, kernel path against the
              plain path on the same caches after a one-block prefill
   2b flash   the flash-attention kernels (forward, dq, dk/dv) against their
@@ -198,7 +204,26 @@ Phases, each printing timestamped lines:
              int8 row scaled by the rank's piece) within STEP_TOL of world
              1's logits, with each rank's launches. The weights' biases
              are drawn nonzero from the seed, so that every comparison
-             sees where a row-split product's bias is added
+             sees where a row-split product's bias is added. Also over
+             gloo: the dp=2 step with dropout 0.1 (attention, residual,
+             embedding) and aug_blend against world 1's at bs 2 (each
+             rank's masks and mix its rows' of the global batch's), and
+             upsampler_level_1 at its widths (1920, 1 head, its 16-layer
+             conditioner) cut to 8 layers at mp=2, its head run whole on
+             both ranks: its step against world 1's at bs 1 and the decode
+             of 64 forced tokens in bf16 against world 1's logits, its K/V
+             caches whole
+  11 summary attn orders 3 ([1, 4], 8 layers: nothing packed) and 5 ([1,
+             4, 1, 1], 9 layers: the f1 layers packed, the f4 ones not) at
+             the 1b top's widths (2048, 2 heads, n_ctx 6144 in 64 blocks),
+             labels without lyrics, from --seed: through the PriorRuntime
+             pieces, 2 blocks of context prefilled then 4 blocks sampled,
+             in bf16 and in the int8 mode (int8 weights everywhere, int8
+             caches on the packed layers alone, as the JAX package stages
+             them); the kernel path against the plain path on the same
+             caches at the first step and at a block's last token (within
+             STEP_TOL), every decode and LayerNorm launch counted by kind
+             against the steps' and chunks'; runs after phase 3
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failed check raises: exit code != 0.
 It runs on the GPU only; without one it exits with an error.
@@ -1562,11 +1587,13 @@ def check_stack_step(prior, B, device, gen, quantize=None):
 
 
 def step_launches(tr, quantized, cache_int8):
-    """Kernel launches of one decode step of the whole stack."""
+    """Kernel launches of one decode step of the whole stack (int8 caches
+    on the packed layers alone)."""
     out = dict.fromkeys(ds.LAUNCHES, 0)
+    packed = tr.packed
     for d in range(tr.n_depth):
         for k, v in ds.layer_launches(tr.attn_func(d), quantized,
-                                      cache_int8).items():
+                                      cache_int8 and d in packed).items():
             out[k] += v
     return out
 
@@ -3924,6 +3951,260 @@ def check_flash_hd128(rows, device, gen):
             rows[k] = row
 
 
+# phase 2 at f4 (the summary pattern of attn orders 3 and 5) at the 1b top's
+# widths: 64 blocks of 96, A 512 in 2 heads, so [B, 65, 512] caches
+SUMMARY = dict(A=512, H=2, blocks=64, bc=96)
+
+
+def summary_positions(sh):
+    """f4 positions: just before, at and after a block's last token, and
+    the last block's (the last token writes a summary nothing reads)."""
+    bc, n = sh["bc"], sh["blocks"] * sh["bc"]
+    return [0, bc - 2, bc - 1, bc, 2 * bc - 1, 5 * bc - 1, 5 * bc,
+            n - bc - 1, n - bc, n - 2, n - 1]
+
+
+def check_summary_attn(rows, B, device, gen, time_it=True, sh=SUMMARY):
+    """ring_attn_decode at f4 against its plain version on [B, blocks + 1,
+    A] caches at summary_positions: output and caches (the summary row
+    written at a block's last token, nothing else); at every block end a
+    planted fault, the summary written one row off, that the check must
+    refuse; timed at the last block's last token (blocks live rows)
+    beside its bound, the plain version and SDPA, under
+    rows["ring_attn_decode"]["f4"]."""
+    A, H, bc = sh["A"], sh["H"], sh["bc"]
+    shape = (B, sh["blocks"] + 1, A)
+    bf = torch.bfloat16
+    rep = KernelReport()
+
+    def rnd(*sz, dtype=bf):
+        return torch.randn(sz, generator=gen, device=device).to(dtype)
+    kc, vc = rnd(*shape), rnd(*shape)
+    kc[:, 0] = vc[:, 0] = 0  # the zero pad
+    for t in summary_positions(sh):
+        geom = ds.ring_geometry(4, t, shape, bc)
+        qkv32 = rnd(B, 3 * A, dtype=torch.float32)
+        qkv = qkv32.to(bf)
+        k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        out = ds.ring_attn_decode(qkv, k1, v1, geom, H, qkv32)
+        ref = ds.ring_attn_decode_plain(qkv, k2, v2, geom, H, qkv32)
+        what = f"f4 t={t} write {geom[1]} rows {geom[2]}+{geom[3]}"
+        rep.check("ring_attn_decode", out, ref, what)
+        if not (torch.equal(k1, k2) and torch.equal(v1, v2)):
+            raise AssertionError(f"f4 t={t}: cache write differs")
+        if geom[1] < 0:
+            continue
+        # the fault: the summary one row past its own (before it at the
+        # last block's, whose row is the cache's last)
+        off = 1 if geom[1] + 1 < geom[0] else -1
+        bad = (geom[0], geom[1] + off, geom[2], geom[3])
+        k3, v3 = kc.clone(), vc.clone()
+        out3 = ds.ring_attn_decode(qkv, k3, v3, bad, H, qkv32)
+        refuse("ring_attn_decode", torch.cat([out3, k3.flatten(1)], 1),
+               torch.cat([ref, k2.flatten(1)], 1), f"{what} one row off")
+    row = rep.rows["ring_attn_decode"]
+    if time_it:
+        # the last token: its summary written past the rows read
+        t = sh["blocks"] * bc - 1
+        geom = ds.ring_geometry(4, t, shape, bc)
+        n, live = geom[3], B * geom[3] * A * 2 * 2
+
+        def ring_set():
+            q32 = rnd(B, 3 * A, dtype=torch.float32)
+            return (q32.to(bf), rnd(*shape), rnd(*shape), geom, H, q32)
+        sets = [ring_set() for _ in range(_copies(live))]
+        lib_sets = [(heads(q_[:, :A], H),
+                     heads(k_, H)[:, :, :n].contiguous(),
+                     heads(v_, H)[:, :, :n].contiguous())
+                    for q_, k_, v_, *_ in sets]
+        row.update(rep.timed(
+            "ring_attn_decode", f"f4 t={t} ({n} rows of {list(shape)})",
+            device_ms(ds.ring_attn_decode, sets),
+            device_ms(ds.ring_attn_decode_plain, sets),
+            device_ms(F.scaled_dot_product_attention, lib_sets),
+            live + B * A * 4 + B * 2 * A * 2 + 2 * B * A * 2 + B * A * 2,
+            4 * B * n * A, "bf16"))
+    main = rows.setdefault("ring_attn_decode", {"max_abs_err": 0.0})
+    main["f4"] = row
+    main["max_abs_err"] = max(main["max_abs_err"], row["max_abs_err"])
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the summary pattern sampled (attn orders 3 and 5)
+# ---------------------------------------------------------------------------
+
+# the 1b_lyrics top at its widths (2048, 2 heads, n_ctx 6144 in 64 blocks of
+# 96) under attn order 3 ([1, 4]) at 8 layers, one scan (1, 4) x 4 that the
+# JAX package does not pack, and order 5 ([1, 4, 1, 1]) at 9, whose plan
+# (flat 0, flat 1, scan (1,) x 3, flat 5, scan (1,) x 3) packs the seven f1
+# layers and not the two f4 ones: int8 caches there, bf16 on the f4
+# layers; conditioned on artist, genre and timing, no lyrics (orders 3 and
+# 5 have no f7 layer): a context of P11_CONTEXT blocks prefilled,
+# P11_DECODE blocks sampled, in bf16 and in the int8 mode
+P11_PRIORS = {3: 8, 5: 9}
+P11_HPS = "vqvae,prior_1b_lyrics"
+P11_KW = dict(level=2, levels=3, labels=True, use_tokens=False,
+              single_enc_dec=False, n_tokens=0, prime_loss_fraction=0.0,
+              sample_length=6144 * 128, restore_prior="")
+P11_CONTEXT, P11_DECODE = 2, 4
+P11_META = dict(artist="unknown", genre="unknown", lyrics="",
+                total_length=6144 * 128 * 3, offset=0)
+
+
+def p11_logits(arm, dec, caches, x_tok, t, x_cond, y_cond, plain):
+    """The logits [B, 1, bins] of one staged decode step at t (the decode
+    loop's _decode_one), through the kernels or their plain versions."""
+    h, cond = arm._emb_at(t, x_tok, x_cond, y_cond, x_tok.shape[0])
+    h = arm.transformer.decode_step(dec, caches, h, t, fp16=True,
+                                    plain=plain)
+    if arm.add_cond_after_transformer:
+        h = h + cond
+    return arm._logits(h)
+
+
+def p11_step_check(arm, dec, caches, x_tok, t, x_cond, y_cond, what):
+    """The kernel path against the plain path at t on twin copies of the
+    caches (left as they are), within STEP_TOL; its launches are put back
+    out of the counts. Returns the relative error."""
+    saved = dict(ds.LAUNCHES)
+    twins = [[{k: c.clone() for k, c in cache.items()} for cache in caches]
+             for _ in range(2)]
+    lk = p11_logits(arm, dec, twins[0], x_tok, t, x_cond, y_cond, False)
+    lp = p11_logits(arm, dec, twins[1], x_tok, t, x_cond, y_cond, True)
+    ds.LAUNCHES.update(saved)
+    e, rel = _err(lk, lp)
+    log(f"  {what} t={t}: kernel path against plain, max logit err "
+        f"{e:.3e} (rel {rel:.2e}, tol {STEP_TOL:g})")
+    if not (torch.isfinite(lk).all() and rel <= STEP_TOL):
+        raise AssertionError(f"phase 11 {what} t={t}: kernel-path decode "
+                             f"step disagrees with the plain path ({e:.3e})")
+    return rel
+
+
+def p11_sample(runtime, ctx, y, quantize, seed, what):
+    """One window through the PriorRuntime pieces: sample_init (the
+    context prefilled, one block a chunk), sample_segment to just before
+    the first sampled block's last token, the kernel path held to the
+    plain path there and at the first step, the rest of P11_DECODE
+    blocks, sample_finish. The decode and LayerNorm kernels' launches are
+    counted from 0 over the window and must equal the steps' and chunks'
+    expected counts; the int8 mode's caches int8 on the packed layers
+    alone."""
+    m = runtime.model
+    arm, tr = m.prior, m.prior.transformer
+    B, t0 = ctx.shape
+    bc = arm.block_ctx
+    n = P11_DECODE * bc
+    cuda = ctx.is_cuda
+    quant, cache_int8 = runtime.stage_decode(quantize=quantize)
+    dec = runtime.staged
+    gen = torch.Generator(device=ctx.device).manual_seed(seed)
+    rep = {"checks": 0}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+    ds.reset_launches()
+    ln.reset_launches()
+    sync()
+    w0 = time.time()
+    caches, x_tok, x_cond, y_cond = m.sample_init(
+        B, z=ctx, y=y, fp16=True, dec_params=dec, int8=cache_int8)
+    sync()
+    rep["prefill_s"] = time.time() - w0
+    int8_layers = {d for d, c in enumerate(caches)
+                   if c["k"].dtype == torch.int8}
+    if int8_layers != (set(tr.packed) if cache_int8 else set()):
+        raise AssertionError(f"phase 11 {what}: int8 caches on layers "
+                             f"{sorted(int8_layers)}, packed "
+                             f"{sorted(tr.packed)}")
+    rep["int8_layers"] = sorted(int8_layers)
+    rep["rel"] = [p11_step_check(arm, dec, caches, x_tok, t0, x_cond,
+                                 y_cond, what)]
+    w1 = time.time()
+    first, _ = m.sample_segment(caches, x_tok, t0, bc - 1, gen, x_cond,
+                                y_cond, fp16=True, temp=TEMP,
+                                dec_params=dec)
+    x_tok = first[:, -1:]
+    rep["rel"].append(p11_step_check(arm, dec, caches, x_tok,
+                                     t0 + bc - 1, x_cond, y_cond, what))
+    rest, _ = m.sample_segment(caches, x_tok, t0 + bc - 1, n - bc + 1, gen,
+                               x_cond, y_cond, fp16=True, temp=TEMP,
+                               dec_params=dec)
+    sync()
+    rep["decode_s"] = time.time() - w1
+    rep["checks"] = 2
+    out = m.sample_finish(torch.cat([first, rest], 1), z=ctx)
+    if not (out.shape == (B, t0 + n) and torch.equal(out[:, :t0], ctx)
+            and int(out.min()) >= 0 and int(out.max()) < m.l_bins):
+        raise AssertionError(f"phase 11 {what}: the window's codes are "
+                             f"wrong: {tuple(out.shape)}")
+    per = step_launches(tr, bool(quant), cache_int8)
+    rep["expected"] = {k: n * v for k, v in per.items()}
+    rep["ln_expected"] = {"layer_norm_fwd": 2 * tr.n_depth * (t0 // bc),
+                          "layer_norm_bwd": 0}
+    rep["launches"] = dict(ds.LAUNCHES)
+    rep["ln_launches"] = dict(ln.LAUNCHES)
+    if cuda and (rep["launches"] != rep["expected"]
+                 or rep["ln_launches"] != rep["ln_expected"]):
+        raise AssertionError(f"phase 11 {what}: launches "
+                             f"{rep['launches']}, {rep['ln_launches']} "
+                             f"against {rep['expected']}, "
+                             f"{rep['ln_expected']}")
+    rep["tokens"] = n
+    return rep
+
+
+def run_phase11(seed, device, B=N_SAMPLES, cases=None, **over):
+    """Phase 11: each prior of P11_PRIORS (order: depth) drawn from seed at
+    the 1b top's widths (over: hparams over them), one window sampled in
+    bf16 and in the int8 mode (p11_sample). Returns {what: report} and
+    their launches summed."""
+    cases = P11_PRIORS if cases is None else cases
+    out = {"launches": dict.fromkeys(ds.LAUNCHES, 0),
+           "ln_launches": dict.fromkeys(ln.LAUNCHES, 0)}
+    vq = None
+    for order, depth in cases.items():
+        hps = setup_hparams(P11_HPS, dict(P11_KW, attn_order=order,
+                                          prior_depth=depth, seed=seed,
+                                          **over))
+        vq = vq or make_vqvae(hps, device)
+        runtime = make_prior(hps, vq, device)
+        tr = runtime.model.prior.transformer
+        bc = tr.blocks[0].attn.block_ctx
+        gen = torch.Generator(device=device).manual_seed(seed + order)
+        ctx = torch.randint(0, runtime.l_bins, (B, P11_CONTEXT * bc),
+                            generator=gen, device=device)
+        y = torch.as_tensor(runtime.get_y(runtime.labeller.get_batch_labels(
+            [P11_META] * B), 0), device=device)
+        funcs = [tr.attn_func(d) for d in range(tr.n_depth)]
+        log(f"phase 11 attn order {order} at {depth} layers (width "
+            f"{tr.n_in}, {tr.n_head} heads, n_ctx {tr.n_ctx}, {bc}-token "
+            f"blocks): funcs {funcs}, plan {tr.decode_plan}, packed "
+            f"{sorted(tr.packed)}")
+        for quantize in (None, "int8"):
+            what = f"order {order} {quantize or 'bf16'}"
+            r = p11_sample(runtime, ctx, y, quantize, seed + order, what)
+            for k in ("launches", "ln_launches"):
+                for name, v in r[k].items():
+                    out[k][name] += v
+            log(f"  {what}: prefill {ctx.shape[1]} tokens x {B} in "
+                f"{r['prefill_s']:.3f}s, {r['tokens']} tokens x {B} in "
+                f"{r['decode_s']:.3f}s "
+                f"({r['decode_s'] / r['tokens'] * 1e3:.2f} ms a step), int8 "
+                f"caches on layers {r['int8_layers']}; "
+                f"launches {({k: v for k, v in r['launches'].items() if v})}"
+                f" == expected; LayerNorm "
+                f"{r['ln_launches']['layer_norm_fwd']}")
+            out[what] = r
+        runtime.release()
+        del runtime
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 10: training and decoding across ranks (parallel/)
 # ---------------------------------------------------------------------------
@@ -3947,8 +4228,23 @@ P10_SAMPLE = 256     # elements compared of each updated tensor
 P10_TOL = {"loss": 1e-4, "gn": 1e-3, "params": 2e-2}
 P10_TIMEOUT = 300
 P10_BIAS = 0.3       # std of the biases drawn (p10_biases)
-# the parts of (b), each across its two ranks
-P10_PARTS = ("dp", "fsdp", "mp", "decode", "decode_int8")
+# the dp step with dropout and aug_blend on (part dp_drop): the dropout
+# rates of the priors' training hparams, and the step's seed
+P10_DROP = dict(attn_dropout=0.1, resid_dropout=0.1, emb_dropout=0.1)
+P10_DROP_SEED = 5
+# the 1-head upsampler of parts up_mp and up_decode (mp does not divide its
+# heads: each rank runs its attention whole): upsampler_level_1 at its
+# widths (1920, 1 head, its 16-layer conditioner at 1024, n_ctx 8192), cut
+# to P10_UP_DEPTH layers
+P10_UP_HPS = "vqvae,upsampler_level_1,all_fp16,cpu_ema"
+P10_UP_KW = dict(level=1, levels=3, prior=True, train=True, labels=True,
+                 sample_length=8192 * 32, restore_prior="")
+P10_UP_DEPTH = 8
+# the parts of (b), each across its two ranks, and the mesh axis the ranks
+# split
+P10_PARTS = {"dp": "dp", "fsdp": "dp", "mp": "mp", "decode": "mp",
+             "decode_int8": "mp", "dp_drop": "dp", "up_mp": "mp",
+             "up_decode": "mp"}
 
 
 def _free_port():
@@ -3978,12 +4274,42 @@ def p10_runtime(seed, bs, device, **over):
     return hps, runtime
 
 
-def p10_batch(runtime, hps, device, seed):
-    """Phase 10's global batch of P10_BS rows, the same in every
-    process."""
+def p10_up_hps(**up_over):
+    """The upsampler's hparams: P10_UP_KW at P10_UP_DEPTH layers, up_over
+    over them."""
+    return setup_hparams(P10_UP_HPS, {**P10_UP_KW,
+                                      "prior_depth": P10_UP_DEPTH,
+                                      **up_over})
+
+
+def p10_up_runtime(seed, bs, device, **up_over):
+    """(hps, runtime): the P10_UP_HPS upsampler drawn from seed (its biases
+    too), bs a process."""
+    hps = p10_up_hps(bs=bs, seed=seed, **up_over)
+    runtime = make_prior(hps, make_vqvae(hps, device), device)
+    p10_biases(runtime.model, seed)
+    return hps, runtime
+
+
+def p10_batch(runtime, hps, device, seed, stereo=False):
+    """Phase 10's global batch of P10_BS rows, the same in every process;
+    stereo: the audio [P10_BS, T, 2] before audio_preprocess blends it."""
     gen = torch.Generator(device=device).manual_seed(seed + 10)
-    return train_batch(runtime, Hyperparams(dict(hps), bs=P10_BS), device,
+    x, y = train_batch(runtime, Hyperparams(dict(hps), bs=P10_BS), device,
                        gen)
+    if stereo:
+        x = torch.cat([x, (0.3 * torch.randn(x.shape, generator=gen,
+                                             device=device)).clamp(-1, 1)],
+                      -1)
+    return x, y
+
+
+def p10_blend(x, hps, seed, rows=None):
+    """audio_preprocess of P10_BS rows of stereo audio (x: those in rows,
+    or all) with aug_blend's mix drawn for the global batch from seed."""
+    gen = torch.Generator(device=x.device).manual_seed(seed + 12)
+    return audio_preprocess(x, hps, gen=gen, rows=rows,
+                            total=None if rows is None else P10_BS)
 
 
 def p10_samples(named):
@@ -4004,11 +4330,11 @@ def p10_state_bytes(runtime, opt):
                (runtime.params, opt["m"], opt["v"]) for t in d.values())
 
 
-def p10_step(runtime, hps, x, y):
-    """One train step (loss scale 1, fresh Adam state) of the runtime,
-    placed or not: its loss, gradient norm, wall, the bytes of params + m +
-    v the rank holds, its kernel launches, and samples of the updated
-    tensors (the rank's pieces)."""
+def p10_step(runtime, hps, x, y, seed=None):
+    """One train step (loss scale 1, fresh Adam state; seed: its dropout
+    seed) of the runtime, placed or not: its loss, gradient norm, wall,
+    the bytes of params + m + v the rank holds, its kernel launches, and
+    samples of the updated tensors (the rank's pieces)."""
     opt = train_mod.adam_init(runtime.params, fp16_state=hps.fp16_opt)
     step = train_mod.make_prior_train_step(
         runtime, hps, train_mod.make_lr_schedule(hps))
@@ -4018,7 +4344,7 @@ def p10_step(runtime, hps, x, y):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    loss, m = step(opt, (x, y), None, 1, 1.0)
+    loss, m = step(opt, (x, y), seed, 1, 1.0)
     if cuda:
         torch.cuda.synchronize()
     return dict(loss=float(loss), gn=float(m["gn"]), ok=bool(m["step_ok"]),
@@ -4038,7 +4364,7 @@ def p10_layout(runtime):
 
 def p10_piece(full, name, layout):
     """The piece of a whole tensor that the rank of `layout` holds."""
-    from jukebox_tpu_torch.parallel.placement import mp_slice
+    from jukebox_tpu_torch.parallel.dist import mp_slice
     dp, mp, dp_rank, mp_rank = layout["mesh"]
     t = full
     if name in layout["split"]:
@@ -4083,19 +4409,25 @@ def p10_check(what, gaps):
         raise AssertionError(f"phase 10 {what} disagrees with world 1: {bad}")
 
 
-def p10_decode(runtime, y, device, quantize=None):
-    """Logits [B, n, bins] of the top prior's kernel path (bf16 staged, or
+def p10_decode(runtime, y, device, quantize=None, x=None):
+    """Logits [B, n, bins] of the prior's kernel path (bf16 staged, or
     with quantize="int8" int8 weights and caches; one decode step a token)
     on its stream's first n tokens forced (P10_TOKENS, int8
     P10_INT8_TOKENS), and the decode kernels' launches; under a Megatron
-    split every rank's staged pieces, heads and caches."""
+    split every rank's staged pieces, heads and caches. The top's stream
+    is y's lyrics, then zeros; an upsampler's the codes of audio x [B, T,
+    1] at its level, conditioned on those of the level above."""
     m = runtime.model
     arm = m.prior
     B = y.shape[0]
     with torch.no_grad():
-        x_cond, y_cond, prime = m.get_cond(None, y)
-        z = torch.zeros((B, m.n_ctx), dtype=torch.long, device=device)
-        stream, x_cond = m.prior_preprocess([prime, z], [None, x_cond])
+        if m.single_enc_dec:
+            x_cond, y_cond, prime = m.get_cond(None, y)
+            z = torch.zeros((B, m.n_ctx), dtype=torch.long, device=device)
+            stream, x_cond = m.prior_preprocess([prime, z], [None, x_cond])
+        else:
+            stream, *z_conds = runtime.encode(x, end_level=m.level + 2)
+            x_cond, y_cond, _ = m.get_cond(z_conds, y)
         x_cond = x_cond.to(torch.bfloat16)
         dec = arm.transformer.prepare_decode_params(torch.bfloat16,
                                                     quantize=quantize)
@@ -4148,13 +4480,14 @@ def p10_rank(spec_path):
     of spec, each on a fresh prior from the seed; writes rank_<r>.pt beside
     spec. A collective that fails fails the rank, and with it the
     phase."""
-    from jukebox_tpu_torch.parallel.dist import (batch_slice, make_mesh,
+    from jukebox_tpu_torch.parallel.dist import (dp_rows, make_mesh,
                                                  setup_dist)
     from jukebox_tpu_torch.parallel.placement import Placement
     faulthandler.dump_traceback_later(P10_TIMEOUT, exit=True)
     with open(spec_path) as f:
         spec = json.load(f)
     device, seed, over = spec["device"], spec["seed"], spec["over"]
+    up_over = spec["up_over"]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.time()
@@ -4167,17 +4500,26 @@ def p10_rank(spec_path):
               "mp": make_mesh(1, world, device)}
     for part in spec["parts"]:
         t1 = time.time()
-        mesh = meshes["mp" if part.startswith(("mp", "decode")) else "dp"]
-        hps, runtime = p10_runtime(seed, 1, device, **over)
-        x, y = p10_batch(runtime, hps, device, seed)
-        rows = batch_slice(P10_BS, mesh) if part != "mp" else slice(0, 1)
+        mesh = meshes[P10_PARTS[part]]
+        drop = part == "dp_drop"
+        if part.startswith("up"):
+            hps, runtime = p10_up_runtime(seed, 1, device, **up_over)
+        else:
+            hps, runtime = p10_runtime(seed, 1, device, **over,
+                                       **(P10_DROP if drop else {}))
+        x, y = p10_batch(runtime, hps, device, seed, stereo=drop)
+        # a data-parallel rank's row as the loader deals it; bs 1 at mp
+        rows = dp_rows(1, mesh) if P10_PARTS[part] == "dp" else [0]
         runtime.placement = Placement(runtime.model, mesh,
                                       fsdp=part == "fsdp")
-        if part.startswith("decode"):
+        if "decode" in part:
             r = p10_decode(runtime, y[:P10_DECODE_B], device,
-                           "int8" if part == "decode_int8" else None)
+                           "int8" if part == "decode_int8" else None,
+                           x=x[:P10_DECODE_B])
         else:
-            r = p10_step(runtime, hps, x[rows], y[rows])
+            xr = p10_blend(x[rows], hps, seed, rows) if drop else x[rows]
+            r = p10_step(runtime, hps, xr, y[rows],
+                         P10_DROP_SEED if drop else None)
             r["layout"] = p10_layout(runtime)
         r["part_s"] = time.time() - t1
         out["parts"][part] = r
@@ -4222,15 +4564,19 @@ def p10_launch(workdir, world, device):
                        weights_only=False) for r in range(world)]
 
 
-def run_phase10(seed, device, world=2, **over):
+def run_phase10(seed, device, world=2, up_over=None, **over):
     """Phase 10: world 1's references on one set of weights (phase 5's top
     prior drawn from seed, bs 2 and bs 1 steps, the bf16 decode of
-    P10_TOKENS forced tokens), (a) the ZeRO-3 step at dp=1 in this process
-    over a process group of one (NCCL on the card), (b) `world` ranks over
-    gloo started from here: dp, ZeRO-3 dp and mp steps against world 1,
-    and the tensor-parallel decode's logits (bf16, int8) within STEP_TOL.
-    Returns the
-    report (its kernel launches among it)."""
+    P10_TOKENS forced tokens; the bs 2 step with dropout and aug_blend;
+    the P10_UP_HPS upsampler's bs 1 step and decode, up_over its hparams
+    over P10_UP_KW's), (a) the ZeRO-3 step at dp=1 in this process over a
+    process group of one (NCCL on the card), (b) `world` ranks over gloo
+    started from here: dp, ZeRO-3 dp, dp with dropout and aug_blend and mp
+    steps against world 1, the tensor-parallel decode's logits (bf16,
+    int8) within STEP_TOL, and the upsampler split over mp (its heads
+    whole on every rank) likewise. Returns the report (its kernel
+    launches among it)."""
+    up_over = dict(up_over or {})
     from jukebox_tpu_torch.parallel.placement import Placement
     t0 = time.time()
     cuda = torch.device(device).type == "cuda"
@@ -4262,6 +4608,38 @@ def run_phase10(seed, device, world=2, **over):
     dec_ref = dec_refs["decode"]
     del runtime
     free()
+    # dropout and aug_blend: the global batch's masks and mix
+    hps_d, runtime = p10_runtime(seed, P10_BS, device, **over, **P10_DROP)
+    xs, y_d = p10_batch(runtime, hps_d, device, seed, stereo=True)
+    start_d = host(runtime.params)
+    ref_d = p10_step(runtime, hps_d, p10_blend(xs, hps_d, seed), y_d,
+                     P10_DROP_SEED)
+    moved_d = host(runtime.params)
+    del runtime
+    free()
+    # the 1-head upsampler
+    hps_u, runtime = p10_up_runtime(seed, 1, device, **up_over)
+    xu, yu = p10_batch(runtime, hps_u, device, seed)
+    start_u = host(runtime.params)
+    ref_u = p10_step(runtime, hps_u, xu[:1], yu[:1])
+    moved_u = host(runtime.params)
+    del runtime
+    free()
+    _, runtime = p10_up_runtime(seed, 1, device, **up_over)
+    dec_refs["up_decode"] = p10_decode(runtime, yu[:P10_DECODE_B], device,
+                                       x=xu[:P10_DECODE_B])
+    del runtime
+    free()
+    up_desc = p10_up_hps(**up_over)
+    log(f"phase 10 world 1, the dropout step (rates {P10_DROP}, aug_blend, "
+        f"bs {P10_BS}): loss {ref_d['loss']:.6f} gn {ref_d['gn']:.6g} "
+        f"{ref_d['wall_s'] * 1e3:.1f} ms; the upsampler "
+        f"({up_desc.prior_depth} layers, width {up_desc.prior_width}, "
+        f"{up_desc.heads} head, n_ctx {up_desc.n_ctx}): bs 1 step loss "
+        f"{ref_u['loss']:.6f} gn {ref_u['gn']:.6g} "
+        f"{ref_u['wall_s'] * 1e3:.1f} ms; decode of {P10_TOKENS} tokens "
+        f"bf16 {dec_refs['up_decode']['wall_s']:.2f}s, caches "
+        f"{_gb(dec_refs['up_decode']['cache_bytes'] / 1e9)}")
     tr_desc = train_hps(seed, **over)
     log(f"phase 10 world 1 on one set of weights ({tr_desc.prior_depth} "
         f"layers, width {tr_desc.prior_width}, n_ctx {tr_desc.n_ctx}): bs "
@@ -4298,7 +4676,7 @@ def run_phase10(seed, device, world=2, **over):
     try:
         with open(os.path.join(workdir, "spec.json"), "w") as f:
             json.dump(dict(device=device, seed=seed, over=over,
-                           parts=list(P10_PARTS)), f)
+                           up_over=up_over, parts=list(P10_PARTS)), f)
         t1 = time.time()
         ranks = p10_launch(workdir, world, device)
         rep["b_wall_s"] = time.time() - t1
@@ -4306,15 +4684,16 @@ def run_phase10(seed, device, world=2, **over):
         shutil.rmtree(workdir, ignore_errors=True)
     log(f"phase 10 (b) {world} ranks over gloo on {device}: "
         f"{rep['b_wall_s']:.1f}s (rank start {ranks[0]['start_s']:.1f}s)")
-    refs = {"dp": (ref2, moved2), "fsdp": (ref2, moved2),
-            "mp": (ref1, moved1)}
+    refs = {"dp": (ref2, moved2, start), "fsdp": (ref2, moved2, start),
+            "mp": (ref1, moved1, start), "dp_drop": (ref_d, moved_d, start_d),
+            "up_mp": (ref_u, moved_u, start_u)}
     rep["b"] = {}
     for part in P10_PARTS:
         got = [r["parts"][part] for r in ranks]
         for r in got:
             for k, v in r["launches"].items():
                 rep["launches"][k] = rep["launches"].get(k, 0) + v
-        if part.startswith("decode"):
+        if "decode" in part:
             dec_ref = dec_refs[part]
             e, rel = _err(got[0]["logits"], dec_ref["logits"])
             same = all(torch.equal(g["logits"], got[0]["logits"])
@@ -4334,10 +4713,13 @@ def run_phase10(seed, device, world=2, **over):
                     and rel <= STEP_TOL):
                 raise AssertionError("phase 10 tensor-parallel decode "
                                      "disagrees with world 1")
-            if any(g["kv_bytes"] * world != dec_ref["kv_bytes"]
+            # the heads split: 1/mp of the caches; the upsampler's one
+            # head runs whole on every rank, its caches whole
+            share = 1 if part == "up_decode" else world
+            if any(g["kv_bytes"] * share != dec_ref["kv_bytes"]
                    for g in got):
-                raise AssertionError("phase 10: a rank's K/V caches are not "
-                                     "1/mp of world 1's")
+                raise AssertionError(f"phase 10 {part}: a rank's K/V caches "
+                                     f"are not 1/{share} of world 1's")
             kinds = (("ring_attn_int8", "gemv_int8", "ln_gemv_int8")
                      if part == "decode_int8" else
                      ("ring_attn_decode", "gemv_bf16", "ln_gemv_bf16"))
@@ -4349,8 +4731,8 @@ def run_phase10(seed, device, world=2, **over):
                 g["cache_bytes"] for g in got], wall_s=got[0]["wall_s"],
                 launches=[g["launches"] for g in got])
             continue
-        ref, moved = refs[part]
-        ref_bytes = ref1["state_bytes"]
+        ref, moved, start_p = refs[part]
+        ref_bytes = (ref_u if part == "up_mp" else ref1)["state_bytes"]
         log(f"phase 10 (b) {part}: " + "; ".join(
             f"rank {i}: loss {g['loss']:.6f} gn {g['gn']:.6g} step "
             f"{g['wall_s'] * 1e3:.1f} ms, params + m + v "
@@ -4359,8 +4741,8 @@ def run_phase10(seed, device, world=2, **over):
             for i, g in enumerate(got)))
         for i, g in enumerate(got):
             p10_check(f"(b) {part} rank {i} against world 1 at global bs "
-                      f"{P10_BS if part != 'mp' else 1}",
-                      p10_gaps(g, ref, start, moved, g["layout"]))
+                      f"{P10_BS if P10_PARTS[part] == 'dp' else 1}",
+                      p10_gaps(g, ref, start_p, moved, g["layout"]))
         if part == "fsdp" and not all(
                 g["state_bytes"] <= 0.55 * ref_bytes for g in got):
             raise AssertionError("phase 10: fsdp ranks hold more than 0.55 "
@@ -4413,6 +4795,9 @@ def main(argv=None):
               "5b top": shapes["5b top"]["n_ctx"] - 1}
     log("phase 2 kernels against their plain versions")
     rows = check_kernels(shapes, N_SAMPLES, last_t, device, gen)
+    log("phase 2 ring_attn_decode at f4 (the summary pattern) against its "
+        "plain version")
+    check_summary_attn(rows, N_SAMPLES, device, gen)
     log("phase 2e int8 and cross-attention kernels against their plain "
         "versions")
     rows.update(check_int8_kernels(
@@ -4428,6 +4813,11 @@ def main(argv=None):
 
     for prior in (top, priors[0]):
         check_stack_step(prior, N_SAMPLES, device, gen)
+    log(f"phase 11 the summary pattern sampled: attn orders "
+        f"{sorted(P11_PRIORS)} at the 1b top's widths, {P11_CONTEXT} blocks "
+        f"of context, {P11_DECODE} sampled, bf16 and int8")
+    r11 = run_phase11(args.seed, device)
+    torch.cuda.empty_cache()
 
     log(f"phase 4 cascade: hop fractions {HOPS}, {N_SAMPLES} x "
         f"{hps.sample_length} samples "
@@ -4527,6 +4917,8 @@ def main(argv=None):
                                      row["max_abs_err"])
     for k, n in r10["launches"].items():  # phase 10's ranks
         launches[k] += n
+    for k, n in dict(r11["launches"], **r11["ln_launches"]).items():
+        launches[k] += n  # phase 11's windows
     for r in cascades:  # the prefill's LayerNorms, the alignment forwards
         launches["flash_fwd"] += r["fa_launches"]["flash_fwd"]
         launches["layer_norm_fwd"] += r["ln_launches"]["layer_norm_fwd"]

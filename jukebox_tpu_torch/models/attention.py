@@ -7,8 +7,8 @@ jukebox_tpu/models/attention.py), for the attention patterns of the
     3 prev-row   attend to the whole previous block
     4 summary    attend to the last position of each previous block
     5 summary-spread  attend to the last `spread` positions of each
-                 previous block (4 and 5: the full-context forward only,
-                 as the JAX package samples neither in the port's form)
+                 previous block (the full-context forward only: the JAX
+                 package does not sample it either)
     6 cross      attend to the lyric encoder's K/V (q-only c_attn, the
                  encoder projected by c_enc_kv)
     7 prime      attend to the first _prime_len positions (lyric prefix)
@@ -24,7 +24,7 @@ to XLA. Any layer can record its softmax weights (the lyric alignment).
 Caches keep the standard layout [B, slots, A] with the JAX package's
 per-pattern retention:
     f0 [B, n_ctx, A]   f1 [B, bc, A]   f2 [B, bc, blocks, A]
-    f3 [B, 2bc, A]     f7 [B, _prime_len, A]
+    f3 [B, 2bc, A]     f4 [B, blocks + 1, A]   f7 [B, _prime_len, A]
 and are updated in place (the JAX functions return new caches instead);
 an f6 layer's cache is the encoder K/V [B, encoder_dims, A], projected once
 per window by init_cache and only read. decode_step reads a step's
@@ -48,7 +48,9 @@ import torch.nn as nn
 from jukebox_tpu_torch.ops.core import Dense, dense_any, dropout, fold_seed
 from jukebox_tpu_torch.ops.decode_stack import quantize_rows
 from jukebox_tpu_torch.ops.flash_attention import flash_dense_attn
-from jukebox_tpu_torch.parallel.dist import copy_to_group, reduce_from_group
+from jukebox_tpu_torch.parallel.dist import (copy_to_group, gather_from_group,
+                                             reduce_from_group,
+                                             scatter_to_group)
 
 NEG = -1e9
 _FLASH_MIN_CTX = 2048
@@ -98,8 +100,11 @@ class StepIndex:
     def positions(self):
         """{"t", and where defined: "mod" (t % bc), "div" (t // bc), "f2"
         (the column cache's flat slot), "f3" (the ring slot written),
-        "f3_prev" (the previous ring's first slot), "f7" (min(t,
-        prime_len - 1)), "f7_keep" (t < prime_len)}, each a [1] tensor."""
+        "f3_prev" (the previous ring's first slot), "f4" (the summary row
+        1 + t // bc), "f4_keep" (t % bc == bc - 1: the block's last token,
+        whose k, v become its summary), "f4_hi" (the last summary row read,
+        min((t + 1) // bc, blocks - 1)), "f7" (min(t, prime_len - 1)),
+        "f7_keep" (t < prime_len)}, each a [1] tensor."""
         t = self.t
         out = {"t": t}
         if self.bc:
@@ -108,7 +113,11 @@ class StepIndex:
             div = torch.div(t, bc, rounding_mode="floor")
             out.update(mod=mod, div=div, f2=mod * self.blocks + div,
                        f3=torch.remainder(div, 2) * bc + mod,
-                       f3_prev=torch.remainder(div - 1, 2) * bc)
+                       f3_prev=torch.remainder(div - 1, 2) * bc,
+                       f4=div + 1, f4_keep=mod == bc - 1,
+                       f4_hi=torch.clamp(
+                           torch.div(t + 1, bc, rounding_mode="floor"),
+                           max=self.blocks - 1))
         if self.prime_len:
             out.update(f7=torch.clamp(t, max=self.prime_len - 1),
                        f7_keep=t < self.prime_len)
@@ -116,11 +125,12 @@ class StepIndex:
 
 
 def dense_attn(q, k, v, n_head, mask=None, dropout_rate=0.0,
-               dropout_seed=None, record=False):
+               dropout_seed=None, record=False, heads=None):
     """q, k, v [B, L, n_state]; mask None, "causal" or a float [Lq, Lkv]
     tensor (1 = attend). The reference's fused q*s @ k*s scale with
     s = hd^-1/4 in the activation dtype, fp32 scores and softmax, dropout of
-    the softmax weights (training), and the weights cast to the activation
+    the softmax weights (training; heads: ops/core.py dropout's, for a rank
+    holding some of the heads), and the weights cast to the activation
     dtype before the PV product. record=True returns (out, w): w the fp32
     softmax weights [B, H, Lq, Lkv], taken before the dropout."""
     hd = q.shape[-1] // n_head
@@ -137,7 +147,7 @@ def dense_attn(q, k, v, n_head, mask=None, dropout_rate=0.0,
         w = w * mask + NEG * (1 - mask)
     w = torch.softmax(w, dim=-1)
     out = merge_heads(torch.matmul(
-        dropout(w, dropout_rate, dropout_seed).to(q.dtype), vh))
+        dropout(w, dropout_rate, dropout_seed, heads).to(q.dtype), vh))
     return (out, w) if record else out
 
 
@@ -160,7 +170,11 @@ class FactoredAttention(nn.Module):
         self.mask = mask
         # the "mp" group of a Megatron split (parallel/placement.py), which
         # leaves this module n_head / mp heads of n_state / mp columns
-        self.tp = None
+        # (heads: its first head and the whole layer's, for the dropout
+        # masks), or, where mp does not divide n_head, its columns of the
+        # products and the attention whole (whole: q, k, v gathered, the
+        # output's columns scattered back)
+        self.tp, self.heads, self.whole = None, None, False
         self.attn_dropout, self.resid_dropout = attn_dropout, resid_dropout
         if attn_func == 6:
             self.c_attn = Dense(n_in, n_state, init_scale, device=device)
@@ -184,21 +198,29 @@ class FactoredAttention(nn.Module):
         """mod(x), or the int8 dense of the staged dict p when given."""
         return mod(x) if p is None else dense_any(x, p)
 
+    def _whole(self, y, parts):
+        """y, the rank's columns of a split product of `parts` equal parts,
+        gathered whole where the attention runs whole on every rank."""
+        return gather_from_group(y, self.tp, parts) if self.whole else y
+
     def _qkv(self, x, encoder_kv=None, p=None):
         x = copy_to_group(x, self.tp)
         if self.attn_func == 6:
-            q = self._lin(self.c_attn, x, p)
+            q = self._whole(self._lin(self.c_attn, x, p), 1)
             enc = copy_to_group(encoder_kv.to(x.dtype), self.tp)
-            k, v = self.c_enc_kv(enc).chunk(2, dim=2)
+            k, v = self._whole(self.c_enc_kv(enc), 2).chunk(2, dim=2)
             return q, k, v
-        return self._lin(self.c_attn, x, p).chunk(3, dim=2)
+        return self._whole(self._lin(self.c_attn, x, p), 3).chunk(3, dim=2)
 
     def _out(self, a, p=None):
         """c_proj of the heads' output a (p: its int8 staged dict); split
         over "mp", the rows' partial products summed over the group before
-        the bias (a staged dict's bias is then zero)."""
+        the bias (a staged dict's bias is then zero), each rank's rows
+        reading its columns of a whole attention's output."""
         if self.tp is None:
             return self._lin(self.c_proj, a, p)
+        if self.whole:
+            a = scatter_to_group(a, self.tp)
         y = (torch.matmul(a, self.c_proj.w.to(a.dtype)) if p is None
              else dense_any(a, p))
         y = reduce_from_group(y, self.tp)
@@ -242,7 +264,7 @@ class FactoredAttention(nn.Module):
 
         def attn(q_, k_, v_, mask):
             out = dense_attn(q_, k_, v_, self.n_head, mask, rate, seed,
-                             record)
+                             record, self.heads)
             return out if record else (out, None)
 
         def done(a, w):
@@ -250,7 +272,7 @@ class FactoredAttention(nn.Module):
         if f == 0:
             if self.uses_flash(L, q.dtype, record):
                 return flash_dense_attn(q, k, v, self.n_head, rate, seed,
-                                        plain)
+                                        plain, self.heads)
             return done(*attn(q, k, v, "causal" if self.mask else None))
         bc = self.block_ctx
         if f == 1:
@@ -298,10 +320,11 @@ class FactoredAttention(nn.Module):
 
     def cache_shape(self, bs):
         f, A = self.attn_func, self.n_state
-        if f in (4, 5):
+        if f == 5:
             raise NotImplementedError(
-                f"attn_func {f} decodes in neither the port nor, for 5, "
-                f"the JAX package (its summary sampling is not ported)")
+                "attn_func 5: summary-spread sampling is not implemented "
+                "(as in the JAX package and the reference, "
+                "factored_attention.py:211)")
         if f == 0:
             return (bs, self.n_ctx, A)
         if f == 1:
@@ -310,6 +333,8 @@ class FactoredAttention(nn.Module):
             return (bs, self.block_ctx, self.blocks, A)
         if f == 3:
             return (bs, 2 * self.block_ctx, A)
+        if f == 4:  # the zero pad, then one summary a block
+            return (bs, self.blocks + 1, A)
         if f == 6:
             return (bs, self.encoder_dims, A)
         return (bs, self._prime_len, A)
@@ -320,7 +345,7 @@ class FactoredAttention(nn.Module):
         if self.attn_func == 6:
             kv = (self.c_enc_kv(encoder_kv.to(dtype)) if enc_kv is None
                   else dense_any(encoder_kv.to(dtype), enc_kv))
-            k, v = kv.chunk(2, dim=2)
+            k, v = self._whole(kv, 2).chunk(2, dim=2)
             return {"k": k.contiguous(), "v": v.contiguous()}
         shape = self.cache_shape(bs)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -345,6 +370,10 @@ class FactoredAttention(nn.Module):
                     previous ring ((t // bc) - 1) % 2 unmasked (in the
                     first block it is still the zero init, so every score
                     is 0 and the output 0)
+          f4 summary write row 1 + t // bc at a block's last token (other
+                    writes leave the row as it is), read row 0 (the zero
+                    pad) .. min((t + 1) // bc, blocks - 1): at a block's
+                    last token its own summary, the last block's never
           f6 cross  no write, read the encoder K/V
           f7 prime  write t while t < _prime_len (later writes leave the
                     row as it is), read 0..min(t, _prime_len - 1)
@@ -352,7 +381,7 @@ class FactoredAttention(nn.Module):
         position."""
         f = self.attn_func
         if f == 6:
-            q = self.c_attn(x)
+            q = self._whole(self.c_attn(x), 1)
             return self._out(dense_attn(q, cache["k"], cache["v"],
                                         self.n_head))
         if not isinstance(pos, dict):
@@ -368,14 +397,16 @@ class FactoredAttention(nn.Module):
             vc = vc.index_select(1, pos["mod"])[:, 0]
             mask = (torch.arange(self.blocks, device=dev)
                     <= pos["div"]).float()[None]
-        elif f == 7:
-            row = pos["f7"]
+        elif f in (4, 7):
+            row, keep = pos[f"f{f}"], pos[f"f{f}_keep"]
             for c, new in ((kc, k), (vc, v)):
-                # writes past the prime leave the row as it is
-                c.index_copy_(1, row, torch.where(pos["f7_keep"], new,
+                # writes past the prime, or inside a block, leave the row
+                # as it is
+                c.index_copy_(1, row, torch.where(keep, new,
                                                   c.index_select(1, row)))
-            mask = (torch.arange(self._prime_len, device=dev)
-                    <= row).float()[None]
+            hi = pos["f4_hi"] if f == 4 else row
+            mask = (torch.arange(kc.shape[1], device=dev)
+                    <= hi).float()[None]
         else:
             slot = {0: pos["t"], 1: pos["mod"], 3: pos["f3"]}[f]
             for c, new in ((kc, k), (vc, v)):
@@ -429,7 +460,7 @@ class FactoredAttention(nn.Module):
         def read(key, idx=everything):
             return self._read(cache, key, idx, x.dtype)
         if f == 6:
-            q = self._lin(self.c_attn, x, qp)
+            q = self._whole(self._lin(self.c_attn, x, qp), 1)
             return proj(dense_attn(q, read("k"), read("v"), self.n_head))
         q, k, v = self._qkv(x, p=qp)
         B, C, S = v.shape
@@ -483,6 +514,20 @@ class FactoredAttention(nn.Module):
                 rows = (slice(None), slice(ring * bc, (ring + 1) * bc))
                 self._put(cache, rows, kb[:, -1 - back], vb[:, -1 - back])
             return proj(a.reshape(B, C, S))
+        if f == 4:
+            assert C == n_blocks * bc
+            b0 = t0 // bc
+            # each chunk block's last token is its summary, at row 1 + block
+            rows = (slice(None), slice(1 + b0, 1 + b0 + n_blocks))
+            self._put(cache, rows, k.reshape(B, n_blocks, bc, S)[:, :, -1],
+                      v.reshape(B, n_blocks, bc, S)[:, :, -1])
+            hi = torch.clamp(
+                torch.div(t0 + torch.arange(C, device=dev) + 1, bc,
+                          rounding_mode="floor"), max=self.blocks - 1)
+            mask = (torch.arange(self.blocks + 1, device=dev)[None, :]
+                    <= hi[:, None]).float()
+            return proj(dense_attn(q, read("k"), read("v"), self.n_head,
+                                   mask))
         pl_ = self._prime_len  # f == 7
         pos = t0 + torch.arange(C, device=dev)
         n_in = max(0, min(C, pl_ - t0))  # chunk rows inside the prime cache

@@ -15,7 +15,10 @@ whole-stack megakernel, with the weights staged once by
 prepare_decode_params: bf16, or weight-only int8 (quantize="int8", the JAX
 package's JUKEBOX_INT8_DECODE mode); the ring caches are bf16 or int8
 (init_cache(int8=True): the prefill writes int8 rows, the decode step
-quantises its new row from the fp32 c_attn output). The fp32 decode path (and every prefill) runs the layer modules
+quantises its new row from the fp32 c_attn output), int8 only on the
+layers the JAX package packs into its megakernel (packed_layers; the
+others, such as the summary pattern's, keep bf16 caches as its unpacked
+segments do). The fp32 decode path (and every prefill) runs the layer modules
 themselves, as the JAX package runs its fp32 decode and its prefill in XLA;
 with int8 staged weights the prefill's products are the int8 dense.
 f6 (cross-attention) layers read the lyric encoder's encoder_kv: the full
@@ -52,6 +55,51 @@ ATTN_ORDERS = {
     11: lambda d: ([6, 6, 0][d % 3] if d % 16 == 15 else [1, 2, 3][d % 3]),
     12: lambda d: ([7, 7, 0][d % 3] if d % 16 == 15 else [1, 2, 3][d % 3]),
 }
+
+
+# the attention patterns of the JAX package's decode megakernel
+# (ops/pallas/decode_stack.py): a scan segment packs when its pattern uses
+# these alone (transformer.py _stack_eligible), a flat layer when it is one
+# of the second set (_flat_stack_func: a flat f6 would need the encoder
+# projection plumbed through and stays in XLA)
+STACK_FUNCS = frozenset((0, 1, 2, 3, 6, 7))
+FLAT_STACK_FUNCS = frozenset((0, 1, 2, 3, 7))
+
+
+def stack_eligible(seg, blocks, prime_len):
+    """Whether the JAX package packs a ("scan", funcs, starts) segment of
+    its decode plan into the megakernel (Transformer._stack_eligible):
+    funcs within STACK_FUNCS, a block geometry, and a prime length where
+    an f7 layer needs one. (Its remaining tests hold for every prior: the
+    activation is quick_gelu, and n_state % n_head == 0.)"""
+    return (seg[0] == "scan" and blocks is not None
+            and set(seg[1]) <= STACK_FUNCS
+            and (7 not in seg[1] or bool(prime_len)))
+
+
+def flat_stack_func(f, blocks, prime_len):
+    """The pattern of a ("flat", d) segment of attn_func f when the JAX
+    package packs it as a one-layer megakernel segment, else None
+    (Transformer._flat_stack_func)."""
+    if (blocks is None or f not in FLAT_STACK_FUNCS
+            or (f == 7 and not prime_len)):
+        return None
+    return f
+
+
+def packed_layers(plan, funcs, blocks, prime_len):
+    """The layers of a decode plan (Transformer.decode_plan) that the JAX
+    package packs into its megakernel: those it decodes with int8 caches
+    in its int8 mode. Every other layer keeps caches in the compute
+    dtype."""
+    out = set()
+    for seg in plan:
+        if seg[0] == "flat":
+            if flat_stack_func(funcs[seg[1]], blocks, prime_len) is not None:
+                out.add(seg[1])
+        elif stack_eligible(seg, blocks, prime_len):
+            out.update(s + j for s in seg[2] for j in range(len(seg[1])))
+    return frozenset(out)
 
 
 class MLP(nn.Module):
@@ -156,7 +204,7 @@ class Transformer(nn.Module):
         self.n_in, self.n_ctx, self.n_head = n_in, n_ctx, n_head
         self.tp = None  # the "mp" group of a Megatron split
         self.n_depth, self.attn_order = n_depth, attn_order
-        self.prime_len = prime_len
+        self.prime_len, self.n_blocks = prime_len, blocks
         self.res_scale = (1.0 / n_depth) if res_scale else 1.0
         self.dropout = attn_dropout > 0 or resid_dropout > 0
         self.checkpoint_res = checkpoint_res
@@ -245,6 +293,14 @@ class Transformer(nn.Module):
                 i += L * r
         return tuple(segs)
 
+    @property
+    def packed(self):
+        """The layers the JAX package packs into its decode megakernel
+        (packed_layers): in the int8 mode they alone get int8 caches."""
+        return packed_layers(self.decode_plan,
+                             [self.attn_func(d) for d in range(self.n_depth)],
+                             self.n_blocks, self.prime_len)
+
     def _plan_order(self):
         for seg in self.decode_plan:
             if seg[0] == "flat":
@@ -317,13 +373,17 @@ class Transformer(nn.Module):
         """Per-layer caches: zero rings, the f6 layers' encoder K/V projected
         from encoder_kv (through dec_params' enc_kv when staged). int8=True
         makes int8 caches with zero row scales, the f6 K/V quantised by
-        quantize_rows (pack_caches(quantize=True) of the JAX package)."""
+        quantize_rows (pack_caches(quantize=True) of the JAX package), for
+        the packed layers; the others keep `dtype`, as the JAX package's
+        unpacked segments do."""
         caches = []
+        packed = self.packed if int8 else ()
         for d, blk in enumerate(self.blocks):
             f = blk.attn.attn_func
             enc_kv = dec_params[d]["enc_kv"] if (
                 f == 6 and dec_params is not None) else None
-            if int8 and f != 6:
+            int8_d = d in packed
+            if int8_d and f != 6:
                 shape = blk.attn.cache_shape(bs)
                 c = {k: torch.zeros(shape, dtype=torch.int8, device=device)
                      for k in ("k", "v")}
@@ -333,7 +393,7 @@ class Transformer(nn.Module):
                 c = blk.attn.init_cache(bs, dtype, device,
                                         encoder_kv if f == 6 else None,
                                         enc_kv)
-                if int8:
+                if int8_d:
                     c = self._quantize_cache(c)
             caches.append(c)
         return caches
@@ -366,7 +426,7 @@ class Transformer(nn.Module):
                         attn._prime_len if f == 7 else None)
                 h = stack_layer_step(dec_params[d], caches[d], h, geoms[f],
                                      attn.n_head, plain, self.res_scale,
-                                     self.tp)
+                                     self.tp, attn.whole)
             x = h.reshape(B, 1, S)
         else:
             if not isinstance(t, StepIndex):
@@ -380,12 +440,13 @@ class Transformer(nn.Module):
                       dec_params=None):
         """Prefill the caches with a block-aligned chunk x [B, C, n_in] at
         t0; returns the chunk's output in the compute dtype. dec_params:
-        the staged decode form; when int8, the layers' products run the
-        int8 dense (jukebox_tpu's _recon_group prefill)."""
+        the staged decode form; a layer staged int8 runs its products as
+        the int8 dense (jukebox_tpu's _recon_group prefill of a packed
+        layer, its int8 dense tree of another)."""
         if fp16:
             x = x.to(torch.bfloat16)
-        int8 = dec_params is not None and "w_q" in dec_params[0]["qkv"]
         for d in self.layer_order:
-            p = dec_params[d] if int8 else None
+            p = (dec_params[d] if dec_params is not None
+                 and "w_q" in dec_params[d]["qkv"] else None)
             x = self.blocks[d].prefill_chunk(caches[d], x, t0, n_blocks, p)
         return x

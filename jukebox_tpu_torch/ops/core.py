@@ -10,7 +10,9 @@ LayerNorm and softmax accumulate in fp32 and cast back to the input dtype;
 LayerNorm runs the kernels of ops/layer_norm.py on the card.
 """
 
+import contextlib
 import math
+import threading
 
 import numpy as np
 import torch
@@ -99,17 +101,100 @@ def fold_seed(seed, *keys):
     return int(state.generate_state(1)[0]) & 0x7FFFFFFF
 
 
-def dropout(x, rate, seed):
+# ---------------------------------------------------------------------------
+# dropout: a counter-based keep mask over the global batch
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def keep_threshold(rate):
+    """uint32 threshold: a value is kept when its hash is >= it."""
+    return min(int(rate * 4294967296.0), _M32)
+
+
+def _mul32(a, c):
+    """(a * c) mod 2**32 for an int64 tensor a in [0, 2**32) and an int c,
+    without leaving int64's range."""
+    return (a * (c & 0xFFFF) + (((a * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def keep_mask(seed, bh, q_pos, kv_pos, rate):
+    """Bool keep mask at positions q_pos, kv_pos of row bh (int tensors or
+    ints that broadcast; in the flash kernels a head row b * n_head + h):
+    the murmur3 finaliser of jukebox_tpu's flash _keep_mask over (seed, bh,
+    q_pos, kv_pos), in uint32 arithmetic carried in int64."""
+    bh = torch.as_tensor(bh, dtype=torch.long, device=q_pos.device)
+    s = (int(seed) + _mul32(bh, 0xC2B2AE3D)) & _M32
+    h = (_mul32(q_pos.long(), 0x9E3779B1) ^ _mul32(kv_pos.long(), 0x85EBCA77)
+         ^ s)
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    h = h ^ (h >> 16)
+    return h >= keep_threshold(rate)
+
+
+# the global batch rows of this thread's batch rows (a data-parallel
+# rank's), or None: all of them, in order (dropout_rows)
+_ROWS = threading.local()
+
+
+@contextlib.contextmanager
+def dropout_rows(rows):
+    """Within (on this thread): the batch a dropout sees is the rows
+    `rows` (ints) of the step's global batch, so that a data-parallel rank
+    holding them draws the masks one process draws for them (rows None:
+    the whole batch)."""
+    prev = getattr(_ROWS, "rows", None)
+    _ROWS.rows = None if rows is None else [int(r) for r in rows]
+    try:
+        yield
+    finally:
+        _ROWS.rows = prev
+
+
+def global_rows(R, device=None):
+    """The global indices [R] of the local rows 0..R-1 of a batch-major
+    leading axis (R a multiple of the local batch) under dropout_rows."""
+    rows = getattr(_ROWS, "rows", None)
+    if rows is None:
+        return torch.arange(R, device=device)
+    m = R // len(rows)
+    return (torch.tensor(rows, device=device)[:, None] * m
+            + torch.arange(m, device=device)).reshape(-1)
+
+
+def dropout(x, rate, seed, heads=None):
     """Inverted dropout (zero w.p. rate, scale the rest by 1 / (1 - rate));
     identity when rate == 0 or seed is None (eval and decode paths pass no
-    seed). The mask comes from a torch.Generator seeded here from the int
-    `seed`, so a block recomputed under activation checkpointing draws the
-    same mask. It is not jax.random's mask: the two agree in distribution."""
+    seed). The mask is a function of the int `seed` and each element's
+    place in the global batch, so a block recomputed under activation
+    checkpointing draws the same mask and the ranks of a placed step draw
+    their rows of one process's: x viewed as [R, M, N] (R the product of
+    its leading axes, batch-major; M = 1 for a 2-d x), element (r, i, j) is
+    kept where keep_mask(seed, global_rows(R)[r], i, j) holds. heads=(h0,
+    H) for attention weights [B, h, Lq, Lkv] of a rank that holds heads
+    h0 .. h0 + h - 1 of H: its row r is then global_rows(B)[b] * H + h0 +
+    head. It is not jax.random's mask: the two agree in distribution."""
     if rate == 0.0 or seed is None:
         return x
-    gen = torch.Generator(device=x.device).manual_seed(int(seed))
-    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
-    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x)).to(x.dtype)
+    dev = x.device
+    R, M, N = (x.shape[0], 1, x.shape[1]) if x.dim() == 2 else (
+        math.prod(x.shape[:-2]), x.shape[-2], x.shape[-1])
+    if heads is None:
+        rows = global_rows(R, dev)
+    else:
+        B, h = x.shape[:2]
+        h0, H = heads
+        rows = (global_rows(B, dev)[:, None] * H + h0
+                + torch.arange(h, device=dev)).reshape(-1)
+    keep = keep_mask(seed, rows[:, None, None],
+                     torch.arange(M, device=dev)[:, None],
+                     torch.arange(N, device=dev)[None, :], rate)
+    return torch.where(keep.view(x.shape), x / (1.0 - rate),
+                       torch.zeros_like(x)).to(x.dtype)
 
 
 def filter_logits(logits, top_k=0, top_p=0.0, filter_value=-1e10):

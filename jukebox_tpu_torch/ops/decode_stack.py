@@ -30,7 +30,8 @@ import functools
 import torch
 
 from jukebox_tpu_torch.ops import _build
-from jukebox_tpu_torch.parallel.dist import all_reduce_
+from jukebox_tpu_torch.parallel.dist import (all_reduce_, gather_cols,
+                                             rank_cols)
 
 LAUNCHES = {"ln_gemv_bf16": 0, "ln_gemv_int8": 0, "gemv_bf16": 0,
             "gemv_int8": 0, "ring_attn_decode": 0, "ring_attn_int8": 0,
@@ -312,6 +313,10 @@ def ring_geometry(attn_func, t, cache_shape, block_ctx=None, prime_len=None):
       f3 prev   [B, 2bc, A]: write ring (t // bc) % 2 slot t % bc, read the
                 whole previous ring ((t // bc) - 1) % 2 UNMASKED (in the first
                 block that ring is the zero init: scores 0, output 0)
+      f4 summary [B, blocks + 1, A]: row 0 the zero pad (it scores 0 and
+                adds its weight to the softmax, as the JAX mask keeps it);
+                write row 1 + t // bc at a block's last token, else
+                nothing; read rows 0..min((t + 1) // bc, blocks - 1)
       f7 prime  [B, prime_len, A]: write t while t < prime_len (later writes
                 are dropped), read 0..min(t, prime_len - 1)
       f6 cross  [B, encoder_dims, A]: the read-only encoder K/V, no write,
@@ -333,6 +338,10 @@ def ring_geometry(attn_func, t, cache_shape, block_ctx=None, prime_len=None):
         blk = t // block_ctx
         return (rows, (blk % 2) * block_ctx + t % block_ctx,
                 ((blk - 1) % 2) * block_ctx, block_ctx)
+    if attn_func == 4:
+        blk, c = divmod(t, block_ctx)
+        return (rows, 1 + blk if c == block_ctx - 1 else -1, 0,
+                min((t + 1) // block_ctx, rows - 2) + 1)
     if attn_func == 7:
         return (rows, t if t < prime_len else -1, 0,
                 min(t, prime_len - 1) + 1)
@@ -649,7 +658,7 @@ def _row_split(o, p, bias, group, plain, epilogue, res, res2=None,
 
 
 def stack_layer_step(p, cache, x, geom, n_head, plain=False, res_scale=1.0,
-                     group=None):
+                     group=None, whole=False):
     """x [B, S] -> x + a + m (or x + (a + m) * res_scale) for one layer
     (ResAttnBlock.decode_step), with p the layer's staged params
     (Transformer.prepare_decode_params: "qkv" is q alone in f6 layers) and
@@ -658,7 +667,11 @@ def stack_layer_step(p, cache, x, geom, n_head, plain=False, res_scale=1.0,
     the plain versions on any device: the reference a kernel run is held
     against. group: the "mp" group of a Megatron split, where p holds the
     rank's pieces and n_head its heads: the proj and mlp products are the
-    rank's rows, all-reduced in fp32 before the bias (_row_split)."""
+    rank's rows, all-reduced in fp32 before the bias (_row_split). With
+    whole (mp does not divide the heads), n_head is the layer's and the
+    cache whole: the rank's columns of q, k, v (both roundings) are
+    gathered before the attention, which runs whole on every rank, and
+    the proj rows read the rank's columns of its output."""
     if plain:
         ring, ring8, cross = (ring_attn_decode_plain, ring_attn_int8_plain,
                               cross_attn_decode_plain)
@@ -669,6 +682,10 @@ def stack_layer_step(p, cache, x, geom, n_head, plain=False, res_scale=1.0,
     # LayerNorm is the prologue of the GEMV that reads it
     qkv, qkv32 = gemv(x, p["qkv"], plain=plain, out32=True,
                       ln=(p["ln0_g"], p["ln0_b"]))
+    if whole:
+        parts = 1 if geom is None else 3
+        qkv, qkv32 = (gather_cols(qkv, group, parts),
+                      gather_cols(qkv32, group, parts))
     if geom is None:  # f6
         o = cross(qkv32, cache["k"], cache["v"], n_head, cache.get("ks"),
                   cache.get("vs"), x.dtype)
@@ -679,6 +696,8 @@ def stack_layer_step(p, cache, x, geom, n_head, plain=False, res_scale=1.0,
         o = ring(qkv, cache["k"], cache["v"], geom, n_head, qkv32)
     if group is not None:
         keep = res_scale != 1.0
+        if whole:
+            o = rank_cols(o, group).contiguous()
         r = _row_split(o, p["proj"], p["proj_b"], group, plain, "residual",
                        x, keep=keep)
         r, a = r if keep else (r, None)

@@ -36,6 +36,8 @@ import math
 import torch
 
 from jukebox_tpu_torch.ops import _build
+from jukebox_tpu_torch.ops.core import (_M32, global_rows, keep_mask,
+                                        keep_threshold)
 from jukebox_tpu_torch.ops.decode_stack import (_check, _require, _stream,
                                                 sm_count, workspace)
 
@@ -46,7 +48,6 @@ LAUNCHES_PER_STEP = {"flash_fwd": 2, "flash_dq": 1, "flash_dkv": 1}
 NEG = -1e9
 MAX_HEAD_DIM = 256
 BF16 = torch.bfloat16
-_M32 = 0xFFFFFFFF
 # A kernel's heads x [BH, L, hd] agree with its plain version r when every
 # element has |x - r| <= AGREE_RTOL |r| + AGREE_ATOL s, s the RMS of r's row
 # (one position of one head), floored at ROW_FLOOR x the RMS of all of r
@@ -78,37 +79,6 @@ def agreement(x, ref):
         row = row.clamp(min=ROW_FLOOR * r.pow(2).mean().sqrt().item())
         bound = AGREE_RTOL * r.abs() + AGREE_ATOL * row
     return (err / bound).max().item()
-
-
-# ---------------------------------------------------------------------------
-# the dropout keep mask
-# ---------------------------------------------------------------------------
-
-def keep_threshold(rate):
-    """uint32 threshold: a value is kept when its hash is >= it."""
-    return min(int(rate * 4294967296.0), _M32)
-
-
-def _mul32(a, c):
-    """(a * c) mod 2**32 for an int64 tensor a in [0, 2**32) and an int c,
-    without leaving int64's range."""
-    return (a * (c & 0xFFFF) + (((a * (c >> 16)) & 0xFFFF) << 16)) & _M32
-
-
-def keep_mask(seed, bh, q_pos, kv_pos, rate):
-    """Bool keep mask of the flash dropout at global positions q_pos, kv_pos
-    (int tensors that broadcast) of head row bh = b * n_head + h: the
-    murmur3 finaliser of jukebox_tpu's _keep_mask over (seed, bh, q_pos,
-    kv_pos), in uint32 arithmetic carried in int64."""
-    s = (int(seed) + int(bh) * 0xC2B2AE3D) & _M32
-    h = (_mul32(q_pos.long(), 0x9E3779B1) ^ _mul32(kv_pos.long(), 0x85EBCA77)
-         ^ s)
-    h = h ^ (h >> 16)
-    h = _mul32(h, 0x85EBCA6B)
-    h = h ^ (h >> 13)
-    h = _mul32(h, 0xC2B2AE35)
-    h = h ^ (h >> 16)
-    return h >= keep_threshold(rate)
 
 
 # ---------------------------------------------------------------------------
@@ -369,11 +339,16 @@ class FlashAttention(torch.autograd.Function):
 
 
 def flash_dense_attn(q, k, v, n_head, dropout_rate=0.0, dropout_seed=None,
-                     plain=False):
+                     plain=False, heads=None):
     """Causal dense attention, q, k, v [B, L, S] -> [B, L, S] in q's dtype,
     differentiable (jukebox_tpu.ops.pallas.flash_attention.flash_dense_attn).
     dropout_rate > 0 drops attention weights inside the kernels by the
-    keep mask of dropout_seed (an int). plain=True runs the plain versions."""
+    keep mask of dropout_seed (an int) at the global head row global_rows
+    (b) * H + h (ops/core.py dropout's rows; heads=(h0, H) for a rank
+    holding heads h0.. of H): the kernels key head row bh on seed + bh *
+    0xC2B2AE3D, so the seed carries the offset, one launch for all rows
+    where it is one offset (the rows consecutive, the heads all) and one a
+    batch row where not. plain=True runs the plain versions."""
     B, L, S = q.shape
     if k.shape != (B, L, S) or v.shape != (B, L, S):
         raise ValueError(f"q, k, v must share one shape, got {tuple(q.shape)}"
@@ -384,10 +359,22 @@ def flash_dense_attn(q, k, v, n_head, dropout_rate=0.0, dropout_seed=None,
         raise ValueError("flash attention dropout needs a seed")
     seed = int(dropout_seed) if rate > 0.0 else 0
 
-    def heads(x):
-        return (x.reshape(B, L, n_head, hd).transpose(1, 2)
-                .reshape(B * n_head, L, hd).contiguous())
+    def split(x):
+        return (x.reshape(x.shape[0], L, n_head, hd).transpose(1, 2)
+                .reshape(-1, L, hd).contiguous())
 
-    out = FlashAttention.apply(heads(q), heads(k), heads(v),
-                               1.0 / math.sqrt(hd), rate, seed, plain)
-    return out.reshape(B, n_head, L, hd).transpose(1, 2).reshape(B, L, S)
+    def attend(q_, k_, v_, bh0):
+        out = FlashAttention.apply(
+            split(q_), split(k_), split(v_), 1.0 / math.sqrt(hd), rate,
+            (seed + bh0 * 0xC2B2AE3D) & _M32 if rate > 0.0 else 0, plain)
+        return out.reshape(-1, n_head, L, hd).transpose(1, 2).reshape(
+            -1, L, S)
+    if rate == 0.0:
+        return attend(q, k, v, 0)
+    h0, H = heads or (0, n_head)
+    rows = global_rows(B).tolist()
+    if B == 1 or (H == n_head and rows == list(range(rows[0],
+                                                      rows[0] + B))):
+        return attend(q, k, v, rows[0] * H + h0)
+    return torch.cat([attend(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                             rows[b] * H + h0) for b in range(B)])

@@ -129,6 +129,14 @@ def batch_slice(global_bs, mesh):
     return slice(mesh.dp_rank * per, (mesh.dp_rank + 1) * per)
 
 
+def dp_rows(n, mesh):
+    """The global batch rows of this rank's n rows as the training loader
+    deals them (data/data_processor.py ShardedLoader: each "dp" index reads
+    every dp-th item of the epoch's order): dp_rank, dp_rank + dp, ...,
+    the rows a step's dropout masks and aug_blend mix are drawn for."""
+    return [mesh.dp_rank + mesh.dp * k for k in range(n)]
+
+
 # ---------------------------------------------------------------------------
 # collectives (no-ops over a group of one rank)
 # ---------------------------------------------------------------------------
@@ -195,8 +203,44 @@ def replicate(tensors, src=0):
     return tensors
 
 
+def mp_slice(t, axis, parts, mp, r):
+    """Rank r's piece of t along axis: of each of `parts` equal parts
+    (q | k | v), its r-th of mp chunks."""
+    per = t.shape[axis] // parts
+    loc = per // mp
+    return torch.cat([t.narrow(axis, p * per + r * loc, loc)
+                      for p in range(parts)], dim=axis)
+
+
+def mp_unslice(pieces, axis, parts):
+    """The whole tensor from every rank's mp_slice piece, in rank
+    order."""
+    mp = len(pieces)
+    loc = pieces[0].shape[axis] // parts
+    return torch.cat([pieces[r].narrow(axis, p * loc, loc)
+                      for p in range(parts) for r in range(mp)], dim=axis)
+
+
+def rank_cols(x, group, parts=1):
+    """This rank's mp_slice of the last axis of x over the group."""
+    n = group_size(group)
+    if n == 1:
+        return x
+    return mp_slice(x, x.dim() - 1, parts, n, dist.get_rank(group))
+
+
+def gather_cols(x, group, parts=1):
+    """The whole last axis from every rank's rank_cols piece x."""
+    n = group_size(group)
+    if n == 1:
+        return x
+    return mp_unslice(list(_all_gather_single(x, group, n).unbind(0)),
+                      x.dim() - 1, parts)
+
+
 # ---------------------------------------------------------------------------
-# the Megatron pair: identity one way, all-reduce the other
+# the Megatron pairs: identity one way, all-reduce the other; all-gather
+# one way, the rank's slice the other
 # ---------------------------------------------------------------------------
 
 class _CopyToGroup(torch.autograd.Function):
@@ -232,3 +276,43 @@ def copy_to_group(x, group):
 
 def reduce_from_group(x, group):
     return x if group_size(group) == 1 else _ReduceFromGroup.apply(x, group)
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    """Forward: the rank's columns (rank_cols) gathered whole over the
+    group. Backward: the rank's columns of the gradient (every rank holds
+    the whole gradient, computed alike)."""
+
+    @staticmethod
+    def forward(ctx, x, group, parts):
+        ctx.group, ctx.parts = group, parts
+        return gather_cols(x.contiguous(), group, parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        return rank_cols(g, ctx.group, ctx.parts).contiguous(), None, None
+
+
+class _ScatterToGroup(torch.autograd.Function):
+    """Forward: the rank's columns of x (the input of a row-split product
+    after work done whole on every rank). Backward: the group's gradient
+    pieces gathered whole."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return rank_cols(x, group).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_cols(g.contiguous(), ctx.group), None
+
+
+def gather_from_group(x, group, parts=1):
+    if group_size(group) == 1:
+        return x
+    return _GatherFromGroup.apply(x, group, parts)
+
+
+def scatter_to_group(x, group):
+    return x if group_size(group) == 1 else _ScatterToGroup.apply(x, group)

@@ -6,11 +6,17 @@ torch.distributed).
 Megatron split over "mp" (tensor_parallel), as prior_param_specs places
 each parameter: every transformer's c_attn, c_enc_kv and c_fc keep the
 rank's columns and every c_proj its rows, on the module itself. q, k and
-v (k and v of c_enc_kv) are each split by heads, so a rank holds n_head / mp whole heads: its attention, flash
-kernels included, runs on its heads alone, its ring caches hold n_state /
-mp columns, and a row-split product is all-reduced before its bias is
-added (models/attention.py, models/transformer.py). A transformer whose
-n_head the mp size does not divide is refused.
+v (k and v of c_enc_kv) are each split by columns, and a row-split product
+is all-reduced before its bias is added (models/attention.py,
+models/transformer.py). Where mp divides n_head, a rank's columns are
+n_head / mp whole heads: its attention, flash kernels included, runs on
+its heads alone and its ring caches hold n_state / mp columns. Where it
+does not (the 1-head upsamplers and small_prior, the 2-head 1b top at
+mp=4), the ranks gather q, k and v whole, every rank runs the whole
+attention with the same kernels and holds whole caches, and each takes its
+columns of the output into its rows of c_proj (parallel/dist.py's gather /
+scatter pair: the gather's backward is the rank's slice, the slice's an
+all-gather).
 
 ZeRO-3 over "dp" (fully_shard_model, torch's fully_shard): each parameter
 of fsdp_param_specs' "dp" axis is held as the rank's chunk of that axis
@@ -33,6 +39,7 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from jukebox_tpu_torch.parallel import dist as pdist
+from jukebox_tpu_torch.parallel.dist import mp_slice, mp_unslice
 from jukebox_tpu_torch.parallel.shardings import (fsdp_param_specs,
                                                   prior_param_specs)
 
@@ -49,24 +56,6 @@ def _own(t):
 # the Megatron split
 # ---------------------------------------------------------------------------
 
-def mp_slice(t, axis, parts, mp, r):
-    """Rank r's piece of t along axis: of each of `parts` equal parts
-    (q | k | v), its r-th of mp chunks."""
-    per = t.shape[axis] // parts
-    loc = per // mp
-    return torch.cat([t.narrow(axis, p * per + r * loc, loc)
-                      for p in range(parts)], dim=axis)
-
-
-def mp_unslice(pieces, axis, parts):
-    """The whole tensor from every rank's mp_slice piece, in rank
-    order."""
-    mp = len(pieces)
-    loc = pieces[0].shape[axis] // parts
-    return torch.cat([pieces[r].narrow(axis, p * loc, loc)
-                      for p in range(parts) for r in range(mp)], dim=axis)
-
-
 def _parts(model, name):
     """The equal parts of a split product's columns, each split on its own:
     c_attn's q | k | v (q alone in f6 layers), c_enc_kv's k | v, one
@@ -80,16 +69,16 @@ def _parts(model, name):
 def tensor_parallel(model, mesh):
     """Split `model` over mesh's "mp" in place, each parameter as
     prior_param_specs places it (the module docstring), and return {parameter
-    name: (axis, parts)} of the split parameters. Raises where n_head % mp
-    != 0."""
+    name: (axis, parts)} of the split parameters. Raises where mp does not
+    divide a split product's columns."""
     from jukebox_tpu_torch.models.attention import FactoredAttention
     from jukebox_tpu_torch.models.transformer import MLP, Transformer
     mp, r, group = mesh.mp, mesh.mp_rank, mesh.mp_group
     for name, m in model.named_modules():
-        if isinstance(m, FactoredAttention) and m.n_head % mp:
+        if isinstance(m, FactoredAttention) and m.n_state % mp:
             raise ValueError(
-                f"{name}: {m.n_head} heads do not split over mp={mp} (the "
-                f"port splits attention by whole heads)")
+                f"{name}: {m.n_state} columns of q, k and v do not split "
+                f"over mp={mp}")
     split = {}
     params = dict(model.named_parameters())
     for name, spec in prior_param_specs(model).items():
@@ -100,7 +89,10 @@ def tensor_parallel(model, mesh):
         p.data = _own(mp_slice(p.data, axis, parts, mp, r))
         split[name] = (axis, parts)
     for m in model.modules():
-        if isinstance(m, FactoredAttention):
+        if isinstance(m, FactoredAttention) and m.n_head % mp:
+            m.whole = True
+        elif isinstance(m, FactoredAttention):
+            m.heads = (r * (m.n_head // mp), m.n_head)
             m.n_head //= mp
             m.n_state //= mp
         if isinstance(m, (FactoredAttention, MLP, Transformer)):

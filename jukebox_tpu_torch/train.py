@@ -45,7 +45,9 @@ batch; a prior with mesh_mp > 1 is split over "mp" (Megatron) and with
 hps.fsdp its parameters and moments are held at 1/dp a rank (ZeRO-3),
 parallel/placement.py. A VQ-VAE trains data-parallel, its codebooks kept
 equal on every rank. The draws of a step (aug_blend, dropout, codebook
-restarts) use the same seeds on every rank. Rank 0 alone writes the logs,
+restarts) use the same seeds on every rank and are drawn for the global
+batch, each rank taking its rows, so that a placed step is one process's
+step on the global batch with them on too. Rank 0 alone writes the logs,
 the checkpoints and the trace; a mesh that the world does not fill
 raises.
 
@@ -83,9 +85,10 @@ from jukebox_tpu_torch.hparams import setup_hparams
 from jukebox_tpu_torch.models.make_models import (VQVAERuntime, make_prior,
                                                   make_vqvae, restore_opt,
                                                   save_model_checkpoint)
-from jukebox_tpu_torch.ops.core import fold_seed
-from jukebox_tpu_torch.parallel.dist import (make_mesh, rank_device,
-                                             replicate, setup_dist)
+from jukebox_tpu_torch.ops.core import dropout_rows, fold_seed
+from jukebox_tpu_torch.parallel.dist import (dp_rows, make_mesh,
+                                             rank_device, replicate,
+                                             setup_dist)
 from jukebox_tpu_torch.parallel.placement import Placement
 from jukebox_tpu_torch.utils.audio_utils import audio_preprocess
 from jukebox_tpu_torch.utils import profiler
@@ -158,7 +161,9 @@ def make_prior_train_step(runtime, hps, lr_fn, mark=None):
     callable, called with the name of each part of the step (encode,
     forward, backward, update) as it ends, to time the step by parts.
     Under runtime.placement, x and y are the rank's slice of the global
-    batch and the loss and metrics are the global batch's."""
+    batch as the loader deals it (parallel/dist.py dp_rows), its dropout
+    masks those rows' of the global batch's (ops/core.py dropout_rows),
+    and the loss and metrics are the global batch's."""
     prior, vqvae = runtime.model, runtime.vqvae
     mark = mark or (lambda part: None)
 
@@ -168,10 +173,11 @@ def make_prior_train_step(runtime, hps, lr_fn, mark=None):
         z, z_conds = zs[0], zs[1:]
         mark("encode")
         _begin(runtime)
-        loss, metrics = prior.z_forward(z, z_conds=z_conds or None, y=y,
-                                        fp16=hps.fp16, seed=seed)
-        mark("forward")
-        (loss * loss_scale).backward()
+        with dropout_rows(_rows(runtime, z.shape[0])):
+            loss, metrics = prior.z_forward(z, z_conds=z_conds or None, y=y,
+                                            fp16=hps.fp16, seed=seed)
+            mark("forward")
+            (loss * loss_scale).backward()
         mark("backward")
         out = _finish(runtime, hps, lr_fn, opt_state, it, loss_scale, loss,
                       metrics)
@@ -236,10 +242,22 @@ def make_eval_step(runtime, hps):
     return eval_fn
 
 
-def _batch(batch, hps, device, gen=None):
-    """A loader batch as (x [N, T, 1] fp32, y or None) on device."""
+def _rows(runtime, n):
+    """The global batch rows of the rank's n rows (parallel/dist.py
+    dp_rows), or None without a placement."""
+    placement = runtime.placement
+    return None if placement is None else dp_rows(n, placement.mesh)
+
+
+def _batch(batch, hps, device, gen=None, runtime=None):
+    """A loader batch as (x [N, T, 1] fp32, y or None) on device; under
+    runtime's placement the aug_blend mix is the rank's rows' of the
+    global batch's."""
     x, y = batch if isinstance(batch, tuple) else (batch, None)
-    x = audio_preprocess(torch.as_tensor(x).to(device), hps, gen=gen)
+    x = torch.as_tensor(x).to(device)
+    rows = None if runtime is None else _rows(runtime, x.shape[0])
+    x = audio_preprocess(x, hps, gen=gen, rows=rows, total=None if rows
+                         is None else x.shape[0] * runtime.placement.mesh.dp)
     return x, (torch.as_tensor(y).to(device) if y is not None else None)
 
 
@@ -410,7 +428,7 @@ def train(step_fn, runtime, opt_state, ema, data_processor, hps, epoch,
             it = runtime.step + 1
             gen = torch.Generator(device=device).manual_seed(
                 fold_seed(seed, epoch, it, 0))
-            x, y = _batch(batch, hps, device, gen)
+            x, y = _batch(batch, hps, device, gen, runtime)
             log_input_output = logger.iters % hps.save_iters == 0
             # a trace of a few steady-state steps
             if (hps.debug_speed and logger.iters == 2 and not tracing

@@ -54,15 +54,20 @@ def calculate_bandwidth(dataset, hps, duration=600):
                 spec=spec_norm_total / spec_nelem)
 
 
-def audio_preprocess(x, hps, gen=None):
+def audio_preprocess(x, hps, gen=None, rows=None, total=None):
     """Audio [N, T, C] -> fp32 [N, T, 1] on x's device: stereo blended to
     mono, with a random per-item blend under hps.aug_blend when a
-    torch.Generator is given (audio_utils.py:58-77)."""
+    torch.Generator is given (audio_utils.py:58-77). rows, total: x holds
+    the rows `rows` of a global batch of `total` (a data-parallel rank's),
+    whose mix is drawn for the global batch; those rows' mix is taken."""
     x = torch.as_tensor(x).float()
     if x.shape[-1] == 2:
         if hps.get("aug_blend", False) and gen is not None:
-            mix = torch.rand((x.shape[0], 1), generator=gen,
-                             device=gen.device).to(x.device)
+            mix = torch.rand((x.shape[0] if rows is None else total, 1),
+                             generator=gen, device=gen.device)
+            if rows is not None:
+                mix = mix[torch.tensor(rows, device=gen.device)]
+            mix = mix.to(x.device)
         else:
             mix = 0.5
         x = mix * x[:, :, 0] + (1 - mix) * x[:, :, 1]

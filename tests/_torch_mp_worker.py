@@ -16,7 +16,14 @@ Jobs (each writes <outdir>/<job>_<rank>_of_<world>.pt):
            top_k=1 in fp32 and int8-staged (bf16 plain versions), and
            the logits of its bf16 and int8 staged decode on forced tokens
   dpmp     one prior train step at dp = world / 2, mp = 2
+  dpmp_drop the same with attention, residual and embedding dropout 0.1
   fsdp     one prior train step ZeRO-3 over dp = world (min_size 64)
+  up_mp    the upsampler-shaped prior of inputs.pt (one head: mp does not
+           divide it) split over mp = world: one train step, its tokens
+           at top_k=1 in fp32 and the logits of its bf16 staged decode on
+           forced tokens
+  run_drop train.run as run_fsdp without fsdp, with dropout 0.1 and
+           aug_blend
   run_mp   train.run of a tiny labelled lyric prior on <outdir>/wavs with
            mesh_mp = world: two steps, an evaluation, a checkpoint, the
            in-training sample at step 1 (its records)
@@ -46,6 +53,20 @@ PRIOR_PAR = dict(sample_length=256, sr=8000, level=1, levels=2, labels=True,
                  prime_loss_fraction=0.4, single_enc_dec=True, n_ctx=32,
                  prior_width=32, prior_depth=3, heads=2, attn_order=12,
                  blocks=8, init_scale=0.7, lr=1e-3, prior=True, train=True)
+# an upsampler-shaped prior: one head, a level-1 conditioner, labels
+# without lyrics (tests/test_torch_prior.py UP at test_parallel.py's
+# sizes); no warmup, so that its step moves each param by about lr, 50x
+# the params' tolerance, whatever the size of its gradient (Adam)
+UP_PAR = dict(sample_length=128, sr=8000, level=0, levels=2, labels=True,
+              labels_v3=False, y_bins=(10, 100), max_bow_genre_size=1,
+              t_bins=16, min_duration=1.0, max_duration=600.0,
+              use_tokens=False, n_ctx=32, prior_width=32, prior_depth=3,
+              heads=1, attn_order=2, blocks=8, init_scale=0.7, cond_width=16,
+              cond_depth=2, cond_dilation_growth_rate=3,
+              cond_dilation_cycle=None, lr=1e-3, lr_warmup=1.0, prior=True,
+              train=True)
+DROP = dict(attn_dropout=0.1, resid_dropout=0.1, emb_dropout=0.1)
+DROP_SEED = 5
 GLOBAL_BS = 8
 FSDP_MIN = 64
 FORCED = 16  # forced tokens of the staged decode's logits
@@ -135,38 +156,43 @@ def vqvae_steps(mesh=None):
                     for blk in model.bottleneck.level_blocks])
 
 
-def build_prior(inputs):
-    """The test_parallel.py _build prior (train=True) on the weights of
-    inputs["vq"], inputs["prior"] (state dicts)."""
+def build_prior(inputs, which="prior", **over):
+    """The test_parallel.py _build prior (train=True), or with which="up"
+    the UP_PAR one, on the weights of inputs["vq"], inputs[which] (state
+    dicts); over: hparams over the preset's."""
     from jukebox_tpu_torch.hparams import setup_hparams
     from jukebox_tpu_torch.models.make_models import make_prior, make_vqvae
     vq = make_vqvae(setup_hparams("teeny", dict(VQ_PAR)), "cpu")
     vq.load_state_dict(inputs["vq"])
-    hps = setup_hparams("teeny", dict(PRIOR_PAR))
+    cfg = PRIOR_PAR if which == "prior" else UP_PAR
+    hps = setup_hparams("teeny", dict(cfg, **over))
     runtime = make_prior(hps, vq, "cpu")
-    runtime.model.load_state_dict(inputs["prior"])
+    runtime.model.load_state_dict(inputs[which])
     return runtime, hps
 
 
-def prior_step(inputs, mesh, fsdp):
-    """One train step of the placed prior on the rank's slice of inputs'
-    global batch: {loss, gn, params (whole, gathered), local_frac (the
-    rank's share of each parameter's elements)}."""
-    from jukebox_tpu_torch.parallel.dist import batch_slice
+def prior_step(inputs, mesh, fsdp, which="prior", seed=None, **over):
+    """One train step of the placed prior on the rank's rows of inputs'
+    global batch (x, y; x_up, y_up for which="up"), its dropouts (if over
+    turns them on) seeded by seed: {loss, gn, params (whole, gathered),
+    local_frac (the rank's share of each parameter's elements)}."""
+    from jukebox_tpu_torch.parallel.dist import dp_rows
     from jukebox_tpu_torch.parallel.placement import Placement
     from jukebox_tpu_torch.train import make_prior_train_step
     from jukebox_tpu_torch.utils.train_utils import (adam_init,
                                                      make_lr_schedule)
-    runtime, hps = build_prior(inputs)
+    runtime, hps = build_prior(inputs, which, **over)
     full = {n: p.numel() for n, p in runtime.model.named_parameters()}
     opt = adam_init(runtime.params)
     runtime.placement = Placement(runtime.model, mesh, fsdp=fsdp,
                                   min_size=FSDP_MIN)
     opt = dict(opt, m=runtime.placement.shard_dict(opt["m"]),
                v=runtime.placement.shard_dict(opt["v"]))
-    rows = batch_slice(inputs["x"].shape[0], mesh)
+    x, y = ((inputs["x"], inputs["y"]) if which == "prior"
+            else (inputs["x_up"], inputs["y_up"]))
+    rows = dp_rows(x.shape[0] // mesh.dp, mesh)  # as the loader deals them
     step = make_prior_train_step(runtime, hps, make_lr_schedule(hps))
-    loss, m = step(opt, (inputs["x"][rows], inputs["y"][rows]), None, 1)
+    loss, m = step(opt, (x[rows], y[rows]), seed, 1)
     params = runtime.placement.full_dict(runtime.params)
     return dict(loss=float(loss), gn=float(m["gn"]),
                 params={n: t.numpy() for n, t in params.items()},
@@ -194,16 +220,18 @@ def checkpoint(inputs, mesh, outdir):
                                   runtime.params.items()})
 
 
-def forced_logits(runtime, y, n=FORCED):
+def forced_logits(runtime, y, n=FORCED, z_conds=None, stream=None):
     """Logits [B, n, bins] of the staged decode (runtime.staged: bf16, or
     int8 as stage_decode made it; the decode kernels' plain versions), one
-    decode step a token, the first n tokens of y's stream forced."""
+    decode step a token, the first n tokens of the stream forced: y's
+    lyrics then zeros for a single_enc_dec prior, else `stream`."""
     m, dec = runtime.model, runtime.staged
     B = y.shape[0]
     with torch.no_grad():
-        x_cond, y_cond, prime = m.get_cond(None, y)
-        z = torch.zeros((B, m.n_ctx), dtype=torch.long)
-        stream, x_cond = m.prior_preprocess([prime, z], [None, x_cond])
+        x_cond, y_cond, prime = m.get_cond(z_conds, y)
+        if m.single_enc_dec:
+            z = torch.zeros((B, m.n_ctx), dtype=torch.long)
+            stream, x_cond = m.prior_preprocess([prime, z], [None, x_cond])
         caches = m.prior.init_decode_caches(
             B, "cpu", fp16=True, dec_params=dec,
             int8=runtime.staged_mode[0] == "int8")
@@ -234,6 +262,31 @@ def decode(inputs, mesh):
                 logits_int8=forced_logits(runtime, y))
 
 
+def up_decode(runtime, inputs):
+    """The UP_PAR prior's fp32 tokens at top_k=1 (temp 1) on inputs'
+    z_conds_up and the first rows of y_up, the logits of its bf16 staged
+    decode on the forced stream inputs["z_up"], and its caches'
+    columns."""
+    zc = [inputs["z_conds_up"]]
+    y = inputs["y_up"][:zc[0].shape[0]]
+    toks = runtime.sample(y.shape[0], z_conds=zc, y=y, fp16=False,
+                          temp=1.0, top_k=1, chunk_size=8)
+    return dict(tokens=toks.numpy(), logits=forced_logits(
+                    runtime, y, z_conds=zc, stream=inputs["z_up"]),
+                cache_cols=runtime.model.prior.transformer.blocks[0]
+                .attn.n_state)
+
+
+def up_mp(inputs, mesh):
+    """up_decode of the UP_PAR prior split over mesh's mp, after one
+    train step of a second copy split alike (prior_step)."""
+    out = prior_step(inputs, mesh, False, "up")
+    runtime, _ = build_prior(inputs, "up", train=False)
+    runtime.stage_decode(mesh=mesh)
+    out.update(up_decode(runtime, inputs))
+    return out
+
+
 def main():
     torch.set_num_threads(1)
     outdir, jobs = sys.argv[1], sys.argv[2].split(",")
@@ -254,6 +307,13 @@ def main():
         elif job == "dpmp":
             out = prior_step(inputs, make_mesh(world // 2, 2, device="cpu"),
                              False)
+        elif job == "dpmp_drop":
+            out = prior_step(inputs, make_mesh(world // 2, 2, device="cpu"),
+                             False, seed=DROP_SEED, **DROP)
+        elif job == "up_mp":
+            out = up_mp(inputs, make_mesh(1, world, device="cpu"))
+        elif job == "run_drop":
+            out = train_run(outdir, job, aug_blend=True, **DROP)
         elif job == "fsdp":
             out = prior_step(inputs, make_mesh(device="cpu"), True)
         elif job == "run_mp":

@@ -88,7 +88,10 @@ class MegakernelStack:
     """Every segment of jt.decode_plan as one build_stack_decode segment
     (interpret mode): scans as they are, flat layers (the order-10 plan's
     flat f6) as single-layer segments. caches: the standard caches of
-    jt.init_cache after any prefill, converted with pack_caches."""
+    jt.init_cache after any prefill, converted with pack_caches; with
+    cache_quantized, int8 in the segments the JAX package packs
+    (_stack_eligible, _flat_stack_func), as its int8 mode makes them: the
+    flat f6, which it leaves to XLA, keeps bf16 caches."""
 
     def __init__(self, jt, params, caches, head_mode="auto", quantized=False,
                  cache_quantized=False):
@@ -105,14 +108,17 @@ class MegakernelStack:
             packed = _flatten_packed(pack_decode_params(
                 p_seg, lane=LANE, quantize=quantized, pat=pat))
             res_scale = jt.block_cfg(0).res_scale
+            packs = (jt._flat_stack_func(seg[1]) is not None
+                     if seg[0] == "flat" else jt._stack_eligible(seg))
+            quant_cache = cache_quantized and packs
             mk = jax.jit(build_stack_decode(
                 S, A, S, BC, BLOCKS, G, B, res_scale=res_scale, lane=LANE,
                 quantized=quantized, pat=pat, n_head=jt.n_head,
                 interpret=True, head_mode=head_mode,
                 enc_rows=ENC if 6 in pat else 0,
-                cache_quantized=cache_quantized))
+                cache_quantized=quant_cache))
             c6 = pack_caches(tuple(c_seg), BC, pat=pat, lane=LANE,
-                             quantize=cache_quantized)
+                             quantize=quant_cache)
             self.segs.append([mk, packed, c6])
 
     def step(self, x, t):
@@ -165,9 +171,11 @@ def test_bf16_f6_stack_matches_megakernel(head_mode):
 @pytest.mark.parametrize("head_mode", ["matmul", "masked"])
 def test_int8_f6_stack_matches_megakernel(head_mode):
     """quantized=True, cache_quantized=True from an empty context: every
-    ring row the later tokens read was quantised by the decode step
-    itself, across four block boundaries; the f6 encoder rows are
-    quantised at the start, from the int8 projection."""
+    int8 ring row the later tokens read was quantised by the decode step
+    itself, across four block boundaries; the flat f6 layer, which the
+    JAX package does not pack, keeps its encoder rows in bf16, projected
+    by its int8 c_enc_kv (the packed f6 layers' int8 encoder rows:
+    tests/test_torch_int8_cache.py)."""
     jt, params, tt = pair(10, 20, seed=3)
     enc, _, xs = _inputs(4)
     enc_j = jnp.asarray(enc, jnp.bfloat16)
@@ -180,7 +188,9 @@ def test_int8_f6_stack_matches_megakernel(head_mode):
     caches = tt.init_cache(B, torch.bfloat16, "cpu",
                            encoder_kv=torch.from_numpy(enc).bfloat16(),
                            dec_params=staged, int8=True)
-    assert caches[18]["k"].dtype == torch.int8 and "ks" in caches[0]
+    assert tt.packed == frozenset(range(20)) - {18}
+    assert caches[18]["k"].dtype == torch.bfloat16 and "ks" not in caches[18]
+    assert caches[19]["k"].dtype == torch.int8 and "ks" in caches[0]
     with torch.no_grad():
         for t in range(N_CTX):
             ref = mk.step(xs[t], t)

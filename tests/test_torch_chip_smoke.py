@@ -760,25 +760,31 @@ def test_recipes_rehearsal(tmp_path, monkeypatch):
 # width 64 (2 heads: the Megatron split takes one a rank)
 P10_OVER = dict(n_ctx=64, sample_length=64 * 128, prior_depth=4,
                 prior_width=64, blocks=8, min_duration=0.5)
+# and its upsampler: 2 layers at width 64 (one head, whole on each rank), a
+# 2-layer conditioner at 32
+P10_UP_OVER = dict(n_ctx=64, sample_length=64 * 32, prior_depth=2,
+                   prior_width=64, blocks=8, cond_width=32, cond_depth=2,
+                   min_duration=0.1)
 
 
 def test_phase10_rehearsal():
     """Phase 10 on the CPU: world 1's references, (a) in this process over
     gloo, (b) two chip_smoke.py ranks over gloo; every part runs (gloo
     carries every collective on CPU tensors) and holds."""
-    rep = chip_smoke.run_phase10(0, "cpu", **P10_OVER)
+    rep = chip_smoke.run_phase10(0, "cpu", up_over=P10_UP_OVER, **P10_OVER)
     gaps = rep["a"]["gaps"]
     assert gaps["loss"] == gaps["gn"] == gaps["params"] == 0.0
     assert gaps["equal tensors"][0] == gaps["equal tensors"][1]
     b = rep["b"]
     assert set(b) == set(chip_smoke.P10_PARTS)
-    for part in ("dp", "fsdp"):
+    for part in ("dp", "fsdp", "dp_drop"):
         assert b[part]["loss"][0] == b[part]["loss"][1]
     assert all(n < b["fsdp"]["ref_bytes"] * 0.6
                for n in b["fsdp"]["state_bytes"])
     assert all(n < b["mp"]["ref_bytes"] for n in b["mp"]["state_bytes"])
     assert b["decode"]["rel"] <= chip_smoke.STEP_TOL
     assert b["decode_int8"]["rel"] <= chip_smoke.STEP_TOL
+    assert b["up_decode"]["rel"] <= chip_smoke.STEP_TOL
     assert rep["launches"] == dict.fromkeys(rep["launches"], 0)  # CPU
 
 
@@ -803,4 +809,54 @@ def test_phase10_refuses_a_faulty_gather(monkeypatch):
     monkeypatch.setattr(FSDPParamGroup, "wait_for_unshard", faulty)
     monkeypatch.setattr(chip_smoke, "p10_launch", None)  # (b) not reached
     with pytest.raises(AssertionError, match="phase 10 \\(a\\)"):
-        chip_smoke.run_phase10(0, "cpu", **P10_OVER)
+        chip_smoke.run_phase10(0, "cpu", up_over=P10_UP_OVER, **P10_OVER)
+
+
+def test_summary_kernel_check():
+    """Phase 2's f4 check at a toy width: the kernel's plain version agrees
+    with itself, and the planted fault (the summary one row off) is
+    refused at every block end."""
+    rows = {}
+    row = chip_smoke.check_summary_attn(
+        rows, 2, "cpu", torch.Generator().manual_seed(0), time_it=False,
+        sh=dict(A=16, H=2, blocks=8, bc=6))
+    assert row["max_abs_err"] == 0.0 and rows["ring_attn_decode"]["f4"] is row
+    assert chip_smoke.summary_positions(chip_smoke.SUMMARY)[-1] == 6143
+
+
+# phase 11 at a toy width: orders 3 and 5 at the depths whose plans the
+# card's share (order 3: one scan, nothing packed; order 5 at 9: f1 packed,
+# f4 not), n_ctx 96 in 8 blocks of 12
+P11_OVER = dict(n_ctx=96, sample_length=96 * 128, prior_width=32, blocks=8)
+
+
+def test_phase11_rehearsal(monkeypatch):
+    """Phase 11 on the CPU: both priors, bf16 and int8, through the
+    PriorRuntime pieces; the decode kernels' plain calls equal the expected
+    launches plus the two kernel-against-plain checks (each a step through
+    the kernel path and one through the plain path), the LayerNorm calls
+    the prefill's."""
+    from jukebox_tpu_torch.ops import layer_norm as ln
+    calls = _count_plain(monkeypatch, ds, ds.LAUNCHES)
+    ln_calls = _count_plain(monkeypatch, ln, ln.LAUNCHES)
+    rep = chip_smoke.run_phase11(0, "cpu", B=2, **P11_OVER)
+    want = dict.fromkeys(ds.LAUNCHES, 0)
+    ln_want = dict.fromkeys(ln.LAUNCHES, 0)
+    for what in ("order 3 bf16", "order 3 int8", "order 5 bf16",
+                 "order 5 int8"):
+        r = rep[what]
+        assert r["tokens"] == 4 * 12 and r["checks"] == 2
+        per = {k: v // r["tokens"] for k, v in r["expected"].items()}
+        for k in want:
+            want[k] += r["expected"][k] + 2 * r["checks"] * per[k]
+        for k in ln_want:
+            ln_want[k] += r["ln_expected"][k]
+        assert all(rel <= chip_smoke.STEP_TOL for rel in r["rel"])
+    assert rep["order 3 int8"]["int8_layers"] == []
+    assert rep["order 5 int8"]["int8_layers"] == [0, 2, 3, 4, 6, 7, 8]
+    assert rep["order 5 int8"]["expected"]["ring_attn_int8"] == 48 * 7
+    assert rep["order 5 int8"]["expected"]["ring_attn_decode"] == 48 * 2
+    assert rep["order 3 bf16"]["expected"]["ring_attn_decode"] == 48 * 8
+    assert calls == want
+    assert ln_calls == ln_want
+    assert rep["launches"] == dict.fromkeys(ds.LAUNCHES, 0)  # CPU

@@ -115,6 +115,8 @@ def test_step_index_positions():
                          f2=(t % bc) * blocks + t // bc,
                          f3=((t // bc) % 2) * bc + t % bc,
                          f3_prev=(((t // bc) - 1) % 2) * bc,
+                         f4=1 + t // bc, f4_keep=int(t % bc == bc - 1),
+                         f4_hi=min((t + 1) // bc, blocks - 1),
                          f7=min(t, pl - 1), f7_keep=int(t < pl))
         pos.advance()
     assert set(StepIndex(3, "cpu").positions()) == {"t"}

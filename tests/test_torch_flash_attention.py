@@ -152,8 +152,8 @@ def _attn(attn_func, blocks=None, mask=True):
 def test_flash_dispatch(monkeypatch, attn_func, L, dtype, mask, flash):
     calls = []
 
-    def spy(q, k, v, n_head, rate, seed, plain):
-        calls.append((q.shape, rate, seed, plain))
+    def spy(q, k, v, n_head, rate, seed, plain, heads):
+        calls.append((q.shape, rate, seed, plain, heads))
         return torch.zeros_like(q)
     monkeypatch.setattr(tattn, "flash_dense_attn", spy)
     m = _attn(attn_func, blocks=16 if attn_func else None, mask=mask)
@@ -164,4 +164,4 @@ def test_flash_dispatch(monkeypatch, attn_func, L, dtype, mask, flash):
     assert out.shape == x.shape and out.dtype == dtype
     assert len(calls) == (1 if flash else 0)
     if flash:
-        assert calls[0] == ((1, L, 16), 0.0, None, False)
+        assert calls[0] == ((1, L, 16), 0.0, None, False, None)

@@ -21,6 +21,17 @@ and the shared weights are made here.
   params atol 2e-5; ZeRO-3 at dp=4 (min_size 64): loss rtol 2e-6, gn
   2e-5, params atol 2e-6, and at least half of the leaves of 64 elements
   or more held at 1/4 a rank.
+* A 1-head prior with a level-1 conditioner (upsampler-shaped, UP_PAR)
+  at mp=2, where mp does not divide the heads (every rank runs the whole
+  attention on gathered q, k, v): its step against world 1 and against
+  the JAX step at the dp x mp tolerances, its fp32 tokens at top_k=1 equal
+  world 1's and the JAX sampler's, its bf16 staged decode's logits on 16
+  forced tokens within DECODE_TOL of world 1's, its caches whole.
+* Dropout 0.1 (attention, residual, embedding) drawn for the global
+  batch: the prior at dp=2 x mp=2 against one process's step with the
+  same seed at the dp x mp tolerances; train.run at dp=2 with dropout and
+  aug_blend against one process at the global batch, train.run's
+  tolerances, its losses moved by the dropout.
 * Tensor-parallel decode at mp=2: the fp32 tokens at temp 0 equal one
   process's and the JAX staged decode's; the int8-staged stream has their
   shape; the logits of the bf16 and the int8 staged decode on 16 forced
@@ -154,24 +165,70 @@ def ref(tmp_path_factory):
                   v={n: torch.from_numpy(rs.uniform(0, 1, p.shape).astype(
                       np.float32)) for n, p in
                      runtime.model.named_parameters()})
+    up = _build_up(jprior.vqvae, tvq)
+    inputs.update(up.pop("inputs"))
     outdir = tmp_path_factory.mktemp("mp")
     torch.save(inputs, outdir / "inputs.pt")
     (outdir / "wavs").mkdir()
     _write_wavs(outdir / "wavs")
     new = named_leaves(runtime.model, np_tree(new))
     return dict(jprior=jprior, x=x, y=y, loss=loss, gn=gn, params=new,
-                inputs=inputs, outdir=outdir)
+                inputs=inputs, outdir=outdir, up=up)
+
+
+def _build_up(jvq, tvq):
+    """The JAX prior of W.UP_PAR on _build's VQ-VAE, its biases drawn, its
+    single-device step on a batch of 4, and its tokens at top_k=1: {loss,
+    gn, params (named as the port's), tokens, inputs (the port's weights,
+    batch, sampling conditions and forced stream, for inputs.pt)}."""
+    from jukebox_tpu.hparams import setup_hparams as jsetup
+    from jukebox_tpu.models.make_models import make_prior as jmake_prior
+    from jukebox_tpu.train import make_prior_train_step
+    from jukebox_tpu_torch.hparams import setup_hparams
+    from jukebox_tpu_torch.models.make_models import make_prior
+    from test_parallel import _run
+    np_tree = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
+    hps = jsetup("teeny", dict(W.UP_PAR))
+    jp = jmake_prior(hps, jvq)
+    jp.params = _draw_biases(jp.params)
+    jstep = make_prior_train_step(jp, hps, jtu.make_lr_schedule(hps))
+    bs, T = 4, W.UP_PAR["sample_length"]
+    x = jax.random.uniform(jax.random.key(2), (bs, T, 1), minval=-1,
+                           maxval=1)
+    y = np.zeros((bs, 4 + W.UP_PAR["max_bow_genre_size"]), np.int64)
+    y[:, 0], y[:, 2], y[:, 3], y[:, 4] = 600 * 8000, T, 3, 7
+    copy = lambda t: jax.tree_util.tree_map(jnp.copy, t)  # noqa: E731
+    new, loss, gn = _run(jstep, copy(jp.params), jtu.adam_init(jp.params),
+                         x, jnp.asarray(y))
+    rs = np.random.RandomState(4)
+    n = 2
+    z_conds = jp.get_z_conds([None, rs.randint(0, 32, (n, 16))], 0,
+                             W.UP_PAR["n_ctx"])
+    tokens = np.asarray(jp.sample(n, z_conds=z_conds, y=y[:n],
+                                  rng=jax.random.key(7), fp16=False,
+                                  temp=1.0, top_k=1, chunk_size=8))
+    runtime = make_prior(setup_hparams("teeny", dict(W.UP_PAR)), tvq, "cpu")
+    from_jax_params(runtime.model, np_tree(jp.params))
+    return dict(loss=loss, gn=gn, tokens=tokens,
+                params=named_leaves(runtime.model, np_tree(new)),
+                inputs=dict(up=runtime.model.state_dict(),
+                            x_up=torch.from_numpy(np.array(x)),
+                            y_up=torch.from_numpy(y),
+                            z_conds_up=torch.from_numpy(
+                                np.asarray(z_conds[0])),
+                            z_up=torch.from_numpy(rs.randint(
+                                0, 32, (n, W.UP_PAR["n_ctx"])))))
 
 
 @pytest.fixture(scope="module")
 def world2(ref):
-    return _run_world(2, ["vqvae", "ckpt", "decode", "run_mp", "run_fsdp"],
-                      ref["outdir"])
+    return _run_world(2, ["vqvae", "ckpt", "decode", "run_mp", "run_fsdp",
+                          "up_mp", "run_drop"], ref["outdir"])
 
 
 @pytest.fixture(scope="module")
 def world4(ref):
-    return _run_world(4, ["dpmp", "fsdp"], ref["outdir"])
+    return _run_world(4, ["dpmp", "fsdp", "dpmp_drop"], ref["outdir"])
 
 
 # -- VQ-VAE data parallel ------------------------------------------------------
@@ -276,6 +333,45 @@ def test_fsdp_specs_of_the_workers_match_jax(world4, ref):
         assert port[n] == s + (None,) * (len(port[n]) - len(s)), n
 
 
+def test_prior_dropout_dp2_mp2_matches_one_process(world4, ref):
+    """Dropout drawn for the global batch: each rank's slice of rows and
+    heads gets one process's masks."""
+    one = W.prior_step(ref["inputs"], _mesh_one(), False,
+                       seed=W.DROP_SEED, **W.DROP)
+    plain = W.prior_step(ref["inputs"], _mesh_one(), False)
+    assert abs(one["loss"] - plain["loss"]) > 1e-3  # the dropout is on
+    for out in world4["dpmp_drop"]:
+        _assert_step(out, one, 2e-5, 2e-4, 2e-5)
+
+
+# -- a prior whose heads mp does not divide -----------------------------------
+
+def test_one_head_prior_mp2_step_matches_world_one_and_jax(world2, ref):
+    up = ref["up"]
+    one = W.prior_step(ref["inputs"], _mesh_one(), False, "up")
+    for out in world2["up_mp"]:
+        _assert_step(out, up, 2e-5, 2e-4, 2e-5)
+        _assert_step(out, one, 2e-5, 2e-4, 2e-5)
+    # the columns of q, k, v and the rows of c_proj split, the heads not
+    fr = world2["up_mp"][0]["local_frac"]
+    assert fr["prior.transformer.blocks.0.attn.c_attn.w"] == 0.5
+    assert fr["prior.transformer.blocks.0.attn.c_proj.w"] == 0.5
+
+
+def test_one_head_prior_mp2_decode_matches_world_one_and_jax(world2, ref):
+    runtime, _ = W.build_prior(ref["inputs"], "up", train=False)
+    runtime.stage_decode()
+    one = W.up_decode(runtime, ref["inputs"])
+    np.testing.assert_array_equal(one["tokens"], ref["up"]["tokens"])
+    for out in world2["up_mp"]:
+        np.testing.assert_array_equal(out["tokens"], one["tokens"])
+        err = (np.abs(out["logits"] - one["logits"])
+               / np.maximum(1.0, np.abs(one["logits"])))
+        assert err.max() <= DECODE_TOL, err.max()
+        assert out["cache_cols"] == one["cache_cols"] == \
+            W.UP_PAR["prior_width"] // 4
+
+
 # -- tensor-parallel decode ----------------------------------------------------
 
 DECODE_TOL = 1e-2  # the staged decode's logits, relative to max(1, |logit|)
@@ -337,6 +433,28 @@ def _mesh_one():
 
 
 # -- train.run across ranks ----------------------------------------------------
+
+def test_train_run_dropout_and_blend_dp2_matches_one_process(world2, ref):
+    """dp=2 with dropout 0.1 and aug_blend: the global batch's masks and
+    mixes for each rank's rows as the loader deals them, so one process's
+    losses, gradient norms and params at bs 4."""
+    from jukebox_tpu_torch.utils.checkpoints import load_checkpoint
+    kw = dict(aug_blend=True, **W.DROP)
+    one = W.train_run(str(ref["outdir"]), "run_drop_one", bs=4, **kw)
+    plain = W.train_run(str(ref["outdir"]), "run_drop_plain", bs=4)
+
+    def params(run):
+        return flatten_tree(load_checkpoint(run["ckpt"])["params"])
+    p_one, p_plain = params(one), params(plain)
+    for out in world2["run_drop"]:
+        np.testing.assert_allclose(out["loss"], one["loss"], rtol=1e-5)
+        np.testing.assert_allclose(out["gn"], one["gn"], rtol=1e-4)
+    # the checkpoint's (EMA) params: one process's within 1e-7, while the
+    # run without dropout and blend is 1e-6 or more away
+    p_dp = params(world2["run_drop"][0])
+    assert max(np.abs(p_dp[k] - p_one[k]).max() for k in p_one) <= 1e-7
+    assert max(np.abs(p_plain[k] - p_one[k]).max() for k in p_one) > 1e-6
+
 
 @pytest.mark.parametrize("job,bs", [("run_mp", 2), ("run_fsdp", 4)])
 def test_train_run_across_ranks_matches_one_process(world2, ref, job, bs):

@@ -154,10 +154,19 @@ def test_mesh_refuses_a_world_it_does_not_fill():
 
 
 def test_megatron_split_refuses_uneven_heads():
+    """Heads that mp does not divide no longer refuse the split: such a
+    layer keeps its heads and runs its attention whole (its product
+    columns still split); what stays refused is columns mp does not
+    divide."""
     from jukebox_tpu_torch.models.transformer import Transformer
     tr = Transformer(16, 32, 1, 2, attn_order=2, blocks=4, device="cpu")
-    with pytest.raises(ValueError, match="heads"):
-        tensor_parallel(tr, Mesh(1, 2))
+    split = tensor_parallel(tr, Mesh(1, 2))
+    attn = tr.blocks[0].attn
+    assert attn.whole and (attn.n_head, attn.n_state) == (1, 4)
+    assert attn.c_attn.w.shape == (16, 6) and split["blocks.0.attn.c_attn.w"]
+    tr = Transformer(16, 32, 1, 2, attn_order=2, blocks=4, device="cpu")
+    with pytest.raises(ValueError, match="columns"):
+        tensor_parallel(tr, Mesh(1, 3))
 
 
 @pytest.mark.parametrize("drop_last", [True, False])

@@ -7,8 +7,8 @@ stream taken from the window's first codes). Each: the loss (within 1e-5)
 and the teacher-forced logits (rtol / atol 1e-4, tests/test_torch_prior.py's
 tolerance) of z_forward against the JAX z_forward on the same codes and
 labels. pos_init and prime_pos_init stay refused, as the JAX package
-asserts them off; the summary patterns do not decode (the JAX package has
-no summary-spread sampling either).
+asserts them off; the summary-spread pattern (5) does not decode in either
+package (the summary pattern 4 does: tests/test_torch_summary_decode.py).
 """
 
 import jax
@@ -91,9 +91,19 @@ def test_pos_init_is_still_refused(key):
                        tvq, "cpu")
 
 
-def test_summary_patterns_do_not_decode():
+@pytest.mark.parametrize("package", ["torch", "jax"])
+def test_summary_patterns_do_not_decode(package):
+    """Attn order 4 ([1, 5]): both packages refuse the caches of its
+    summary-spread layers, with the same reason."""
+    cfg = dict(CASES["order4_spread"])
+    if package == "jax":
+        jvq = jmm.make_vqvae(jhp.setup_hparams("teeny", dict(VQ)))
+        jp = jmm.make_prior(jhp.setup_hparams("teeny", cfg), jvq)
+        with pytest.raises(NotImplementedError, match="summary-spread"):
+            jp.model.prior.init_decode_caches(jp.params["prior"], N)
+        return
     tvq = tmm.make_vqvae(thp.setup_hparams("teeny", dict(VQ)), "cpu")
-    tp = tmm.make_prior(thp.setup_hparams("teeny", dict(CASES[
-        "order3_summary"])), tvq, "cpu")
-    with pytest.raises(NotImplementedError, match="attn_func 4"):
+    tp = tmm.make_prior(thp.setup_hparams("teeny", cfg), tvq, "cpu")
+    with pytest.raises(NotImplementedError,
+                       match="attn_func 5: summary-spread"):
         tp.model.prior.init_decode_caches(N, "cpu")
