@@ -273,7 +273,7 @@ from jukebox_tpu_torch.ops import flash_attention as fa
 from jukebox_tpu_torch.ops import layer_norm as ln
 from jukebox_tpu_torch.ops.core import (Conv1d, ConvTranspose1d, Dense,
                                         LayerNorm, Table, quantize_dense)
-from jukebox_tpu_torch.utils import avio, wavio
+from jukebox_tpu_torch.utils import avio, profiler, wavio
 from jukebox_tpu_torch.utils.audio_utils import (audio_preprocess,
                                                  calculate_bandwidth)
 from jukebox_tpu_torch.utils.checkpoints import load_checkpoint
@@ -1842,7 +1842,8 @@ def run_cascade(priors, hps, sampling_kwargs, int8=False, prompt=None,
     (launches, expected), the LayerNorm and flash kernels' (ln_launches,
     ln_expected, fa_launches, fa_expected: the sampling's prefill and
     conditioners, and the alignment's forward, counted across threads),
-    the stage seconds (stages) and the alignment's check (align). No
+    the recorder's coarse span seconds (stages: utils/profiler.py totals()
+    of the cascade) and the alignment's check (align). No
     thread may outlive the cascade."""
     metas = [dict(artist="unknown", genre="unknown", lyrics=LYRICS,
                   total_length=hps.sample_length, offset=0)] * hps.n_samples
@@ -1873,6 +1874,7 @@ def run_cascade(priors, hps, sampling_kwargs, int8=False, prompt=None,
         torch.cuda.reset_peak_memory_stats()
     for mod in (ds, ln, fa):
         mod.reset_launches()
+    profiler.reset()
     env = {k: os.environ.pop(k, None)
            for k in ("JUKEBOX_INT8_DECODE", "JUKEBOX_INT8_CACHE",
                      "JUKEBOX_PIPELINE", "JUKEBOX_ASYNC_FINALIZE",
@@ -1905,7 +1907,8 @@ def run_cascade(priors, hps, sampling_kwargs, int8=False, prompt=None,
                   launches=dict(ds.LAUNCHES), ln_launches=dict(ln.LAUNCHES),
                   ln_expected=ln_expected, fa_launches=dict(fa.LAUNCHES),
                   fa_expected=fa_expected, prompt=have, levels={},
-                  stages=dict(sample_mod.STAGE_SECONDS))
+                  stages={k: v["seconds"]
+                          for k, v in profiler.totals().items()})
     if cuda:
         report["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     for level, prior in enumerate(priors):
@@ -1932,13 +1935,13 @@ def run_cascade(priors, hps, sampling_kwargs, int8=False, prompt=None,
         missing = files - set(os.listdir(logdir))
         if missing:
             raise AssertionError(f"level {level}: {sorted(missing)} missing")
-        sec = sample_mod.STAGE_SECONDS.get(f"windows_l{level}", float("nan"))
+        sec = report["stages"].get(f"windows_l{level}", float("nan"))
         report["levels"][level] = dict(tokens=int(z.shape[1]),
                                        decode_steps=steps[level],
                                        seconds=sec,
                                        tokens_per_s=steps[level] / sec,
                                        audio_rms=float(np.sqrt((x ** 2).mean())))
-    report["vqvae_decode_s"] = sample_mod.STAGE_SECONDS.get("vqvae_decode")
+    report["vqvae_decode_s"] = report["stages"].get("vqvae_decode")
     if cuda:
         if report["launches"] != expected:
             raise AssertionError(f"kernel launches {report['launches']} != "

@@ -16,6 +16,7 @@ from jukebox_tpu_torch.models.attention import StepIndex
 from jukebox_tpu_torch.models.transformer import Transformer
 from jukebox_tpu_torch.ops import _build
 from jukebox_tpu_torch.ops.core import Table, dropout, filter_logits, fold_seed
+from jukebox_tpu_torch.utils import profiler
 
 LN2 = float(np.log(2.0))
 
@@ -162,7 +163,9 @@ class ConditionalAutoregressive2D(nn.Module):
         """Logits [N, 1, bins] at position t (a host int; a StepIndex for
         the layer modules alone) given the previous token x_tok."""
         h, cond = self._emb_at(t, x_tok, x_cond, y_cond, n)
-        h = self.transformer.decode_step(dec_params, caches, h, t, fp16=fp16)
+        with profiler.fine("sample.layers"):
+            h = self.transformer.decode_step(dec_params, caches, h, t,
+                                             fp16=fp16)
         if self.add_cond_after_transformer:
             h = h + cond
         return self._logits(h)
@@ -186,23 +189,33 @@ class ConditionalAutoregressive2D(nn.Module):
         x_tok). The fp32 layer-module decode (no dec_params) runs its
         steps from t = max(t0, 1) through a DecodeGraph when
         DecodeGraph.wanted says so, op by op under a Megatron split (its
-        all-reduces are not captured)."""
+        all-reduces are not captured). Spans (utils/profiler.py): the
+        coarse sample.segment (its calls count the loop's progress); per
+        token the fine sample.step, around sample.layers (the layers'
+        decode_step in _decode_one; a graph's replay runs them without the
+        host and has none) and sample.tok (the token sampler); the
+        embedding and logits are the step's self time."""
         N = x_tok.shape[0]
         toks = []
         graph = None
-        for t in range(t0, t0 + n_steps):
-            if (graph is None and t >= 1 and dec_params is None and not fp16
-                    and self.transformer.tp is None
-                    and DecodeGraph.wanted(x_tok.device, t0 + n_steps - t)):
-                graph = DecodeGraph(self, caches, t, x_cond, y_cond, N)
-            if graph is not None:
-                logits = graph.step(x_tok)
-            else:
-                logits = self._decode_one(dec_params, caches, x_tok, t,
-                                          x_cond, y_cond, fp16, N)
-            x_tok = self._sample_tok(logits, gen, temp, top_k, top_p)
-            toks.append(x_tok)
-        return torch.cat(toks, dim=1), x_tok
+        with profiler.span("sample.segment", rows=N, steps=n_steps, t0=t0):
+            for t in range(t0, t0 + n_steps):
+                if (graph is None and t >= 1 and dec_params is None
+                        and not fp16 and self.transformer.tp is None
+                        and DecodeGraph.wanted(x_tok.device,
+                                               t0 + n_steps - t)):
+                    graph = DecodeGraph(self, caches, t, x_cond, y_cond, N)
+                with profiler.fine("sample.step"):
+                    if graph is not None:
+                        logits = graph.step(x_tok)
+                    else:
+                        logits = self._decode_one(dec_params, caches, x_tok,
+                                                  t, x_cond, y_cond, fp16, N)
+                    with profiler.fine("sample.tok"):
+                        x_tok = self._sample_tok(logits, gen, temp, top_k,
+                                                 top_p)
+                toks.append(x_tok)
+            return torch.cat(toks, dim=1), x_tok
 
     def init_decode_caches(self, n_samples, device, fp16=False,
                            encoder_kv=None, dec_params=None, int8=False):
@@ -216,7 +229,8 @@ class ConditionalAutoregressive2D(nn.Module):
         """Fill the caches with positions [0, P) of x_prime [N, P]: whole
         block-aligned chunks through prefill_chunk (into bf16, fp32 or int8
         caches: int8 ones take each chunk's rows quantised), the tail token
-        by token through decode_step. Returns the last token [N, 1]."""
+        by token through decode_step (the coarse span
+        sample.prefill_tail). Returns the last token [N, 1]."""
         N, P = x_prime.shape
         dtype = torch.bfloat16 if fp16 else torch.float32
         emb_in = torch.cat([self.start_emb(y_cond, N).to(dtype),
@@ -233,9 +247,10 @@ class ConditionalAutoregressive2D(nn.Module):
             self.transformer.prefill_chunk(
                 caches, h_in[:, i * chunk:(i + 1) * chunk], i * chunk,
                 n_chunk_blocks, fp16=fp16, dec_params=dec_params)
-        for t in range(n_chunks * chunk, P):
-            self.transformer.decode_step(dec_params, caches, h_in[:, t:t + 1],
-                                         t, fp16=fp16)
+        with profiler.span("sample.prefill_tail", tokens=P - n_chunks * chunk):
+            for t in range(n_chunks * chunk, P):
+                self.transformer.decode_step(dec_params, caches,
+                                             h_in[:, t:t + 1], t, fp16=fp16)
         return x_prime[:, -1:].long()
 
 

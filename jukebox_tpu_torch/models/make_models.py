@@ -30,6 +30,7 @@ from jukebox_tpu_torch.models.prior import SimplePrior
 from jukebox_tpu_torch.models.vqvae import VQVAE, calculate_strides
 from jukebox_tpu_torch.ops.core import init_weights
 from jukebox_tpu_torch.parallel.dist import get_rank
+from jukebox_tpu_torch.utils import profiler
 from jukebox_tpu_torch.utils.checkpoints import (load_checkpoint,
                                                  save_checkpoint)
 from jukebox_tpu_torch.utils.convert import (from_jax_params, named_to_tree,
@@ -180,6 +181,7 @@ def save_model_checkpoint(logdir, name, runtime, opt_state, step, hps,
 # factories
 # ---------------------------------------------------------------------------
 
+@profiler.timed("make.vqvae")
 def make_vqvae(hps, device="cuda"):
     """The VQ-VAE of hps on `device`, drawn from hps.seed and restored from
     hps.restore_vqvae. Frozen, with a random codebook unless restored; with
@@ -222,6 +224,7 @@ def make_vqvae(hps, device="cuda"):
     return model
 
 
+@profiler.timed("make.prior")
 def make_prior(hps, vqvae, device="cuda"):
     train = hps.get("train", False)
     dropped = {k: hps.get(k, v) for k, v in _UNPORTED_PRIOR_KEYS.items()
@@ -373,7 +376,8 @@ class PriorRuntime:
         placement split it already): each rank stages its columns, rows and
         heads, its KV caches hold its heads (cache bytes / mp), and every
         row-split product is all-reduced, in bf16 and int8 alike
-        (jukebox_tpu make_models.py:447-566). Returns the mode."""
+        (jukebox_tpu make_models.py:447-566). Returns the mode. A staging
+        is the coarse span stage_decode (utils/profiler.py)."""
         if mesh is not None and mesh.mp > 1 and \
                 self.model.prior.transformer.tp is None:
             from jukebox_tpu_torch.parallel.placement import tensor_parallel
@@ -382,8 +386,9 @@ class PriorRuntime:
         mode = decode_mode(quantize)
         if self.staged is None or self.staged_mode != mode:
             self.staged = None
-            self.staged = self.model.prior.transformer.prepare_decode_params(
-                torch.bfloat16, quantize=mode[0])
+            prepare = self.model.prior.transformer.prepare_decode_params
+            with profiler.span("stage_decode"):
+                self.staged = prepare(torch.bfloat16, quantize=mode[0])
             self.staged_mode = mode
         return mode
 

@@ -23,6 +23,7 @@ from jukebox_tpu_torch.models.conditioners import Conditioner, LabelConditioner
 from jukebox_tpu_torch.models.encdec import BlockCfg
 from jukebox_tpu_torch.models.vqvae import calculate_strides
 from jukebox_tpu_torch.ops.core import Dense, LayerNorm, Table, fold_seed
+from jukebox_tpu_torch.utils import profiler
 
 
 class SimplePrior(nn.Module):
@@ -183,8 +184,11 @@ class SimplePrior(nn.Module):
         return cross_entropy_bpd(logits, prime_t)
 
     def encoder_kv_from_y(self, y, fp16=False):
-        """The lyric encoder alone on the lyric tokens at the end of y."""
-        return self.get_encoder_kv(y[:, y.shape[1] - self.n_tokens:], fp16)
+        """The lyric encoder alone on the lyric tokens at the end of y
+        (the coarse span sample.encoder)."""
+        with profiler.span("sample.encoder"):
+            return self.get_encoder_kv(y[:, y.shape[1] - self.n_tokens:],
+                                       fp16)
 
     def forward(self, z, z_conds, y):
         """Teacher-forced forward of the codes z [N, n_ctx] -> logits
@@ -243,6 +247,7 @@ class SimplePrior(nn.Module):
     # -- segmented sampling ---------------------------------------------------------
 
     @torch.no_grad()
+    @profiler.timed("sample.init")
     def sample_init(self, n_samples, z=None, z_conds=None, y=None, fp16=False,
                     chunk_size=None, dec_params=None, encoder_kv=None,
                     int8=False):
@@ -251,32 +256,41 @@ class SimplePrior(nn.Module):
         encoder_kv) and the context prefill. int8: the caches are int8 from
         the start, the prefill writing its rows quantised. Returns
         (caches, x_tok, x_cond, y_cond); sampling starts at
-        sample_prefix_len(z)."""
+        sample_prefix_len(z). Coarse spans (utils/profiler.py): sample.init
+        around sample.cond, sample.encoder (where the lyric encoder runs
+        here), sample.caches and sample.prefill (around the prefill's
+        sample.prefill_tail)."""
         no_past_context = z is None or z.shape[1] == 0
         device = self.prior.x_emb.table.device
-        x_cond, y_cond, prime = self.get_cond(z_conds, y)
-        if x_cond is None:
-            x_cond = self.prior.default_x_cond(n_samples)
-        if self.single_enc_dec:
-            xs = [prime] if no_past_context else [prime, z]
-            prefill_tokens, x_cond = self.prior_preprocess(xs, [None, x_cond])
-        else:
+        with profiler.span("sample.cond"):
+            x_cond, y_cond, prime = self.get_cond(z_conds, y)
+            if x_cond is None:
+                x_cond = self.prior.default_x_cond(n_samples)
+            if self.single_enc_dec:
+                xs = [prime] if no_past_context else [prime, z]
+                prefill_tokens, x_cond = self.prior_preprocess(
+                    xs, [None, x_cond])
+        if not self.single_enc_dec:
             if prime is not None and encoder_kv is None:
-                encoder_kv = self.get_encoder_kv(prime, fp16)
+                with profiler.span("sample.encoder"):
+                    encoder_kv = self.get_encoder_kv(prime, fp16)
             prefill_tokens = None if no_past_context else z
         if fp16:
             x_cond = x_cond.to(torch.bfloat16)
             if encoder_kv is not None:
                 encoder_kv = encoder_kv.to(torch.bfloat16)
         prefill = prefill_tokens is not None and prefill_tokens.shape[1] > 0
-        caches = self.prior.init_decode_caches(
-            n_samples, device, fp16=fp16, encoder_kv=encoder_kv,
-            dec_params=dec_params, int8=int8)
+        with profiler.span("sample.caches"):
+            caches = self.prior.init_decode_caches(
+                n_samples, device, fp16=fp16, encoder_kv=encoder_kv,
+                dec_params=dec_params, int8=int8)
         if prefill:
-            x_tok = self.prior.prefill(caches, prefill_tokens.long(), x_cond,
-                                       y_cond, fp16=fp16,
-                                       chunk_size=chunk_size,
-                                       dec_params=dec_params)
+            with profiler.span("sample.prefill",
+                               tokens=int(prefill_tokens.shape[1])):
+                x_tok = self.prior.prefill(caches, prefill_tokens.long(),
+                                           x_cond, y_cond, fp16=fp16,
+                                           chunk_size=chunk_size,
+                                           dec_params=dec_params)
         else:
             x_tok = torch.zeros((n_samples, 1), dtype=torch.long,
                                 device=device)

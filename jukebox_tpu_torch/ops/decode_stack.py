@@ -21,17 +21,21 @@ shared memory, and so do the LayerNorm prologue's row statistics.
 Each wrapper takes the plain PyTorch version for tensors on the CPU (that is
 what the CPU tests run) and, for CUDA tensors, checks device, dtype, shape
 and contiguity, launches its kernel on the current stream, raises if the
-launch failed, and adds one to LAUNCHES[name]. There is no fallback from a
-CUDA tensor to the plain version.
+launch failed, and adds one to LAUNCHES[name]. While torch.profiler
+records, the launch's host time, from its checks to the return of its
+ctypes call, goes to the counter launch_host.<name> (utils/profiler.py).
+There is no fallback from a CUDA tensor to the plain version.
 """
 
 import functools
+import time
 
 import torch
 
 from jukebox_tpu_torch.ops import _build
 from jukebox_tpu_torch.parallel.dist import (all_reduce_, gather_cols,
                                              rank_cols)
+from jukebox_tpu_torch.utils import profiler
 
 LAUNCHES = {"ln_gemv_bf16": 0, "ln_gemv_int8": 0, "gemv_bf16": 0,
             "gemv_int8": 0, "ring_attn_decode": 0, "ring_attn_int8": 0,
@@ -200,6 +204,7 @@ def gemv_smem(B, pitch=0):
 
 def _gemv_launch(name, x, w, s, b, epilogue, res, res2, rs, keep, out32,
                  ln):
+    t0 = profiler.fine_start()
     B, K = x.shape
     N = w.shape[1]
     if not 1 <= B <= MAX_BATCH or N % 8:
@@ -235,6 +240,8 @@ def _gemv_launch(name, x, w, s, b, epilogue, res, res2, rs, keep, out32,
         _ptr(res2), _ptr(aux), _ptr(y32), y.data_ptr(), _ptr(g_ln),
         _ptr(b_ln), B, K, N, splits, chunk, pitch, EPILOGUES[epilogue],
         int(N % 16 == 0), float(rs), LN_EPS, _stream())
+    if t0:
+        profiler.add(f"launch_host.{key}", time.time_ns() - t0)
     _check(err, key)
     _build.count(LAUNCHES, key)
     return (y, aux) if keep else (y, y32) if out32 else y
@@ -545,6 +552,7 @@ def _attn_launch(name, q, qstride, A, kv_new, caches, scales, geom, n_head,
                  kv32=(None, None)):
     """Shared checks and launch of the attention kernels; q: the fp32 q
     rows, row b at b * qstride."""
+    t0 = profiler.fine_start()
     B = q.shape[0]
     rows, w, r0, n = geom
     hd = A // n_head
@@ -576,12 +584,15 @@ def _attn_launch(name, q, qstride, A, kv_new, caches, scales, geom, n_head,
     ws, cnt = (workspace("attn", q.device, floats, B * n_head)
                if splits > 1 else (None, None))
     o = torch.empty((B, A), dtype=BF16, device=q.device)
-    _check(lib.jk_attn_decode(
+    err = lib.jk_attn_decode(
         q.data_ptr(), qstride, _ptr(kv_new[0]), _ptr(kv_new[1]),
         _ptr(kv32[0]), _ptr(kv32[1]), 3 * A, caches[0].data_ptr(),
         caches[1].data_ptr(), _ptr(ks), _ptr(vs), o.data_ptr(), _ptr(ws),
         _ptr(cnt), B, A, n_head, rows, r0, n, w, splits, chunk, hd ** -0.25,
-        int(int8), _stream()), name)
+        int(int8), _stream())
+    if t0:
+        profiler.add(f"launch_host.{name}", time.time_ns() - t0)
+    _check(err, name)
     _build.count(LAUNCHES, name)
     return o
 

@@ -35,7 +35,6 @@ import functools
 import os
 import pickle
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -48,13 +47,9 @@ from jukebox_tpu_torch.models.make_models import make_model
 from jukebox_tpu_torch.save_html import save_html
 from jukebox_tpu_torch.utils.audio_utils import save_wav
 from jukebox_tpu_torch.utils.io import load_prompt
+from jukebox_tpu_torch.utils import profiler
 from jukebox_tpu_torch.utils.cli import fire
 from jukebox_tpu_torch.utils.sample_utils import get_starts, split_batch
-
-# per-stage seconds of the last _sample; stages on worker threads overlap
-# the sampling, so these are thread-seconds (their sum can exceed the wall)
-STAGE_SECONDS = {}
-_STAGE_LOCK = threading.Lock()
 
 
 def _generator(device, *key):
@@ -97,19 +92,19 @@ def sample_single_window(zs, labels, sampling_kwargs, level, prior, start,
 
     def to_dev(a):
         return None if a is None else torch.as_tensor(a, device=device)
-    t0 = time.time()
     z_samples = []
-    for i, (z_i, zc_i, y_i) in enumerate(zip(
-            split_batch(z, n_samples, max_batch_size),
-            split_batch(z_conds, n_samples, max_batch_size),
-            split_batch(y, n_samples, max_batch_size))):
-        gen = _generator(device, hps.get("seed", 0), level, start * 131 + i)
-        out = prior.sample(n_samples=z_i.shape[0], z=to_dev(z_i),
-                           z_conds=None if zc_i is None else
-                           [to_dev(c) for c in zc_i],
-                           y=to_dev(y_i), gen=gen, **kwargs)
-        z_samples.append(out.cpu().numpy())
-    _stage_add(f"windows_l{level}", t0)
+    with profiler.span(f"windows_l{level}"):
+        for i, (z_i, zc_i, y_i) in enumerate(zip(
+                split_batch(z, n_samples, max_batch_size),
+                split_batch(z_conds, n_samples, max_batch_size),
+                split_batch(y, n_samples, max_batch_size))):
+            gen = _generator(device, hps.get("seed", 0), level,
+                             start * 131 + i)
+            out = prior.sample(n_samples=z_i.shape[0], z=to_dev(z_i),
+                               z_conds=None if zc_i is None else
+                               [to_dev(c) for c in zc_i],
+                               y=to_dev(y_i), gen=gen, **kwargs)
+            z_samples.append(out.cpu().numpy())
     z = np.concatenate(z_samples, axis=0)
     zs[level] = np.concatenate([zs[level], z[:, -new_tokens:]], axis=1)
     return zs
@@ -128,33 +123,25 @@ def sample_level(zs, labels, sampling_kwargs, level, prior, total_length,
     return zs
 
 
-def _stage_add(key, t0):
-    """Add the seconds since t0 to STAGE_SECONDS[key] (any thread)."""
-    dt = time.time() - t0
-    with _STAGE_LOCK:
-        STAGE_SECONDS[key] = STAGE_SECONDS.get(key, 0.0) + dt
-
-
 def _decode_save_level(zs, labels, sampling_kwargs, priors, level, hps):
     """VQ-VAE decode of one level's codes, then data.jkb and one wav per
     sample into {hps.name}/level_{level}. Returns the audio [N, T, 1]."""
     prior = priors[level]
     prior.release()  # the level's staged decode weights are done
-    t0 = time.time()
     device = next(prior.model.parameters()).device
     bs = zs[level].shape[0]
-    x = prior.decode([torch.as_tensor(z, device=device) for z in zs[level:]],
-                     start_level=level, bs_chunks=max(1, -(-bs // 8)))
-    x_np = x.float().cpu().numpy()
-    _stage_add("vqvae_decode", t0)
-    t0 = time.time()
-    logdir = os.path.join(hps.name, f"level_{level}")
-    os.makedirs(logdir, exist_ok=True)
-    with open(os.path.join(logdir, "data.jkb"), "wb") as f:
-        pickle.dump(dict(zs=[np.asarray(z) for z in zs], labels=labels,
-                         sampling_kwargs=sampling_kwargs, x=x_np), f)
-    save_wav(logdir, x_np, hps.sr)
-    _stage_add("save", t0)
+    with profiler.span("vqvae_decode"):
+        x = prior.decode([torch.as_tensor(z, device=device)
+                          for z in zs[level:]],
+                         start_level=level, bs_chunks=max(1, -(-bs // 8)))
+        x_np = x.float().cpu().numpy()
+    with profiler.span("save"):
+        logdir = os.path.join(hps.name, f"level_{level}")
+        os.makedirs(logdir, exist_ok=True)
+        with open(os.path.join(logdir, "data.jkb"), "wb") as f:
+            pickle.dump(dict(zs=[np.asarray(z) for z in zs], labels=labels,
+                             sampling_kwargs=sampling_kwargs, x=x_np), f)
+        save_wav(logdir, x_np, hps.sr)
     return x_np
 
 
@@ -169,17 +156,15 @@ def _compute_alignments(zs, labels, sampling_kwargs, priors, hps):
             or getattr(top, "alignment_head", None) is None
             or os.environ.get("JUKEBOX_SKIP_ALIGN") == "1"):
         return None
-    t0 = time.time()
-    alignments = get_alignment(None, zs, labels[-1], top,
-                               sampling_kwargs[-1].get("fp16", False), hps)
-    _stage_add("align", t0)
-    return alignments
+    with profiler.span("align"):
+        return get_alignment(None, zs, labels[-1], top,
+                             sampling_kwargs[-1].get("fp16", False), hps)
 
 
 def _html_level(x, zs, labels, level, hps, alignments):
-    t0 = time.time()
-    save_html(f"{hps.name}/level_{level}", x, zs, labels[-1], alignments, hps)
-    _stage_add("html", t0)
+    with profiler.span("html"):
+        save_html(f"{hps.name}/level_{level}", x, zs, labels[-1], alignments,
+                  hps)
 
 
 def _align_deferred(prior):
@@ -331,13 +316,12 @@ class _StagePipe:
 
     def ensure(self, level):
         """Wait until `level` is staged; start staging the next one."""
-        t0 = time.time()
-        fut = self._futs.get(level)
-        if fut is not None:
-            fut.result()
-        else:
-            self._stage(level)
-        _stage_add("stage_wait", t0)
+        with profiler.span("stage_wait"):
+            fut = self._futs.get(level)
+            if fut is not None:
+                fut.result()
+            else:
+                self._stage(level)
         i = self._order.index(level)
         if self._pool is not None and i + 1 < len(self._order):
             nxt = self._order[i + 1]
@@ -452,8 +436,10 @@ def _sample(zs, labels, sampling_kwargs, priors, sample_levels, hps):
     save, align, html (sample.py:91-121). The pipelined scheduler by
     default, as the JAX package (sample.py:515-530); the sequential one
     with hps.pipeline_cascade=False or JUKEBOX_PIPELINE=0, or with one
-    level to sample. Both give the same tokens and files."""
-    STAGE_SECONDS.clear()
+    level to sample. Both give the same tokens and files. Each stage is
+    a coarse span (utils/profiler.py totals(): windows_l<level>,
+    vqvae_decode, save, align, html, stage_wait); those on worker threads
+    overlap the sampling, so their sum can exceed the wall."""
     env = os.environ.get("JUKEBOX_PIPELINE")
     pipelined = hps.get("pipeline_cascade",
                         env != "0" if env is not None else True)

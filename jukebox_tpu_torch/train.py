@@ -159,7 +159,9 @@ def make_prior_train_step(runtime, hps, lr_fn, mark=None):
     [N, T, 1], y labels [N, ...] or None, seed the step's dropout seed (an
     int or None), it the step number of the LR schedule. mark: optional
     callable, called with the name of each part of the step (encode,
-    forward, backward, update) as it ends, to time the step by parts.
+    forward, backward, update) as it ends, to time the step by parts;
+    the same parts are the fine spans train.encode, train.forward,
+    train.backward and train.update (utils/profiler.py).
     Under runtime.placement, x and y are the rank's slice of the global
     batch as the loader deals it (parallel/dist.py dp_rows), its dropout
     masks those rows' of the global batch's (ops/core.py dropout_rows),
@@ -169,18 +171,22 @@ def make_prior_train_step(runtime, hps, lr_fn, mark=None):
 
     def step(opt_state, batch, seed, it, loss_scale=1.0):
         x, y = batch
-        zs = vqvae.encode(x, start_level=prior.level)
-        z, z_conds = zs[0], zs[1:]
+        with profiler.fine("train.encode"):
+            zs = vqvae.encode(x, start_level=prior.level)
+            z, z_conds = zs[0], zs[1:]
         mark("encode")
-        _begin(runtime)
         with dropout_rows(_rows(runtime, z.shape[0])):
-            loss, metrics = prior.z_forward(z, z_conds=z_conds or None, y=y,
-                                            fp16=hps.fp16, seed=seed)
+            with profiler.fine("train.forward"):
+                _begin(runtime)
+                loss, metrics = prior.z_forward(z, z_conds=z_conds or None,
+                                                y=y, fp16=hps.fp16, seed=seed)
             mark("forward")
-            (loss * loss_scale).backward()
+            with profiler.fine("train.backward"):
+                (loss * loss_scale).backward()
         mark("backward")
-        out = _finish(runtime, hps, lr_fn, opt_state, it, loss_scale, loss,
-                      metrics)
+        with profiler.fine("train.update"):
+            out = _finish(runtime, hps, lr_fn, opt_state, it, loss_scale,
+                          loss, metrics)
         mark("update")
         return out
 
@@ -415,7 +421,6 @@ def train(step_fn, runtime, opt_state, ema, data_processor, hps, epoch,
     Returns the epoch's averages."""
     device = next(runtime.model.parameters()).device
     seed = hps.get("seed", 0)
-    timer = profiler.StepTimer(skip_first=1)
     tracing = False
     jsonl = os.environ.get("JUKEBOX_TRAIN_JSONL")
     t_start = t_last = time.time()
@@ -442,8 +447,7 @@ def train(step_fn, runtime, opt_state, ema, data_processor, hps, epoch,
             logger.step()
             runtime.step = it
             loss_scale = scalar.get_scale() if scalar else 1.0
-            t0 = time.time()
-            with timer:
+            with profiler.span("train.step", it=it) as timed:
                 loss, out = step_fn(opt_state, (x, y),
                                     fold_seed(seed, epoch, it, 1), it,
                                     loss_scale)
@@ -452,7 +456,7 @@ def train(step_fn, runtime, opt_state, ema, data_processor, hps, epoch,
                 out["loss"] = float(loss)
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
-            wall = time.time() - t0
+            wall = timed.seconds
             if ema is not None:
                 ema.step(runtime.params)
             step_ok = bool(out.pop("step_ok"))
@@ -502,8 +506,12 @@ def train(step_fn, runtime, opt_state, ema, data_processor, hps, epoch,
         if tracing:
             profiler.stop_trace()
         logger.close_range()
-    if logger.rank == 0:
-        print(f"Step timing: {timer.summary()}")
+    steps = profiler.totals().get("train.step")
+    if logger.rank == 0 and steps:
+        print(f"Step timing: steps={steps['calls']} "
+              f"mean={steps['seconds'] / steps['calls'] * 1e3:.2f}ms "
+              f"min={steps['min'] * 1e3:.2f}ms "
+              f"max={steps['max'] * 1e3:.2f}ms")
     return {key: metrics.avg(key) for key in metrics.sum}
 
 

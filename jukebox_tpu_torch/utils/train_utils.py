@@ -16,6 +16,7 @@ import torch
 
 from jukebox_tpu_torch.ops import adam as _adam
 from jukebox_tpu_torch.parallel.dist import all_reduce_
+from jukebox_tpu_torch.utils import profiler
 
 
 # ---------------------------------------------------------------------------
@@ -140,7 +141,8 @@ def make_lr_schedule(hps):
 
 
 # ---------------------------------------------------------------------------
-# EMA of parameters (reference EMA / CPUEMA, utils/ema.py)
+# EMA of parameters (reference EMA / CPUEMA, utils/ema.py); a step is the
+# coarse span train.ema, a CPUEMA's pull from the device train.ema_pull
 # ---------------------------------------------------------------------------
 
 class EMA:
@@ -155,6 +157,7 @@ class EMA:
                        for n, p in params.items()}
 
     @torch.no_grad()
+    @profiler.timed("train.ema")
     def step(self, params):
         self.steps += 1
         if self.steps % self.freq == 0:
@@ -191,13 +194,15 @@ class CPUEMA:
                        for n, p in params.items()}
 
     @torch.no_grad()
+    @profiler.timed("train.ema")
     def step(self, params):
         self.steps += 1
         if self.steps % self.freq == 0:
-            for n, p in params.items():
-                host = p.detach().float().cpu().numpy()
-                self.shadow[n] = self.mu * self.shadow[n] \
-                    + (1.0 - self.mu) * host
+            with profiler.span("train.ema_pull"):
+                for n, p in params.items():
+                    host = p.detach().float().cpu().numpy()
+                    self.shadow[n] = self.mu * self.shadow[n] \
+                        + (1.0 - self.mu) * host
 
     def swap(self, params):
         return self.shadow, params

@@ -151,3 +151,31 @@ def test_captured_graph_decodes_as_op_by_op(name, monkeypatch):
     for a, b in zip(out[True][1], out[False][1]):
         for k in a:
             assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.gpu
+def test_a_traced_graph_decodes_as_untraced(monkeypatch):
+    """The graphed decode with its capture under torch.profiler (the
+    recorder's fine spans enter record_function while it captures): the
+    same tokens as untraced, a sample.step span a token, and a
+    sample.layers span only in the steps that ran the layers on the host
+    (the first graphed step and its capture), none in a replay."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs have no CPU mode")
+    from jukebox_tpu_torch.utils import profiler
+    rt = _prior("single_enc_dec", "cuda")
+    want, _ = _sample(rt, True, 0.0, monkeypatch)
+    ar.reset_graph_counts()
+    profiler.reset()
+    try:
+        with torch.profiler.profile():
+            got, _ = _sample(rt, True, 0.0, monkeypatch)
+        spans = profiler.traced()["spans"]
+    finally:
+        profiler.reset()
+    assert torch.equal(got, want)
+    steps = [s for s in spans if s.name == "sample.step"]
+    assert len(steps) == got.shape[1]
+    hosted = [s for s in steps if any(c.parent is s and c.name ==
+                                      "sample.layers" for c in spans)]
+    assert len(steps) - len(hosted) == ar.GRAPHS["replays"] > 0

@@ -466,3 +466,52 @@ def test_adam_item_order_at_a_storage_offset(fp16, monkeypatch):
         for k in ("m", "v", "m_scale", "v_scale") if fp16 else ("m", "v"):
             assert torch.equal(states[0][1][k][n], states[1][1][k][n]), (k, n)
     assert not (table.amax.any() or table.done.any() or table.ticket.any())
+
+
+@pytest.mark.gpu
+def test_traced_decode_step_counts_its_launches():
+    """One bf16 decode step of a staged single-enc-dec prior (width 256, 3
+    layers) under torch.profiler: the recorder's launch_host.<name> calls
+    (utils/profiler.py) equal the step's LAUNCHES delta, their host time
+    is positive, and the step is one sample.step over one sample.layers
+    and one sample.tok."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from jukebox_tpu_torch import hparams as thp
+    from jukebox_tpu_torch.models.make_models import make_prior, make_vqvae
+    from jukebox_tpu_torch.utils import profiler
+    hps = thp.setup_hparams("teeny", dict(
+        sample_length=256, levels=3, downs_t=(2, 1, 1), strides_t=(2, 2, 2),
+        emb_width=16, l_bins=32, width=8, depth=1, m_conv=1.0,
+        dilation_growth_rate=1, sr=8000, level=2, n_ctx=24,
+        prior_width=256, prior_depth=3, heads=2, blocks=4, attn_order=12,
+        init_scale=0.7, min_duration=0.0, max_duration=600.0, labels=True,
+        labels_v3=True, y_bins=(604, 7898), t_bins=16, max_bow_genre_size=1,
+        n_vocab=79, use_tokens=True, n_tokens=8, single_enc_dec=True))
+    rt = make_prior(hps, make_vqvae(hps, "cuda"), "cuda")
+    m = rt.model
+    rt.stage_decode()
+    y = torch.from_numpy(m.get_y(m.labeller.get_batch_labels([dict(
+        artist="unknown", genre="unknown", lyrics="la la la",
+        total_length=8000 * 30, offset=0)] * 4), 0)).cuda()
+    z = torch.randint(0, 32, (4, 9), device="cuda")
+    caches, x_tok, x_cond, y_cond = m.sample_init(
+        4, z=z, y=y, fp16=True, chunk_size=8, dec_params=rt.staged)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    step = dict(fp16=True, dec_params=rt.staged)
+    m.sample_segment(caches, x_tok, 17, 1, gen, x_cond, y_cond, **step)
+    profiler.reset()
+    before = profiler.counters()
+    with torch.profiler.profile():
+        m.sample_segment(caches, x_tok, 18, 1, gen, x_cond, y_cond, **step)
+    after = profiler.counters()
+    rec = profiler.traced()
+    profiler.reset()
+    delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert delta and set(delta) <= set(ds.LAUNCHES)
+    assert {k[len("launch_host."):]: c["calls"]
+            for k, c in rec["counters"].items()} == delta
+    assert all(c["ns"] > 0 for c in rec["counters"].values())
+    st, = [s for s in rec["spans"] if s.name == "sample.step"]
+    assert sorted(s.name for s in rec["spans"] if s.parent is st) == [
+        "sample.layers", "sample.tok"]

@@ -7,7 +7,8 @@ wall time equal), the port's CRCs checked, the port's file read by
 tensorboard's EventAccumulator; the audio wavs byte for byte (the JAX
 Logger writes wavs where soundfile is absent: the tests hide any module of
 that name, which another test file may have put in sys.modules); Metrics
-and init_logging's argv.txt; the profiler's StepTimer and trace."""
+and init_logging's argv.txt; the JAX profiler's StepTimer, the port's span
+recorder and trace."""
 
 import glob
 import json
@@ -166,22 +167,37 @@ def test_metrics_and_init_logging(tmp_path, monkeypatch):
 
 
 def test_step_timer_and_trace(tmp_path):
-    for timer in (jprof.StepTimer(skip_first=1), tprof.StepTimer(1)):
-        for _ in range(3):
-            with timer:
-                pass
-        assert len(timer.times) == 2 and timer.summary().startswith(
-            "steps=2 ")
-    assert tprof.StepTimer().summary() == "no steps timed"
-    with tprof.trace(str(tmp_path / "trace")):
-        torch.matmul(torch.ones(8, 8), torch.ones(8, 8))
-    path, = glob.glob(str(tmp_path / "trace" / "*.json"))
+    timer = jprof.StepTimer(skip_first=1)
+    for _ in range(3):
+        with timer:
+            pass
+    assert len(timer.times) == 2 and timer.summary().startswith("steps=2 ")
+    # the port times steps with the recorder's coarse spans
+    tprof.reset()
+    for _ in range(3):
+        with tprof.span("step"):
+            pass
+    tot = tprof.totals()["step"]
+    assert tot["calls"] == 3
+    assert 0 <= tot["min"] <= tot["max"] <= tot["seconds"]
+    path = None
+    tprof.start_trace(str(tmp_path / "trace"))
+    try:
+        with tprof.span("traced"):
+            torch.matmul(torch.ones(8, 8), torch.ones(8, 8))
+    finally:
+        path = tprof.stop_trace()
+    assert glob.glob(str(tmp_path / "trace" / "*.json")) == [path]
     with open(path) as f:
-        names = {e.get("name") for e in json.load(f)["traceEvents"]}
-    assert "aten::matmul" in names
-    with tprof.trace(str(tmp_path / "off"), enabled=False):
+        events = json.load(f)["traceEvents"]
+    assert "aten::matmul" in {e.get("name") for e in events}
+    assert any(e.get("name") == "traced"
+               and e.get("cat") == "user_annotation" for e in events)
+    # torch.profiler off: a fine span records nothing
+    with tprof.fine("off"):
         pass
-    assert not os.path.exists(tmp_path / "off")
+    assert [sp.name for sp in tprof.traced()["spans"]] == ["traced"]
+    tprof.reset()
 
 
 @pytest.mark.parametrize("case", list(CALLS))

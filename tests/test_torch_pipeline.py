@@ -31,6 +31,7 @@ from jukebox_tpu import sample as jsample
 from jukebox_tpu.hparams import Hyperparams as JHyperparams
 from jukebox_tpu_torch import sample as tsample
 from jukebox_tpu_torch.hparams import Hyperparams as THyperparams
+from jukebox_tpu_torch.utils import profiler
 
 torch.set_num_threads(1)
 N, LENGTH, HOPS = 2, 1024, (0.5, 0.5, 0.125)
@@ -191,25 +192,36 @@ def test_failures_raise_in_the_caller(fam, tmp_path, monkeypatch, where,
 
 
 def test_counts_are_exact_under_threads(monkeypatch):
-    """Kernel launch counts (ops/_build.py count) and STAGE_SECONDS
-    (sample._stage_add) are read-modify-writes shared by the sampling
-    thread and the finalize and staging workers: with more threads than
-    cores and a short switch interval no update is lost."""
+    """Kernel launch counts (ops/_build.py count) and the recorder's coarse
+    totals and counters (utils/profiler.py) are read-modify-writes shared
+    by the sampling thread and the finalize and staging workers: with more
+    threads than cores (and at least 8) and a short switch interval no
+    update is lost."""
     import sys
     import types
 
     from jukebox_tpu_torch.ops import _build
     launches = {"k": 0}
-    n_threads, n = 4 * (os.cpu_count() or 1), 2000
-    # every stage add is then exactly one second
-    monkeypatch.setattr(tsample, "time", types.SimpleNamespace(
-        time=lambda: 1.0))
-    tsample.STAGE_SECONDS.clear()
+    n_threads, n = max(8, 4 * (os.cpu_count() or 1)), 2000
+    # each thread's clock reads 0, then 1 s, in turn: every span is 1 s
+    local = threading.local()
+
+    def time_ns():
+        local.n = getattr(local, "n", 0) + 1
+        return 0 if local.n % 2 else 10 ** 9
+    monkeypatch.setattr(profiler, "time", types.SimpleNamespace(
+        time_ns=time_ns))
+    # fine counters record while torch.profiler records
+    monkeypatch.setattr(profiler._autograd_profiler, "_is_profiler_enabled",
+                        True)
+    profiler.reset()
 
     def work():
         for _ in range(n):
             _build.count(launches, "k")
-            tsample._stage_add("x", 0.0)
+            with profiler.span("x"):
+                pass
+            profiler.add("c", 3)
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
@@ -222,4 +234,9 @@ def test_counts_are_exact_under_threads(monkeypatch):
         sys.setswitchinterval(interval)
     assert not any(t.is_alive() for t in threads)
     assert launches["k"] == n_threads * n
-    assert tsample.STAGE_SECONDS["x"] == n_threads * n
+    assert profiler.totals()["x"] == dict(calls=n_threads * n,
+                                          seconds=n_threads * n, min=1.0,
+                                          max=1.0)
+    assert profiler.traced()["counters"]["c"] == dict(calls=n_threads * n,
+                                                      ns=3 * n_threads * n)
+    profiler.reset()

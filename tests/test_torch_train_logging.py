@@ -15,7 +15,8 @@ same fixed metadata as the port's FixedMetadataDataset.
   1), the port's sample of the right length;
 * sample_prior samples under the EMA weights and leaves the params bit for
   bit as they were;
-* debug_speed writes a Chrome trace of step 3.
+* debug_speed writes a Chrome trace of step 3, in which the recorder's
+  train.* spans nest inside the step (utils/profiler.py).
 """
 
 import glob
@@ -37,6 +38,7 @@ from jukebox_tpu_torch import train as ttrain
 from jukebox_tpu_torch.data.files_dataset import FixedMetadataDataset
 from jukebox_tpu_torch.models import make_models as tmm
 from jukebox_tpu_torch.utils import logger as tlog
+from jukebox_tpu_torch.utils import profiler
 
 from test_torch_train import VQ
 
@@ -242,3 +244,39 @@ def test_debug_speed_writes_a_trace(runs, tmp_path):
     with open(traces[0]) as f:
         names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
     assert {"aten::matmul", "BmmBackward0"} <= names  # a forward, a backward
+
+
+def test_debug_speed_records_the_step_spans(runs):
+    """The traced step 3 is one train.step span holding the step's parts
+    in order, as user_annotations of the trace; the coarse totals time
+    every step and the host EMA's pulls."""
+    kw = _kw(runs["root"], "spans", max_steps=3, test=False,
+             debug_speed=True, debug_iters=1)
+    h = thp.setup_hparams("teeny", kw)
+    profiler.reset()
+    try:
+        ttrain.run("teeny", device="cpu",
+                   dataset=FixedMetadataDataset(h, ARTIST, GENRE, LYRICS),
+                   **kw)
+        spans = profiler.traced()["spans"]
+        tot = profiler.totals()
+    finally:
+        profiler.reset()
+    step, = [s for s in spans if s.name == "train.step"]
+    assert step.attrs == dict(it=3)
+    parts = [s for s in spans if s.parent is step]
+    assert [s.name for s in parts] == ["train.encode", "train.forward",
+                                       "train.backward", "train.update"]
+    assert step.start_ns <= parts[0].start_ns
+    assert all(a.end_ns <= b.start_ns for a, b in zip(parts, parts[1:]))
+    assert parts[-1].end_ns <= step.end_ns
+    # cpu_ema_freq 1: every step pulls
+    for name in ("train.step", "train.ema", "train.ema_pull"):
+        assert tot[name]["calls"] == 3, name
+    assert tot["make.vqvae"]["calls"] == tot["make.prior"]["calls"] == 1
+    path, = glob.glob(str(runs["root"] / "spans" / "run" / "trace" /
+                          "*.json"))
+    with open(path) as f:
+        ann = {e["name"] for e in json.load(f)["traceEvents"]
+               if e.get("cat") == "user_annotation"}
+    assert {"train.step", "train.forward", "train.backward"} <= ann
