@@ -268,11 +268,13 @@ from jukebox_tpu_torch.models.make_models import (LN_KEYS, MODELS,
 from jukebox_tpu_torch.models.transformer import ATTN_ORDERS
 from jukebox_tpu_torch.ops import _build
 from jukebox_tpu_torch.ops import adam as ad
+from jukebox_tpu_torch.ops import bias_gelu as bg
 from jukebox_tpu_torch.ops import decode_stack as ds
 from jukebox_tpu_torch.ops import flash_attention as fa
 from jukebox_tpu_torch.ops import layer_norm as ln
 from jukebox_tpu_torch.ops.core import (Conv1d, ConvTranspose1d, Dense,
-                                        LayerNorm, Table, quantize_dense)
+                                        LayerNorm, Table, quantize_dense,
+                                        quick_gelu)
 from jukebox_tpu_torch.utils import avio, profiler, wavio
 from jukebox_tpu_torch.utils.audio_utils import (audio_preprocess,
                                                  calculate_bandwidth)
@@ -1357,6 +1359,111 @@ def check_layer_norm(shapes, device, gen, time_it=True):
 
 
 # ---------------------------------------------------------------------------
+# phase 2f: the MLP's bias + quick_gelu kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def bias_gelu_work(N, D, itemsize):
+    """(bytes, flops) of the forward and backward: every input read once
+    and every output written once (the backward's partial rows of db are
+    the kernel's, not the function's); ~10 flops per element forward, ~16
+    backward, the exponential and the division one each (fp32, outside the
+    tensor cores)."""
+    fwd = (2 * N * D * itemsize + D * 4, 10 * N * D)
+    bwd = (3 * N * D * itemsize + 2 * D * 4, 16 * N * D)
+    return {"bias_gelu_fwd": fwd, "bias_gelu_bwd": bwd}
+
+
+def eager_bias_gelu(y, b):
+    """The eager chain the kernels replace: the broadcast add in y's
+    dtype, then quick_gelu's three element-wise kernels."""
+    return quick_gelu(y + b.to(y.dtype))
+
+
+def check_bias_gelu(shapes, device, gen, time_it=True, offset=False):
+    """Hold bias_gelu_fwd (o) and bias_gelu_bwd (dpre, db) against their
+    plain versions (ln.agreement) at each (N, D, dtype) of `shapes`, rows
+    whose data starts one element past a 16-byte boundary where offset
+    (the element path); the backward's same bits on a second call; a
+    planted fault (the last row skipped) fails the same comparison. Time
+    the first shape beside the bound, the plain version and the eager
+    chain (forward; its autograd backward for the backward kernel).
+    Returns {name: row}."""
+    rep = KernelReport()
+
+    def check(name, what, out, ref, bad):
+        worst, fault = ln.agreement(out, ref), ln.agreement(bad, ref)
+        e = (out.float() - ref.float()).abs().max().item()
+        log(f"  {name} {what}: max_abs_err {e:.3e}, worst {worst:.3f} of "
+            f"its bound; planted fault {fault:.1f}")
+        if not worst <= 1.0:
+            raise AssertionError(f"{name} {what}: kernel disagrees with its "
+                                 f"plain version ({worst:.3f} of the bound)")
+        if not fault > 1.0:
+            raise AssertionError(f"{name} {what}: the check passes a kernel "
+                                 f"that skips the last row ({fault:.3f})")
+        row = rep.rows.setdefault(name.split(".")[0], {"max_abs_err": 0.0})
+        row["max_abs_err"] = max(row["max_abs_err"], e)
+
+    def rows(N, D, dtype, scale, shift=0.0):
+        t = (torch.randn(N * D + int(offset), generator=gen, device=device)
+             * scale + shift).to(dtype)
+        return t[int(offset):].view(N, D)
+
+    def inputs(N, D, dtype):
+        # pre-activations over quick_gelu's bend and both tails
+        return (rows(N, D, dtype, 2.0, -0.3),
+                0.5 * torch.randn((D,), generator=gen, device=device),
+                rows(N, D, dtype, 1.0))
+
+    for N, D, dtype in shapes:
+        assert N >= 2, "the planted fault leaves out one of N >= 2 rows"
+        what = (f"[{N},{D}] {str(dtype).split('.')[-1]}"
+                + (" at a storage offset" if offset else ""))
+        y, b, do = inputs(N, D, dtype)
+        o = bg.bias_gelu_fwd(y, b)
+        bad = bg.bias_gelu_fwd(y[:-1], b)
+        check("bias_gelu_fwd", what, o, bg.bias_gelu_fwd_plain(y, b),
+              torch.cat([bad, torch.zeros_like(o[-1:])]))
+        out = bg.bias_gelu_bwd(y, b, do)
+        ref = bg.bias_gelu_bwd_plain(y, b, do)
+        again = bg.bias_gelu_bwd(y, b, do)
+        if not all(torch.equal(a, o_) for a, o_ in zip(out, again)):
+            raise AssertionError(f"bias_gelu_bwd {what}: a second call gave "
+                                 f"other bits")
+        bad = bg.bias_gelu_bwd(y[:-1], b, do[:-1])
+        check("bias_gelu_bwd", "dpre " + what, out[0], ref[0],
+              torch.cat([bad[0], torch.zeros_like(ref[0][-1:])]))
+        check("bias_gelu_bwd.db", what, out[1], ref[1], bad[1])
+    if not time_it:
+        return rep.rows
+    N, D, dtype = shapes[0]
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    sets = [inputs(N, D, dtype) for _ in range(_copies(3 * N * D * itemsize))]
+    fwd_sets = [a[:2] for a in sets]
+    lib_in = [(y.detach().requires_grad_(), b.requires_grad_(), do)
+              for y, b, do in sets[:2]]
+    lib_out = [eager_bias_gelu(y, b) for y, b, _ in lib_in]
+
+    def lib_bwd(i):
+        return torch.autograd.grad(lib_out[i], lib_in[i][:2], lib_in[i][2],
+                                   retain_graph=True)
+    lib_ms = {"bias_gelu_fwd": device_ms(eager_bias_gelu, fwd_sets),
+              "bias_gelu_bwd": device_ms(lib_bwd, [(0,), (1,)], reps=50)}
+    del lib_out
+    work = bias_gelu_work(N, D, itemsize)
+    for name, kernel, plain, arg_sets in (
+            ("bias_gelu_fwd", bg.bias_gelu_fwd, bg.bias_gelu_fwd_plain,
+             fwd_sets),
+            ("bias_gelu_bwd", bg.bias_gelu_bwd, bg.bias_gelu_bwd_plain,
+             sets)):
+        rep.rows[name].update(rep.timed(
+            name, f"[{N},{D}] {str(dtype).split('.')[-1]}",
+            device_ms(kernel, arg_sets), device_ms(plain, arg_sets, reps=20),
+            lib_ms[name], *work[name], "fp32"))
+    return rep.rows
+
+
+# ---------------------------------------------------------------------------
 # phase 2d: the Adam kernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -2278,26 +2385,28 @@ def expected_flash(n_layers, n_steps):
             for k, per in fa.LAUNCHES_PER_STEP.items()}
 
 
-def expected_layer_norms(runtime, n_steps, n_evals=0):
-    """LayerNorm kernel launches of n_steps train steps of the prior and
-    n_evals eval batches: the transformer's two per block (under
-    checkpoint_res the forward runs again in the recompute), the
-    conditioner's one and a lyric encoder's two per block and its
-    prime_state_ln, forward and backward once each (the eval batches
-    forward only)."""
+def expected_block_kernels(runtime, n_steps, n_evals=0):
+    """LayerNorm and bias + quick_gelu kernel launches of n_steps train
+    steps of the prior and n_evals eval batches: the transformer's two
+    LayerNorms and one MLP per block (under checkpoint_res their forwards
+    run again in the recompute: LAUNCHES_PER_STEP), the conditioner's
+    LayerNorm and a lyric encoder's two LayerNorms and one MLP per block
+    and its prime_state_ln, forward and backward once each (the eval
+    batches forward only)."""
     model = runtime.model
     tr, enc = model.prior.transformer, model.prime_prior
-
-    def per(t):
-        return ln.LAUNCHES_PER_STEP["layer_norm_fwd"] \
-            if t.checkpoint_res == 1 else 1
-    once = int(model.x_cond)
-    fwd, bwd = per(tr) * 2 * tr.n_depth + once, 2 * tr.n_depth + once
-    if enc is not None:
-        fwd += per(enc.transformer) * 2 * enc.transformer.n_depth + 1
-        bwd += 2 * enc.transformer.n_depth + 1
-    return {"layer_norm_fwd": fwd * n_steps + bwd * n_evals,
-            "layer_norm_bwd": bwd * n_steps}
+    stacks = [tr] + ([] if enc is None else [enc.transformer])
+    once = int(model.x_cond) + (enc is not None)  # outside the blocks
+    out = {}
+    for mod, name, per_block, extra in ((ln, "layer_norm", 2, once),
+                                        (bg, "bias_gelu", 1, 0)):
+        fwd = sum((mod.LAUNCHES_PER_STEP[name + "_fwd"]
+                   if t.checkpoint_res == 1 else 1) * per_block * t.n_depth
+                  for t in stacks) + extra
+        bwd = sum(per_block * t.n_depth for t in stacks) + extra
+        out.update({name + "_fwd": fwd * n_steps + bwd * n_evals,
+                    name + "_bwd": bwd * n_steps})
+    return out
 
 
 def sample_layer_norms(runtime):
@@ -2309,14 +2418,29 @@ def sample_layer_norms(runtime):
     per layer and prime_state_ln). The wrapper counts them less the token
     steps a CUDA graph replays, plus each capture's (check_samples)."""
     model = runtime.model
+    enc = model.prime_prior
+    once = int(model.x_cond) + (0 if enc is None
+                                else 2 * enc.transformer.n_depth + 1)
+    return 2 * model.prior.transformer.n_depth * _sample_steps(model) + once
+
+
+def sample_bias_gelu(runtime):
+    """bias + quick_gelu kernels one in-training sample runs: one MLP a
+    layer wherever sample_layer_norms counts the layer's two LayerNorms."""
+    model = runtime.model
+    enc = model.prime_prior
+    return (model.prior.transformer.n_depth * _sample_steps(model)
+            + (0 if enc is None else enc.transformer.n_depth))
+
+
+def _sample_steps(model):
+    """The token steps and whole prefix chunks of an in-training sample
+    (sample_layer_norms)."""
     steps = model.n_ctx
     if model.single_enc_dec:
         bc = model.prior.block_ctx
         steps += model.n_tokens // bc + model.n_tokens % bc
-    enc = model.prime_prior
-    once = int(model.x_cond) + (0 if enc is None
-                                else 2 * enc.transformer.n_depth + 1)
-    return 2 * model.prior.transformer.n_depth * steps + once
+    return steps
 
 
 @contextlib.contextmanager
@@ -2343,7 +2467,9 @@ def sampling_watch():
             shape=tuple(z.shape), audio=tuple(x.shape),
             finite=bool(torch.isfinite(x).all()), bins=runtime.l_bins,
             n_ctx=runtime.n_ctx, expected_ln=sample_layer_norms(runtime),
-            step_ln=2 * runtime.model.prior.transformer.n_depth))
+            step_ln=2 * runtime.model.prior.transformer.n_depth,
+            expected_bg=sample_bias_gelu(runtime),
+            step_bg=runtime.model.prior.transformer.n_depth))
         return z, x
     train_mod.sample_prior = watched
     try:
@@ -2373,6 +2499,8 @@ def check_samples(calls, n, cuda, what):
         g = c["graphs"]
         want["layer_norm_fwd"] = (c["expected_ln"] - c["step_ln"]
                                   * (g["replays"] - g["captures"]))
+        want["bias_gelu_fwd"] = (c["expected_bg"] - c["step_bg"]
+                                 * (g["replays"] - g["captures"]))
         if cuda and not (g["captures"] == 1 and g["replays"] > 0):
             raise AssertionError(f"{what}: the sample's decode graph {g}")
         if cuda and c["launches"] != want:
@@ -2384,12 +2512,12 @@ def check_samples(calls, n, cuda, what):
 
 
 def reset_training_launches():
-    for mod in (fa, ln, ad):
+    for mod in (fa, ln, bg, ad):
         mod.reset_launches()
 
 
 def training_launches():
-    return dict(**fa.LAUNCHES, **ln.LAUNCHES, **ad.LAUNCHES)
+    return dict(**fa.LAUNCHES, **ln.LAUNCHES, **bg.LAUNCHES, **ad.LAUNCHES)
 
 
 def train_batch(runtime, hps, device, gen):
@@ -2532,9 +2660,10 @@ def check_train_step(seed, device, gen, rows=None, **over):
     reset_training_launches()
     kernel = timed("kernel path (first)", False)
     launches = dict(fa.LAUNCHES)
-    ln_launches = dict(ln.LAUNCHES)
+    ln_launches = dict(**ln.LAUNCHES, **bg.LAUNCHES)
     plain = timed("all plain", True)
-    if dict(fa.LAUNCHES) != launches or dict(ln.LAUNCHES) != ln_launches:
+    if (dict(fa.LAUNCHES) != launches
+            or dict(**ln.LAUNCHES, **bg.LAUNCHES) != ln_launches):
         raise AssertionError("the plain path launched a kernel")
     with plain_flash():
         flash_plain = timed("flash alone plain", False)
@@ -2570,9 +2699,10 @@ def check_train_step(seed, device, gen, rows=None, **over):
     if x.is_cuda and launches != expected_flash(1, 1):
         raise AssertionError(f"flash launches {launches} != expected "
                              f"{expected_flash(1, 1)}")
-    if x.is_cuda and ln_launches != expected_layer_norms(runtime, 1):
-        raise AssertionError(f"LayerNorm launches {ln_launches} != expected "
-                             f"{expected_layer_norms(runtime, 1)}")
+    if x.is_cuda and ln_launches != expected_block_kernels(runtime, 1):
+        raise AssertionError(f"LayerNorm and bias_gelu launches "
+                             f"{ln_launches} != expected "
+                             f"{expected_block_kernels(runtime, 1)}")
     profile_train_step(runtime, hps, x, y)
     c = check_c_attn(runtime, hps, x, y)
     log(f"phase 9 (c) c_attn = c_mlp = 1 on phase 5's step: loss "
@@ -2703,14 +2833,15 @@ def run_training(seed, device, n_steps=TRAIN_STEPS, wav_seconds=WAV_SECONDS,
                                 **dict(TRAIN_KW, seed=seed, **kw))
         wall = time.time() - t0
         launches = dict(fa.LAUNCHES)
-        kernel_launches = dict(**ln.LAUNCHES, **ad.LAUNCHES)
+        kernel_launches = dict(**ln.LAUNCHES, **bg.LAUNCHES, **ad.LAUNCHES)
     runtime, records = out["runtime"], out["records"]
     n_flash = n_flash_layers(runtime, hps)
     walls = [r["wall_s"] for r in records[1:]]
     step_s = float(np.median(walls)) if walls else float("nan")
     sampled = check_samples(samples, 1, cuda, "phase 6")
-    expected = expected_layer_norms(runtime, len(records))
-    expected["layer_norm_fwd"] += sampled["layer_norm_fwd"]
+    expected = expected_block_kernels(runtime, len(records))
+    for k in ("layer_norm_fwd", "bias_gelu_fwd"):
+        expected[k] += sampled[k]
     report = dict(records=records, launches=launches, wall_s=wall,
                   expected=expected_flash(n_flash, len(records)),
                   kernel_launches=kernel_launches, samples=samples,
@@ -2742,7 +2873,8 @@ def run_training(seed, device, n_steps=TRAIN_STEPS, wav_seconds=WAV_SECONDS,
         raise AssertionError(f"flash launches {launches} != expected "
                              f"{report['expected']}")
     if cuda and kernel_launches != report["kernel_expected"]:
-        raise AssertionError(f"LayerNorm / Adam launches {kernel_launches} "
+        raise AssertionError(f"LayerNorm / bias_gelu / Adam launches "
+                             f"{kernel_launches} "
                              f"!= expected {report['kernel_expected']}")
     return report
 
@@ -2800,7 +2932,7 @@ def check_resume(seed, device, ckpt, n_more=2, wav_seconds=WAV_SECONDS,
     records = out["records"]
     expected = dict(expected_flash(n_flash_layers(out["runtime"], hps),
                                    len(records)),
-                    **expected_layer_norms(out["runtime"], len(records)),
+                    **expected_block_kernels(out["runtime"], len(records)),
                     adam_update=sum(r["step_ok"] for r in records))
     del out, state, model, opt
     if [r["it"] for r in records] != list(range(step + 1,
@@ -3017,18 +3149,19 @@ def write_songs(dirname, seconds, sr, seed, kinds=SONG_KINDS):
 
 def expected_quick_start(hps, n_steps, n_evals):
     """Kernel launches of n_steps train steps of the prior of hps and
-    n_evals eval batches: LayerNorm per step (its two per block, under
-    c_res twice in the forward), per eval batch its two per block forward
-    only; flash for its f0 layers (none in attn_order 2's cycle); one Adam
-    update per step."""
+    n_evals eval batches: LayerNorm and bias_gelu per step (two
+    LayerNorms and one MLP per block, under c_res their forwards twice),
+    per eval batch their forwards once; flash for its f0 layers (none in
+    attn_order 2's cycle); one Adam update per step."""
     n_f0 = sum(ATTN_ORDERS[hps.attn_order](d) == 0
                for d in range(hps.prior_depth))
-    n_ln = 2 * hps.prior_depth
-    fwd_per = ln.LAUNCHES_PER_STEP["layer_norm_fwd"] if hps.c_res == 1 else 1
-    return dict(
-        expected_flash(n_f0, n_steps),
-        layer_norm_fwd=fwd_per * n_ln * n_steps + n_ln * n_evals,
-        layer_norm_bwd=n_ln * n_steps, adam_update=n_steps)
+    out = dict(expected_flash(n_f0, n_steps), adam_update=n_steps)
+    for mod, name, n in ((ln, "layer_norm", 2 * hps.prior_depth),
+                         (bg, "bias_gelu", hps.prior_depth)):
+        per = mod.LAUNCHES_PER_STEP[name + "_fwd"] if hps.c_res == 1 else 1
+        out.update({name + "_fwd": per * n * n_steps + n * n_evals,
+                    name + "_bwd": n * n_steps})
+    return out
 
 
 def _outlived(threads):
@@ -3103,8 +3236,8 @@ def run_vq_quick_start(seed, device, songs, logdir, n_steps=VQ_STEPS,
         raise AssertionError("the checkpoint lacks the optimizer state or "
                              "the codebook state")
     _outlived(threads)
-    expected = dict(expected_flash(0, n_steps), layer_norm_fwd=0,
-                    layer_norm_bwd=0,
+    expected = dict(expected_flash(0, n_steps),
+                    **dict.fromkeys(dict(**ln.LAUNCHES, **bg.LAUNCHES), 0),
                     adam_update=sum(r["step_ok"] for r in records))
     if cuda and launches != expected:
         raise AssertionError(f"launches {launches} != expected {expected}")
@@ -3292,8 +3425,9 @@ def run_prior_quick_start(seed, device, songs, vq_ckpt, logdir, gen,
                * math.ceil(n_test / hps.bs))
     expected = expected_quick_start(hps, len(records), n_evals)
     expected["adam_update"] = sum(r["step_ok"] for r in records)
-    expected["layer_norm_fwd"] += check_samples(
-        samples, 1, cuda, "phase 8 (c)")["layer_norm_fwd"]
+    sampled = check_samples(samples, 1, cuda, "phase 8 (c)")
+    for k in ("layer_norm_fwd", "bias_gelu_fwd"):
+        expected[k] += sampled[k]
     report = dict(
         records=records, launches=launches, expected=expected, wall_s=wall,
         samples=samples,
@@ -3537,14 +3671,14 @@ def run_recipe(preset, seed, device, songs, logdir, n_steps, graph_check=0,
                **over):
     """Phase 9 (a) / (b): train.run of a recipe for n_steps on the songs
     under logdir, JUKEBOX_TRAIN_JSONL set: finite losses, the LayerNorm,
-    flash and Adam launches (expected_layer_norms with the run's
-    evaluation, its in-training sample's own launches as
-    sample_layer_norms), the sample (check_samples), the logger's files
-    (check_logs), no thread left. With debug_speed, the trace of step 3:
-    a Chrome trace file naming the LayerNorm or flash kernels. With
-    graph_check, the trained prior's fp32 decode of that many tokens as a
-    CUDA graph against op by op (check_decode_graph). Returns a report
-    dict."""
+    bias_gelu, flash and Adam launches (expected_block_kernels with the
+    run's evaluation, its in-training sample's own launches as
+    sample_layer_norms and sample_bias_gelu), the sample (check_samples),
+    the logger's files (check_logs), no thread left. With debug_speed, the
+    trace of step 3: a Chrome trace file naming the LayerNorm or flash
+    kernels. With graph_check, the trained prior's fp32 decode of that many
+    tokens as a CUDA graph against op by op (check_decode_graph). Returns a
+    report dict."""
     cuda = torch.device(device).type == "cuda"
     threads = set(threading.enumerate())
     names, kw = recipe_args(preset, seed, audio_files_dir=songs,
@@ -3577,11 +3711,12 @@ def run_recipe(preset, seed, device, songs, logdir, n_steps, graph_check=0,
     n_evals = math.ceil(n_test / hps.bs) if hps.test else 0
     n_flash = n_flash_layers(runtime, hps)
     expected = dict(expected_flash(n_flash, len(records)),
-                    **expected_layer_norms(runtime, len(records), n_evals),
+                    **expected_block_kernels(runtime, len(records), n_evals),
                     adam_update=sum(r["step_ok"] for r in records))
     expected["flash_fwd"] += n_flash * n_evals
     sampled = check_samples(samples, 1, cuda, f"phase 9 {preset}")
-    expected["layer_norm_fwd"] += sampled["layer_norm_fwd"]
+    for k in ("layer_norm_fwd", "bias_gelu_fwd"):
+        expected[k] += sampled[k]
     report = dict(
         preset=preset, records=records, launches=launches, wall_s=wall,
         expected=expected, samples=samples, n_depth=tr.n_depth,
@@ -3685,7 +3820,7 @@ def check_recipe_step(preset, seed, device, gen, **over):
                                  f"disagrees with flash alone plain: "
                                  f"{rep['flash']}")
     want = dict(expected_flash(n_flash, 1),
-                **expected_layer_norms(runtime, 1), adam_update=0)
+                **expected_block_kernels(runtime, 1), adam_update=0)
     if x.is_cuda and launches != want:
         raise AssertionError(f"{preset}: launches {launches} != {want}")
     del runtime, model, tr, x
@@ -3921,8 +4056,15 @@ def log_recipe(label, r):
 LN_SHAPES = [(6528, 2048, torch.bfloat16), (6528, 1920, torch.float32),
              (1000, 1000, torch.bfloat16), (1024, 4800, torch.bfloat16),
              (1000, 1001, torch.float16), (2, 12288, torch.float32)]
+# bias + quick_gelu shapes of phase 2f: the 1b top's MLP rows of a
+# training step (16 x 6528 rows at its width) in the training dtype, the
+# upsamplers' width, the 5b priors', a Megatron column piece, a width the
+# kernels read element by element (1001 fp16) and an fp32 one
+BG_SHAPES = [(16 * 6528, 2048, torch.bfloat16), (4096, 1920, torch.float32),
+             (2048, 4800, torch.bfloat16), (2048, 1024, torch.float16),
+             (1000, 1001, torch.float16), (3, 7, torch.float32)]
 SOURCES = {"decode_stack": ds, "flash_attention": fa, "layer_norm": ln,
-           "adam": ad}
+           "bias_gelu": bg, "adam": ad}
 REPLACES = dict(
     dict.fromkeys(ds.LAUNCHES, "jukebox_tpu/ops/pallas/decode_stack.py:1092"),
     flash_fwd="jukebox_tpu/ops/pallas/flash_attention.py:202",
@@ -3930,6 +4072,10 @@ REPLACES = dict(
     flash_dkv="jukebox_tpu/ops/pallas/flash_attention.py:260",
     layer_norm_fwd="jukebox_tpu/ops/pallas/layer_norm.py:63",
     layer_norm_bwd="jukebox_tpu/ops/pallas/layer_norm.py:98",
+    # none: jukebox_tpu/models/transformer.py MLP.apply leaves dense's bias
+    # and quick_gelu to XLA's fusion
+    bias_gelu_fwd="none (jukebox_tpu/models/transformer.py MLP.apply)",
+    bias_gelu_bwd="none (jukebox_tpu/models/transformer.py MLP.apply)",
     adam_update="jukebox_tpu/ops/pallas/adam.py:36")
 
 
@@ -4813,6 +4959,10 @@ def main(argv=None):
     check_flash_hd128(rows, device, gen)
     log("phase 2c LayerNorm kernels against their plain versions")
     rows.update(check_layer_norm(LN_SHAPES, device, gen))
+    log("phase 2f the MLP's bias + quick_gelu kernels against their plain "
+        "versions")
+    rows.update(check_bias_gelu(BG_SHAPES, device, gen))
+    check_bias_gelu(BG_SHAPES[1:3], device, gen, time_it=False, offset=True)
 
     for prior in (top, priors[0]):
         check_stack_step(prior, N_SAMPLES, device, gen)

@@ -208,7 +208,8 @@ class SimplePrior(nn.Module):
         and with get_preds the logits [N, tokens, bins] as preds (the lyric
         tokens' too in a single_enc_dec prior).
         seed (an int) turns on the training dropouts; plain=True runs the
-        flash layers and LayerNorms' plain versions. With get_attn_weights
+        plain versions of the flash layers, the LayerNorms and the MLPs'
+        bias + quick_gelu. With get_attn_weights
         (a set of the prior's layers) it returns their recorded softmax
         weights instead, in depth order (prior.py:312-344)."""
         record = frozenset(get_attn_weights)

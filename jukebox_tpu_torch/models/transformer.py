@@ -30,6 +30,7 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from jukebox_tpu_torch.models.attention import FactoredAttention, StepIndex
+from jukebox_tpu_torch.ops.bias_gelu import bias_quick_gelu
 from jukebox_tpu_torch.ops.core import (Dense, LayerNorm, dense_any, dropout,
                                         fold_seed, quick_gelu, quantize_dense,
                                         quantize_dense_tree)
@@ -111,12 +112,21 @@ class MLP(nn.Module):
         self.c_proj = Dense(n_state, n_in, init_scale, zero_out, device=device)
         self.tp = None  # the "mp" group of a Megatron split
 
-    def forward(self, x, seed=None, p=None):
+    def forward(self, x, seed=None, p=None, plain=False):
         """p: the layer's int8 staged decode params (prefill). Split over
         "mp", c_fc holds the rank's columns and c_proj its rows, whose
-        partial products are summed over the group before the bias."""
+        partial products are summed over the group before the bias.
+        c_fc's bias and quick_gelu are one kernel forward and one backward
+        (ops/bias_gelu.py; plain=True: their plain versions). The int8
+        prefill keeps the eager quick_gelu after dense_any, whose epilogue
+        (the column scale, then the bias, each rounded to x's dtype, as the
+        JAX package's dense) is not the kernel's."""
         x = copy_to_group(x, self.tp)
-        h = quick_gelu(self.c_fc(x) if p is None else dense_any(x, p["fc"]))
+        if p is None:
+            h = bias_quick_gelu(torch.matmul(x, self.c_fc.w.to(x.dtype)),
+                                self.c_fc.b, plain)
+        else:
+            h = quick_gelu(dense_any(x, p["fc"]))
         if self.tp is None:
             y = self.c_proj(h) if p is None else dense_any(h, p["mlp"])
         else:
@@ -170,7 +180,7 @@ class ResAttnBlock(nn.Module):
             return self.attn(self.ln_0(h, plain), s_attn, plain, encoder_kv)
 
         def mlp(h):
-            return self.mlp(self.ln_1(h, plain), s_mlp)
+            return self.mlp(self.ln_1(h, plain), s_mlp, plain=plain)
         if record:
             a, w = self.attn(self.ln_0(x, plain), s_attn, plain, encoder_kv,
                              True)
@@ -235,10 +245,10 @@ class Transformer(nn.Module):
         checkpoint_res == 1 and autograd on, each block recomputed in the
         backward pass (torch.utils.checkpoint, non-reentrant; the dropout
         masks are functions of their seeds, so the recompute draws the same
-        ones). plain=True runs the plain versions of the flash layers and of
-        the LayerNorms. ws: the softmax weights of the layers in
-        record_layers, in depth order (a recorded block is not
-        recomputed)."""
+        ones). plain=True runs the plain versions of the flash layers, of
+        the LayerNorms and of the MLPs' bias + quick_gelu. ws: the softmax
+        weights of the layers in record_layers, in depth order (a recorded
+        block is not recomputed)."""
         if fp16:
             x = x.to(torch.bfloat16)
         drop = seed is not None and self.dropout

@@ -28,8 +28,8 @@ BUILD_DIR = PKG_DIR.parent / "build" / "jukebox_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I, _U, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
-                  ctypes.c_float)
+_P, _I, _U, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                      ctypes.c_float, ctypes.c_int64)
 # C signatures of every entry point, by source stem
 SIGNATURES = {
     "decode_stack": {
@@ -53,6 +53,10 @@ SIGNATURES = {
     "layer_norm": {
         "jk_layer_norm_fwd": [_P] * 6 + [_I, _I, _F] + [_I] * 4 + [_P],
         "jk_layer_norm_bwd": [_P] * 7 + [_I] * 6 + [_P],
+    },
+    "bias_gelu": {
+        "jk_bias_gelu_fwd": [_P] * 3 + [_L] + [_I] * 5 + [_P],
+        "jk_bias_gelu_bwd": [_P] * 5 + [_L] + [_I] * 5 + [_P],
     },
     "adam": {
         "jk_adam_blocks_per_sm": [],

@@ -177,16 +177,17 @@ def reset():
 
 def counters():
     """One snapshot of the kernel wrappers' launch counts (the LAUNCHES of
-    ops/decode_stack.py, flash_attention.py, layer_norm.py and adam.py) and
-    the decode graphs' captures and replays (models/autoregressive.py
-    GRAPHS, as graph_captures and graph_replays), read together under the
-    lock the counts are kept under."""
+    ops/decode_stack.py, flash_attention.py, layer_norm.py, bias_gelu.py
+    and adam.py) and the decode graphs' captures and replays
+    (models/autoregressive.py GRAPHS, as graph_captures and graph_replays),
+    read together under the lock the counts are kept under."""
     from jukebox_tpu_torch.models import autoregressive
-    from jukebox_tpu_torch.ops import (_build, adam, decode_stack,
+    from jukebox_tpu_torch.ops import (_build, adam, bias_gelu, decode_stack,
                                        flash_attention, layer_norm)
     with _build._COUNT_LOCK:
         out = {}
-        for mod in (decode_stack, flash_attention, layer_norm, adam):
+        for mod in (decode_stack, flash_attention, layer_norm, bias_gelu,
+                    adam):
             out.update(mod.LAUNCHES)
         out.update({f"graph_{k}": v
                     for k, v in autoregressive.GRAPHS.items()})

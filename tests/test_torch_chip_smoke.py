@@ -313,6 +313,20 @@ def test_layer_norm_checks():
     assert nbytes == 2 * 6528 * 2048 * 2 + 2 * 2048 * 4 + 2 * 6528 * 4
 
 
+@pytest.mark.parametrize("offset", [False, True])
+def test_bias_gelu_checks(offset):
+    from jukebox_tpu_torch.ops import bias_gelu as bg
+    rows = chip_smoke.check_bias_gelu(
+        [(50, 33, torch.bfloat16), (20, 64, torch.float32)], "cpu",
+        torch.Generator().manual_seed(0), time_it=False, offset=offset)
+    assert set(rows) == set(bg.LAUNCHES)
+    assert all(r["max_abs_err"] == 0.0 for r in rows.values())
+    nbytes, flops = chip_smoke.bias_gelu_work(104448, 2048, 2)[
+        "bias_gelu_bwd"]
+    assert nbytes == 3 * 104448 * 2048 * 2 + 2 * 2048 * 4
+    assert chip_smoke.bound(nbytes, flops, "fp32")[1] == "bytes"
+
+
 @pytest.mark.parametrize("fp16", [False, True])
 def test_adam_checks(fp16):
     gen = torch.Generator().manual_seed(0)
@@ -336,12 +350,13 @@ def test_flash_checks():
 
 
 def test_train_step_check(counted_flash):
+    from jukebox_tpu_torch.ops import bias_gelu as bg
     from jukebox_tpu_torch.ops import layer_norm as ln
     rep = chip_smoke.check_train_step(0, "cpu", torch.Generator(),
                                       **TRAIN_OVER)
     # CPU: no kernel
-    assert rep["launches"] == dict.fromkeys([*counted_flash, *ln.LAUNCHES],
-                                            0)
+    assert rep["launches"] == dict.fromkeys(
+        [*counted_flash, *ln.LAUNCHES, *bg.LAUNCHES], 0)
     # the kernel path, the plain path, the path with flash alone plain, the
     # planted fault and the step timed by parts (the profiled step runs on
     # the card only) each ran one step's passes; then phase 9 (c): the
@@ -388,28 +403,34 @@ def test_kernel_group(name, group):
 
 def test_checkpoint_phase(counted_flash, monkeypatch, tmp_path):
     from jukebox_tpu_torch.ops import adam as ad
+    from jukebox_tpu_torch.ops import bias_gelu as bg
     from jukebox_tpu_torch.ops import layer_norm as ln
     ln_calls = _count_plain(monkeypatch, ln, ln.LAUNCHES)
+    bg_calls = _count_plain(monkeypatch, bg, bg.LAUNCHES)
     adam_calls = _count_plain(monkeypatch, ad, ad.LAUNCHES)
     rep = chip_smoke.run_training(0, "cpu", n_steps=2, wav_seconds=1.0,
                                   logdir=str(tmp_path), **TRAIN_OVER)
-    # two steps' LayerNorms (twice in the forward under c_res) and step 1's
-    # sample: two per layer for each of its 64 codes and of the 384-token
-    # lyric prefix's 6 whole chunks of block_ctx 56 and 48 tail steps
+    # two steps' LayerNorms and MLPs (twice in the forward under c_res) and
+    # step 1's sample: two LayerNorms and one MLP per layer for each of its
+    # 64 codes and of the 384-token lyric prefix's 6 whole chunks of
+    # block_ctx 56 and 48 tail steps
     assert rep["kernel_expected"] == {
         "layer_norm_fwd": 2 * 2 * 96 + 96 * (64 + 6 + 48),
-        "layer_norm_bwd": 2 * 96, "adam_update": 2}
+        "layer_norm_bwd": 2 * 96,
+        "bias_gelu_fwd": 2 * 2 * 48 + 48 * (64 + 6 + 48),
+        "bias_gelu_bwd": 2 * 48, "adam_update": 2}
     assert len(rep["samples"]) == 1
-    assert dict(ln_calls, **adam_calls) == rep["kernel_expected"]
+    assert dict(ln_calls, **bg_calls, **adam_calls) == rep["kernel_expected"]
     ckpt = rep["records"][0]["checkpoint"]
     assert ckpt == str(tmp_path / "smoke" / "checkpoint_latest.jkb")
-    for calls in (counted_flash, ln_calls, adam_calls):
+    for calls in (counted_flash, ln_calls, bg_calls, adam_calls):
         for k in calls:
             calls[k] = 0
     res = chip_smoke.check_resume(0, "cpu", ckpt, n_more=2, wav_seconds=1.0,
                                   **TRAIN_OVER)
     assert res["step"] == 1 and [r["it"] for r in res["records"]] == [2, 3]
-    assert dict(counted_flash, **ln_calls, **adam_calls) == res["expected"]
+    assert dict(counted_flash, **ln_calls, **bg_calls,
+                **adam_calls) == res["expected"]
     assert res["launches"] == dict.fromkeys(res["expected"], 0)
     assert res["bytes"] > 0
     # the sampling prior restored from the checkpoint holds it as
@@ -533,6 +554,7 @@ def test_quick_start_plan():
     assert chip_smoke.expected_quick_start(pr, 3, 3) == {
         "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
         "layer_norm_fwd": 2 * 96 * 3 + 96 * 3, "layer_norm_bwd": 96 * 3,
+        "bias_gelu_fwd": 2 * 48 * 3 + 48 * 3, "bias_gelu_bwd": 48 * 3,
         "adam_update": 3}
     big = setup_hparams("vqvae", dict(chip_smoke.BIG_VQ_KW))
     assert (big.levels, tuple(big.downs_t), tuple(big.hvqvae_multipliers),
@@ -557,16 +579,18 @@ QS_PRIOR = dict(QS_VQ, sample_length=16 * 256, n_ctx=16, prior_width=32,
 
 def test_quick_start_rehearsal(tmp_path, monkeypatch):
     """Phase 8's functions on the CPU at toy size: the plain calls of the
-    Adam, LayerNorm and flash kernels equal the expected launches of (a),
-    (b)'s step and (c)'s run (before its kernel checks); the checkpoint
-    restores bit for bit and with the fine-tuning reset; (b)'s Adam check
-    and (c)'s LayerNorm (at the run's rows) and Adam (on the prior's
-    tensors) checks hold the plain versions to themselves; (c) writes
-    checkpoint_latest.jkb at step 1."""
+    Adam, LayerNorm, bias_gelu and flash kernels equal the expected
+    launches of (a), (b)'s step and (c)'s run (before its kernel checks);
+    the checkpoint restores bit for bit and with the fine-tuning reset;
+    (b)'s Adam check and (c)'s LayerNorm (at the run's rows) and Adam (on
+    the prior's tensors) checks hold the plain versions to themselves; (c)
+    writes checkpoint_latest.jkb at step 1."""
     from jukebox_tpu_torch.ops import adam as ad
+    from jukebox_tpu_torch.ops import bias_gelu as bg
     from jukebox_tpu_torch.ops import flash_attention as fa
     from jukebox_tpu_torch.ops import layer_norm as ln
-    counters = [_count_plain(monkeypatch, m, m.LAUNCHES) for m in (ad, ln, fa)]
+    counters = [_count_plain(monkeypatch, m, m.LAUNCHES)
+                for m in (ad, ln, bg, fa)]
 
     def counts():
         return {k: v for c in counters for k, v in c.items()}
@@ -618,6 +642,7 @@ def test_quick_start_rehearsal(tmp_path, monkeypatch):
     want = chip_smoke.expected_quick_start(
         chip_smoke.quick_start_hps("prior", 0, **QS_PRIOR), 3, 1)
     want["layer_norm_fwd"] += 2 * 3 * 16
+    want["bias_gelu_fwd"] += 3 * 16
     assert c["expected"] == want
     assert before_checks == c["expected"]
     assert c["checkpoint"].endswith("small_prior/checkpoint_latest.jkb")
@@ -692,15 +717,18 @@ def test_recipes_rehearsal(tmp_path, monkeypatch):
     with its in-training sample, its logs (read back by check_logs:
     events through utils/logger.py read_events, wavs, JSONL) and, for the
     upsampler, its debug_speed trace; the plain calls of the LayerNorm,
-    flash and Adam kernels equal each run's expected launches, its sample's
-    as sample_layer_norms counts them; a full-depth single-enc-dec step
-    against its plain path and flash alone plain."""
+    bias_gelu, flash and Adam kernels equal each run's expected launches,
+    its sample's as sample_layer_norms and sample_bias_gelu count them; a
+    full-depth single-enc-dec step against its plain path and flash alone
+    plain."""
     from jukebox_tpu_torch.models import attention
     from jukebox_tpu_torch.ops import adam as ad
+    from jukebox_tpu_torch.ops import bias_gelu as bg
     from jukebox_tpu_torch.ops import flash_attention as fa
     from jukebox_tpu_torch.ops import layer_norm as ln
     monkeypatch.setattr(attention, "_FLASH_MIN_CTX", 0)
-    counters = [_count_plain(monkeypatch, m, m.LAUNCHES) for m in (ad, ln, fa)]
+    counters = [_count_plain(monkeypatch, m, m.LAUNCHES)
+                for m in (ad, ln, bg, fa)]
 
     def counts():
         return {k: v for c in counters for k, v in c.items()}
@@ -721,9 +749,10 @@ def test_recipes_rehearsal(tmp_path, monkeypatch):
     assert up["graph"]["same"] and up["graph"]["n"] == 16
     assert [r["it"] for r in up["records"]] == [1, 2, 3]
     # and the decode check's two runs: the conditioner's LayerNorm and two
-    # a layer for each of 16 tokens
+    # a layer for each of 16 tokens, and one MLP a layer for each
     assert counts() == dict(up["expected"], layer_norm_fwd=up["expected"][
-        "layer_norm_fwd"] + 2 * (1 + 2 * 2 * 16))
+        "layer_norm_fwd"] + 2 * (1 + 2 * 2 * 16), bias_gelu_fwd=up[
+        "expected"]["bias_gelu_fwd"] + 2 * 2 * 16)
     # 3 steps (the conditioner's LayerNorm and the transformer's two a
     # layer, twice in the forward under c_res), one test batch, and the
     # sample: two a layer for each of its 64 codes and the conditioner's
