@@ -154,14 +154,21 @@ class SimplePrior(nn.Module):
     def get_cond(self, z_conds, y):
         """Split y into labels | lyrics and build (x_cond, y_cond, prime);
         without labels y is None and so are y_cond and prime, and a top
-        prior's x_cond (prior.py:234-244)."""
+        prior's x_cond (prior.py:234-244). An upsampler's conditioner runs
+        in the coarse span sample.x_cond (rows, codes in, positions out),
+        which times the host, as every span does."""
         y_labels, prime = None, None
         if y is not None:
             n_labels = y.shape[1] - self.n_tokens
             y_labels, prime = y[:, :n_labels], y[:, n_labels:]
         y_cond, y_pos = self.y_emb(y_labels) if self.y_cond else (None, None)
-        x_cond = (self.conditioner_blocks[0](z_conds[0]) if self.x_cond
-                  else y_pos)
+        if not self.x_cond:
+            return y_pos, y_cond, prime
+        z = z_conds[0]
+        with profiler.span("sample.x_cond", rows=int(z.shape[0]),
+                           codes=int(z.shape[1]),
+                           positions=int(z.shape[1]) * self.cond_downsample):
+            x_cond = self.conditioner_blocks[0](z)
         return x_cond, y_cond, prime
 
     # -- the lyric encoder (separate encoder-decoder, prior.py:249-269) -------
@@ -258,7 +265,8 @@ class SimplePrior(nn.Module):
         the start, the prefill writing its rows quantised. Returns
         (caches, x_tok, x_cond, y_cond); sampling starts at
         sample_prefix_len(z). Coarse spans (utils/profiler.py): sample.init
-        around sample.cond, sample.encoder (where the lyric encoder runs
+        around sample.cond (around an upsampler's sample.x_cond, the
+        conditioner), sample.encoder (where the lyric encoder runs
         here), sample.caches and sample.prefill (around the prefill's
         sample.prefill_tail)."""
         no_past_context = z is None or z.shape[1] == 0
